@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions."""
+
+from .gdn import (
+    GDNFunction,
+    gdn_forward,
+    gdn_forward_reference,
+    launch_counts,
+    reset_launch_counts,
+)
+
+__all__ = [
+    "GDNFunction",
+    "gdn_forward",
+    "gdn_forward_reference",
+    "launch_counts",
+    "reset_launch_counts",
+]

@@ -1,0 +1,127 @@
+"""Fused GDN/IGDN forward: the CUDA kernel's wrapper and its plain version.
+
+Replaces the repository's one Pallas kernel, ``_gdn_kernel`` launched by
+``_gdn_forward`` (``scripts/pallas_gdn.py:100``), with the hand-written
+``sm_90a`` kernel in ``csrc/gdn.cu``.  On a ``(rows, C)`` view of
+channels_last activations::
+
+    norm[n, o] = sum_i gamma[o, i] * x[n, i]^2 + beta[o]
+    out = x * rsqrt(norm)   (GDN)      out = x * sqrt(norm)   (IGDN)
+
+Bound on an H100 SXM: for the largest call on the hyper q=1 attack path
+(768x512 input, rows 98,304, C=128) the x read plus the out write is
+2 x 50.3 MB, about 30 us at 3.35 TB/s; the channel sum is 3.2 GFLOP of
+fp32 FMA, about 48 us at 67 TFLOP/s without tensor cores.  So this fp32
+kernel is bounded by operations; it reads x once from device memory and
+writes out once, keeping x^2 and the norm on chip.
+
+``gdn_forward`` sends a CUDA tensor to the kernel and a CPU tensor to
+``gdn_forward_reference``; it raises on any other device, dtype, layout or
+width.  ``GDNFunction`` wraps either in autograd with the closed-form
+backward of ``_gdn_fused_bwd`` (``scripts/pallas_gdn.py:125-147``), which
+the reference also leaves to plain array code.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+#: Largest channel count the kernel takes (gamma must fit in shared memory).
+MAX_CHANNELS = 192
+
+#: Kernel launches by name, counted by the wrappers where they launch.
+launch_counts: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def gdn_forward_reference(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, inverse: bool
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on ``x`` of shape (rows, C)."""
+    norm = (x * x) @ gamma.t() + beta
+    return x * torch.sqrt(norm) if inverse else x * torch.rsqrt(norm)
+
+
+def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"gdn_forward takes x of shape (rows, C), got {tuple(x.shape)}")
+    c = x.shape[1]
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"gdn_forward supports 1 <= C <= {MAX_CHANNELS}, got C={c}")
+    if gamma.shape != (c, c) or beta.shape != (c,):
+        raise ValueError(
+            f"gamma {tuple(gamma.shape)} / beta {tuple(beta.shape)} do not match C={c}"
+        )
+    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"gdn_forward takes float32 tensors; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"gdn_forward takes contiguous tensors; {name} is not")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def gdn_forward(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, inverse: bool
+) -> torch.Tensor:
+    """Fused GDN (``inverse=False``) or IGDN forward on ``x`` (rows, C).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    """
+    _check(x, gamma, beta)
+    if x.device.type == "cpu":
+        return gdn_forward_reference(x, gamma, beta, inverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"gdn_forward runs on cuda or cpu, not {x.device}")
+    from ._build import load_library
+
+    lib = load_library()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.icat_gdn_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], int(inverse), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"icat_gdn_fwd failed with CUDA error {rc}")
+    launch_counts["gdn_fwd"] += 1
+    return out
+
+
+class GDNFunction(torch.autograd.Function):
+    """Autograd around the fused forward, with the closed-form backward.
+
+    ``use_kernel=False`` runs the plain version on any device; it exists so
+    that a run on the card can be compared with the kernel's.
+    """
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, inverse: bool, use_kernel: bool = True):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+        fwd = gdn_forward if use_kernel else gdn_forward_reference
+        return fwd(x, gamma, beta, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        x_sq = x * x
+        norm = x_sq @ gamma.t() + beta
+        if ctx.inverse:
+            s = torch.sqrt(norm)
+            dnorm = 0.5 * g * x / s
+            dx_direct = g * s
+        else:
+            r = torch.rsqrt(norm)
+            dnorm = -0.5 * g * x * (r * r * r)
+            dx_direct = g * r
+        dx = dx_direct + 2.0 * x * (dnorm @ gamma) if ctx.needs_input_grad[0] else None
+        dgamma = dnorm.t() @ x_sq if ctx.needs_input_grad[1] else None
+        dbeta = dnorm.sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dgamma, dbeta, None, None

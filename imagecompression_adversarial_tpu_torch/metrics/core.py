@@ -1,0 +1,42 @@
+"""Scalar quality and rate metrics (port of
+``imagecompression_adversarial_tpu/metrics/core.py``)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable, Union
+
+import torch
+
+_LOG2 = math.log(2.0)
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB."""
+    return 10.0 * torch.log10((max_val ** 2) / mse(a, b))
+
+
+def bpp_from_likelihoods(
+    likelihoods: Union[Iterable[torch.Tensor], Dict[str, torch.Tensor]], num_pixels: int
+) -> torch.Tensor:
+    """Entropy-estimated bits per pixel: sum(-log2 p) / num_pixels."""
+    if isinstance(likelihoods, dict):
+        likelihoods = likelihoods.values()
+    total = sum(torch.sum(torch.log(lik)) for lik in likelihoods)
+    return total / (-_LOG2 * num_pixels)
+
+
+def vi(mse_in: torch.Tensor, mse_out: torch.Tensor) -> torch.Tensor:
+    """The attack's headline metric, 10*log10(mse_out / mse_in), with both
+    terms floored at 1e-20 so a no-op attack gives 0 dB."""
+    return 10.0 * torch.log10(mse_out.clamp(min=1e-20) / mse_in.clamp(min=1e-20))
+
+
+def vi_msim(msim_in: torch.Tensor, msim_out: torch.Tensor) -> torch.Tensor:
+    """MS-SSIM analog of VI, 10*log10((1 - msim_out) / (1 - msim_in)), with
+    both complements floored at 1e-4."""
+    return 10.0 * torch.log10((1.0 - msim_out).clamp(min=1e-4) / (1.0 - msim_in).clamp(min=1e-4))

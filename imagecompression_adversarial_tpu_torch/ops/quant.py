@@ -1,0 +1,50 @@
+"""Latent quantization modes, passed explicitly (port of
+``imagecompression_adversarial_tpu/ops/quant.py``).
+
+The mode is an argument, not ``train()``/``eval()`` module state.
+``torch.round``, like ``jnp.round``, rounds half to even.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .bounds import ste_round, universal_quant
+
+#: Valid quantization modes.
+QUANT_MODES = ("noise", "dequantize", "ste", "none", "universal")
+
+
+def quantize(
+    y: torch.Tensor,
+    mode: str,
+    means: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Quantize a latent tensor.
+
+    Modes: ``'noise'`` adds uniform(-.5, .5) noise; ``'dequantize'`` is
+    ``round(y - means) + means``; ``'ste'`` rounds with identity gradient;
+    ``'none'`` passes through (the attack's quantization-free path);
+    ``'universal'`` rounds with a shared dither and identity gradient.
+    ``generator`` is required by ``'noise'`` and ``'universal'``.
+    """
+    if mode not in QUANT_MODES:
+        raise ValueError(f"quant mode {mode!r} not in {QUANT_MODES}")
+    if mode == "none":
+        return y
+    if mode in ("noise", "universal") and generator is None:
+        raise ValueError(f"quantize(mode={mode!r}) requires a torch.Generator")
+    if mode == "noise":
+        u = torch.rand(y.shape, generator=generator, device=y.device, dtype=y.dtype)
+        return y + (u - 0.5)
+    centered = y if means is None else y - means
+    if mode == "universal":
+        rounded = universal_quant(centered, generator)
+    elif mode == "ste":
+        rounded = ste_round(centered)
+    else:  # 'dequantize'
+        rounded = torch.round(centered)
+    return rounded if means is None else rounded + means

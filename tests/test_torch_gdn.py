@@ -1,0 +1,137 @@
+"""The port's GDN/IGDN (``kernels/gdn.py``, ``models/layers.GDN``) vs JAX.
+
+On the CPU the wrapper runs the kernel's plain version; it is compared with
+the JAX package's GDN layer (the einsum the repository ships) and with the
+Pallas kernel ``scripts/pallas_gdn.gdn_fused`` in interpret mode.  Tolerance
+atol 1e-5: float32 on both sides, with the channel sum taken in another
+order.  The kernel itself runs only on the card: ``test_torch_gdn_cuda.py``.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imagecompression_adversarial_tpu.models.layers import GDN as JaxGDN
+from imagecompression_adversarial_tpu_torch.kernels import _build, gdn
+from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
+import pallas_gdn  # noqa: E402
+
+ATOL = 1e-5
+
+
+def _params(c, seed):
+    rng = np.random.RandomState(seed)
+    beta_r = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    gamma_r = rng.uniform(0.0, 0.1, (c, c)).astype(np.float32)
+    gamma_r[0, 1] = -0.01  # below the reparam bound: exercises lower_bound
+    return beta_r, gamma_r
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_layer_matches_jax_forward_and_dx(inverse):
+    c = 16
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 8, 8, c).astype(np.float32)  # NHWC
+    w = rng.randn(2, 8, 8, c).astype(np.float32)
+    beta_r, gamma_r = _params(c, 4)
+
+    jmod = JaxGDN(inverse=inverse)
+    jparams = {"params": {"beta": jnp.asarray(beta_r), "gamma": jnp.asarray(gamma_r)}}
+    jout = np.asarray(jmod.apply(jparams, x))
+    jdx = np.asarray(jax.grad(lambda v: jnp.sum(w * jmod.apply(jparams, v)))(jnp.asarray(x)))
+
+    gdn.reset_launch_counts()
+    layer = GDN(c, inverse=inverse)
+    layer.load_state_dict({"beta": torch.tensor(beta_r), "gamma": torch.tensor(gamma_r)})
+    xt = torch.tensor(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    xt.requires_grad_(True)
+    out = layer(xt)
+    (out * torch.tensor(w).permute(0, 3, 1, 2)).sum().backward()
+    np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(), jout, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), jdx, atol=ATOL)
+    assert gdn.launch_counts["gdn_fwd"] == 0  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_function_matches_pallas_interpret(inverse):
+    c = 16
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 8, 8, c).astype(np.float32)
+    w = rng.randn(2, 8, 8, c).astype(np.float32)
+    gamma = np.abs(rng.randn(c, c)).astype(np.float32) * 0.1
+    beta = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    def jloss(v, g, b):
+        return jnp.sum(w * pallas_gdn.gdn_fused(v, g, b, inverse, True))
+
+    jout = np.asarray(pallas_gdn.gdn_fused(jnp.asarray(x), gamma, beta, inverse, True))
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+
+    xt, gt, bt = (torch.tensor(a, requires_grad=True) for a in (x.reshape(-1, c), gamma, beta))
+    out = gdn.GDNFunction.apply(xt, gt, bt, inverse)
+    (out * torch.tensor(w.reshape(-1, c))).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy().reshape(x.shape), jout, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy().reshape(x.shape), np.asarray(jgrads[0]), atol=ATOL)
+    np.testing.assert_allclose(gt.grad.numpy(), np.asarray(jgrads[1]), atol=1e-4)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgrads[2]), atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "case, exc",
+    [
+        ("meta_device", ValueError),
+        ("float64", TypeError),
+        ("too_wide", ValueError),
+        ("rank3", ValueError),
+        ("non_contiguous", ValueError),
+        ("gamma_shape", ValueError),
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
+    c = 8
+    x, gamma, beta = torch.rand(32, c), torch.rand(c, c), torch.rand(c)
+    if case == "meta_device":
+        x, gamma, beta = (t.to("meta") for t in (x, gamma, beta))
+    elif case == "float64":
+        x = x.double()
+    elif case == "too_wide":
+        c = gdn.MAX_CHANNELS + 8
+        x, gamma, beta = torch.rand(32, c), torch.rand(c, c), torch.rand(c)
+    elif case == "rank3":
+        x = x.reshape(4, 8, c)
+    elif case == "non_contiguous":
+        x = torch.rand(c, 32).t()
+    elif case == "gamma_shape":
+        gamma = torch.rand(c, c + 1)
+    with pytest.raises(exc):
+        gdn.gdn_forward(x, gamma, beta, False)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_nvcc_command_and_build_key(monkeypatch):
+    out = _build.BUILD_DIR / "lib.so"
+    cmd = _build.nvcc_command("nvcc", _build.SOURCES, out)
+    assert cmd == [
+        "nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+        "-shared", "-Xcompiler", "-fPIC", "-o", str(out),
+        str(_build.CSRC_DIR / "gdn.cu"),
+    ]
+    path = _build.library_path()
+    assert path.parent == _build.PACKAGE_DIR / "_build"
+    assert path == _build.library_path()  # stable for the same sources and flags
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path() != path  # a flag change builds anew
