@@ -1,4 +1,5 @@
-// Fused GDN / IGDN forward for Hopper (sm_90a), plain fp32 CUDA C++.
+// Fused GDN / IGDN forward for Hopper (sm_90a): the channel product on the
+// tensor cores in 3xTF32, accurate to fp32.
 //
 // Replaces the Pallas kernel `_gdn_kernel` launched by `_gdn_forward`
 // (scripts/pallas_gdn.py:59-100).  On a (rows, C) view of channels_last
@@ -8,133 +9,232 @@
 //   out[n, o]  = x[n, o] * rsqrt(norm[n, o])     (GDN)
 //   out[n, o]  = x[n, o] * sqrt(norm[n, o])      (IGDN)
 //
-// Bound: the sum runs on the fp32 pipes (no tensor cores in this version),
-// 2*C*C flops a row, which at C=128 takes longer than reading x and writing
-// out once; so the kernel is bounded by operations, and what limits it in
-// practice is feeding those FMAs from shared memory.
+// Bound: bytes.  The largest call of the hyper attack (rows 98,304, C=128)
+// must read x and write out once, 2 x 50.3 MB, 30 us at 3.35 TB/s; its
+// product is 3.2 GFLOP, 6.6 us at the TF32 tensor-core peak and 19.8 us for
+// the three TF32 products below.  On the fp32 pipes the same product takes
+// 48 us, so the product moves to the tensor cores.
 //
-// Design: each block copies gamma into shared memory once, transposed to
-// gT[i][o] (64 KB at C=128, 144 KB at C=192, so dynamic shared memory above
-// 48 KB), then walks row tiles in a grid-stride loop.  Per tile it stages
-// x^2 in shared memory.  Thread (t, y) owns channels t and t + blockDim.x
-// for kRowsPerThread rows: 2 * kRowsPerThread sums in registers.  Each step
-// of the channel sum reads 4 gT values per channel (consecutive threads,
-// consecutive addresses) and 4 x^2 values per row as one broadcast float4,
-// and issues 64 FMAs for 16 shared loads.  bias, rsqrt/sqrt and the
-// multiply by x happen in registers, and out is written once.
+// Accuracy: one TF32 product keeps 11 significant bits of each factor, about
+// 5e-4 relative error in norm.  Each factor v is split into
+// hi = tf32(v) and lo = tf32(v - hi), both rounded to nearest as cvt.rna does
+// (raw fp32 bits would be truncated by the unit), and the product is taken
+// as lo*hi + hi*lo + hi*hi, dropping only lo*lo (about 2^-22 relative).  x^2
+// and gamma are non-negative, so no term cancels and norm stays within about
+// 1e-6 relative of an fp32 product; the sums accumulate in fp32.
 //
-// gT rows have an odd stride, so the transposing copy from the coalesced
-// gamma read is free of bank conflicts.  C may be any value up to kMaxC; x^2
-// rows are zero-padded to a multiple of 4 channels for the float4 reads.
+// Design: 8 warps a block.  Each block copies gamma once into shared memory
+// (row-major (o, i), row stride Cp + 4 floats, zero-padded to Cp, a multiple
+// of 16; it serves as the col-major B = gamma^T of the product), then walks
+// tiles of 16, 32 or 64 rows in a grid-stride loop.  Per tile it copies x
+// into shared memory.  Both copies are cp.async, every thread's copies in
+// flight at once and one wait: a load-then-store loop would wait out one
+// memory latency per element a thread copies.  Each warp owns 16 rows and a
+// run of at most 8 8-column output tiles, and per k step of 8 it loads its x
+// fragment, squares and splits it, then loads and splits gamma's fragment for
+// each output tile and issues three mma.sync.m16n8k8 TF32 products.  The
+// fragments are loaded by hand in the PTX ISA's m16n8k8 layout: WMMA's TF32
+// loads compile to generic loads with 64-bit address arithmetic per element,
+// which cost more than the products.  The padded row stride makes every
+// fragment load free of bank conflicts.  The epilogue works on the
+// accumulator registers in place: add beta, apply rsqrt/sqrt, multiply by x
+// from the shared tile, and write out, four lanes a 32-byte run of a row.  x
+// is read from device memory once and out written once; x^2 and norm stay on
+// chip.  The tile height is chosen per call so that small calls still spread
+// over the SMs.  C may be any value up to kMaxC; rows whose byte offset or
+// base pointer is not 16-byte aligned take 4-byte copies and stores.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxC = 192;
-constexpr int kRowsPerThread = 8;
-constexpr int kRowGroups = 4;  // blockDim.y
-constexpr int kTileRows = kRowsPerThread * kRowGroups;
-constexpr int kMaxThreads = (kMaxC / 2) * kRowGroups;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileHeights[] = {64, 32, 16};  // tried in this order
+constexpr int kNumTileHeights = 3;
+// 16-column output tiles a warp owns at most (8 accumulator registers each);
+// a tile height that would give a warp more is not used for that C, so the
+// kernel fits 128 registers (two blocks an SM) without spilling
+constexpr int kMaxTilesPerWarp = 4;
 
 struct Layout {
-  int Cp;        // C rounded up to a multiple of 4: x^2 row stride
-  int half;      // blockDim.x: channels t and t + half per thread
-  int ldg;       // gT row stride, odd
-  int xs_off;    // offset of the x^2 tile, a multiple of 4 floats
-  size_t smem;   // bytes of dynamic shared memory
+  int Cp;         // C rounded up to a multiple of 16
+  int ld;         // row stride of gamma and x in shared memory, Cp + 4
+  int tile;       // rows per tile
+  int groups;     // 16-row groups per tile
+  int per_warp;   // 16-column output tiles per warp
+  size_t smem;    // bytes of dynamic shared memory
 };
 
-Layout layout(int C) {
+Layout layout(int C, int tile) {
   Layout l;
-  l.Cp = (C + 3) / 4 * 4;
-  l.half = ((C + 1) / 2 + 31) / 32 * 32;
-  l.ldg = 2 * l.half + 1;
-  l.xs_off = (l.Cp * l.ldg + 3) / 4 * 4;
-  l.smem = sizeof(float) * ((size_t)l.xs_off + (size_t)kTileRows * l.Cp);
+  l.Cp = (C + 15) / 16 * 16;
+  l.ld = l.Cp + 4;
+  l.tile = tile;
+  l.groups = tile / 16;
+  const int col_groups = kWarps / l.groups;
+  l.per_warp = (l.Cp / 16 + col_groups - 1) / col_groups;
+  // gamma [Cp][ld], x [tile][ld], beta [Cp], each 16-byte aligned
+  l.smem = sizeof(float) * ((size_t)l.Cp * l.ld + (size_t)tile * l.ld + l.Cp);
   return l;
 }
 
-template <bool kInverse>
-__global__ void __launch_bounds__(kMaxThreads)
-gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, float* __restrict__ out,
-               int rows, int C, Layout l) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* gT = smem;              // [Cp][ldg]: gT[i * ldg + o] = gamma[o * C + i]
-  float* xs = smem + l.xs_off;   // [kTileRows][Cp]: x^2 of the current tile
+__device__ __forceinline__ float gdn_out(float x, float norm, bool inverse) {
+  return inverse ? x * sqrtf(norm) : x * rsqrtf(norm);
+}
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
 
-  // zero the padding (channels o >= C and rows i >= C), then copy gamma
-  // with coalesced reads
-  for (int k = tid; k < l.Cp * l.ldg; k += nthreads) gT[k] = 0.0f;
-  __syncthreads();
-  for (int k = tid; k < C * C; k += nthreads) {
-    const int o = k / C;
-    const int i = k - o * C;
-    gT[i * l.ldg + o] = gamma[k];
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
 
-  const int o0 = threadIdx.x;
-  const int o1 = threadIdx.x + l.half;
-  const float b0 = (o0 < C) ? beta[o0] : 0.0f;
-  const float b1 = (o1 < C) ? beta[o1] : 0.0f;
-  const int rbase = threadIdx.y * kRowsPerThread;
-  const int ntiles = (rows + kTileRows - 1) / kTileRows;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * kTileRows;
-    __syncthreads();  // gT is written; the last tile's xs reads are done
-    for (int k = tid; k < kTileRows * l.Cp; k += nthreads) {
+// Starts copying rows [0, n) of the row-major (., C) array at src into
+// dst[m][ld], and zero-fills columns C..Cp-1 and rows n..m-1.  vec: C is a
+// multiple of 4 and src 16-byte aligned, so whole float4s are copied.
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int n,
+                                          int m, int C, const Layout& l,
+                                          bool vec) {
+  if (vec) {
+    const int c4 = C / 4, cp4 = l.Cp / 4;
+    for (int k = threadIdx.x; k < m * cp4; k += kThreads) {
+      const int r = k / cp4;
+      const int i = k - r * cp4;
+      float* d = dst + r * l.ld + 4 * i;
+      if (r < n && i < c4)
+        cp_async16(d, src + (size_t)r * C + 4 * i);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int k = threadIdx.x; k < m * l.Cp; k += kThreads) {
       const int r = k / l.Cp;
       const int i = k - r * l.Cp;
-      const int n = row0 + r;
-      float v = 0.0f;
-      if (n < rows && i < C) v = x[(size_t)n * C + i];
-      xs[k] = v * v;
+      float* d = dst + r * l.ld + i;
+      if (r < n && i < C)
+        cp_async4(d, src + (size_t)r * C + i);
+      else
+        *d = 0.0f;
     }
-    __syncthreads();
+  }
+}
 
-    float acc0[kRowsPerThread], acc1[kRowsPerThread];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// cvt.rna.tf32.f32 for finite v: the magnitude rounded to 10 mantissa bits,
+// ties away from zero (the instruction adds a check for inf and NaN)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a * b on a 16x8x8 TF32 tile; fragments as in the PTX ISA's m16n8k8
+// layout, with g = lane / 4 and t = lane % 4: a = A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool kInverse>
+__global__ void __launch_bounds__(kThreads, 2)
+gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, float* __restrict__ out,
+               int rows, int C, Layout l, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;                    // [Cp][ld]: gamma, zero-padded
+  float* xs = gs + l.Cp * l.ld;        // [tile][ld]: x of the current tile
+  float* bs = xs + l.tile * l.ld;      // [Cp]: beta
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  copy_rows(gs, gamma, C, l.Cp, C, l, vec);  // waited for with the first tile
+  for (int i = threadIdx.x; i < l.Cp; i += kThreads)
+    bs[i] = i < C ? beta[i] : 1.0f;
+
+  const int group = warp % l.groups;
+  const int first = 2 * (warp / l.groups) * l.per_warp;  // first 8-col tile
+  const int owned = min(2 * l.per_warp, l.Cp / 8 - first);
+  // this lane's row g of the warp's 16 rows (row g + 8 is 8 * ld further),
+  // and its row of gamma for output channel 8 * first + g
+  const float* xr = xs + (16 * group + g) * l.ld;
+  const float* gr = gs + (8 * first + g) * l.ld;
+  const int ntiles = (rows + l.tile - 1) / l.tile;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * l.tile;
+    __syncthreads();  // the last tile's reads of xs are done
+    copy_rows(xs, x + (size_t)row0 * C, min(l.tile, rows - row0), l.tile, C, l,
+              vec);
+    cp_async_wait_all();
+    __syncthreads();
+    if (owned <= 0) continue;
+
+    float acc[2 * kMaxTilesPerWarp][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) acc0[r] = acc1[r] = 0.0f;
-    for (int i = 0; i < l.Cp; i += 4) {
-      const float* g = gT + i * l.ldg;
-      const float g00 = g[o0], g01 = g[l.ldg + o0];
-      const float g02 = g[2 * l.ldg + o0], g03 = g[3 * l.ldg + o0];
-      const float g10 = g[o1], g11 = g[l.ldg + o1];
-      const float g12 = g[2 * l.ldg + o1], g13 = g[3 * l.ldg + o1];
+    for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    for (int k0 = 0; k0 < l.Cp; k0 += 8) {
+      const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
+                          xr[8 * l.ld + k0 + t + 4]};
+      uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&xs[(rbase + r) * l.Cp + i]);
-        acc0[r] = fmaf(g00, v.x, acc0[r]);
-        acc0[r] = fmaf(g01, v.y, acc0[r]);
-        acc0[r] = fmaf(g02, v.z, acc0[r]);
-        acc0[r] = fmaf(g03, v.w, acc0[r]);
-        acc1[r] = fmaf(g10, v.x, acc1[r]);
-        acc1[r] = fmaf(g11, v.y, acc1[r]);
-        acc1[r] = fmaf(g12, v.z, acc1[r]);
-        acc1[r] = fmaf(g13, v.w, acc1[r]);
+      for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
+#pragma unroll
+      for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j) {
+        if (j < owned) {
+          const float* b = gr + 8 * j * l.ld + k0 + t;
+          uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+          split_tf32(b[0], b0_hi, b0_lo);
+          split_tf32(b[4], b1_hi, b1_lo);
+          mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+          mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+          mma_tf32(acc[j], a_hi, b0_hi, b1_hi);
+        }
       }
     }
+
+    const int n0 = row0 + 16 * group + g;  // rows n0 and n0 + 8
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int n = row0 + rbase + r;
-      if (n >= rows) break;
-      const size_t base = (size_t)n * C;
-      if (o0 < C) {
-        const float norm = acc0[r] + b0;
-        const float xv = x[base + o0];
-        out[base + o0] = kInverse ? xv * sqrtf(norm) : xv * rsqrtf(norm);
-      }
-      if (o1 < C) {
-        const float norm = acc1[r] + b1;
-        const float xv = x[base + o1];
-        out[base + o1] = kInverse ? xv * sqrtf(norm) : xv * rsqrtf(norm);
+    for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j) {
+      if (j < owned) {
+        const int o = 8 * (first + j) + 2 * t;  // channels o and o + 1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 8 * h;
+          const float* xv = xr + 8 * h * l.ld + o;
+          const float s0 = acc[j][2 * h] + bs[o];
+          const float s1 = acc[j][2 * h + 1] + bs[o + 1];
+          if (vec) {  // C is even: o < C covers o + 1
+            if (n < rows && o < C)
+              *reinterpret_cast<float2*>(out + (size_t)n * C + o) =
+                  make_float2(gdn_out(xv[0], s0, kInverse),
+                              gdn_out(xv[1], s1, kInverse));
+          } else if (n < rows) {
+            if (o < C) out[(size_t)n * C + o] = gdn_out(xv[0], s0, kInverse);
+            if (o + 1 < C)
+              out[(size_t)n * C + o + 1] = gdn_out(xv[1], s1, kInverse);
+          }
+        }
       }
     }
   }
@@ -142,33 +242,33 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 
 constexpr int kMaxDevices = 16;
 
-// Resident blocks the whole card holds for (device, inverse, C), filled on
-// first use: the attribute and occupancy queries cost host time on every
-// launch otherwise.  Concurrent first uses write the same value.
-int g_grid_cap[kMaxDevices][2][kMaxC + 1];
+// Resident blocks the whole card holds for (device, inverse, C, tile height),
+// filled on first use: the attribute and occupancy queries cost host time on
+// every launch otherwise.  Concurrent first uses write the same value.
+int g_grid_cap[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
 
 template <bool kInverse>
-cudaError_t grid_cap(int C, const Layout& l, int* cap) {
+cudaError_t grid_cap(int C, int t, const Layout& l, int* cap) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& cached = g_grid_cap[device][kInverse][C];
+  int& cached = g_grid_cap[device][kInverse][C][t];
   if (cached == 0) {
     int sms = 0, per_sm = 0;
-    // the limit is per function, so it is set for the widest C: a smaller
-    // value set for one C would refuse a later launch at a wider one
+    // the limit is per function, so it is set for the largest layout: a
+    // smaller value set for one C would refuse a later launch at a wider one
     if ((err = cudaFuncSetAttribute(
              gdn_fwd_kernel<kInverse>,
              cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)layout(kMaxC).smem)) != cudaSuccess)
+             (int)layout(kMaxC, kTileHeights[0]).smem)) != cudaSuccess)
       return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       device)) != cudaSuccess)
       return err;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, gdn_fwd_kernel<kInverse>, l.half * kRowGroups,
-             l.smem)) != cudaSuccess)
+             &per_sm, gdn_fwd_kernel<kInverse>, kThreads, l.smem)) !=
+        cudaSuccess)
       return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cached = sms * per_sm;
@@ -180,14 +280,31 @@ cudaError_t grid_cap(int C, const Layout& l, int* cap) {
 template <bool kInverse>
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* out, int rows, int C, cudaStream_t stream) {
-  const Layout l = layout(C);
-  int cap = 0;
-  const cudaError_t err = grid_cap<kInverse>(C, l, &cap);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (rows + kTileRows - 1) / kTileRows;
-  const int grid = ntiles < cap ? ntiles : cap;
-  gdn_fwd_kernel<kInverse><<<grid, dim3(l.half, kRowGroups), l.smem, stream>>>(
-      x, gamma, beta, out, rows, C, l);
+  // the tile height whose busiest block walks the fewest rows; the taller
+  // tile wins a tie, since it loads each x fragment for more output columns
+  Layout best{};
+  int best_grid = 0;
+  long long best_rows = 0;
+  for (int t = 0; t < kNumTileHeights; ++t) {
+    const Layout l = layout(C, kTileHeights[t]);
+    if (l.per_warp > kMaxTilesPerWarp) continue;
+    int cap = 0;
+    const cudaError_t err = grid_cap<kInverse>(C, t, l, &cap);
+    if (err != cudaSuccess) return err;
+    const long long ntiles = ((long long)rows + l.tile - 1) / l.tile;
+    const long long busiest = (ntiles + cap - 1) / cap * l.tile;
+    if (best_grid == 0 || busiest < best_rows) {
+      best = l;
+      best_rows = busiest;
+      best_grid = (int)(ntiles < cap ? ntiles : cap);
+    }
+  }
+  const bool vec = C % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(gamma) |
+                     reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  gdn_fwd_kernel<kInverse><<<best_grid, kThreads, best.smem, stream>>>(
+      x, gamma, beta, out, rows, C, best, vec);
   return cudaGetLastError();
 }
 

@@ -2,17 +2,26 @@
 ``imagecompression_adversarial_tpu/io/image.py``).
 
 Arrays are (1, H_pad, W_pad, 3) float32 numpy in [0, 1], as in the JAX
-package; ``to_tensor`` makes the port's NCHW channels_last tensor.  PIL is
-imported only inside the functions that read or write PNGs.
+package; ``to_tensor`` makes the port's NCHW channels_last tensor.  PNGs are
+read and written with numpy and ``zlib`` alone (no PIL): the reader takes
+8-bit, non-interlaced gray, RGB and RGBA files with any of the five scanline
+filters, the writer emits 8-bit RGB.
 """
 
 from __future__ import annotations
 
 import glob as _glob
-from typing import List, Tuple
+import struct
+import zlib
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples a pixel, by PNG colour type, for the types the reader takes
+_CHANNELS = {0: 1, 2: 3, 6: 4}
+_COLOUR_TYPE_NAMES = {3: "palette", 4: "gray+alpha"}
 
 
 def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
@@ -25,14 +34,110 @@ def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
     return out
 
 
+def _png_chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
+    """(type, body) of each chunk up to IEND, with its CRC checked."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos = 8
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 12 + length
+        if end > len(data):
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        body = data[pos + 8:end - 4]
+        if zlib.crc32(kind + body) != struct.unpack(">I", data[end - 4:end])[0]:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos = end
+    raise ValueError("PNG file ends before its IEND chunk")
+
+
+def _unfilter(kinds: np.ndarray, lines: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the scanline filters (None, Sub, Up, Average, Paeth) of
+    ``lines`` (h, stride) uint8, whose filter types are ``kinds`` (h,).
+
+    A byte depends on the same byte of the pixel to its left (a), above (b)
+    and above-left (c), so the pixels are rebuilt one anti-diagonal at a
+    time: each needs only pixels of the two diagonals before it.
+    """
+    if kinds.size and kinds.max() > 4:
+        raise ValueError(f"PNG filter type {int(kinds.max())} is not one of the five")
+    h, stride = lines.shape
+    w = stride // bpp
+    filt = lines.reshape(h, w, bpp).astype(np.int32)
+    kinds = kinds.astype(np.int32)[:, None]
+    # out[y + 1, x + 1] is pixel (y, x); row 0 and column 0 are the zeros
+    # the filters read beyond the image's top and left edges
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        k = kinds[y]
+        pred = np.select([k == 1, k == 2, k == 3, k == 4], [a, b, (a + b) >> 1, paeth], 0)
+        out[y + 1, x + 1] = (filt[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """(H, W, channels) uint8 pixels of a PNG; raises ``ValueError`` naming
+    what the reader does not take (palette, 16-bit, interlaced, ...)."""
+    header, idat = None, []
+    for kind, body in _png_chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG file has no IHDR chunk")
+    w, h, depth, colour, compression, filter_method, interlace = header
+    if colour in _COLOUR_TYPE_NAMES:
+        raise ValueError(f"{_COLOUR_TYPE_NAMES[colour]} PNGs are not supported")
+    if colour not in _CHANNELS:
+        raise ValueError(f"PNG colour type {colour} is not valid")
+    if depth != 8:
+        raise ValueError(f"{depth}-bit PNGs are not supported (8-bit only)")
+    if interlace:
+        raise ValueError("interlaced PNGs are not supported")
+    if compression or filter_method:
+        raise ValueError("PNG compression or filter method is not 0")
+    bpp = _CHANNELS[colour]
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (1 + w * bpp):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, not {h * (1 + w * bpp)}")
+    lines = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp)
+    return _unfilter(lines[:, 0], lines[:, 1:], bpp)
+
+
+def _encode_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of (H, W, 3) uint8 pixels, every scanline filter 0."""
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (
+        _PNG_SIGNATURE
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+        + chunk(b"IEND", b"")
+    )
+
+
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
     """Load a PNG as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
-    ``(im, H, W)``."""
-    from PIL import Image
-
-    img = np.asarray(Image.open(path), dtype=np.float32) / 255.0
-    if img.ndim == 2:
-        img = np.tile(img[..., None], (1, 1, 3))
+    ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha."""
+    with open(path, "rb") as f:
+        img = _decode_png(f.read()).astype(np.float32) / 255.0
+    if img.shape[-1] == 1:
+        img = np.tile(img, (1, 1, 3))
     if img.shape[-1] == 4:
         img = img[..., :3]
     h, w, _ = img.shape
@@ -40,16 +145,15 @@ def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
 
 
 def write_image(x: np.ndarray, path: str, H: int | None = None, W: int | None = None) -> None:
-    """Save a (1, H, W, 3) float array as an 8-bit PNG cropped to (H, W)."""
-    from PIL import Image
-
+    """Save a (1, H, W, 3) float array as an 8-bit RGB PNG cropped to (H, W)."""
     arr = np.asarray(x)
     if arr.ndim == 4:
         arr = arr[0]
     if H is None and W is None:
         H, W = arr.shape[0], arr.shape[1]
     out = np.clip(np.round(arr * 255.0), 0, 255).astype(np.uint8)
-    Image.fromarray(out[:H, :W, :]).save(path)
+    with open(path, "wb") as f:
+        f.write(_encode_png(np.ascontiguousarray(out[:H, :W, :])))
 
 
 def list_images(pattern: str) -> List[str]:
@@ -60,7 +164,7 @@ def list_images(pattern: str) -> List[str]:
 def synthetic_image(h: int, w: int, seed: int) -> np.ndarray:
     """(1, h, w, 3) float32 in [0, 1] made with numpy from ``seed``: smooth
     gradients plus a little noise, a stand-in for a photo where no image
-    files or PIL are at hand."""
+    files are at hand."""
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     img = np.stack(

@@ -5,7 +5,9 @@ The library is built on first use into ``_build/`` beside the package,
 under a name keyed by a hash of the sources and the flags, so an edited
 source or flag builds anew and an unchanged one is reused.  A file lock
 serialises concurrent builds.  Plain ``nvcc`` on a source with a C
-interface takes seconds; nothing here includes PyTorch's headers.
+interface takes seconds; nothing here includes PyTorch's headers.  What
+nvcc prints, ``ptxas``'s registers, shared memory and spills of each kernel
+included (``-Xptxas -v``), is kept beside the library (``build_log``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (CSRC_DIR / "gdn.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -60,6 +62,11 @@ def library_path(sources: Sequence[Path] = SOURCES) -> Path:
     return BUILD_DIR / f"libicat_kernels-{h.hexdigest()[:16]}.so"
 
 
+def build_log(sources: Sequence[Path] = SOURCES) -> str:
+    """nvcc's output from the build of the library for ``sources``."""
+    return library_path(sources).with_suffix(".log").read_text()
+
+
 def build(sources: Sequence[Path] = SOURCES) -> Path:
     """Compile ``sources`` unless the keyed library already exists; return
     its path."""
@@ -80,6 +87,7 @@ def build(sources: Sequence[Path] = SOURCES) -> Path:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
                 )
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
     return out
 

@@ -167,7 +167,8 @@ def test_cli_run_prints_report_lines(tmp_path, capsys):
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "imagecompression_adversarial_tpu")
+# the machine with the card has none of these (PIL included)
+_FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "PIL", "imagecompression_adversarial_tpu")
 
 
 def _imports(path):

@@ -4,7 +4,8 @@ On the CPU the wrapper runs the kernel's plain version; it is compared with
 the JAX package's GDN layer (the einsum the repository ships) and with the
 Pallas kernel ``scripts/pallas_gdn.gdn_fused`` in interpret mode.  Tolerance
 atol 1e-5: float32 on both sides, with the channel sum taken in another
-order.  The kernel itself runs only on the card: ``test_torch_gdn_cuda.py``.
+order.  The kernel itself runs only on the card: ``test_torch_gdn_cuda.py``;
+its 3xTF32 arithmetic is emulated here in float32.
 """
 
 import os
@@ -83,6 +84,45 @@ def test_gdn_function_matches_pallas_interpret(inverse):
     np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgrads[2]), atol=1e-4)
 
 
+def _tf32(t):
+    """``cvt.rna.tf32.f32`` on float32: round the magnitude to the nearest
+    value with 10 mantissa bits, ties away from zero."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [128, 192])
+def test_3xtf32_split_keeps_fp32_accuracy(c, inverse):
+    """The kernel's product, emulated: x^2 and gamma split into TF32 hi and
+    lo parts, summed as lo*hi + hi*lo + hi*hi in float32.  It stays within
+    the card tests' tolerance (rtol 1e-5, atol 1e-6) of a float64 reference
+    on their input recipe; one TF32 product (hi*hi) does not."""
+    gen = torch.Generator().manual_seed(0)
+    x = 2.0 * torch.randn(4096, c, generator=gen)
+    gamma = 0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=gen)
+    beta = 0.5 + torch.rand(c, generator=gen)
+    one = torch.tensor([1.0 + 2.0**-11, 1.0 + 2.0**-12, -(1.0 + 3 * 2.0**-11)])
+    assert _tf32(one).tolist() == [1.0 + 2.0**-10, 1.0, -(1.0 + 2 * 2.0**-10)]
+
+    x_sq = x * x
+    a_hi, g_hi = _tf32(x_sq), _tf32(gamma)
+    a_lo, g_lo = _tf32(x_sq - a_hi), _tf32(gamma - g_hi)
+    assert ((a_hi - x_sq).abs() <= 2.0**-11 * x_sq).all()
+    norm3 = a_lo @ g_hi.t() + a_hi @ g_lo.t() + a_hi @ g_hi.t() + beta
+    norm1 = a_hi @ g_hi.t() + beta
+
+    x64 = x.double()
+    norm64 = (x64 * x64) @ gamma.double().t() + beta.double()
+
+    def out(v, norm):
+        return v * (norm.sqrt() if inverse else norm.rsqrt())
+
+    torch.testing.assert_close(norm3.double(), norm64, rtol=1e-5, atol=0)
+    torch.testing.assert_close(out(x, norm3).double(), out(x64, norm64), rtol=1e-5, atol=1e-6)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(out(x, norm1).double(), out(x64, norm64), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize(
     "case, exc",
     [
@@ -127,7 +167,7 @@ def test_nvcc_command_and_build_key(monkeypatch):
     cmd = _build.nvcc_command("nvcc", _build.SOURCES, out)
     assert cmd == [
         "nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(out),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
         str(_build.CSRC_DIR / "gdn.cu"),
     ]
     path = _build.library_path()

@@ -2,8 +2,11 @@
 
 Run where there is an NVIDIA GPU and nvcc (no JAX needed):
 ``python -m pytest tests/test_torch_gdn_cuda.py -m cuda -q``.  Elsewhere
-every test skips.  Tolerance rtol 1e-5, atol 1e-6: both are fp32 (TF32 off),
-the channel sum runs in another order, and rsqrtf/sqrtf are within 2 ulp.
+every test skips.  Tolerance rtol 1e-5, atol 1e-6: the plain version is an
+fp32 product (TF32 off); the kernel's is 3xTF32 on the tensor cores, which
+drops only the lo*lo term (about 2^-22 relative) of non-negative terms, so
+norm stays within about 1e-6 relative (``test_torch_gdn.py`` emulates it);
+rsqrtf/sqrtf are within 2 ulp.
 """
 
 import pytest
@@ -34,7 +37,12 @@ def _inputs(c, rows, device):
 @pytest.mark.parametrize("inverse", [False, True])
 # widest first, then narrower, then widest again: the launch setup is cached
 # per width and must not shrink the shared-memory limit of another
-@pytest.mark.parametrize("c, rows", [(192, 6144), (128, 6144), (128, 33), (3, 100), (130, 70), (191, 50), (192, 64)])
+# (row counts that are not a multiple of any tile height: 33, 100, 70, 50,
+# 4099, 1000 and 24,613 rows)
+@pytest.mark.parametrize("c, rows", [
+    (192, 6144), (128, 6144), (128, 33), (3, 100), (130, 70), (191, 50), (16, 4099),
+    (144, 1000), (128, 24613), (192, 64),
+])
 def test_kernel_matches_plain(cuda, c, rows, inverse):
     x, gamma, beta = _inputs(c, rows, cuda)
     before = gdn.launch_counts["gdn_fwd"]
@@ -56,3 +64,19 @@ def test_kernel_rejects_too_wide(cuda):
 def test_kernel_handles_empty_input(cuda):
     x, gamma, beta = _inputs(128, 0, cuda)
     assert gdn.gdn_forward(x, gamma, beta, True).shape == (0, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [128, 192])
+def test_kernel_takes_unaligned_rows(cuda, c, inverse):
+    # a contiguous x whose storage starts one float in: data_ptr is not
+    # 16-byte aligned, so the kernel must not take its float4 path
+    rows = 1000
+    base, gamma, beta = _inputs(c, rows + 1, cuda)
+    x = base.reshape(-1)[1:rows * c + 1].view(rows, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = gdn.gdn_forward(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    ref = gdn.gdn_forward_reference(x, gamma, beta, inverse)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
