@@ -30,9 +30,14 @@
 // into shared memory.  Both copies are cp.async, every thread's copies in
 // flight at once and one wait: a load-then-store loop would wait out one
 // memory latency per element a thread copies.  Each warp owns 16 rows and a
-// run of at most 8 8-column output tiles, and per k step of 8 it loads its x
-// fragment, squares and splits it, then loads and splits gamma's fragment for
-// each output tile and issues three mma.sync.m16n8k8 TF32 products.  The
+// run of kJ (2, 4, 6 or 8, a template parameter) 8-column output tiles, and
+// per k step of 8 it loads its x fragment, squares and splits it, then loads
+// and splits gamma's fragment for each output tile and issues three
+// mma.sync.m16n8k8 TF32 products.  kJ is fixed at compile time, and gamma's
+// shared copy is zero-padded to the rows the warps cover, so the loop over
+// the output tiles is unrolled without branches and the tiles' load, split
+// and product chains interleave; with a run-time count each tile waited out
+// its own latencies.  The
 // fragments are loaded by hand in the PTX ISA's m16n8k8 layout: WMMA's TF32
 // loads compile to generic loads with 64-bit address arithmetic per element,
 // which cost more than the products.  The padded row stride makes every
@@ -65,6 +70,7 @@ struct Layout {
   int tile;       // rows per tile
   int groups;     // 16-row groups per tile
   int per_warp;   // 16-column output tiles per warp
+  int Gp;         // output channels the warps cover, >= Cp: gamma's rows
   size_t smem;    // bytes of dynamic shared memory
 };
 
@@ -76,8 +82,9 @@ Layout layout(int C, int tile) {
   l.groups = tile / 16;
   const int col_groups = kWarps / l.groups;
   l.per_warp = (l.Cp / 16 + col_groups - 1) / col_groups;
-  // gamma [Cp][ld], x [tile][ld], beta [Cp], each 16-byte aligned
-  l.smem = sizeof(float) * ((size_t)l.Cp * l.ld + (size_t)tile * l.ld + l.Cp);
+  l.Gp = 16 * col_groups * l.per_warp;
+  // gamma [Gp][ld], x [tile][ld], beta [Gp], each 16-byte aligned
+  l.smem = sizeof(float) * ((size_t)l.Gp * l.ld + (size_t)tile * l.ld + l.Gp);
   return l;
 }
 
@@ -154,26 +161,25 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool kInverse>
+template <bool kInverse, int kJ>
 __global__ void __launch_bounds__(kThreads, 2)
 gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, float* __restrict__ out,
                int rows, int C, Layout l, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* gs = smem;                    // [Cp][ld]: gamma, zero-padded
-  float* xs = gs + l.Cp * l.ld;        // [tile][ld]: x of the current tile
-  float* bs = xs + l.tile * l.ld;      // [Cp]: beta
+  float* gs = smem;                    // [Gp][ld]: gamma, zero-padded
+  float* xs = gs + l.Gp * l.ld;        // [tile][ld]: x of the current tile
+  float* bs = xs + l.tile * l.ld;      // [Gp]: beta
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
-  copy_rows(gs, gamma, C, l.Cp, C, l, vec);  // waited for with the first tile
-  for (int i = threadIdx.x; i < l.Cp; i += kThreads)
+  copy_rows(gs, gamma, C, l.Gp, C, l, vec);  // waited for with the first tile
+  for (int i = threadIdx.x; i < l.Gp; i += kThreads)
     bs[i] = i < C ? beta[i] : 1.0f;
 
   const int group = warp % l.groups;
-  const int first = 2 * (warp / l.groups) * l.per_warp;  // first 8-col tile
-  const int owned = min(2 * l.per_warp, l.Cp / 8 - first);
+  const int first = kJ * (warp / l.groups);  // first 8-column tile
   // this lane's row g of the warp's 16 rows (row g + 8 is 8 * ld further),
   // and its row of gamma for output channel 8 * first + g
   const float* xr = xs + (16 * group + g) * l.ld;
@@ -187,11 +193,10 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
               vec);
     cp_async_wait_all();
     __syncthreads();
-    if (owned <= 0) continue;
 
-    float acc[2 * kMaxTilesPerWarp][4];
+    float acc[kJ][4];
 #pragma unroll
-    for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j)
+    for (int j = 0; j < kJ; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
     for (int k0 = 0; k0 < l.Cp; k0 += 8) {
       const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
@@ -200,37 +205,35 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
       for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
 #pragma unroll
-      for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j) {
-        if (j < owned) {
-          const float* b = gr + 8 * j * l.ld + k0 + t;
-          uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-          split_tf32(b[0], b0_hi, b0_lo);
-          split_tf32(b[4], b1_hi, b1_lo);
-          mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
-          mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
-          mma_tf32(acc[j], a_hi, b0_hi, b1_hi);
-        }
+      for (int j = 0; j < kJ; ++j) {
+        const float* b = gr + 8 * j * l.ld + k0 + t;
+        uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+        split_tf32(b[0], b0_hi, b0_lo);
+        split_tf32(b[4], b1_hi, b1_lo);
+        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);
       }
     }
 
     const int n0 = row0 + 16 * group + g;  // rows n0 and n0 + 8
 #pragma unroll
-    for (int j = 0; j < 2 * kMaxTilesPerWarp; ++j) {
-      if (j < owned) {
-        const int o = 8 * (first + j) + 2 * t;  // channels o and o + 1
+    for (int j = 0; j < kJ; ++j) {
+      const int o = 8 * (first + j) + 2 * t;  // channels o and o + 1
+      if (o < C) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + 8 * h;
           const float* xv = xr + 8 * h * l.ld + o;
           const float s0 = acc[j][2 * h] + bs[o];
           const float s1 = acc[j][2 * h + 1] + bs[o + 1];
+          if (n >= rows) continue;
           if (vec) {  // C is even: o < C covers o + 1
-            if (n < rows && o < C)
-              *reinterpret_cast<float2*>(out + (size_t)n * C + o) =
-                  make_float2(gdn_out(xv[0], s0, kInverse),
-                              gdn_out(xv[1], s1, kInverse));
-          } else if (n < rows) {
-            if (o < C) out[(size_t)n * C + o] = gdn_out(xv[0], s0, kInverse);
+            *reinterpret_cast<float2*>(out + (size_t)n * C + o) =
+                make_float2(gdn_out(xv[0], s0, kInverse),
+                            gdn_out(xv[1], s1, kInverse));
+          } else {
+            out[(size_t)n * C + o] = gdn_out(xv[0], s0, kInverse);
             if (o + 1 < C)
               out[(size_t)n * C + o + 1] = gdn_out(xv[1], s1, kInverse);
           }
@@ -240,6 +243,19 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+using Kernel = void (*)(const float*, const float*, const float*, float*, int,
+                       int, Layout, bool);
+
+// the kernel for (inverse, 16-column tiles per warp)
+Kernel kernel_for(bool inverse, int per_warp) {
+  static const Kernel kernels[2][kMaxTilesPerWarp] = {
+      {gdn_fwd_kernel<false, 2>, gdn_fwd_kernel<false, 4>,
+       gdn_fwd_kernel<false, 6>, gdn_fwd_kernel<false, 8>},
+      {gdn_fwd_kernel<true, 2>, gdn_fwd_kernel<true, 4>,
+       gdn_fwd_kernel<true, 6>, gdn_fwd_kernel<true, 8>}};
+  return kernels[inverse][per_warp - 1];
+}
+
 constexpr int kMaxDevices = 16;
 
 // Resident blocks the whole card holds for (device, inverse, C, tile height),
@@ -247,28 +263,30 @@ constexpr int kMaxDevices = 16;
 // every launch otherwise.  Concurrent first uses write the same value.
 int g_grid_cap[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
 
-template <bool kInverse>
-cudaError_t grid_cap(int C, int t, const Layout& l, int* cap) {
+cudaError_t grid_cap(bool inverse, int C, int t, const Layout& l, int* cap) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& cached = g_grid_cap[device][kInverse][C][t];
+  int& cached = g_grid_cap[device][inverse][C][t];
   if (cached == 0) {
-    int sms = 0, per_sm = 0;
-    // the limit is per function, so it is set for the largest layout: a
-    // smaller value set for one C would refuse a later launch at a wider one
+    const Kernel kernel = kernel_for(inverse, l.per_warp);
+    int sms = 0, per_sm = 0, limit = 0;
+    // the limit is per function, so it is set to the most a block may have:
+    // a smaller value set for one C would refuse a later launch at another
+    if ((err = cudaDeviceGetAttribute(
+             &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+        cudaSuccess)
+      return err;
     if ((err = cudaFuncSetAttribute(
-             gdn_fwd_kernel<kInverse>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)layout(kMaxC, kTileHeights[0]).smem)) != cudaSuccess)
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit)) !=
+        cudaSuccess)
       return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       device)) != cudaSuccess)
       return err;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, gdn_fwd_kernel<kInverse>, kThreads, l.smem)) !=
-        cudaSuccess)
+             &per_sm, kernel, kThreads, l.smem)) != cudaSuccess)
       return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cached = sms * per_sm;
@@ -277,9 +295,9 @@ cudaError_t grid_cap(int C, int t, const Layout& l, int* cap) {
   return cudaSuccess;
 }
 
-template <bool kInverse>
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
-                   float* out, int rows, int C, cudaStream_t stream) {
+                   float* out, int rows, int C, bool inverse,
+                   cudaStream_t stream) {
   // the tile height whose busiest block walks the fewest rows; the taller
   // tile wins a tie, since it loads each x fragment for more output columns
   Layout best{};
@@ -289,7 +307,7 @@ cudaError_t launch(const float* x, const float* gamma, const float* beta,
     const Layout l = layout(C, kTileHeights[t]);
     if (l.per_warp > kMaxTilesPerWarp) continue;
     int cap = 0;
-    const cudaError_t err = grid_cap<kInverse>(C, t, l, &cap);
+    const cudaError_t err = grid_cap(inverse, C, t, l, &cap);
     if (err != cudaSuccess) return err;
     const long long ntiles = ((long long)rows + l.tile - 1) / l.tile;
     const long long busiest = (ntiles + cap - 1) / cap * l.tile;
@@ -303,7 +321,7 @@ cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(gamma) |
                      reinterpret_cast<uintptr_t>(out)) % 16) == 0;
-  gdn_fwd_kernel<kInverse><<<best_grid, kThreads, best.smem, stream>>>(
+  kernel_for(inverse, best.per_warp)<<<best_grid, kThreads, best.smem, stream>>>(
       x, gamma, beta, out, rows, C, best, vec);
   return cudaGetLastError();
 }
@@ -315,9 +333,6 @@ extern "C" int icat_gdn_fwd(const float* x, const float* gamma,
                             int inverse, void* stream) {
   if (C < 1 || C > kMaxC || rows < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      inverse ? launch<true>(x, gamma, beta, out, rows, C, s)
-              : launch<false>(x, gamma, beta, out, rows, C, s);
-  return (int)err;
+  return (int)launch(x, gamma, beta, out, rows, C, inverse != 0,
+                    static_cast<cudaStream_t>(stream));
 }
