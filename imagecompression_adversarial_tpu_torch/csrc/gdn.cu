@@ -24,30 +24,35 @@
 // 1e-6 relative of an fp32 product; the sums accumulate in fp32.
 //
 // Design: 8 warps a block.  Each block copies gamma once into shared memory
-// (row-major (o, i), row stride Cp + 4 floats, zero-padded to Cp, a multiple
-// of 16; it serves as the col-major B = gamma^T of the product), then walks
-// tiles of 16, 32 or 64 rows in a grid-stride loop.  Per tile it copies x
-// into shared memory.  Both copies are cp.async, every thread's copies in
-// flight at once and one wait: a load-then-store loop would wait out one
-// memory latency per element a thread copies.  Each warp owns 16 rows and a
-// run of kJ (2, 4, 6 or 8, a template parameter) 8-column output tiles, and
-// per k step of 8 it loads its x fragment, squares and splits it, then loads
-// and splits gamma's fragment for each output tile and issues three
-// mma.sync.m16n8k8 TF32 products.  kJ is fixed at compile time, and gamma's
-// shared copy is zero-padded to the rows the warps cover, so the loop over
-// the output tiles is unrolled without branches and the tiles' load, split
-// and product chains interleave; with a run-time count each tile waited out
-// its own latencies.  The
-// fragments are loaded by hand in the PTX ISA's m16n8k8 layout: WMMA's TF32
-// loads compile to generic loads with 64-bit address arithmetic per element,
-// which cost more than the products.  The padded row stride makes every
-// fragment load free of bank conflicts.  The epilogue works on the
-// accumulator registers in place: add beta, apply rsqrt/sqrt, multiply by x
-// from the shared tile, and write out, four lanes a 32-byte run of a row.  x
-// is read from device memory once and out written once; x^2 and norm stay on
-// chip.  The tile height is chosen per call so that small calls still spread
-// over the SMs.  C may be any value up to kMaxC; rows whose byte offset or
-// base pointer is not 16-byte aligned take 4-byte copies and stores.
+// (row-major (o, i), row stride Cp + 4 floats, zero-padded; it serves as the
+// col-major B = gamma^T of the product), then walks tiles of 16, 32 or 64
+// rows of x in a grid-stride loop; the tile height is chosen per call so that
+// small calls still spread over the SMs.
+// - Copies are cp.async, every thread's copies in flight at once: a
+//   load-then-store loop waits out one memory latency per element.  Where
+//   two x tiles fit in shared memory without fewer blocks an SM, the next
+//   tile's copy runs under this tile's products (double buffer).
+// - Each warp owns 16 rows and kJ (a template parameter: 2, 4, 6 or 8)
+//   8-column output tiles.  Per k step of 8 it loads its x fragment, squares
+//   and splits it, then loads and splits gamma's fragment for each output
+//   tile and issues three mma.sync.m16n8k8 TF32 products.  With kJ fixed and
+//   gamma padded to the rows the warps cover, that loop unrolls without
+//   branches and the tiles' load, split and product chains interleave; with
+//   a run-time count each tile waited out its own latencies.
+// - Fragments are loaded by hand from shared memory in the PTX ISA's
+//   m16n8k8 layout: WMMA's TF32 loads compile to generic loads with 64-bit
+//   address arithmetic per element.  The padded row stride keeps every
+//   fragment load free of bank conflicts.
+// - The epilogue works on the accumulator registers: add beta, apply
+//   rsqrt/sqrt, multiply by x from the shared tile, write out (four lanes
+//   write a 32-byte run of a row).  x is read from device memory once and
+//   out written once; x^2 and norm stay on chip.
+// In practice it runs at about 4x the byte bound on the largest call, and
+// the double buffer moved that by at most 3%: the copies are not what limits
+// it; the three TF32 products through mma.sync are the likely pace-setter
+// (PERF.md).
+// C may be any value up to kMaxC; rows whose byte offset or base pointer is
+// not 16-byte aligned take 4-byte copies and stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,10 +76,11 @@ struct Layout {
   int groups;     // 16-row groups per tile
   int per_warp;   // 16-column output tiles per warp
   int Gp;         // output channels the warps cover, >= Cp: gamma's rows
+  int stages;     // x tiles in shared memory: 2 copies the next during this
   size_t smem;    // bytes of dynamic shared memory
 };
 
-Layout layout(int C, int tile) {
+Layout layout(int C, int tile, int stages) {
   Layout l;
   l.Cp = (C + 15) / 16 * 16;
   l.ld = l.Cp + 4;
@@ -83,8 +89,10 @@ Layout layout(int C, int tile) {
   const int col_groups = kWarps / l.groups;
   l.per_warp = (l.Cp / 16 + col_groups - 1) / col_groups;
   l.Gp = 16 * col_groups * l.per_warp;
-  // gamma [Gp][ld], x [tile][ld], beta [Gp], each 16-byte aligned
-  l.smem = sizeof(float) * ((size_t)l.Gp * l.ld + (size_t)tile * l.ld + l.Gp);
+  l.stages = stages;
+  // gamma [Gp][ld], x [stages][tile][ld], beta [Gp], each 16-byte aligned
+  l.smem = sizeof(float) *
+           ((size_t)l.Gp * l.ld + (size_t)stages * tile * l.ld + l.Gp);
   return l;
 }
 
@@ -134,8 +142,14 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src, int n,
   }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most kPending of this thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // cvt.rna.tf32.f32 for finite v: the magnitude rounded to 10 mantissa bits,
@@ -168,31 +182,48 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                int rows, int C, Layout l, bool vec) {
   extern __shared__ __align__(16) float smem[];
   float* gs = smem;                    // [Gp][ld]: gamma, zero-padded
-  float* xs = gs + l.Gp * l.ld;        // [tile][ld]: x of the current tile
-  float* bs = xs + l.tile * l.ld;      // [Gp]: beta
+  float* xs = gs + l.Gp * l.ld;        // [stages][tile][ld]: x tiles
+  float* bs = xs + l.stages * l.tile * l.ld;  // [Gp]: beta
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
-  copy_rows(gs, gamma, C, l.Gp, C, l, vec);  // waited for with the first tile
   for (int i = threadIdx.x; i < l.Gp; i += kThreads)
     bs[i] = i < C ? beta[i] : 1.0f;
 
   const int group = warp % l.groups;
   const int first = kJ * (warp / l.groups);  // first 8-column tile
-  // this lane's row g of the warp's 16 rows (row g + 8 is 8 * ld further),
-  // and its row of gamma for output channel 8 * first + g
-  const float* xr = xs + (16 * group + g) * l.ld;
+  // this lane's row of gamma for output channel 8 * first + g
   const float* gr = gs + (8 * first + g) * l.ld;
   const int ntiles = (rows + l.tile - 1) / l.tile;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  // x tile `tile` into buffer `buf`, rows past the end zero-filled
+  auto copy_tile = [&](int tile, int buf) {
     const int row0 = tile * l.tile;
-    __syncthreads();  // the last tile's reads of xs are done
-    copy_rows(xs, x + (size_t)row0 * C, min(l.tile, rows - row0), l.tile, C, l,
-              vec);
-    cp_async_wait_all();
+    copy_rows(xs + buf * l.tile * l.ld, x + (size_t)row0 * C,
+              min(l.tile, rows - row0), l.tile, C, l, vec);
+  };
+
+  // group 0: gamma and the first tile (every block has one)
+  copy_rows(gs, gamma, C, l.Gp, C, l, vec);
+  copy_tile(blockIdx.x, 0);
+  cp_async_commit();
+  for (int tile = blockIdx.x, it = 0; tile < ntiles;
+       tile += gridDim.x, ++it) {
+    const int buf = l.stages == 2 ? it & 1 : 0;
+    const int next = tile + gridDim.x;
+    if (l.stages == 2) {
+      // the other buffer was last read before the barrier that ended the
+      // previous tile; an empty group keeps the count uniform at the end
+      if (next < ntiles) copy_tile(next, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const int row0 = tile * l.tile;
+    // this lane's row g of the warp's 16 rows; row g + 8 is 8 * ld further
+    const float* xr = xs + (buf * l.tile + 16 * group + g) * l.ld;
 
     float acc[kJ][4];
 #pragma unroll
@@ -240,6 +271,11 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
         }
       }
     }
+    __syncthreads();  // every warp is done with this buffer
+    if (l.stages == 1 && next < ntiles) {
+      copy_tile(next, 0);
+      cp_async_commit();
+    }
   }
 }
 
@@ -258,20 +294,27 @@ Kernel kernel_for(bool inverse, int per_warp) {
 
 constexpr int kMaxDevices = 16;
 
-// Resident blocks the whole card holds for (device, inverse, C, tile height),
-// filled on first use: the attribute and occupancy queries cost host time on
-// every launch otherwise.  Concurrent first uses write the same value.
-int g_grid_cap[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
+struct Plan {
+  int cap;     // resident blocks on the whole card
+  int stages;  // x tiles in shared memory
+};
 
-cudaError_t grid_cap(bool inverse, int C, int t, const Layout& l, int* cap) {
+// The plan for (device, inverse, C, tile height), filled on first use: the
+// attribute and occupancy queries cost host time on every launch otherwise.
+// Concurrent first uses write the same value.
+Plan g_plans[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
+
+// Two x tiles where that keeps as many blocks an SM as one does.
+cudaError_t plan(bool inverse, int C, int t, Plan* out) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& cached = g_grid_cap[device][inverse][C][t];
-  if (cached == 0) {
+  Plan& cached = g_plans[device][inverse][C][t];
+  if (cached.cap == 0) {
+    const Layout l = layout(C, kTileHeights[t], 1);
     const Kernel kernel = kernel_for(inverse, l.per_warp);
-    int sms = 0, per_sm = 0, limit = 0;
+    int sms = 0, per_sm = 0, per_sm2 = 0, limit = 0;
     // the limit is per function, so it is set to the most a block may have:
     // a smaller value set for one C would refuse a later launch at another
     if ((err = cudaDeviceGetAttribute(
@@ -289,32 +332,40 @@ cudaError_t grid_cap(bool inverse, int C, int t, const Layout& l, int* cap) {
              &per_sm, kernel, kThreads, l.smem)) != cudaSuccess)
       return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    cached = sms * per_sm;
+    const size_t smem2 = layout(C, kTileHeights[t], 2).smem;
+    if (smem2 <= (size_t)limit &&
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm2, kernel, kThreads, smem2)) != cudaSuccess)
+      return err;
+    cached.stages = per_sm2 == per_sm ? 2 : 1;
+    cached.cap = sms * per_sm;
   }
-  *cap = cached;
+  *out = cached;
   return cudaSuccess;
 }
 
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* out, int rows, int C, bool inverse,
                    cudaStream_t stream) {
-  // the tile height whose busiest block walks the fewest rows; the taller
-  // tile wins a tie, since it loads each x fragment for more output columns
+  // the tile height whose busiest block walks the fewest rows; on a tie a
+  // double-buffered layout wins, then the taller tile, which loads each x
+  // fragment for more output columns
   Layout best{};
   int best_grid = 0;
   long long best_rows = 0;
   for (int t = 0; t < kNumTileHeights; ++t) {
-    const Layout l = layout(C, kTileHeights[t]);
-    if (l.per_warp > kMaxTilesPerWarp) continue;
-    int cap = 0;
-    const cudaError_t err = grid_cap(inverse, C, t, l, &cap);
+    if (layout(C, kTileHeights[t], 1).per_warp > kMaxTilesPerWarp) continue;
+    Plan p;
+    const cudaError_t err = plan(inverse, C, t, &p);
     if (err != cudaSuccess) return err;
+    const Layout l = layout(C, kTileHeights[t], p.stages);
     const long long ntiles = ((long long)rows + l.tile - 1) / l.tile;
-    const long long busiest = (ntiles + cap - 1) / cap * l.tile;
-    if (best_grid == 0 || busiest < best_rows) {
+    const long long busiest = (ntiles + p.cap - 1) / p.cap * l.tile;
+    if (best_grid == 0 || busiest < best_rows ||
+        (busiest == best_rows && l.stages > best.stages)) {
       best = l;
       best_rows = busiest;
-      best_grid = (int)(ntiles < cap ? ntiles : cap);
+      best_grid = (int)(ntiles < p.cap ? ntiles : p.cap);
     }
   }
   const bool vec = C % 4 == 0 &&

@@ -167,7 +167,7 @@ def test_cli_run_prints_report_lines(tmp_path, capsys):
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
-# the machine with the card has none of these (PIL included)
+# the port needs none of these; PNGs go through its own codec (io/image.py)
 _FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "PIL", "imagecompression_adversarial_tpu")
 
 

@@ -1,11 +1,10 @@
 """The port's PNG reader and writer (``io/image.py``), with PIL blocked.
 
-The machine with the card has no PIL, so the port reads and writes PNGs with
-numpy and ``zlib``.  Every call into the port here runs with
-``sys.modules["PIL"] = None``, so an import of PIL inside it fails.  PIL,
-where this host has it, only makes reference files and decodes the port's
-output.  Pixels must match exactly.  Runs on the card too, without PIL,
-where the PIL comparisons skip:
+The port reads and writes PNGs with numpy and ``zlib`` and needs no PIL.
+Every call into the port here runs with ``sys.modules["PIL"] = None``, so an
+import of PIL inside it fails.  PIL, where the host has it, only makes
+reference files and decodes the port's output; where it is missing those
+cases skip.  Pixels must match exactly.  Runs on the card too:
 ``python -m pytest tests/test_torch_image.py -q --noconftest``.
 """
 
