@@ -6,13 +6,15 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 
 1. requires CUDA and prints the card's name and power limit;
 2. builds the GDN kernel with nvcc (``kernels/_build.py``) and prints what
-   ``ptxas -v`` reports of it: registers, shared memory, spills;
+   ``ptxas -v`` reports of it: registers, shared memory, spills (any spill
+   fails the phase);
 3. holds the kernel against its plain PyTorch version for GDN and IGDN at
    the shapes of the hyper q=1 attack at 768x512 (and C=192), forward (the
    kernel) and dx (the shared plain backward, a check of the autograd
    wiring), and times the kernel, the plain version and ``torch.addmm`` beside
-   the card's bound; the 6,144- and 24,576-row calls are also timed over 500
-   launches and with L2 flushed before each launch;
+   the card's bound, and prints the launch the kernel picks (rows per tile,
+   blocks an SM, grid); the 6,144- and 24,576-row calls are also timed over
+   500 launches and with L2 flushed before each launch;
 4. runs the attack CLI's ``run`` path (hyper q=1, the committed demo
    weights, a 768x512 image made with numpy, 1001 steps,
    ``-two_phase select``) and counts the kernel's launches in it;
@@ -34,6 +36,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -139,6 +142,8 @@ def phase_kernel_vs_plain(gdn):
         beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
         g = torch.randn(rows, c, device="cuda", generator=gen)
         for inverse in (False, True):
+            torch.cuda.synchronize()
+            layout = gdn.kernel_layout(rows, c, inverse)
             outs = []
             for use_kernel in (True, False):
                 xg = x.clone().requires_grad_(True)
@@ -174,6 +179,7 @@ def phase_kernel_vs_plain(gdn):
                 "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "fp32_bound_ms": max(byte_ms, 1e3 * flops / FP32_FLOP_PER_S),
+                "layout": layout,
             }
             more = ""
             if rows in L2_RESIDENT_ROWS:
@@ -192,7 +198,9 @@ def phase_kernel_vs_plain(gdn):
                 f"phase 3 {'IGDN' if inverse else 'GDN '} C={c} rows={rows}: max_abs_err "
                 f"{errs['forward']:.3e} (dx {errs['dx']:.3e})  kernel {ms:.4f} ms{more}  plain "
                 f"{plain_ms:.4f} ms  addmm {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']}; fp32-pipe bound {rec['fp32_bound_ms']:.4f} ms)"
+                f"({rec['bound_by']}; fp32-pipe bound {rec['fp32_bound_ms']:.4f} ms)  "
+                f"launch: {layout['tile']}-row tiles, {layout['blocks_per_sm']} blocks/SM, "
+                f"grid {layout['grid']}, {layout['smem_bytes']} B shared"
             )
     return records
 
@@ -323,6 +331,10 @@ def main() -> int:
         log(f"phase 2 ptxas: {line}")
     if not any("registers" in ln for ln in ptxas):
         raise RuntimeError("phase 2: the build log has no ptxas register report")
+    spills = [ln for ln in ptxas
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if spills:
+        raise RuntimeError(f"phase 2: ptxas reports register spills: {spills}")
 
     records = phase_kernel_vs_plain(gdn)
     launches = phase_main_path(gdn)

@@ -29,9 +29,13 @@
 // rows of x in a grid-stride loop; the tile height is chosen per call so that
 // small calls still spread over the SMs.
 // - Copies are cp.async, every thread's copies in flight at once: a
-//   load-then-store loop waits out one memory latency per element.  Where
-//   two x tiles fit in shared memory without fewer blocks an SM, the next
-//   tile's copy runs under this tile's products (double buffer).
+//   load-then-store loop waits out one memory latency per element.  The x
+//   tile is single-buffered: the next tile's copy starts after this tile's
+//   epilogue, and the other resident blocks of the SM compute meanwhile.
+//   The hyper attack's calls all take 16-row tiles: three blocks an SM at
+//   C=128 (a second tile buffer would cost one), one at C=192.  There a
+//   double buffer saved about 4% of the device time of a call that the
+//   host's launch cost already exceeds (PERF.md), so it was left out.
 // - Each warp owns 16 rows and kJ (a template parameter: 2, 4, 6 or 8)
 //   8-column output tiles.  Per k step of 8 it loads its x fragment, squares
 //   and splits it, then loads and splits gamma's fragment for each output
@@ -47,10 +51,10 @@
 //   rsqrt/sqrt, multiply by x from the shared tile, write out (four lanes
 //   write a 32-byte run of a row).  x is read from device memory once and
 //   out written once; x^2 and norm stay on chip.
-// In practice it runs at about 4x the byte bound on the largest call, and
-// the double buffer moved that by at most 3%: the copies are not what limits
-// it; the three TF32 products through mma.sync are the likely pace-setter
-// (PERF.md).
+// In practice it runs at about 4x the byte bound on the largest call; the
+// three TF32 products through mma.sync are the likely pace-setter (PERF.md).
+// icat_gdn_layout reports the tile height, blocks an SM and grid a call
+// picks.
 // C may be any value up to kMaxC; rows whose byte offset or base pointer is
 // not 16-byte aligned take 4-byte copies and stores.
 
@@ -76,11 +80,10 @@ struct Layout {
   int groups;     // 16-row groups per tile
   int per_warp;   // 16-column output tiles per warp
   int Gp;         // output channels the warps cover, >= Cp: gamma's rows
-  int stages;     // x tiles in shared memory: 2 copies the next during this
   size_t smem;    // bytes of dynamic shared memory
 };
 
-Layout layout(int C, int tile, int stages) {
+Layout layout(int C, int tile) {
   Layout l;
   l.Cp = (C + 15) / 16 * 16;
   l.ld = l.Cp + 4;
@@ -89,10 +92,8 @@ Layout layout(int C, int tile, int stages) {
   const int col_groups = kWarps / l.groups;
   l.per_warp = (l.Cp / 16 + col_groups - 1) / col_groups;
   l.Gp = 16 * col_groups * l.per_warp;
-  l.stages = stages;
-  // gamma [Gp][ld], x [stages][tile][ld], beta [Gp], each 16-byte aligned
-  l.smem = sizeof(float) *
-           ((size_t)l.Gp * l.ld + (size_t)stages * tile * l.ld + l.Gp);
+  // gamma [Gp][ld], x [tile][ld], beta [Gp], each 16-byte aligned
+  l.smem = sizeof(float) * ((size_t)l.Gp * l.ld + (size_t)tile * l.ld + l.Gp);
   return l;
 }
 
@@ -146,10 +147,9 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// waits until at most kPending of this thread's copy groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+// waits until all of this thread's copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // cvt.rna.tf32.f32 for finite v: the magnitude rounded to 10 mantissa bits,
@@ -182,8 +182,8 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                int rows, int C, Layout l, bool vec) {
   extern __shared__ __align__(16) float smem[];
   float* gs = smem;                    // [Gp][ld]: gamma, zero-padded
-  float* xs = gs + l.Gp * l.ld;        // [stages][tile][ld]: x tiles
-  float* bs = xs + l.stages * l.tile * l.ld;  // [Gp]: beta
+  float* xs = gs + l.Gp * l.ld;        // [tile][ld]: x tile
+  float* bs = xs + l.tile * l.ld;      // [Gp]: beta
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -196,34 +196,23 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   // this lane's row of gamma for output channel 8 * first + g
   const float* gr = gs + (8 * first + g) * l.ld;
   const int ntiles = (rows + l.tile - 1) / l.tile;
-  // x tile `tile` into buffer `buf`, rows past the end zero-filled
-  auto copy_tile = [&](int tile, int buf) {
+  // x tile `tile` into shared memory, rows past the end zero-filled
+  auto copy_tile = [&](int tile) {
     const int row0 = tile * l.tile;
-    copy_rows(xs + buf * l.tile * l.ld, x + (size_t)row0 * C,
-              min(l.tile, rows - row0), l.tile, C, l, vec);
+    copy_rows(xs, x + (size_t)row0 * C, min(l.tile, rows - row0), l.tile, C,
+              l, vec);
   };
 
-  // group 0: gamma and the first tile (every block has one)
+  // gamma and the first tile (every block has one)
   copy_rows(gs, gamma, C, l.Gp, C, l, vec);
-  copy_tile(blockIdx.x, 0);
+  copy_tile(blockIdx.x);
   cp_async_commit();
-  for (int tile = blockIdx.x, it = 0; tile < ntiles;
-       tile += gridDim.x, ++it) {
-    const int buf = l.stages == 2 ? it & 1 : 0;
-    const int next = tile + gridDim.x;
-    if (l.stages == 2) {
-      // the other buffer was last read before the barrier that ended the
-      // previous tile; an empty group keeps the count uniform at the end
-      if (next < ntiles) copy_tile(next, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    cp_async_wait_all();
     __syncthreads();
     const int row0 = tile * l.tile;
     // this lane's row g of the warp's 16 rows; row g + 8 is 8 * ld further
-    const float* xr = xs + (buf * l.tile + 16 * group + g) * l.ld;
+    const float* xr = xs + (16 * group + g) * l.ld;
 
     float acc[kJ][4];
 #pragma unroll
@@ -271,9 +260,9 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
         }
       }
     }
-    __syncthreads();  // every warp is done with this buffer
-    if (l.stages == 1 && next < ntiles) {
-      copy_tile(next, 0);
+    __syncthreads();  // every warp is done with the tile
+    if (tile + gridDim.x < ntiles) {
+      copy_tile(tile + gridDim.x);
       cp_async_commit();
     }
   }
@@ -294,27 +283,26 @@ Kernel kernel_for(bool inverse, int per_warp) {
 
 constexpr int kMaxDevices = 16;
 
-struct Plan {
-  int cap;     // resident blocks on the whole card
-  int stages;  // x tiles in shared memory
+struct Occupancy {
+  int sms;     // SMs on the card
+  int per_sm;  // resident blocks an SM
 };
 
-// The plan for (device, inverse, C, tile height), filled on first use: the
-// attribute and occupancy queries cost host time on every launch otherwise.
-// Concurrent first uses write the same value.
-Plan g_plans[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
+// The occupancy for (device, inverse, C, tile height), filled on first use:
+// the attribute and occupancy queries cost host time on every launch
+// otherwise.  Concurrent first uses write the same value.
+Occupancy g_occupancy[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
 
-// Two x tiles where that keeps as many blocks an SM as one does.
-cudaError_t plan(bool inverse, int C, int t, Plan* out) {
+cudaError_t occupancy(bool inverse, int C, int t, Occupancy* out) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  Plan& cached = g_plans[device][inverse][C][t];
-  if (cached.cap == 0) {
-    const Layout l = layout(C, kTileHeights[t], 1);
+  Occupancy& cached = g_occupancy[device][inverse][C][t];
+  if (cached.per_sm == 0) {
+    const Layout l = layout(C, kTileHeights[t]);
     const Kernel kernel = kernel_for(inverse, l.per_warp);
-    int sms = 0, per_sm = 0, per_sm2 = 0, limit = 0;
+    int limit = 0, sms = 0, per_sm = 0;
     // the limit is per function, so it is set to the most a block may have:
     // a smaller value set for one C would refuse a later launch at another
     if ((err = cudaDeviceGetAttribute(
@@ -332,48 +320,51 @@ cudaError_t plan(bool inverse, int C, int t, Plan* out) {
              &per_sm, kernel, kThreads, l.smem)) != cudaSuccess)
       return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const size_t smem2 = layout(C, kTileHeights[t], 2).smem;
-    if (smem2 <= (size_t)limit &&
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm2, kernel, kThreads, smem2)) != cudaSuccess)
-      return err;
-    cached.stages = per_sm2 == per_sm ? 2 : 1;
-    cached.cap = sms * per_sm;
+    cached = Occupancy{sms, per_sm};
   }
   *out = cached;
+  return cudaSuccess;
+}
+
+struct Choice {
+  Layout l;
+  int per_sm;  // resident blocks an SM
+  int grid;    // blocks launched: the tiles, at most the resident blocks
+};
+
+// The tile height whose busiest block walks the fewest rows; on a tie the
+// taller tile, which loads each x fragment for more output columns.
+cudaError_t choose(int rows, int C, bool inverse, Choice* best) {
+  long long best_rows = -1;
+  for (int t = 0; t < kNumTileHeights; ++t) {
+    const Layout l = layout(C, kTileHeights[t]);
+    if (l.per_warp > kMaxTilesPerWarp) continue;
+    Occupancy o;
+    const cudaError_t err = occupancy(inverse, C, t, &o);
+    if (err != cudaSuccess) return err;
+    const long long cap = (long long)o.sms * o.per_sm;
+    const long long ntiles = ((long long)rows + l.tile - 1) / l.tile;
+    const long long busiest = (ntiles + cap - 1) / cap * l.tile;
+    if (best_rows < 0 || busiest < best_rows) {
+      best_rows = busiest;
+      *best = Choice{l, o.per_sm, (int)(ntiles < cap ? ntiles : cap)};
+    }
+  }
   return cudaSuccess;
 }
 
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* out, int rows, int C, bool inverse,
                    cudaStream_t stream) {
-  // the tile height whose busiest block walks the fewest rows; on a tie a
-  // double-buffered layout wins, then the taller tile, which loads each x
-  // fragment for more output columns
-  Layout best{};
-  int best_grid = 0;
-  long long best_rows = 0;
-  for (int t = 0; t < kNumTileHeights; ++t) {
-    if (layout(C, kTileHeights[t], 1).per_warp > kMaxTilesPerWarp) continue;
-    Plan p;
-    const cudaError_t err = plan(inverse, C, t, &p);
-    if (err != cudaSuccess) return err;
-    const Layout l = layout(C, kTileHeights[t], p.stages);
-    const long long ntiles = ((long long)rows + l.tile - 1) / l.tile;
-    const long long busiest = (ntiles + p.cap - 1) / p.cap * l.tile;
-    if (best_grid == 0 || busiest < best_rows ||
-        (busiest == best_rows && l.stages > best.stages)) {
-      best = l;
-      best_rows = busiest;
-      best_grid = (int)(ntiles < p.cap ? ntiles : p.cap);
-    }
-  }
+  Choice c;
+  const cudaError_t err = choose(rows, C, inverse, &c);
+  if (err != cudaSuccess) return err;
   const bool vec = C % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(gamma) |
                      reinterpret_cast<uintptr_t>(out)) % 16) == 0;
-  kernel_for(inverse, best.per_warp)<<<best_grid, kThreads, best.smem, stream>>>(
-      x, gamma, beta, out, rows, C, best, vec);
+  kernel_for(inverse, c.l.per_warp)<<<c.grid, kThreads, c.l.smem, stream>>>(
+      x, gamma, beta, out, rows, C, c.l, vec);
   return cudaGetLastError();
 }
 
@@ -386,4 +377,19 @@ extern "C" int icat_gdn_fwd(const float* x, const float* gamma,
   if (rows == 0) return (int)cudaSuccess;
   return (int)launch(x, gamma, beta, out, rows, C, inverse != 0,
                     static_cast<cudaStream_t>(stream));
+}
+
+// The launch icat_gdn_fwd makes for (rows, C, inverse) on the current
+// device: out[0] rows per tile, out[1] resident blocks an SM, out[2] blocks
+// launched (0 for no rows), out[3] bytes of dynamic shared memory a block.
+extern "C" int icat_gdn_layout(int rows, int C, int inverse, int* out) {
+  if (C < 1 || C > kMaxC || rows < 0) return (int)cudaErrorInvalidValue;
+  Choice c;
+  const cudaError_t err = choose(rows, C, inverse != 0, &c);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = c.l.tile;
+  out[1] = c.per_sm;
+  out[2] = c.grid;
+  out[3] = (int)c.l.smem;
+  return (int)cudaSuccess;
 }

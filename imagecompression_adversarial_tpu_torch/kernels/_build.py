@@ -99,4 +99,6 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.icat_gdn_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.icat_gdn_fwd.restype = i32
+    lib.icat_gdn_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    lib.icat_gdn_layout.restype = i32
     return lib

@@ -96,6 +96,21 @@ def gdn_forward(
     return out
 
 
+def kernel_layout(rows: int, c: int, inverse: bool) -> dict:
+    """The launch the kernel makes for ``(rows, C)`` on the current CUDA
+    device: rows per tile, resident blocks an SM, blocks launched and bytes
+    of shared memory a block."""
+    import ctypes
+
+    from ._build import load_library
+
+    out = (ctypes.c_int * 4)()
+    rc = load_library().icat_gdn_layout(rows, c, int(inverse), out)
+    if rc != 0:
+        raise RuntimeError(f"icat_gdn_layout failed with CUDA error {rc}")
+    return dict(zip(("tile", "blocks_per_sm", "grid", "smem_bytes"), out))
+
+
 class GDNFunction(torch.autograd.Function):
     """Autograd around the fused forward, with the closed-form backward.
 

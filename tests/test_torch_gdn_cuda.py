@@ -80,3 +80,15 @@ def test_kernel_takes_unaligned_rows(cuda, c, inverse):
     torch.cuda.synchronize()
     ref = gdn.gdn_forward_reference(x, gamma, beta, inverse)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, rows", [(128, 98304), (128, 6144), (192, 6144), (3, 100), (128, 0)])
+def test_kernel_layout_covers_the_rows(cuda, c, rows):
+    lay = gdn.kernel_layout(rows, c, False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-rows // lay["tile"])
+    assert lay["tile"] in (16, 32, 64) and lay["blocks_per_sm"] >= 1
+    assert lay["grid"] == min(tiles, sms * lay["blocks_per_sm"])
+    assert 0 < lay["smem_bytes"] * lay["blocks_per_sm"] <= (
+        torch.cuda.get_device_properties(0).shared_memory_per_multiprocessor)
