@@ -14,10 +14,11 @@ import torch
 class RDAttackConfig:
     """Knobs of the canonical RD distortion attack.
 
-    The port runs the non-split, non-defended attack on codecs other than
-    the reference's debug fixture.  ``remat`` is
-    accepted and ignored: eager autograd keeps the forward's activations,
-    and at 768x512 they fit on an 80 GB card.  ``phase_space_loss=None``
+    The port runs the non-split, non-defended attack.  ``debug_model``
+    (the reference's debug fixture) draws the initial noise from
+    uniform(+-sqrt(noise_threshold)) and leaves the input unclipped.
+    ``remat`` is accepted and ignored: eager autograd keeps the forward's
+    activations, and at 768x512 they fit on an 80 GB card.  ``phase_space_loss=None``
     (auto) turns the phase-space loss on for the plain L2 attack on a codec
     with an exact phase synthesis.  ``two_phase_impl='cond'`` decides the
     phase with a host ``if`` (one device sync a step); ``'select'`` always
@@ -32,6 +33,7 @@ class RDAttackConfig:
     clamp: bool = True
     random_restarts: int = 1
     lr_milgamma: float = 0.33
+    debug_model: bool = False
     pad: Optional[int] = None
     padding_mode: str = "reflect"
     remat: bool = True
@@ -85,11 +87,15 @@ def init_noise(
     generator: Optional[torch.Generator],
     device: torch.device,
 ) -> torch.Tensor:
-    """Zeros normally; uniform(-1e-2, 1e-2) from ``generator`` for random
-    restarts."""
-    if cfg.random_restarts > 1:
-        if generator is None:
-            raise ValueError("random noise init needs a torch.Generator")
-        u = torch.rand(shape, generator=generator, device=device)
-        return (2.0 * u - 1.0) * 1e-2
-    return torch.zeros(shape, device=device)
+    """Zeros normally; from ``generator``, uniform(-1e-2, 1e-2) for random
+    restarts and uniform(+-sqrt(noise_threshold)) for the debug fixture."""
+    if cfg.debug_model:
+        bound = float(np.sqrt(cfg.noise_threshold))
+    elif cfg.random_restarts > 1:
+        bound = 1e-2
+    else:
+        return torch.zeros(shape, device=device)
+    if generator is None:
+        raise ValueError("random noise init needs a torch.Generator")
+    u = torch.rand(shape, generator=generator, device=device)
+    return (2.0 * u - 1.0) * bound

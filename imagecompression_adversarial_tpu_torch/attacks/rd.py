@@ -3,9 +3,9 @@
 non-defended).
 
 Each step clips the noise to the L-inf ball through the gated bounds, then
-the input to [0, 1]; while the input MSE is over budget the loss is that
-MSE, otherwise it is ``1 - MSE(out, out_clean)`` through the
-quantization-free path.  Adam on the noise with the MultiStepLR schedule;
+the input to [0, 1] (not for the debug fixture); while the input MSE is
+over budget the loss is that MSE, otherwise it is
+``1 - MSE(out, out_clean)`` through the quantization-free path.  Adam on the noise with the MultiStepLR schedule;
 the final evaluation uses real rounding.  The loop runs eagerly: one
 forward and one backward a step.
 """
@@ -24,15 +24,22 @@ from .common import AdamOnNoise, RDAttackConfig, init_noise, multistep_lr_schedu
 from .evaluate import evaluate
 
 
+def _adversarial_input(x, noise_c, cfg: RDAttackConfig):
+    """``x + noise_c``, clipped to [0, 1] through the gated bounds unless
+    the codec is the debug fixture."""
+    return x + noise_c if cfg.debug_model else bound_clip(x + noise_c, 0.0, 1.0)
+
+
 def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool):
     """Two-phase RD attack loss; returns ``(loss, (loss_i, loss_o))``.
 
     With ``phase`` the output is the phase-space synthesis and ``output_s``
-    its clean counterpart: MSE is invariant under depth-to-space, so the
-    loss, its gradient and the trajectory are the full-resolution ones.
+    its clean counterpart: MSE is invariant under the permutation back to
+    full resolution, so the loss, its gradient and the trajectory are the
+    full-resolution ones.
     """
     eps = cfg.epsilon / 255.0
-    im_in = bound_clip(x + bound_clip(noise, -eps, eps), 0.0, 1.0)
+    im_in = _adversarial_input(x, bound_clip(noise, -eps, eps), cfg)
     loss_i = torch.mean((x - im_in) ** 2)
     zero = torch.zeros_like(loss_i)
 
@@ -58,15 +65,15 @@ def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool):
 
 def _resolve(model, cfg: RDAttackConfig) -> RDAttackConfig:
     """Check the loss settings and settle ``phase_space_loss=None`` (auto):
-    on iff the attack is the plain L2 one and the codec has an exact phase
-    synthesis."""
+    on iff the attack is the plain L2 one on a codec other than the debug
+    fixture and the codec has an exact phase synthesis."""
     if cfg.two_phase_impl not in ("cond", "select"):
         raise ValueError(f"two_phase_impl={cfg.two_phase_impl!r} not in ('cond', 'select')")
     if cfg.two_phase_impl == "select" and cfg.att_metric == "ms-ssim":
         raise ValueError("two_phase_impl='select' supports the L2 att_metric only")
     supported = bool(getattr(model, "supports_phase_synthesis", False))
     if cfg.phase_space_loss is None:
-        eligible = cfg.att_metric != "ms-ssim" and not cfg.pad
+        eligible = cfg.att_metric != "ms-ssim" and not cfg.pad and not cfg.debug_model
         return dataclasses.replace(cfg, phase_space_loss=eligible and supported)
     if cfg.phase_space_loss and not supported:
         raise ValueError(
@@ -118,8 +125,7 @@ def make_attack_fn(model, cfg: RDAttackConfig) -> Callable[..., Dict[str, Any]]:
                 model, x, loss_ref, noise, cfg, cfg.phase_space_loss
             )
             eps = cfg.epsilon / 255.0
-            noise_c = noise.clamp(-eps, eps)
-            im_in = (x + noise_c).clamp(0.0, 1.0)
+            im_in = _adversarial_input(x, noise.clamp(-eps, eps), cfg)
         ev = evaluate(model, im_in, x, output_s, clamp=cfg.clamp)
         ev.update(
             {

@@ -6,7 +6,9 @@
 
 Same flags, per-image line and ``AVG:`` line as
 ``imagecompression_adversarial_tpu/cli/attack_rd.py``; ``-device cpu`` runs
-on the CPU.  Images are attacked one at a time.
+on the CPU.  Images are attacked one at a time; image ``i`` gets a
+``torch.Generator`` seeded with ``i`` for the noise init that draws (the
+debug fixture's).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from ..attacks import RDAttackConfig, make_attack_fn
 from ..config import apply_precision, parse_config
 from ..io.image import list_images, read_image, to_numpy, to_tensor, write_image
+from ..models import quality_range
 from ..runtime import load_model
 
 Image = Tuple[str, np.ndarray, int, int]  # (name, (1, H, W, 3) array, h, w)
@@ -51,6 +54,7 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
         att_metric=cfg.att_metric,
         clamp=cfg.clamp,
         random_restarts=cfg.random,
+        debug_model=(cfg.model == "debug"),
         pad=cfg.pad,
         padding_mode=cfg.padding_mode,
         phase_space_loss={"auto": None, "on": True, "off": False}[cfg.phase_space],
@@ -74,7 +78,7 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.time()
-        res = attack(x)
+        res = attack(x, torch.Generator(device).manual_seed(n))
         res = {k: (v.item() if v.dim() == 0 else to_numpy(v)) for k, v in res.items()}
         dt = time.time() - t0
         dbpp = (res["bpp"] - res["bpp_ori"]) / res["bpp_ori"]
@@ -108,8 +112,9 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
 
 def main(argv=None):
     cfg = parse_config(argv)
-    if cfg.quality < 1:  # quality sweep over the hyper family
-        for q in range(1, 9):
+    if cfg.quality < 1:  # quality sweep over the family
+        lo, hi = quality_range(cfg.model)
+        for q in range(lo, hi + 1):
             cfg.quality = q
             run(cfg)
     else:

@@ -41,10 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: cuda (default) or cpu")
     p.add_argument("-precision", type=str, default=d.precision,
                    help="highest|float32 (no TF32) or default|tf32")
-    p.add_argument("-m", dest="model", type=str, default=d.model, help="hyper")
+    p.add_argument("-m", dest="model", type=str, default=d.model,
+                   help="factorized|hyper|context|cheng2020|cheng2020-attn|cheng2020-gmm|debug")
     p.add_argument("-metric", dest="metric", type=str, default=d.metric,
                    help="mse or ms-ssim (checkpoint flavour)")
-    p.add_argument("-q", dest="quality", type=int, default=d.quality)
+    p.add_argument("-q", dest="quality", type=int, default=d.quality,
+                   help="quality; 0 sweeps the family's qualities")
     p.add_argument("--new", dest="new", action="store_true", help="fresh params")
     p.add_argument("-padmode", dest="padding_mode", type=str, default=d.padding_mode)
     p.add_argument("-steps", dest="steps", type=int, default=d.steps)

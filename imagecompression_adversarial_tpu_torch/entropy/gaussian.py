@@ -5,7 +5,8 @@ The likelihood of a quantized symbol v under N(mean, scale^2) is the CDF
 difference over the unit bin, computed on the |v| fold with ``erfc`` so
 both CDF evaluations sit on the safe tail.  Scales are clamped to
 [0.11, 256] (the real coder's scale-table range) through the gated bounds,
-so rate gradients keep flowing at the clamp.
+so rate gradients keep flowing at the clamp.  The K-component mixture of
+cheng2020-gmm bounds its scales below only.
 """
 
 from __future__ import annotations
@@ -53,4 +54,36 @@ def gaussian_conditional(
     quantized values (``GaussianConditional.forward`` semantics)."""
     y_hat = quantize(y, quant_mode, means=means, generator=generator)
     lik = gaussian_likelihood(y_hat, scales, means=means)
+    return y_hat, lower_bound(lik, _LIKELIHOOD_BOUND)
+
+
+def gaussian_mixture_likelihood(
+    values: torch.Tensor,
+    scales: torch.Tensor,
+    means: torch.Tensor,
+    weight_logits: torch.Tensor,
+) -> torch.Tensor:
+    """Unit-bin likelihood of ``values`` (...) under a K-component Gaussian
+    mixture whose ``scales``/``means``/``weight_logits`` carry a trailing
+    component axis (..., K); the weights are the softmax of the logits."""
+    scales = lower_bound(scales, SCALE_BOUND)
+    centered = torch.abs(values.unsqueeze(-1) - means)
+    upper = _standardized_cumulative((0.5 - centered) / scales)
+    lower = _standardized_cumulative((-0.5 - centered) / scales)
+    weights = torch.softmax(weight_logits, dim=-1)
+    return torch.sum(weights * (upper - lower), dim=-1)
+
+
+def gaussian_mixture_conditional(
+    y: torch.Tensor,
+    scales: torch.Tensor,
+    means: torch.Tensor,
+    weight_logits: torch.Tensor,
+    quant_mode: str = "noise",
+    generator: Optional[torch.Generator] = None,
+):
+    """Quantize ``y`` means-free (as the autoregressive families do) and
+    return ``(y_hat, likelihoods)`` of the mixture on the quantized values."""
+    y_hat = quantize(y, quant_mode, means=None, generator=generator)
+    lik = gaussian_mixture_likelihood(y_hat, scales, means, weight_logits)
     return y_hat, lower_bound(lik, _LIKELIHOOD_BOUND)

@@ -8,24 +8,34 @@ port's ``state_dict``.
   to float32, as the JAX loader does.
 * ``params_from_jax`` inverts ``convert_state_dict`` of
   ``imagecompression_adversarial_tpu/io/convert.py``: flax names
-  (``g_a_0/kernel``) become CompressAI names (``g_a.0.weight``), HWIO
-  kernels become OIHW, and the transposed convs' HWIO(I, O) kernels IOHW.
+  (``g_a_0/conv1/kernel``) become CompressAI names (``g_a.0.conv1.weight``),
+  a subpel conv's ``conv`` becomes ``0`` (``h_s_2/conv`` -> ``h_s.2.0``),
+  HWIO kernels become OIHW, and the transposed convs' HWIO(I, O) kernels
+  IOHW.  The attention blocks of cheng2020-attn/-gmm have no CompressAI
+  layout in the reference's converter; ``g_a_attn_1`` becomes
+  ``g_a.attn_1``, and those two families load from flax trees only.
 """
 
 from __future__ import annotations
 
 import re
 import struct
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-# flax paths whose kernel belongs to a ConvTranspose2d, per family
-# (io/convert.py _DECONV_PATHS)
+# flax paths whose kernel belongs to a ConvTranspose2d, per family with a
+# CompressAI layout (io/convert.py _DECONV_PATHS)
 _DECONV_PATHS = {
+    "factorized": {"g_s_0", "g_s_2", "g_s_4", "g_s_6"},
     "hyper": {"g_s_0", "g_s_2", "g_s_4", "g_s_6", "h_s_0", "h_s_2"},
+    "context": {"g_s_0", "g_s_2", "g_s_4", "g_s_6", "h_s_0", "h_s_2"},
+    "cheng2020": set(),
+    "debug": {"g_s_0", "h_s_0", "h_s_2"},
 }
+# families that load from flax trees only, and the layout they share
+_FLAX_ONLY = {"cheng2020-attn": "cheng2020", "cheng2020-gmm": "cheng2020"}
 
 # derived range-coder buffers of a CompressAI checkpoint (io/convert.py)
 _SKIP_SUFFIXES = (
@@ -35,7 +45,7 @@ _SKIP_SUFFIXES = (
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
-_SEQ_RE = re.compile(r"^(g_a|g_s|h_a|h_s)_(\d+)$")
+_SEQ_RE = re.compile(r"^(g_a|g_s|h_a|h_s|entropy_parameters)_(\d+|attn_\d+)$")
 _EB_RE = re.compile(r"^(matrix|bias|factor)_(\d+)$")
 
 
@@ -124,29 +134,47 @@ def read_msgpack(path: str) -> Dict[str, Any]:
     return tree
 
 
+def _flax_leaves(node: Mapping[str, Any], names: Tuple[str, ...]):
+    """(torch name parts, leaf name, value) of every leaf under ``node``; a
+    node whose only child is ``conv`` is a subpel conv, whose conv is
+    ``.0`` in CompressAI's ``Sequential(conv, PixelShuffle)``."""
+    subpel = set(node) == {"conv"}
+    for key, value in node.items():
+        if isinstance(value, Mapping):
+            yield from _flax_leaves(value, names + ("0" if subpel else key,))
+        else:
+            yield names, key, value
+
+
 def params_from_jax(tree: Mapping[str, Any], arch: str = "hyper") -> Dict[str, torch.Tensor]:
-    """Map a flax parameter tree (numpy leaves) to the port's state_dict."""
-    deconv = _DECONV_PATHS[arch]
+    """Map a flax parameter tree (numpy leaves) to the port's state_dict;
+    raises on a leaf it cannot place or on two leaves with one name."""
+    deconv = _DECONV_PATHS[_FLAX_ONLY.get(arch, arch)]
     out: Dict[str, torch.Tensor] = {}
-    for module, leaves in tree.items():
-        for leaf, value in leaves.items():
-            arr = np.asarray(value, np.float32)
-            if module == "entropy_bottleneck":
+    for module, node in tree.items():
+        if module == "entropy_bottleneck":
+            for leaf, value in node.items():
                 m = _EB_RE.match(leaf)
                 name = f"_{m.group(1)}{m.group(2)}" if m else leaf
-                out[f"entropy_bottleneck.{name}"] = torch.from_numpy(arr.copy())
-                continue
-            m = _SEQ_RE.match(module)
-            if m is None:
-                raise ValueError(f"unexpected parameter path {module}/{leaf}")
-            prefix = f"{m.group(1)}.{m.group(2)}"
+                out[f"entropy_bottleneck.{name}"] = torch.from_numpy(np.array(value, np.float32))
+            continue
+        m = _SEQ_RE.match(module)
+        if m is None and module != "context_prediction":
+            raise ValueError(f"unexpected parameter path {module}")
+        prefix = module if m is None else f"{m.group(1)}.{m.group(2)}"
+        for names, leaf, value in _flax_leaves(node, (prefix,)):
+            arr = np.asarray(value, np.float32)
             if leaf == "kernel":
-                perm = (2, 3, 0, 1) if module in deconv else (3, 2, 0, 1)
-                out[f"{prefix}.weight"] = torch.from_numpy(arr.transpose(perm).copy())
+                perm = (2, 3, 0, 1) if names == (prefix,) and module in deconv else (3, 2, 0, 1)
+                name, arr = "weight", arr.transpose(perm)
             elif leaf in ("bias", "beta", "gamma"):
-                out[f"{prefix}.{leaf}"] = torch.from_numpy(arr.copy())
+                name = leaf
             else:
-                raise ValueError(f"unexpected parameter path {module}/{leaf}")
+                raise ValueError(f"unexpected parameter path {module}/.../{leaf}")
+            key = ".".join(names + (name,))
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key}")
+            out[key] = torch.from_numpy(arr.copy())
     return out
 
 
@@ -169,5 +197,7 @@ def state_dict_from_torch(ckpt: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def load_checkpoint(path: str, arch: str = "hyper") -> Dict[str, torch.Tensor]:
     """``.msgpack`` (flax) or ``.pth``/``.pth.tar`` (CompressAI) -> state_dict."""
     if path.endswith((".pth", ".tar")):
+        if arch not in _DECONV_PATHS:
+            raise ValueError(f"{arch!r} has no CompressAI layout; load it from a flax .msgpack")
         return state_dict_from_torch(torch.load(path, map_location="cpu", weights_only=True))
     return params_from_jax(read_msgpack(path), arch)

@@ -1,10 +1,25 @@
-from .codecs import CodecModel, ScaleHyperprior
+from .codecs import (
+    Cheng2020Anchor,
+    Cheng2020Attention,
+    Cheng2020AttnGMM,
+    CodecModel,
+    DebugCodec,
+    FactorizedPrior,
+    JointAutoregressive,
+    ScaleHyperprior,
+)
 from .layers import GDN, Conv, Deconv, depth_to_space, space_to_depth
-from .registry import ARCHITECTURES, init_model, model_dims
+from .registry import ARCHITECTURES, init_model, model_dims, quality_range
 
 __all__ = [
     "CodecModel",
+    "FactorizedPrior",
     "ScaleHyperprior",
+    "JointAutoregressive",
+    "Cheng2020Anchor",
+    "Cheng2020Attention",
+    "Cheng2020AttnGMM",
+    "DebugCodec",
     "GDN",
     "Conv",
     "Deconv",
@@ -13,4 +28,5 @@ __all__ = [
     "ARCHITECTURES",
     "init_model",
     "model_dims",
+    "quality_range",
 ]
