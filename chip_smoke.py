@@ -7,7 +7,7 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 1. requires CUDA and prints the card's name and power limit;
 2. builds the GDN kernel with nvcc (``kernels/_build.py``) and prints what
    ``ptxas -v`` reports of it: registers, shared memory, spills (any spill
-   fails the phase);
+   fails the phase); builds the host rANS coder with g++;
 3. holds the kernel against its plain PyTorch version for GDN and IGDN at
    the shapes of the hyper q=1 attack at 768x512 (and C=192), forward (the
    kernel) and dx (the shared plain backward, a check of the autograd
@@ -30,20 +30,31 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    cheng2020-attn and cheng2020 on the cheng2020-gmm demo's trained
    transforms, runs a 20-step attack at 256x256 as phase 5 does, at phase
    5's tolerances (cheng2020: ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL); prints
-   the launch the kernel picks for context's widest call (C=192).
+   the launch the kernel picks for context's widest call (C=192);
+9. runs the real coder (``entropy/codec.py``): hyper q=1 and cheng2020-gmm
+   q=3 on their demo weights at 768x512, factorized and context q=1
+   (seeded) at 256x256.  Each decodes to the encoder's latent exactly and
+   (but context, whose coder writes mean-shifted symbols) to the clipped
+   ``dequantize`` forward's x_hat; the trained runs hold real_bpp to
+   ideal_bpp, est_bpp and the JAX package's own numbers.  The hyper stream
+   decodes again with the plain GDN.  ``cli.codec --encode`` and
+   ``--decode`` in two more processes must write the PNG the in-process
+   round trip writes, byte for byte, for hyper and cheng2020-gmm.
 
 Phases 5 and 8 set cuDNN deterministic, so that the kernel and plain runs
-differ in the GDN alone.
+differ in the GDN alone; the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
-and the script exits nonzero.  It prints a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  It writes nothing but the
-kernel build (``imagecompression_adversarial_tpu_torch/_build/``) and phase
-6's temporary directory.
+and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
+and the temporary directories of phases 6 and 9.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -88,6 +99,31 @@ VI_ATOL = 1e-3
 # HBM3, 700 W; the gap is 2.0e-3 to 2.5e-3 at 5 to 15 steps too)
 ANCHOR_NOISE_ATOL = 5e-3
 ANCHOR_VI_ATOL = 5e-3
+
+# phase 9, the real coder.  Decoded x_hat vs the clipped dequantize
+# forward's (the bound of tests/test_rans.py:120-122 and
+# tests/test_golden.py:76-78), and the hyper decode with the plain GDN vs
+# the kernel's (float32 GDN sums in another order, through g_s)
+CODER_XHAT_ATOL = 1e-5
+CODER_PLAIN_XHAT_ATOL = 1e-4
+# trained runs: real bits vs the ideal bits of the coded symbols (the coder's
+# overhead) and vs the model's estimate (tests/test_golden.py:74)
+REAL_VS_IDEAL_RTOL = 0.02
+REAL_VS_EST_RTOL = 0.03
+# the JAX package's RealCodec on the same image and weights, on a CPU at
+# `highest` precision: `JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_realcodec.py` on the tree of commit 9066502 with that
+# script added (the JAX package is unchanged since a3f9fd3).  The port
+# must land within REAL_VS_JAX_RTOL of its real_bpp and PSNR_VS_JAX_DB of its
+# PSNR: the float32 transforms differ in the last bits, so a few symbols
+# round the other way
+JAX_REAL_CODEC = {
+    "hyper q1": {"real_bpp": 0.2833251953125, "psnr": 24.397785186767578},
+    "cheng2020-gmm q3": {"real_bpp": 0.6161092122395834, "psnr": 22.275646209716797},
+}
+REAL_VS_JAX_RTOL = 0.005
+PSNR_VS_JAX_DB = 0.01
+CODER_SUBPROCESS_TIMEOUT_S = 300
 
 # (C, rows) of the GDN/IGDN calls of the hyper attack at 768x512 (q1-5,
 # C=128; cheng2020* q1-3 makes the same calls) plus the widest call of q6-8
@@ -411,6 +447,244 @@ def phase_families_kernel_vs_plain(gdn):
     return launches
 
 
+@contextlib.contextmanager
+def timed_split(model):
+    """Wall seconds, each after a CUDA sync, spent in the codec's transforms
+    (g_a, h_a, h_s, g_s), in the host's CDF rows and scale indexes, in the
+    rANS calls and in the ideal-bits audit, while the block runs; the rest of
+    a call is the context head on the device, its syncs and the copies."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.entropy import autoregressive, codec, rans
+
+    times = collections.defaultdict(float)
+    starts = {}
+
+    def wrap(bucket, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[bucket] += time.perf_counter() - t
+            return out
+        return timed
+
+    patches = [(mod, name, bucket) for bucket, pairs in (
+        ("cdf rows", ((autoregressive, "build_gmm_cdf_rows"), (autoregressive, "gc_build_indexes"),
+                      (codec, "gc_build_indexes"))),
+        ("rans", ((autoregressive, "encode_with_indexes"), (rans, "encode_with_indexes"),
+                  (rans, "decode_with_indexes"), (rans.StreamingDecoder, "decode"))),
+        ("ideal bits", ((autoregressive, "ideal_bits"), (codec, "ideal_bits"))),
+    ) for mod, name in pairs]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, bucket in patches:
+        setattr(mod, name, wrap(bucket, getattr(mod, name)))
+
+    def pre(m, args):
+        torch.cuda.synchronize()
+        starts[m] = time.perf_counter()
+
+    def post(m, args, out):
+        torch.cuda.synchronize()
+        times["transforms"] += time.perf_counter() - starts[m]
+
+    hooks = [h for sub in (getattr(model, n) for n in ("g_a", "h_a", "h_s", "g_s") if hasattr(model, n))
+             for h in (sub.register_forward_pre_hook(pre), sub.register_forward_hook(post))]
+    try:
+        yield times
+    finally:
+        for h in hooks:
+            h.remove()
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def coder_run(gdn, label: str, model, h: int, w: int, trained: bool):
+    """Phase 9, one run: encode and decode synthetic_image(h, w, seed=0) on
+    the card, check the round trip, and time encode and decode (then again,
+    split by ``timed_split``, for the trained runs)."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.entropy.codec import RealCodec, coder_settings
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.metrics import bpp_from_likelihoods, psnr
+
+    x = to_tensor(synthetic_image(h, w, seed=0), "cuda")
+    codec = RealCodec(model)
+    gdn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = {}
+    out = codec.compress(x, trace)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    y_hat = codec.decode_latent(out["strings"], out["shape"])
+    x_hat = codec.synthesize(y_hat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = gdn.launch_counts["gdn_fwd"]
+
+    if y_hat.shape != trace["y_hat"].shape or not torch.equal(y_hat, trace["y_hat"]):
+        bad = int((y_hat != trace["y_hat"]).sum()) if y_hat.shape == trace["y_hat"].shape else -1
+        raise RuntimeError(f"phase 9 {label}: decoded latent differs from the encoder's at "
+                           f"{bad} of {y_hat.numel()} elements")
+    with coder_settings():
+        ref = model(x, "dequantize")
+        x_ref = torch.clamp(ref["x_hat"], 0.0, 1.0)
+    num_pixels = h * w
+    rec = {
+        "run": label, "shape": [h, w], "stream_shape": list(out["shape"]),
+        "real_bpp": codec.real_bpp(out, num_pixels),
+        "ideal_bpp": out["ideal_bits"] / num_pixels,
+        "est_bpp": float(bpp_from_likelihoods(ref["likelihoods"], num_pixels)),
+        "psnr": float(psnr(x_hat, x)),
+        "encode_s": t1 - t0, "decode_s": t2 - t1, "gdn_launches": launches,
+        "xhat_vs_forward": (x_hat - x_ref).abs().max().item(),
+    }
+    if x_hat.shape != x.shape or not torch.isfinite(x_hat).all():
+        raise RuntimeError(f"phase 9 {label}: x_hat {tuple(x_hat.shape)} not finite or misshapen")
+    if not all(math.isfinite(rec[k]) for k in ("real_bpp", "ideal_bpp", "est_bpp", "psnr")):
+        raise RuntimeError(f"phase 9 {label}: non-finite result {rec}")
+    if launches == 0:
+        raise RuntimeError(f"phase 9 {label}: the coder ran without launching the GDN kernel")
+    # context's coder writes mean-shifted symbols; its forward rounds means-free
+    if model.entropy_structure != "context" and rec["xhat_vs_forward"] > CODER_XHAT_ATOL:
+        raise RuntimeError(f"phase 9 {label}: x_hat {rec['xhat_vs_forward']:.3e} from the "
+                           f"dequantize forward (tol {CODER_XHAT_ATOL})")
+    gap_ideal = rec["real_bpp"] / rec["ideal_bpp"] - 1.0
+    gap_est = rec["real_bpp"] / rec["est_bpp"] - 1.0
+    more = ""
+    if trained:
+        if abs(gap_ideal) > REAL_VS_IDEAL_RTOL or abs(gap_est) > REAL_VS_EST_RTOL:
+            raise RuntimeError(f"phase 9 {label}: real_bpp {rec['real_bpp']:.5f} vs ideal "
+                               f"{gap_ideal:+.4f} (tol {REAL_VS_IDEAL_RTOL}), vs est "
+                               f"{gap_est:+.4f} (tol {REAL_VS_EST_RTOL})")
+        jax_ref = JAX_REAL_CODEC[label]
+        gap_jax = rec["real_bpp"] / jax_ref["real_bpp"] - 1.0
+        dpsnr = rec["psnr"] - jax_ref["psnr"]
+        rec.update(real_vs_jax=gap_jax, psnr_vs_jax=dpsnr)
+        if abs(gap_jax) > REAL_VS_JAX_RTOL or abs(dpsnr) > PSNR_VS_JAX_DB:
+            raise RuntimeError(f"phase 9 {label}: real_bpp {gap_jax:+.5f} (tol {REAL_VS_JAX_RTOL}) "
+                               f"and PSNR {dpsnr:+.4f} dB (tol {PSNR_VS_JAX_DB}) from JAX's")
+        more = f", vs JAX real_bpp {gap_jax:+.5f} psnr {dpsnr:+.4f} dB"
+        for what, fn in (("encode", lambda: codec.compress(x)),
+                         ("decode", lambda: codec.decompress(out["strings"], out["shape"]))):
+            with timed_split(model) as split:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t
+            parts = dict(split)
+            parts["device head, syncs, copies"] = total - sum(split.values())
+            rec[f"{what}_split_s"] = {"total": total, **parts}
+            more += f"; {what} split (s): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rec[f"{what}_split_s"].items())
+    log(f"phase 9 {label} {w}x{h}: real_bpp {rec['real_bpp']:.5f} est_bpp {rec['est_bpp']:.5f} "
+        f"ideal_bpp {rec['ideal_bpp']:.5f} (real vs ideal {gap_ideal:+.4f}, vs est {gap_est:+.4f})"
+        f", psnr {rec['psnr']:.4f} dB, encode {rec['encode_s']:.3f} s, decode "
+        f"{rec['decode_s']:.3f} s, gdn_fwd launches {launches}, latent round trip exact, "
+        f"x_hat vs forward {rec['xhat_vs_forward']:.3e}{more}")
+    return codec, out, y_hat, x_hat, rec
+
+
+def coder_kernel_vs_plain(gdn, codec, out, y_hat, x_hat) -> dict:
+    """Phase 9: the hyper stream decoded again with the plain GDN."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    gdns = [m for m in codec.module.modules() if isinstance(m, GDN)]
+    try:
+        for m in gdns:
+            m.use_kernel = False
+        gdn.reset_launch_counts()
+        y_plain = codec.decode_latent(out["strings"], out["shape"])
+        x_plain = codec.synthesize(y_plain)
+        torch.cuda.synchronize()
+        launches = gdn.launch_counts["gdn_fwd"]
+    finally:
+        for m in gdns:
+            m.use_kernel = True
+    diff = (x_plain - x_hat).abs().max().item()
+    log(f"phase 9 hyper q1 decode with the plain GDN: latent equal {torch.equal(y_plain, y_hat)}, "
+        f"max |x_hat diff| {diff:.3e} (tol {CODER_PLAIN_XHAT_ATOL}), gdn_fwd launches {launches}")
+    if not torch.equal(y_plain, y_hat) or diff > CODER_PLAIN_XHAT_ATOL or launches:
+        raise RuntimeError("phase 9: the plain-GDN decode differs from the kernel's")
+    return {"latent_equal": True, "xhat_max_abs_diff": diff}
+
+
+def coder_cross_process(model: str, quality: int, ckpt: str, tmp: str) -> dict:
+    """Phase 9: ``cli.codec`` round trip in this process, then ``--encode``
+    and ``--decode`` in two more; the decoded PNGs must be equal byte for
+    byte (and the streams too)."""
+    from imagecompression_adversarial_tpu_torch.cli.codec import run
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import read_image, synthetic_image, write_image
+
+    work = os.path.join(tmp, model)
+    enc_dir, dec_dir = os.path.join(work, "enc"), os.path.join(work, "dec")
+    os.makedirs(work)
+    src = os.path.join(work, "synthetic.png")
+    write_image(synthetic_image(256, 256, seed=0), src)
+    flags = ["-m", model, "-q", str(quality), "-ckpt", ckpt, "-device", "cuda"]
+    inproc = os.path.join(work, "inproc.png")
+    run(parse_config(flags + ["-s", src, "-t", inproc]))
+    seconds = {}
+    for step, args in (("encode", ["--encode", "-s", src, "-t", enc_dir]),
+                       ("decode", ["--decode", "-s", os.path.join(enc_dir, "*.bin"), "-t", dec_dir])):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "imagecompression_adversarial_tpu_torch.cli.codec", *flags, *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=CODER_SUBPROCESS_TIMEOUT_S,
+        )
+        seconds[step] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 9 {model} --{step} exited {proc.returncode}:\n"
+                               f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    with open(inproc + ".bin", "rb") as f, open(os.path.join(enc_dir, "synthetic.bin"), "rb") as g:
+        same_stream = f.read() == g.read()
+    rec_path = os.path.join(dec_dir, "synthetic_rec.png")
+    with open(inproc, "rb") as f, open(rec_path, "rb") as g:
+        same_png = f.read() == g.read()
+    a, b = read_image(inproc)[0], read_image(rec_path)[0]
+    mismatched = int((a != b).any(axis=-1).sum())
+    log(f"phase 9 cross-process {model} q{quality} 256x256: stream equal {same_stream}, "
+        f"reconstruction PNG equal {same_png} ({mismatched} pixels differ), --encode "
+        f"{seconds['encode']:.1f} s, --decode {seconds['decode']:.1f} s (each a new process)")
+    if not same_png:
+        raise RuntimeError(f"phase 9 {model}: the two-process decode differs from the in-process "
+                           f"round trip at {mismatched} pixels")
+    return {"model": model, "stream_equal": same_stream, "png_equal": same_png,
+            "encode_process_s": seconds["encode"], "decode_process_s": seconds["decode"]}
+
+
+def phase_coder(gdn):
+    """Phase 9: the real coder on the card."""
+    records, launches = [], {}
+    for label, model, quality, ckpt, h, w in (
+        ("hyper q1", "hyper", 1, CKPT, 512, 768),
+        ("cheng2020-gmm q3", "cheng2020-gmm", 3, CKPT_GMM, 512, 768),
+        ("factorized q1", "factorized", 1, None, 256, 256),
+        ("context q1", "context", 1, None, 256, 256),
+    ):
+        codec, out, y_hat, x_hat, rec = coder_run(
+            gdn, label, load_codec(model, quality, ckpt), h, w, trained=ckpt is not None)
+        launches[f"9 coder {label} {w}x{h}"] = rec["gdn_launches"]
+        if model == "hyper":
+            rec["plain_gdn_decode"] = coder_kernel_vs_plain(gdn, codec, out, y_hat, x_hat)
+        records.append(rec)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_codec_")
+    try:
+        cross = [coder_cross_process("hyper", 1, CKPT, tmp),
+                 coder_cross_process("cheng2020-gmm", 3, CKPT_GMM, tmp)]
+    finally:
+        shutil.rmtree(tmp)
+    print(json.dumps({"coder": records, "cross_process": cross}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -445,6 +719,11 @@ def main() -> int:
               if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
     if spills:
         raise RuntimeError(f"phase 2: ptxas reports register spills: {spills}")
+    t = time.time()
+    cached = _build.rans_library_path().is_file()
+    _build.build_rans()
+    log(f"phase 2 build of the rANS coder: {time.time() - t:.2f} s "
+        f"({'cached' if cached else 'g++'}) -> {_build.rans_library_path().name}")
 
     records = phase_kernel_vs_plain(gdn)
     launches = phase_main_path(gdn)
@@ -452,6 +731,7 @@ def main() -> int:
     phase_cli_png()
     launches_gmm = phase_slice2_path(gdn)
     launches_families = phase_families_kernel_vs_plain(gdn)
+    launches_coder = phase_coder(gdn)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -464,6 +744,7 @@ def main() -> int:
             "4 hyper q1 768x512": launches,
             "7 cheng2020-gmm q3 768x512": launches_gmm,
             **{f"8 {m} 256x256": n for m, n in launches_families.items()},
+            **launches_coder,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

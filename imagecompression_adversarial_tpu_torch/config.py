@@ -1,5 +1,5 @@
-"""The CLI flags of the port's ``attack_rd``: the spellings of
-``imagecompression_adversarial_tpu/config.py`` for the flags this slice
+"""The CLI flags of the port's ``attack_rd`` and ``codec``: the spellings
+of ``imagecompression_adversarial_tpu/config.py`` for the flags the port
 uses, with ``-device`` naming a torch device."""
 
 from __future__ import annotations
@@ -32,10 +32,14 @@ class Config:
     debug: bool = False
     clamp: bool = True
     phase_space: str = "auto"
+    encode: bool = False
+    decode: bool = False
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="RD attack on learned image codecs (PyTorch/CUDA)")
+    p = argparse.ArgumentParser(
+        description="RD attack on learned image codecs and their real bitstreams (PyTorch/CUDA)"
+    )
     d = Config()
     p.add_argument("-device", type=str, default=d.device,
                    help="torch device: cuda (default) or cpu")
@@ -72,6 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-phase_space", dest="phase_space", type=str,
                    default=d.phase_space, choices=("auto", "on", "off"),
                    help="phase-space attack loss (auto: on when equivalent)")
+    p.add_argument("--encode", action="store_true",
+                   help="cli.codec: encode the -s glob to .bin bitstreams under -t")
+    p.add_argument("--decode", action="store_true",
+                   help="cli.codec: decode a -s glob of .bin bitstreams to PNGs under -t")
     return p
 
 

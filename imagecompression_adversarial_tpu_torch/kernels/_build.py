@@ -1,13 +1,18 @@
-"""Build the port's CUDA sources with ``nvcc`` into a C-ABI shared library
-and load it with ``ctypes``.
+"""Build the port's native sources into C-ABI shared libraries and load
+them with ``ctypes``.
 
-The library is built on first use into ``_build/`` beside the package,
-under a name keyed by a hash of the sources and the flags, so an edited
-source or flag builds anew and an unchanged one is reused.  A file lock
-serialises concurrent builds.  Plain ``nvcc`` on a source with a C
-interface takes seconds; nothing here includes PyTorch's headers.  What
-nvcc prints, ``ptxas``'s registers, shared memory and spills of each kernel
-included (``-Xptxas -v``), is kept beside the library (``build_log``).
+Two libraries, each built on first use into ``_build/`` beside the package
+under a name keyed by a hash of its sources and flags, so an edited source
+or flag builds anew and an unchanged one is reused.  One file lock
+serialises concurrent builds of both.
+
+* ``libicat_kernels-<hash>.so``: the CUDA kernels, by ``nvcc``.  Plain
+  ``nvcc`` on a source with a C interface takes seconds; nothing here
+  includes PyTorch's headers.  What nvcc prints, ``ptxas``'s registers,
+  shared memory and spills of each kernel included (``-Xptxas -v``), is kept
+  beside the library (``build_log``).
+* ``libicat_rans-<hash>.so``: the host rANS coder (``csrc/rans.cc``), by
+  ``g++``, so that the real coder runs where there is no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -30,6 +35,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+RANS_SOURCE = CSRC_DIR / "rans.cc"
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
 def find_nvcc() -> str:
@@ -53,13 +60,22 @@ def nvcc_command(nvcc: str, sources: Sequence[Path], output: Path) -> List[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources)]
 
 
-def library_path(sources: Sequence[Path] = SOURCES) -> Path:
-    """``_build/libicat_kernels-<hash>.so``, keyed by sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _keyed_path(stem: str, flags: Sequence[str], sources: Sequence[Path]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libicat_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(sources: Sequence[Path] = SOURCES) -> Path:
+    """``_build/libicat_kernels-<hash>.so``, keyed by sources and flags."""
+    return _keyed_path("libicat_kernels", NVCC_FLAGS, sources)
+
+
+def rans_library_path() -> Path:
+    """``_build/libicat_rans-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_rans", GXX_FLAGS, (RANS_SOURCE,))
 
 
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
@@ -67,29 +83,48 @@ def build_log(sources: Sequence[Path] = SOURCES) -> str:
     return library_path(sources).with_suffix(".log").read_text()
 
 
-def build(sources: Sequence[Path] = SOURCES) -> Path:
-    """Compile ``sources`` unless the keyed library already exists; return
-    its path."""
-    out = library_path(sources)
+def _compile(out: Path, command: Callable[[Path], List[str]]) -> Path:
+    """Run ``command(tmp)`` under the build lock unless ``out`` exists, keep
+    its output beside the library as ``.log`` and move ``tmp`` to ``out``."""
     if out.is_file():
         return out
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not out.is_file():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                nvcc_command(nvcc, sources, tmp), capture_output=True, text=True
-            )
+            cmd = command(tmp)
+            proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                    f"{Path(cmd[0]).name} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
                 )
             out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
     return out
+
+
+def build(sources: Sequence[Path] = SOURCES) -> Path:
+    """Compile ``sources`` with nvcc unless the keyed library already
+    exists; return its path."""
+    out = library_path(sources)
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    return _compile(out, lambda tmp: nvcc_command(nvcc, sources, tmp))
+
+
+def build_rans() -> Path:
+    """Compile ``csrc/rans.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    out = rans_library_path()
+    if out.is_file():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH; the rANS coder is built with it")
+    return _compile(out, lambda tmp: [gxx, *GXX_FLAGS, "-o", str(tmp), str(RANS_SOURCE)])
 
 
 @functools.lru_cache(maxsize=None)

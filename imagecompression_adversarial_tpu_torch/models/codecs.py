@@ -73,8 +73,13 @@ class CodecModel(nn.Module):
     ``supports_phase_synthesis`` is True iff ``g_s_phase`` computes exactly
     ``g_s`` up to a fixed permutation of the last layer's output; it gates
     the attack's phase-space loss (``attacks/rd.py``).
+
+    ``entropy_structure`` tells the real coder (``entropy/codec.py``) how
+    the symbols are conditioned: ``'factorized'``, ``'scale_hyper'``,
+    ``'context'``, ``'context_gmm'`` or ``'none'`` (no real coder).
     """
 
+    entropy_structure = "none"
     supports_phase_synthesis = False
     phase_reference_latent = "y_hat"
 
@@ -103,6 +108,7 @@ class FactorizedPrior(CodecModel):
     """bmshj2018-factorized: the hyper codec's transforms with a fully
     factorized entropy model on y."""
 
+    entropy_structure = "factorized"
     supports_phase_synthesis = True
 
     def __init__(self, N: int, M: int):
@@ -123,6 +129,7 @@ class ScaleHyperprior(CodecModel):
     synthesis, and a scale-only hyper network: ``z = h_a(|y|)``,
     ``scales = h_s(z_hat)``."""
 
+    entropy_structure = "scale_hyper"
     supports_phase_synthesis = True
 
     def __init__(self, N: int, M: int):
@@ -168,6 +175,7 @@ class JointAutoregressive(CodecModel):
     head's width over M.
     """
 
+    entropy_structure = "context"
     supports_phase_synthesis = True
     params_per_latent = 2
 
@@ -289,6 +297,7 @@ class Cheng2020AttnGMM(Cheng2020Attention):
 
     K = 3
     params_per_latent = 3 * K
+    entropy_structure = "context_gmm"
 
     def y_likelihood(self, y, params, quant_mode: str,
                      generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Result]:
