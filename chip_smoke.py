@@ -39,16 +39,35 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    ideal_bpp, est_bpp and the JAX package's own numbers.  The hyper stream
    decodes again with the plain GDN.  ``cli.codec --encode`` and
    ``--decode`` in two more processes must write the PNG the in-process
-   round trip writes, byte for byte, for hyper and cheng2020-gmm.
+   round trip writes, byte for byte, for hyper and cheng2020-gmm;
+10. drives the attack and defense engines through their CLIs' ``run`` at
+    full width (hyper q1, demo weights, a 768x512 numpy image): the
+    adaptive attack through the 8-variant self-ensemble (``--adv
+    -ensemble_impl scan``, 201 steps), the RD attack evaluated through the
+    ensemble (1001 steps; its two batches of 4 make GDN calls of 393,216
+    rows), MI-FGSM best of 2 PGD starts (101 steps each) and the RD attack
+    best of 2 restarts (1001 steps each); each prints steps/s, vi, bpp_ori,
+    bpp, GDN launches and peak memory, and fails on a non-finite value or
+    no launch;
+11. runs every engine of phase 10 and the rest of the slice at 256x256
+    (hyper q1, demo weights, cuDNN deterministic) with the kernel and with
+    the plain GDN at fixed bounds: noise (``im_``) 1e-4 and vi 1e-3 dB for
+    the targeted ROI attack, the adaptive ensemble (scan and batch), the
+    bitdepth, resize and clip attacks (clip on a profile the phase writes
+    from the clean latent), a 2-image batch (also against two single
+    runs) and batched against sequential restarts; the same outer rounds
+    and bisection decisions and vi 1e-3 dB for CW (normal and fast); at
+    most 0.5% of pixels more than 1e-6 apart and vi 1e-2 dB for I-FGSM,
+    PGD and MI-FGSM; and the resize on the card against the CPU's at 1e-5.
 
-Phases 5 and 8 set cuDNN deterministic, so that the kernel and plain runs
-differ in the GDN alone; the coder sets it itself.
+Phases 5, 8 and 11 set cuDNN deterministic, so that the kernel and plain
+runs differ in the GDN alone; the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6 and 9.
+and the temporary directories of phases 6, 9 and 11.
 """
 
 from __future__ import annotations
@@ -125,10 +144,21 @@ REAL_VS_JAX_RTOL = 0.005
 PSNR_VS_JAX_DB = 0.01
 CODER_SUBPROCESS_TIMEOUT_S = 300
 
+# phase 11: sign-gradient attacks step by alpha * sign(grad), so a gradient
+# component within float noise of 0 may flip and move its pixel by 2 alpha;
+# at most SIGN_FLIP_SHARE of the pixels may sit more than SIGN_FLIP_ATOL
+# apart, and vi within SIGN_VI_ATOL dB
+SIGN_FLIP_SHARE = 0.005
+SIGN_FLIP_ATOL = 1e-6
+SIGN_VI_ATOL = 1e-2
+# the resize on the card vs on the CPU
+RESIZE_ATOL = 1e-5
+
 # (C, rows) of the GDN/IGDN calls of the hyper attack at 768x512 (q1-5,
-# C=128; cheng2020* q1-3 makes the same calls) plus the widest call of q6-8
-# (C=192)
-GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144))
+# C=128; cheng2020* q1-3 makes the same calls), the widest call of q6-8
+# (C=192), and the first call of the self-ensemble's batch of 4 variants
+# (4 x 98,304 rows)
+GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216))
 TIMED_LAUNCHES = 50
 # calls small enough for x and out to stay in the 50 MB L2 between
 # back-to-back launches: also timed over 500 launches and with a 64 MB write
@@ -685,6 +715,274 @@ def phase_coder(gdn):
     return launches
 
 
+def phase_slice4_path(gdn):
+    """Phase 10: the attack and defense engines through their CLIs' ``run``
+    at full width and size (hyper q1, demo weights, 768x512)."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli import attack_ifgsm, attack_rd, self_ensemble
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image
+
+    flags = ["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-device", "cuda"]
+    runs = (
+        # label, CLI, its flags, attack steps in all (restarts and starts included)
+        ("adaptive ensemble scan", self_ensemble,
+         ["--defend", "--defend_m", "ensemble", "--adv", "-ensemble_impl", "scan", "-steps", "201"],
+         201),
+        ("ensemble-defended RD", self_ensemble, ["--defend", "--defend_m", "ensemble",
+                                                 "-steps", "1001"], 1001),
+        ("MI-FGSM best of 2 PGD starts", attack_ifgsm, ["-steps", "101", "-random", "2"], 202),
+        ("RD best of 2 restarts (host)", attack_rd, ["-steps", "1001", "-random", "2"], 2002),
+    )
+    im = synthetic_image(512, 768, seed=0)
+    records, launches = [], {}
+    for label, cli, args, steps in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gdn.reset_launch_counts()
+        avg = cli.run(parse_config(flags + args), images=[("synthetic-768x512", im, 512, 768)])
+        torch.cuda.synchronize()
+        n = gdn.launch_counts["gdn_fwd"]
+        rec = {"run": label, "args": args, "steps": steps, "t_s": avg["t"],
+               "steps_per_s": steps / avg["t"], "vi": avg["vi"], "bpp_ori": avg["bpp_ori"],
+               "bpp": avg["bpp"], "gdn_launches": n,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        for key in ("vi", "bpp_ori", "bpp"):
+            if not math.isfinite(rec[key]):
+                raise RuntimeError(f"phase 10 {label}: {key} is not finite ({rec[key]})")
+        if n == 0:
+            raise RuntimeError(f"phase 10 {label} ran without launching the GDN kernel")
+        log(f"phase 10 {label} 768x512: {rec['steps_per_s']:.2f} steps/s ({steps} steps, "
+            f"{avg['t']:.2f} s incl. clean forward and eval), vi {avg['vi']:.4f}, bpp_ori "
+            f"{avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, gdn_fwd launches {n}, peak memory "
+            f"{rec['peak_gib']:.2f} GiB")
+        records.append(rec)
+        launches[f"10 {label} 768x512"] = n
+    split = adaptive_step_split(parse_config(flags), im)
+    print(json.dumps({"phase10": records, "step_split_ms": split}), flush=True)
+    return launches
+
+
+def adaptive_step_split(cfg, im, reps: int = 5):
+    """Device ms of one attack step's loss forward and backward at 768x512,
+    by what the loss runs: the phase-space synthesis (phase 4's step), the
+    full quantization-free forward, the 8-variant ensemble (scan and batch),
+    and the scan's forward alone (no backward, no recompute)."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.defenses import self_ensemble
+    from imagecompression_adversarial_tpu_torch.io.image import to_tensor
+    from imagecompression_adversarial_tpu_torch.runtime import load_model
+
+    codec = load_model(cfg)
+    x = to_tensor(im, "cuda")
+    noise = torch.full_like(x, 1e-3)
+    outputs = {
+        "phase-space g_a + g_s_phase": lambda v: codec.g_s_phase(codec.g_a(v)),
+        "full forward (quant 'none')": lambda v: codec(v, quant_mode="none")["x_hat"],
+        "ensemble scan (8 variants)": lambda v: self_ensemble(codec, v, "none", "scan")["x_hat"],
+        "ensemble batch (2 x 4)": lambda v: self_ensemble(codec, v, "none", "batch")["x_hat"],
+    }
+
+    def step(out_fn):
+        n = noise.clone().requires_grad_(True)
+        torch.autograd.grad(out_fn(x + n).square().mean(), n)
+
+    split = {k: time_ms(lambda f=f: step(f), reps) for k, f in outputs.items()}
+    with torch.no_grad():
+        split["ensemble scan forward only"] = time_ms(
+            lambda: outputs["ensemble scan (8 variants)"](x + noise), reps)
+    log("phase 10 step split at 768x512 (device ms a loss forward + backward): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()))
+    return split
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    import torch
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
+def kernel_and_plain(gdn, codec, fn):
+    """``fn()`` with the kernel, then with the plain GDN, cuDNN set
+    deterministic: ``[(result, launches), (result, launches)]``; the kernel
+    run must launch the kernel and the plain run must not."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    out = []
+    with cudnn_deterministic():
+        try:
+            for use_kernel in (True, False):
+                for m in codec.modules():
+                    if isinstance(m, GDN):
+                        m.use_kernel = use_kernel
+                gdn.reset_launch_counts()
+                res = fn()
+                torch.cuda.synchronize()
+                out.append((res, gdn.launch_counts["gdn_fwd"]))
+        finally:
+            for m in codec.modules():
+                if isinstance(m, GDN):
+                    m.use_kernel = True
+    if out[0][1] == 0 or out[1][1] != 0:
+        raise RuntimeError(f"launch counts: kernel run {out[0][1]}, plain run {out[1][1]}")
+    return out
+
+
+def hold(label, a, b, noise_atol=NOISE_ATOL, vi_atol=VI_ATOL, what="kernel vs plain"):
+    """``im_`` within ``noise_atol`` (the noise, since x is shared) and vi
+    within ``vi_atol`` dB; returns the record."""
+    diff = (a["im_"] - b["im_"]).abs().max().item()
+    dvi = abs(a["vi"].item() - b["vi"].item())
+    log(f"phase 11 {label}, {what}: max |noise diff| {diff:.3e} (tol {noise_atol}), vi "
+        f"{a['vi'].item():.6f} / {b['vi'].item():.6f} (tol {vi_atol})")
+    if not (math.isfinite(a["vi"].item()) and math.isfinite(b["vi"].item())):
+        raise RuntimeError(f"phase 11 {label}: non-finite vi")
+    if diff > noise_atol or dvi > vi_atol:
+        raise RuntimeError(f"phase 11 {label}: {what} differ beyond the tolerances")
+    return {"engine": label, "compare": what, "noise_max_abs_diff": diff, "vi_abs_diff": dvi}
+
+
+def phase_engines_kernel_vs_plain(gdn):
+    """Phase 11: each engine of the slice with the kernel and with the plain
+    GDN (hyper q1, demo weights, 256x256), at fixed bounds."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import (
+        CWAttackConfig, IFGSMConfig, RDAttackConfig, TargetedAttackConfig, best_of_restarts,
+        make_attack_fn, make_batch_attack_fn, make_cw_attack_fn, make_ifgsm_fn,
+        make_targeted_attack_fn,
+    )
+    from imagecompression_adversarial_tpu_torch.defenses import (
+        clip_dead_channel, draw_resize_scale, load_range_profile, make_defend_fn,
+        make_latent_defend_fn, random_resize,
+    )
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+
+    codec = load_codec("hyper", 1, CKPT)
+    x = to_tensor(synthetic_image(256, 256, seed=1), "cuda")
+    x2 = to_tensor(synthetic_image(256, 256, seed=4), "cuda")
+    records, launches = [], {}
+
+    def run_pair(label, fn):
+        (k, lk), (p, _) = kernel_and_plain(gdn, codec, fn)
+        launches[f"11 {label} 256x256"] = lk
+        return k, p
+
+    # targeted ROI attack toward another image, 20 steps
+    target = to_tensor(synthetic_image(256, 256, seed=3), "cuda")
+    roi = make_targeted_attack_fn(codec, TargetedAttackConfig(steps=20, mask_loc=(64, 192, 32, 160),
+                                                              lamb_bkg_out=0.5))
+    records.append(hold("targeted ROI x20", *run_pair("targeted ROI", lambda: roi(x, target))))
+
+    # the RD attack through each in-loop defense, evaluated through it
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        with torch.no_grad():
+            absmax = codec.g_a(x).abs().amax(dim=(0, 2, 3)).cpu().numpy()
+        ranks = np.empty(absmax.size, np.int64)
+        ranks[np.argsort(-absmax, kind="stable")] = np.arange(absmax.size)
+        prof_path = os.path.join(tmp, "hyper-mse-1_range.npz")
+        np.savez(prof_path, channel_max=absmax, channel_min=-absmax, dead=absmax < 2.0,
+                 ranks_min=ranks)
+        prof = load_range_profile(prof_path, require=("dead", "ranks_min"))
+    finally:
+        shutil.rmtree(tmp)
+    log(f"phase 11 clip profile written from the clean latent of the 256x256 image: "
+        f"{int(prof['dead'].sum())} of {absmax.size} channels dead (|y| < 2), ranks by abs-max")
+    transform = functools.partial(clip_dead_channel, dead=prof["dead"], ranks_min=prof["ranks_min"])
+    for mode, impl, steps in (("ensemble", "scan", 5), ("ensemble", "batch", 5),
+                              ("bitdepth", "scan", 20), ("resize", "scan", 20),
+                              ("clip", "scan", 20)):
+        if mode == "clip":
+            builder, tf = (lambda m: make_latent_defend_fn(m, transform)), transform
+        else:
+            builder, tf = (lambda m, mode=mode: make_defend_fn(m, mode)), None
+        attack = make_attack_fn(codec, RDAttackConfig(steps=steps, defend_in_loop=mode,
+                                                      ensemble_impl=impl),
+                                defend_fn_builder=builder, latent_transform=tf)
+        label = f"adaptive {mode}" + (f" {impl}" if mode == "ensemble" else "") + f" x{steps}"
+        records.append(hold(label, *run_pair(label, lambda: attack(x))))
+
+    # a batch of two images: kernel vs plain, and against two single runs
+    cfg = RDAttackConfig(steps=20, two_phase_impl="select")
+    batched, single = make_batch_attack_fn(codec, cfg), make_attack_fn(codec, cfg)
+    xs = torch.cat([x, x2])
+    kb, pb = run_pair("attack_batch 2", lambda: batched(xs))
+    for j in range(2):
+        records.append(hold(f"attack_batch 2 image {j} x20", {k: v[j] for k, v in kb.items()},
+                            {k: v[j] for k, v in pb.items()}))
+    with cudnn_deterministic():
+        for j, xj in enumerate((x, x2)):
+            records.append(hold(f"attack_batch 2 image {j} x20", {k: v[j] for k, v in kb.items()},
+                                single(xj), what="batch vs single"))
+
+    # restarts: kernel vs plain of the batched ones, then batched vs sequential
+    rcfg = RDAttackConfig(steps=20, random_restarts=2, two_phase_impl="select")
+    restart = make_attack_fn(codec, rcfg)
+    kv, pv = run_pair("restarts vmap", lambda: best_of_restarts(
+        restart, x, torch.Generator("cuda").manual_seed(0), 2, impl="vmap"))
+    records.append(hold("best_of_restarts vmap x20", kv, pv))
+    with cudnn_deterministic():
+        host = best_of_restarts(restart, x, torch.Generator("cuda").manual_seed(0), 2, impl="host")
+    records.append(hold("best_of_restarts x20", kv, host, what="vmap vs host"))
+
+    # CW: the same rounds and decisions, vi within VI_ATOL
+    for fast in (False, True):
+        cw = make_cw_attack_fn(codec, CWAttackConfig(steps=11, search_steps=2, fast=fast))
+        label = "CW" + (" fast" if fast else "") + " ssteps 2 x11"
+        k, p = run_pair(label, lambda: cw(x))
+        dvi = abs(k["vi"].item() - p["vi"].item())
+        log(f"phase 11 {label}: outer rounds {k['outer_rounds']} / {p['outer_rounds']}, "
+            f"decisions {k['decisions']} / {p['decisions']}, vi {k['vi'].item():.6f} / "
+            f"{p['vi'].item():.6f} (tol {VI_ATOL})")
+        if k["decisions"] != p["decisions"] or dvi > VI_ATOL or not math.isfinite(k["vi"].item()):
+            raise RuntimeError(f"phase 11 {label}: kernel vs plain differ")
+        records.append({"engine": label, "compare": "kernel vs plain",
+                        "outer_rounds": k["outer_rounds"], "decisions": k["decisions"],
+                        "vi_abs_diff": dvi})
+
+    # sign-gradient attacks: flips of near-zero gradient signs are allowed
+    for label, kw in (("I-FGSM", {}), ("PGD", {"random_start": True}),
+                      ("MI-FGSM", {"momentum": True})):
+        attack = make_ifgsm_fn(codec, IFGSMConfig(steps=20, **kw))
+        k, p = run_pair(label, lambda: attack(x, torch.Generator("cuda").manual_seed(0)))
+        share = ((k["im_"] - p["im_"]).abs() > SIGN_FLIP_ATOL).float().mean().item()
+        dvi = abs(k["vi"].item() - p["vi"].item())
+        log(f"phase 11 {label} x20: share of pixels > {SIGN_FLIP_ATOL} apart {share:.5f} (tol "
+            f"{SIGN_FLIP_SHARE}), vi {k['vi'].item():.6f} / {p['vi'].item():.6f} (tol "
+            f"{SIGN_VI_ATOL})")
+        if share > SIGN_FLIP_SHARE or dvi > SIGN_VI_ATOL or not math.isfinite(k["vi"].item()):
+            raise RuntimeError(f"phase 11 {label}: kernel vs plain differ beyond the tolerances")
+        records.append({"engine": f"{label} x20", "compare": "kernel vs plain",
+                        "flip_share": share, "vi_abs_diff": dvi})
+
+    # the resize on the card vs on the CPU
+    for scale in (243.0 / 256.0, draw_resize_scale(0)):
+        diff = (random_resize(x, scale)[0].cpu() - random_resize(x.cpu(), scale)[0]).abs().max().item()
+        log(f"phase 11 random_resize scale {scale:.6f}: cuda vs cpu max |diff| {diff:.3e} "
+            f"(tol {RESIZE_ATOL})")
+        if diff > RESIZE_ATOL:
+            raise RuntimeError("phase 11: random_resize on the card differs from the CPU's")
+        records.append({"engine": f"random_resize {scale:.6f}", "compare": "cuda vs cpu",
+                        "max_abs_diff": diff})
+    print(json.dumps({"phase11": records}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -732,6 +1030,8 @@ def main() -> int:
     launches_gmm = phase_slice2_path(gdn)
     launches_families = phase_families_kernel_vs_plain(gdn)
     launches_coder = phase_coder(gdn)
+    launches_slice4 = phase_slice4_path(gdn)
+    launches_engines = phase_engines_kernel_vs_plain(gdn)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -745,6 +1045,8 @@ def main() -> int:
             "7 cheng2020-gmm q3 768x512": launches_gmm,
             **{f"8 {m} 256x256": n for m, n in launches_families.items()},
             **launches_coder,
+            **launches_slice4,
+            **launches_engines,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

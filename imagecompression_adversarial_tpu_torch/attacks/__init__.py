@@ -1,6 +1,10 @@
 from .common import AdamOnNoise, RDAttackConfig, init_noise, multistep_lr_schedule
+from .cw import CWAttackConfig, make_cw_attack_fn
 from .evaluate import evaluate
-from .rd import make_attack_fn
+from .ifgsm import IFGSMConfig, best_of_multistart, make_ifgsm_fn
+from .patch import extract_worst_patch, local_vi_map
+from .rd import best_of_restarts, make_attack_fn, make_batch_attack_fn
+from .targeted import TargetedAttackConfig, make_targeted_attack_fn, roi_masks
 
 __all__ = [
     "AdamOnNoise",
@@ -9,4 +13,16 @@ __all__ = [
     "multistep_lr_schedule",
     "evaluate",
     "make_attack_fn",
+    "make_batch_attack_fn",
+    "best_of_restarts",
+    "IFGSMConfig",
+    "make_ifgsm_fn",
+    "best_of_multistart",
+    "CWAttackConfig",
+    "make_cw_attack_fn",
+    "TargetedAttackConfig",
+    "make_targeted_attack_fn",
+    "roi_masks",
+    "extract_worst_patch",
+    "local_vi_map",
 ]

@@ -14,7 +14,10 @@ import torch
 class RDAttackConfig:
     """Knobs of the canonical RD distortion attack.
 
-    The port runs the non-split, non-defended attack.  ``debug_model``
+    The port runs the non-split attack.  ``defend_in_loop`` (``'ensemble'``,
+    ``'bitdepth'``, ``'resize'`` or ``'clip'``) makes it adaptive: the
+    output loss goes through that defense; ``ensemble_impl`` says how the
+    in-loop self-ensemble runs its 8 variants.  ``debug_model``
     (the reference's debug fixture) draws the initial noise from
     uniform(+-sqrt(noise_threshold)) and leaves the input unclipped.
     ``remat`` is accepted and ignored: eager autograd keeps the forward's
@@ -34,6 +37,8 @@ class RDAttackConfig:
     random_restarts: int = 1
     lr_milgamma: float = 0.33
     debug_model: bool = False
+    defend_in_loop: Optional[str] = None  # None|'ensemble'|'bitdepth'|'resize'|'clip'
+    ensemble_impl: str = "scan"  # 'scan' (one checkpointed variant at a time) | 'batch'
     pad: Optional[int] = None
     padding_mode: str = "reflect"
     remat: bool = True

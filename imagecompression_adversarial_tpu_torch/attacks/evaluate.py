@@ -1,11 +1,11 @@
 """Post-attack evaluation (port of
-``imagecompression_adversarial_tpu/attacks/evaluate.py`` without the
-defense hook): the codec on the adversarial input in round-quantization
-mode, estimated bpp, input/output MSE and MS-SSIM, and VI."""
+``imagecompression_adversarial_tpu/attacks/evaluate.py``): the codec on the
+adversarial input in round-quantization mode, or the defense given as
+``defend_fn``, estimated bpp, input/output MSE and MS-SSIM, and VI."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -13,13 +13,30 @@ from ..metrics import bpp_from_likelihoods, ms_ssim, vi, vi_msim
 
 
 @torch.no_grad()
-def evaluate(model, im_adv, im_s, output_s, clamp: bool = True) -> Dict[str, Any]:
-    """Evaluate an adversarial input (NCHW) against the clean output."""
+def evaluate(
+    model,
+    im_adv,
+    im_s,
+    output_s,
+    clamp: bool = True,
+    defend_fn: Optional[Callable] = None,
+) -> Dict[str, Any]:
+    """Evaluate an adversarial input (NCHW) against the clean output.
+
+    ``defend_fn(x) -> (x_hat, likelihoods)`` replaces the codec's forward;
+    a likelihoods dict holding ``'__bpp__'`` carries a rate the defense has
+    already reduced (the self-ensemble's winner)."""
     im_ = im_adv.clamp(0.0, 1.0) if clamp else im_adv
-    result = model(im_, quant_mode="dequantize")
-    x_hat = result["x_hat"]
+    if defend_fn is not None:
+        x_hat, likelihoods = defend_fn(im_)
+    else:
+        result = model(im_, quant_mode="dequantize")
+        x_hat, likelihoods = result["x_hat"], result["likelihoods"]
     output_ = x_hat.clamp(0.0, 1.0) if clamp else x_hat
-    bpp = bpp_from_likelihoods(result["likelihoods"], im_adv.shape[2] * im_adv.shape[3])
+    if isinstance(likelihoods, dict) and "__bpp__" in likelihoods:
+        bpp = likelihoods["__bpp__"]
+    else:
+        bpp = bpp_from_likelihoods(likelihoods, im_adv.shape[2] * im_adv.shape[3])
     mse_in = torch.mean((im_ - im_s) ** 2)
     mse_out = torch.mean((output_ - output_s) ** 2)
     msim_in = ms_ssim(im_, im_s)

@@ -1,27 +1,40 @@
 """The canonical RD distortion attack (port of
-``imagecompression_adversarial_tpu/attacks/rd.py``, non-split and
-non-defended).
+``imagecompression_adversarial_tpu/attacks/rd.py``, non-split), its
+adaptive in-loop defenses, random restarts and image batches.
 
 Each step clips the noise to the L-inf ball through the gated bounds, then
 the input to [0, 1] (not for the debug fixture); while the input MSE is
 over budget the loss is that MSE, otherwise it is
-``1 - MSE(out, out_clean)`` through the quantization-free path.  Adam on the noise with the MultiStepLR schedule;
-the final evaluation uses real rounding.  The loop runs eagerly: one
-forward and one backward a step.
+``1 - MSE(out, out_clean)`` through the quantization-free path, where
+``out`` may pass through a defense (``RDAttackConfig.defend_in_loop``).
+Adam on the noise with the MultiStepLR schedule; the final evaluation uses
+real rounding, or the defense ``defend_fn_builder`` gives.  The loop runs
+eagerly: one forward and one backward a step.
+
+A batch of B images (or of B restarts of one image) runs as one attack on
+a ``(B, 3, H, W)`` noise: the loss is the sum of the per-element losses,
+so each element keeps its own gradient and Adam trajectory, and the
+two-phase switch is taken per element with ``torch.where`` (as the
+reference's ``vmap`` lowers its ``cond``).  Clean forward, rate and
+evaluation run per element.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..defenses.self_ensemble import bitdepth_reduction, random_resize, self_ensemble
 from ..metrics import bpp_from_likelihoods, ms_ssim
 from ..ops.bounds import bound_clip
 from .common import AdamOnNoise, RDAttackConfig, init_noise, multistep_lr_schedule
 from .evaluate import evaluate
+
+_DEFEND_IN_LOOP = (None, "ensemble", "bitdepth", "resize", "clip")
+_PER_ELEMENT = (1, 2, 3)
 
 
 def _adversarial_input(x, noise_c, cfg: RDAttackConfig):
@@ -30,111 +43,212 @@ def _adversarial_input(x, noise_c, cfg: RDAttackConfig):
     return x + noise_c if cfg.debug_model else bound_clip(x + noise_c, 0.0, 1.0)
 
 
-def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool):
-    """Two-phase RD attack loss; returns ``(loss, (loss_i, loss_o))``.
+def _output(model, im_in, cfg: RDAttackConfig, clip_fn):
+    """The quantization-free reconstruction, through the in-loop defense.
+    The ensemble and the latent clip take one image at a time."""
+    mode = cfg.defend_in_loop
+    if mode == "ensemble":
+        return torch.cat([self_ensemble(model, im, "none", cfg.ensemble_impl)["x_hat"]
+                          for im in im_in.split(1)])
+    if mode == "clip":
+        return torch.cat([clip_fn(im) for im in im_in.split(1)])
+    if mode == "bitdepth":
+        im_in = bitdepth_reduction(im_in)
+    elif mode == "resize":
+        im_in = random_resize(im_in)[0]
+    return model(im_in, quant_mode="none")["x_hat"]
+
+
+def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, clip_fn=None):
+    """Two-phase RD attack loss of a batch: ``(loss, (loss_i, loss_o))``
+    with ``loss`` the sum over the batch and ``loss_i``/``loss_o`` per
+    element.
 
     With ``phase`` the output is the phase-space synthesis and ``output_s``
     its clean counterpart: MSE is invariant under the permutation back to
     full resolution, so the loss, its gradient and the trajectory are the
-    full-resolution ones.
+    full-resolution ones.  ``cond`` on a single image decides the phase
+    with a host ``if`` and skips the forward while over budget; otherwise
+    both phases run and ``torch.where`` picks per element.
     """
     eps = cfg.epsilon / 255.0
     im_in = _adversarial_input(x, bound_clip(noise, -eps, eps), cfg)
-    loss_i = torch.mean((x - im_in) ** 2)
+    loss_i = torch.mean((x - im_in) ** 2, dim=_PER_ELEMENT)
     zero = torch.zeros_like(loss_i)
 
-    if cfg.two_phase_impl == "cond" and bool(loss_i > cfg.noise_threshold):
+    def input_loss():
         if cfg.att_metric == "ms-ssim":
-            return 1.0 - ms_ssim(x, im_in), (loss_i, zero)
-        return loss_i, (loss_i, zero)
+            return 1.0 - ms_ssim(x, im_in, size_average=False)
+        return loss_i
+
+    host_cond = cfg.two_phase_impl == "cond" and x.shape[0] == 1
+    if host_cond and bool(loss_i > cfg.noise_threshold):
+        return input_loss().sum(), (loss_i, zero)
 
     if phase:
         x_ = model.g_s_phase(model.g_a(im_in))
     else:
-        x_ = model(im_in, quant_mode="none")["x_hat"]
+        x_ = _output(model, im_in, cfg, clip_fn)
     output_ = bound_clip(x_, 0.0, 1.0) if cfg.clamp else x_
     if cfg.att_metric == "ms-ssim":
-        loss_o = ms_ssim(output_, output_s)
+        loss_o = ms_ssim(output_, output_s, size_average=False)
     else:
-        loss_o = 1.0 - torch.mean((output_s - output_) ** 2)
-    if cfg.two_phase_impl == "cond":
-        return loss_o, (loss_i, loss_o)
+        loss_o = 1.0 - torch.mean((output_s - output_) ** 2, dim=_PER_ELEMENT)
+    if host_cond:
+        return loss_o.sum(), (loss_i, loss_o)
     over = loss_i > cfg.noise_threshold
-    return torch.where(over, loss_i, loss_o), (loss_i, torch.where(over, zero, loss_o))
+    return torch.where(over, input_loss(), loss_o).sum(), (loss_i, torch.where(over, zero, loss_o))
 
 
 def _resolve(model, cfg: RDAttackConfig) -> RDAttackConfig:
     """Check the loss settings and settle ``phase_space_loss=None`` (auto):
-    on iff the attack is the plain L2 one on a codec other than the debug
-    fixture and the codec has an exact phase synthesis."""
+    on iff the attack is the plain L2 one (no defense in the loop) on a
+    codec other than the debug fixture and the codec has an exact phase
+    synthesis."""
     if cfg.two_phase_impl not in ("cond", "select"):
         raise ValueError(f"two_phase_impl={cfg.two_phase_impl!r} not in ('cond', 'select')")
     if cfg.two_phase_impl == "select" and cfg.att_metric == "ms-ssim":
         raise ValueError("two_phase_impl='select' supports the L2 att_metric only")
+    if cfg.defend_in_loop not in _DEFEND_IN_LOOP:
+        raise ValueError(f"defend_in_loop={cfg.defend_in_loop!r} not in {_DEFEND_IN_LOOP}")
     supported = bool(getattr(model, "supports_phase_synthesis", False))
     if cfg.phase_space_loss is None:
-        eligible = cfg.att_metric != "ms-ssim" and not cfg.pad and not cfg.debug_model
+        eligible = (cfg.att_metric != "ms-ssim" and not cfg.defend_in_loop and not cfg.pad
+                    and not cfg.debug_model)
         return dataclasses.replace(cfg, phase_space_loss=eligible and supported)
     if cfg.phase_space_loss and not supported:
         raise ValueError(
             f"phase_space_loss=True but {type(model).__name__} has no exact "
             "phase-space synthesis"
         )
-    if cfg.phase_space_loss and (cfg.att_metric == "ms-ssim" or cfg.pad):
-        raise ValueError("phase_space_loss supports the plain L2 attack only")
+    if cfg.phase_space_loss and (cfg.att_metric == "ms-ssim" or cfg.defend_in_loop or cfg.pad):
+        raise ValueError("phase_space_loss supports the plain L2 attack only "
+                         "(no ms-ssim metric, in-loop defense, or -p padding)")
     return cfg
 
 
-def make_attack_fn(model, cfg: RDAttackConfig) -> Callable[..., Dict[str, Any]]:
+def make_attack_fn(
+    model,
+    cfg: RDAttackConfig,
+    defend_fn_builder: Optional[Callable] = None,
+    latent_transform: Optional[Callable] = None,
+) -> Callable[..., Dict[str, Any]]:
     """Build ``attack(x, generator=None) -> results`` for a ``(1, 3, H, W)``
     image on the model's device.  Results hold tensors: ``im_``,
     ``output_``, ``bpp``, ``bpp_ori``, MSEs, MS-SSIMs, ``vi``, ``vi_msim``,
-    ``output_s``, ``loss_i_final`` and ``loss_o_final``."""
+    ``output_s``, ``loss_i_final`` and ``loss_o_final``.
+
+    ``defend_fn_builder(model)`` gives the evaluation's defense;
+    ``latent_transform`` (y -> y') is the latent clamp that
+    ``defend_in_loop='clip'`` attacks through.  ``attack.batch(xs,
+    noises)`` attacks a ``(B, 3, H, W)`` batch from the given initial
+    noises and returns the results stacked on a new leading axis.
+    """
     cfg = _resolve(model, cfg)
+    if cfg.defend_in_loop == "clip" and latent_transform is None:
+        raise ValueError("defend_in_loop='clip' needs a latent_transform")
     lrs = multistep_lr_schedule(cfg.steps, cfg.lr, cfg.lr_milgamma).tolist()
+    clip_fn = None
+    if latent_transform is not None:
 
-    def attack(x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        x = x.contiguous(memory_format=torch.channels_last)
-        with torch.no_grad():
-            if cfg.pad:
-                p = cfg.pad
-                result_s = model(F.pad(x, (p, p, p, p), mode=cfg.padding_mode), "dequantize")
-                output_s = result_s["x_hat"][:, :, p:-p, p:-p].clamp(0.0, 1.0)
-            else:
-                result_s = model(x, quant_mode="dequantize")
-                output_s = result_s["x_hat"].clamp(0.0, 1.0) if cfg.clamp else result_s["x_hat"]
-            bpp_ori = bpp_from_likelihoods(result_s["likelihoods"], x.shape[2] * x.shape[3])
-            if cfg.phase_space_loss:
-                ref = model.g_s_phase(result_s[model.phase_reference_latent])
-                loss_ref = ref.clamp(0.0, 1.0) if cfg.clamp else ref
-            else:
-                loss_ref = output_s
+        def clip_fn(im):
+            return model.from_latent(latent_transform(model.g_a(im)), "none")["x_hat"]
 
-        noise = init_noise(tuple(x.shape), cfg, generator, x.device)
-        noise = noise.contiguous(memory_format=torch.channels_last)
+    defend_fn = defend_fn_builder(model) if defend_fn_builder else None
+
+    @torch.no_grad()
+    def clean(x):
+        """Clean reconstruction, rate and loss reference of one image."""
+        if cfg.pad:
+            p = cfg.pad
+            result_s = model(F.pad(x, (p, p, p, p), mode=cfg.padding_mode), "dequantize")
+            output_s = result_s["x_hat"][:, :, p:-p, p:-p].clamp(0.0, 1.0)
+        else:
+            result_s = model(x, quant_mode="dequantize")
+            output_s = result_s["x_hat"].clamp(0.0, 1.0) if cfg.clamp else result_s["x_hat"]
+        bpp_ori = bpp_from_likelihoods(result_s["likelihoods"], x.shape[2] * x.shape[3])
+        if cfg.phase_space_loss:
+            ref = model.g_s_phase(result_s[model.phase_reference_latent])
+            loss_ref = ref.clamp(0.0, 1.0) if cfg.clamp else ref
+        else:
+            loss_ref = output_s
+        return output_s, bpp_ori, loss_ref
+
+    def run(xs: torch.Tensor, noise: torch.Tensor) -> List[Dict[str, Any]]:
+        xs = xs.contiguous(memory_format=torch.channels_last)
+        cleans = [clean(x) for x in xs.split(1)]
+        loss_ref = torch.cat([c[2] for c in cleans])
+        noise = noise.to(xs.device).contiguous(memory_format=torch.channels_last)
         opt = AdamOnNoise(noise)
         for lr in lrs:
             noise.requires_grad_(True)
-            loss, _ = _attack_loss(model, x, loss_ref, noise, cfg, cfg.phase_space_loss)
+            loss, _ = _attack_loss(model, xs, loss_ref, noise, cfg, cfg.phase_space_loss, clip_fn)
             (grad,) = torch.autograd.grad(loss, noise)
             noise = noise.detach()
             opt.step(noise, grad, lr)
 
         with torch.no_grad():
             _, (loss_i_final, loss_o_final) = _attack_loss(
-                model, x, loss_ref, noise, cfg, cfg.phase_space_loss
+                model, xs, loss_ref, noise, cfg, cfg.phase_space_loss, clip_fn
             )
             eps = cfg.epsilon / 255.0
-            im_in = _adversarial_input(x, noise.clamp(-eps, eps), cfg)
-        ev = evaluate(model, im_in, x, output_s, clamp=cfg.clamp)
-        ev.update(
-            {
+            im_in = _adversarial_input(xs, noise.clamp(-eps, eps), cfg)
+        results = []
+        for b, (output_s, bpp_ori, _) in enumerate(cleans):
+            ev = evaluate(model, im_in[b:b + 1], xs[b:b + 1], output_s, clamp=cfg.clamp,
+                          defend_fn=defend_fn)
+            ev.update({
                 "output_s": output_s,
                 "bpp_ori": bpp_ori,
-                "loss_i_final": loss_i_final,
-                "loss_o_final": loss_o_final,
-            }
-        )
-        return ev
+                "loss_i_final": loss_i_final[b],
+                "loss_o_final": loss_o_final[b],
+            })
+            results.append(ev)
+        return results
 
+    def attack(x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        return run(x, init_noise(tuple(x.shape), cfg, generator, x.device))[0]
+
+    def batch(xs: torch.Tensor, noises: torch.Tensor) -> Dict[str, torch.Tensor]:
+        results = run(xs, noises)
+        return {k: torch.stack([r[k] for r in results]) for k in results[0]}
+
+    attack.batch = batch
+    attack.cfg = cfg
     return attack
+
+
+def make_batch_attack_fn(model, cfg: RDAttackConfig):
+    """``batched(xs, generators=None)``: attack each image of a ``(B, 3, H,
+    W)`` batch independently, in one batched loop; element ``b`` draws its
+    initial noise (where the config draws one) from ``generators[b]``.
+    Results are stacked on a leading axis of size B."""
+    single = make_attack_fn(model, cfg)
+
+    def batched(xs: torch.Tensor, generators: Optional[List[torch.Generator]] = None):
+        gens = generators if generators is not None else [None] * xs.shape[0]
+        shape = (1, *xs.shape[1:])
+        noises = torch.cat([init_noise(shape, single.cfg, g, xs.device) for g in gens])
+        return single.batch(xs, noises)
+
+    return batched
+
+
+def best_of_restarts(attack_fn, x: torch.Tensor, generator: torch.Generator, restarts: int,
+                     impl: str = "vmap") -> Dict[str, Any]:
+    """Run ``restarts`` attacks of ``x`` and keep the highest-vi result
+    (the first of equals).  Restart ``r`` starts from the ``r``-th noise
+    drawn from ``generator``.  ``impl='host'`` runs them one after the
+    other; ``'vmap'`` runs them as one batched attack over the restarts'
+    noises (the same noises, so the same results up to float rounding)."""
+    if impl == "host":
+        results = [attack_fn(x, generator) for _ in range(restarts)]
+        best = max(range(restarts), key=lambda i: float(results[i]["vi"]))
+        return results[best]
+    if impl != "vmap":
+        raise ValueError(f"impl={impl!r} not in ('vmap', 'host')")
+    noises = torch.cat([init_noise(tuple(x.shape), attack_fn.cfg, generator, x.device)
+                        for _ in range(restarts)])
+    res = attack_fn.batch(x.expand(restarts, -1, -1, -1), noises)
+    best = int(torch.argmax(res["vi"]))
+    return {k: v[best] for k, v in res.items()}

@@ -2,47 +2,38 @@
 
     python -m imagecompression_adversarial_tpu_torch.cli.attack_rd \
         -m hyper -q 1 -ckpt ckpts/demo/hyper-q1-mse-synthetic.msgpack \
-        -s 'kodim*.png' -steps 1001
+        -s 'kodim*.png' -steps 1001 [-random 2 [-restart_impl vmap]] [-attack_batch 2]
 
 Same flags, per-image line and ``AVG:`` line as
 ``imagecompression_adversarial_tpu/cli/attack_rd.py``; ``-device cpu`` runs
-on the CPU.  Images are attacked one at a time; image ``i`` gets a
-``torch.Generator`` seeded with ``i`` for the noise init that draws (the
-debug fixture's).
+on the CPU.  Image ``i`` gets a ``torch.Generator`` seeded with ``i`` for
+every noise init that draws (the debug fixture's, and the restarts': its R
+restarts draw one after the other from it).  ``-random R`` keeps the best
+of R restarts, run one after the other (``-restart_impl host``) or as one
+batch (``vmap``); ``-attack_batch B`` (with ``-random 1``) attacks B images
+of one shape as one batch.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from ..attacks import RDAttackConfig, make_attack_fn
+from ..attacks import RDAttackConfig, best_of_restarts, make_attack_fn, make_batch_attack_fn
 from ..config import apply_precision, parse_config
-from ..io.image import list_images, read_image, to_numpy, to_tensor, write_image
+from ..io.image import to_tensor, write_image
 from ..models import quality_range
 from ..runtime import load_model
-
-Image = Tuple[str, np.ndarray, int, int]  # (name, (1, H, W, 3) array, h, w)
-
-
-def _corpus(source: str) -> Iterable[Image]:
-    files = list_images(source)
-    if not files:
-        raise SystemExit(f"no images match source glob {source!r}")
-    for path in files:
-        im, h, w = read_image(path)
-        yield os.path.basename(path), im, h, w
+from ._corpus import Image, corpus, sync, to_host
 
 
 def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
     """Attack every image of ``cfg.source`` (or of ``images``, given as
     ``(name, (1, H, W, 3) float32 array, h, w)``) and print the report."""
-    if cfg.random > 1:
-        raise NotImplementedError("random restarts (-random > 1) are not ported yet")
     apply_precision(cfg)
     model = load_model(cfg)
     device = next(model.parameters()).device
@@ -73,14 +64,9 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
     out_dir = "./attack/results/"
     sums = {"bpp_ori": 0.0, "bpp": 0.0, "vi": 0.0, "vi_msim": 0.0, "t": 0.0}
     n = 0
-    for name, im, h, w in (_corpus(cfg.source) if images is None else images):
-        x = to_tensor(im, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.time()
-        res = attack(x, torch.Generator(device).manual_seed(n))
-        res = {k: (v.item() if v.dim() == 0 else to_numpy(v)) for k, v in res.items()}
-        dt = time.time() - t0
+
+    def report(name, res, im, h, w, dt):
+        nonlocal n
         dbpp = (res["bpp"] - res["bpp_ori"]) / res["bpp_ori"]
         print(
             f"{name}: bpp_ori {res['bpp_ori']:.4f} bpp_adv {res['bpp']:.4f} "
@@ -98,6 +84,39 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
             sums[k] += float(res[k])
         sums["t"] += dt
         n += 1
+
+    items = corpus(cfg.source) if images is None else images
+    if cfg.attack_batch > 1 and cfg.random <= 1:
+        batched = make_batch_attack_fn(model, att_cfg)
+        groups = {}
+        for item in items:
+            groups.setdefault(item[1].shape, []).append(item)
+        index = 0
+        for group in groups.values():
+            for i in range(0, len(group), cfg.attack_batch):
+                chunk = group[i:i + cfg.attack_batch]
+                xs = torch.cat([to_tensor(c[1], device) for c in chunk])
+                gens = [torch.Generator(device).manual_seed(index + j) for j in range(len(chunk))]
+                index += len(chunk)
+                sync()
+                t0 = time.time()
+                res_b = batched(xs, gens)
+                res_b = [to_host({k: v[j] for k, v in res_b.items()}) for j in range(len(chunk))]
+                dt = (time.time() - t0) / len(chunk)
+                for (name, im, h, w), res in zip(chunk, res_b):
+                    report(name, res, im, h, w, dt)
+    else:
+        for name, im, h, w in items:
+            x = to_tensor(im, device)
+            gen = torch.Generator(device).manual_seed(n)
+            sync()
+            t0 = time.time()
+            if cfg.random > 1:
+                res = best_of_restarts(attack, x, gen, cfg.random, impl=cfg.restart_impl)
+            else:
+                res = attack(x, gen)
+            res = to_host(res)
+            report(name, res, im, h, w, time.time() - t0)
 
     avg = {k: v / n for k, v in sums.items()}
     avg["dbpp"] = (avg["bpp"] - avg["bpp_ori"]) / avg["bpp_ori"]

@@ -1,12 +1,12 @@
-"""The CLI flags of the port's ``attack_rd`` and ``codec``: the spellings
-of ``imagecompression_adversarial_tpu/config.py`` for the flags the port
-uses, with ``-device`` naming a torch device."""
+"""The CLI flags of the port's entry points: the spellings, destinations
+and defaults of ``imagecompression_adversarial_tpu/config.py`` for the
+flags the port uses, with ``-device`` naming a torch device."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 
 @dataclasses.dataclass
@@ -20,17 +20,30 @@ class Config:
     padding_mode: str = "reflect"
     steps: int = 1001
     random: int = 1
+    restart_impl: str = "host"  # best-of-restarts: sequential or one batch
     two_phase_impl: str = "cond"
+    lamb_attack: float = 0.2
     noise: float = 0.0001
     lr_attack: float = 0.01
     source: str = "./datasets/kodak/kodim*.png"
     target: Optional[str] = None
     checkpoint: Optional[str] = None
+    mask_loc: Optional[List[int]] = None
+    lamb_bkg_in: float = 1.0
+    lamb_bkg_out: float = 1.0
+    lamb_tar: float = 1.0
     att_metric: str = "L2"
     epsilon: float = 16.0
     pad: Optional[int] = None
     debug: bool = False
     clamp: bool = True
+    search_steps: int = 20
+    adv: bool = False  # self_ensemble: attack through the defense
+    defend: bool = False
+    method: str = "ensemble"
+    ensemble_impl: str = "scan"
+    profile: Optional[str] = None  # latent range/rank profile (.npz) for clip
+    attack_batch: int = 1
     phase_space: str = "auto"
     encode: bool = False
     decode: bool = False
@@ -54,8 +67,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--new", dest="new", action="store_true", help="fresh params")
     p.add_argument("-padmode", dest="padding_mode", type=str, default=d.padding_mode)
     p.add_argument("-steps", dest="steps", type=int, default=d.steps)
+    p.add_argument("--adv", action="store_true",
+                   help="self_ensemble: adaptive attack through the defense")
     p.add_argument("-random", dest="random", type=int, default=d.random,
-                   help="random restarts (only 1 is ported)")
+                   help="random restarts (best-of)")
+    p.add_argument("-restart_impl", dest="restart_impl", type=str,
+                   default=d.restart_impl, choices=("vmap", "host"),
+                   help="best-of-restarts: sequential attacks (host) or one "
+                        "batched attack over the restarts' noises (vmap)")
+    p.add_argument("-la", dest="lamb_attack", type=float, default=d.lamb_attack)
     p.add_argument("-two_phase", dest="two_phase_impl", type=str,
                    default=d.two_phase_impl, choices=("cond", "select"),
                    help="two-phase loss: host if (cond) or torch.where (select)")
@@ -66,6 +86,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", dest="target", type=str, default=d.target)
     p.add_argument("-ckpt", dest="checkpoint", type=str, default=d.checkpoint,
                    help="checkpoint: flax .msgpack or CompressAI .pth/.pth.tar")
+    p.add_argument("--mask_loc", nargs="+", type=int, default=d.mask_loc,
+                   help="targeted ROI box x0 x1 y0 y1")
+    p.add_argument("-la_bkg_in", dest="lamb_bkg_in", type=float, default=d.lamb_bkg_in)
+    p.add_argument("-la_bkg_out", dest="lamb_bkg_out", type=float, default=d.lamb_bkg_out)
+    p.add_argument("-la_tar", dest="lamb_tar", type=float, default=d.lamb_tar)
     p.add_argument("-att_metric", dest="att_metric", type=str, default=d.att_metric,
                    help="L2 or ms-ssim")
     p.add_argument("-e", dest="epsilon", type=float, default=d.epsilon,
@@ -73,6 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", dest="pad", type=int, default=d.pad)
     p.add_argument("--debug", dest="debug", action="store_true")
     p.add_argument("--no-clamp", dest="clamp", action="store_false")
+    p.add_argument("-ssteps", dest="search_steps", type=int, default=d.search_steps,
+                   help="CW bisection rounds")
+    p.add_argument("--defend", action="store_true")
+    p.add_argument("--defend_m", dest="method", type=str, default=d.method,
+                   help="ensemble|resize|bitdepth|clip")
+    p.add_argument("-ensemble_impl", dest="ensemble_impl", type=str,
+                   default=d.ensemble_impl, choices=["scan", "batch"],
+                   help="adaptive in-loop ensemble: one checkpointed variant "
+                        "at a time (scan) or two batches of 4")
+    p.add_argument("-profile", dest="profile", type=str, default=d.profile,
+                   help="latent range/rank profile .npz (for --defend_m clip; "
+                        "defaults to the feature_range naming scheme)")
+    p.add_argument("-attack_batch", dest="attack_batch", type=int,
+                   default=d.attack_batch, help="images attacked in one batch")
     p.add_argument("-phase_space", dest="phase_space", type=str,
                    default=d.phase_space, choices=("auto", "on", "off"),
                    help="phase-space attack loss (auto: on when equivalent)")

@@ -1,0 +1,73 @@
+"""Shared fixtures of the port-vs-JAX tests of the attack and defense
+engines: the hyper q1 demo weights on both sides, NHWC <-> NCHW, and the
+CPU convolution backends (oneDNN off and on) the comparisons run under."""
+
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+
+import flax.serialization
+import jax
+import numpy as np
+import pytest
+import torch
+
+from imagecompression_adversarial_tpu.models import init_model as j_init_model
+from imagecompression_adversarial_tpu_torch.config import Config
+from imagecompression_adversarial_tpu_torch.runtime import load_model
+
+REPO = Path(__file__).resolve().parent.parent
+CKPT = str(REPO / "ckpts" / "demo" / "hyper-q1-mse-synthetic.msgpack")
+
+# im_ atol vs JAX by whether torch's CPU convolutions use oneDNN (the bounds
+# of tests/test_torch_attack_rd.py: Adam turns gradient error on pixels
+# whose gradient is near its eps into noise error, and oneDNN's float32 conv
+# gradients sit ~3x further from a float64 reference than JAX's)
+IM_ATOL = {False: 1e-5, True: 1e-4}
+VI_ATOL = 1e-3
+BPP_RTOL = 1e-4
+
+
+def nchw(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a)).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().permute(0, 2, 3, 1).cpu().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def hyper_models():
+    """(JAX module, numpy params, port model) of hyper q1 on the demo weights."""
+    with open(CKPT, "rb") as f:
+        jp = flax.serialization.msgpack_restore(f.read())
+    jp = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
+    model = load_model(Config(device="cpu", model="hyper", quality=1, checkpoint=CKPT))
+    return j_init_model("hyper", 1), jp, model
+
+
+def jax_apply(jm, jp):
+    return lambda im, quant_mode: jm.apply({"params": jp}, im, quant_mode=quant_mode)
+
+
+def image(seed: int, h: int = 64, w: int = 64) -> np.ndarray:
+    return np.random.RandomState(seed).rand(1, h, w, 3).astype(np.float32)
+
+
+def onednn(enabled: bool):
+    return torch.backends.mkldnn.flags(enabled=enabled)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one intra-op thread: float32 convolutions on
+    the CPU split their sums by the thread count, so the results (and their
+    distance from JAX) would depend on the host's cores; and parallel test
+    workers, each with a thread a core, would oversubscribe the CPU, where
+    small ops slow down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
