@@ -13,8 +13,9 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    kernel) and dx (the shared plain backward, a check of the autograd
    wiring), and times the kernel, the plain version and ``torch.addmm`` beside
    the card's bound, and prints the launch the kernel picks (rows per tile,
-   blocks an SM, grid); the 6,144- and 24,576-row calls are also timed over
-   500 launches and with L2 flushed before each launch;
+   blocks an SM, grid); the training path's largest call (131,072 rows)
+   and the 6,144- and 24,576-row calls are also timed over 500 launches and
+   with L2 flushed before each launch;
 4. runs the attack CLI's ``run`` path (hyper q=1, the committed demo
    weights, a 768x512 image made with numpy, 1001 steps,
    ``-two_phase select``) and counts the kernel's launches in it;
@@ -58,22 +59,38 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     runs) and batched against sequential restarts; the same outer rounds
     and bisection decisions and vi 1e-3 dB for CW (normal and fast); at
     most 0.5% of pixels more than 1e-6 apart and vi 1e-2 dB for I-FGSM,
-    PGD and MI-FGSM; and the resize on the card against the CPU's at 1e-5.
+    PGD and MI-FGSM; and the resize on the card against the CPU's at 1e-5;
+12. trains hyper q1 from its demo weights on batches of 8 synthetic 256x256
+    crops through ``cli.train``'s ``main``, in a temporary working
+    directory: (a) 50 RD steps, printing the steady steps/s (the first
+    step excluded), GDN launches a step, peak memory and the first and
+    last loss, bpp, distortion and aux loss; (b) ``--adv -noise 0.0001
+    -steps 101`` to step 12 (the eval and checkpoint at step 10, the final
+    checkpoint at 12), printing training and inner-attack steps/s, the
+    eval vi and the lr, and checking that the checkpoint restores the
+    params and both optimizer states exactly; then a resume to step 14,
+    which must print its resume line and go on from step 12; (c) 5 RD steps
+    with the kernel and with the plain GDN from the same weights, batches
+    and noise, cuDNN deterministic, at fixed bounds: each step's loss
+    within TRAIN_LOSS_RTOL, step 1's dgamma/dbeta within TRAIN_GRAD_REL of
+    each tensor's largest element, the parameters within Adam's own bound;
+    (d) profiles one RD training step by kernel with ``torch.profiler``.
 
-Phases 5, 8 and 11 set cuDNN deterministic, so that the kernel and plain
+Phases 5, 8, 11 and 12c set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone; the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6, 9 and 11.
+and the temporary directories of phases 6, 9, 11 and 12.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -156,20 +173,61 @@ RESIZE_ATOL = 1e-5
 
 # (C, rows) of the GDN/IGDN calls of the hyper attack at 768x512 (q1-5,
 # C=128; cheng2020* q1-3 makes the same calls), the widest call of q6-8
-# (C=192), and the first call of the self-ensemble's batch of 4 variants
-# (4 x 98,304 rows)
-GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216))
+# (C=192), the first call of the self-ensemble's batch of 4 variants
+# (4 x 98,304 rows), and the calls of a training step on 8 crops of 256x256
+# (8 x 128 x 128 rows, then 32,768 and 8,192)
+GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
+              (128, 131072), (128, 32768), (128, 8192))
 TIMED_LAUNCHES = 50
-# calls small enough for x and out to stay in the 50 MB L2 between
-# back-to-back launches: also timed over 500 launches and with a 64 MB write
-# before each launch, which evicts them as the attack's other kernels do
-L2_RESIDENT_ROWS = (24576, 6144)
+# also timed over 500 launches and with a 64 MB write before each launch,
+# which evicts x and out from the 50 MB L2 as the path's other kernels do:
+# the calls small enough to stay in L2 between back-to-back launches, and
+# the training path's largest call
+L2_FLUSHED_ROWS = (131072, 24576, 6144)
 LONG_LAUNCHES = 500
 FLUSH_BYTES = 64 << 20
 # a device-side wait (~0.1 ms) queued before each flushed launch, so the
 # host has enqueued the launch before the device reaches its start event
 # and the interval holds the kernel alone, not the wrapper's host time
 SLEEP_CYCLES = 200_000
+
+# phase 12, training: hyper q1 from the demo weights, batches of 8 synthetic
+# 256x256 crops (the trainer's own defaults), through cli.train's main
+TRAIN_FLAGS = ("-m", "hyper", "-q", "1", "-metric", "mse", "-device", "cuda")
+TRAIN_RD_STEPS = 50
+TRAIN_ADV_ATTACK_STEPS = 101
+TRAIN_ADV_FLAGS = ("--adv", "-noise", "0.0001", "-steps", str(TRAIN_ADV_ATTACK_STEPS))
+TRAIN_ADV_STEPS, TRAIN_RESUME_STEPS = 12, 14
+TRAIN_LR = 1e-4  # -lr_train's default
+# 12c, 5 RD steps with the kernel and with the plain GDN, cuDNN
+# deterministic, so that the two runs differ in the GDN forward alone.
+# The kernel's output stays within ~1e-6 relative of the fp32 plain product
+# (GDN_RTOL's reasoning); the loss is a mean and a sum over 524,288 pixels
+# of such outputs, so each step's loss within TRAIN_LOSS_RTOL.  Step 1's
+# dgamma and dbeta come from the same plain backward, fed activations and
+# upstream gradients that differ by that much; their sums over 8,192 to
+# 131,072 rows cancel, so each tensor is held to TRAIN_GRAD_REL of its
+# largest element, not elementwise.  After the steps, Adam has moved each
+# element by at most lr a step, and an element whose gradient sits within
+# rounding of zero may take the other sign: every parameter within 2 x 5 x
+# lr (the quantiles: the aux lr, 1e-3), and at most TRAIN_FAR_SHARE of the
+# elements more than lr / 10 apart
+TRAIN_KVP_STEPS = 5
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_FAR_SHARE = 1e-4
+# 12d: warm-up steps before the one profiled training step, and the kernel
+# categories of its device time, by kernel name (first match wins)
+PROFILE_WARMUP = 3
+KERNEL_CATEGORIES = (
+    ("GDN forward (the kernel)", ("gdn_fwd_kernel",)),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn",
+                              "fft")),
+    ("SGEMM (cuBLAS: GDN backward, entropy model)", ("gemm", "gemv", "cublas")),
+    ("elementwise, reductions, copies", ("elementwise", "reduce", "copy", "vectorized", "fill",
+                                         "cat", "index", "scatter", "gather", "softplus", "erf",
+                                         "multi_tensor", "foreach")),
+)
 
 
 def log(msg: str) -> None:
@@ -269,7 +327,7 @@ def phase_kernel_vs_plain(gdn):
                 "layout": layout,
             }
             more = ""
-            if rows in L2_RESIDENT_ROWS:
+            if rows in L2_FLUSHED_ROWS:
                 rec["ms_500"] = time_ms(kernel, LONG_LAUNCHES)
                 rec["ms_l2_flushed"] = time_ms_flushed(kernel, flush_buf.zero_)
                 torch.cuda.synchronize()
@@ -983,6 +1041,264 @@ def phase_engines_kernel_vs_plain(gdn):
     return launches
 
 
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds (the console and a capture)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def train_cli(gdn, args):
+    """``cli.train``'s ``main`` on ``args`` in the current directory:
+    (summary, GDN launches, peak GiB, stdout)."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli import train as cli_train
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gdn.reset_launch_counts()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        summary = cli_train.main(list(TRAIN_FLAGS) + ["-ckpt", CKPT] + list(args))
+    torch.cuda.synchronize()
+    launches = gdn.launch_counts["gdn_fwd"]
+    for key in ("loss", "best_loss"):
+        if not math.isfinite(summary[key]):
+            raise RuntimeError(f"phase 12 {args}: {key} is not finite ({summary[key]})")
+    for which in ("first", "last"):
+        bad = {k: v for k, v in summary[which].items() if not math.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"phase 12 {args}: non-finite {which} logs {bad}")
+    if launches == 0:
+        raise RuntimeError(f"phase 12 {args} ran without launching the GDN kernel")
+    return summary, launches, torch.cuda.max_memory_allocated() / 2**30, out.getvalue()
+
+
+def state_equal(a, b) -> bool:
+    """Two ``TrainState.state_dict()``s hold equal tensors and values."""
+    import torch
+
+    if a.keys() != b.keys():
+        return False
+    for key in a:
+        x, y = a[key], b[key]
+        if isinstance(x, dict):
+            if not (isinstance(y, dict) and state_equal(x, y)):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_training(gdn):
+    """Phase 12a and 12b: RD training and --adv finetuning through
+    ``cli.train`` at full width, with a resume, in a temporary directory."""
+    from imagecompression_adversarial_tpu_torch.config import Config
+    from imagecompression_adversarial_tpu_torch.runtime import load_model
+    from imagecompression_adversarial_tpu_torch.train import CheckpointManager, create_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    launches, records = {}, {}
+    try:
+        os.chdir(tmp)
+        s, n, peak, _ = train_cli(gdn, ["-max_steps", str(TRAIN_RD_STEPS)])
+        t = s["timing"]
+        rec = {"steps": s["steps"], "steps_per_s": t["steady_steps"] / t["steady_s"],
+               "first_step_s": t["first_step_s"], "gdn_launches": n,
+               "launches_per_step": n / s["steps"], "peak_gib": peak,
+               "first": s["first"], "last": s["last"], "eval_loss": s["best_loss"]}
+        records["12a"] = rec
+        launches[f"12a RD training x{TRAIN_RD_STEPS}"] = n
+        log(f"phase 12a RD training hyper q1, 8 x 256x256: {rec['steps_per_s']:.2f} steps/s "
+            f"(steps 2-{s['steps']}; the first took {t['first_step_s']:.2f} s), gdn_fwd launches {n} "
+            f"({rec['launches_per_step']:.2f} a step, the final eval's forward included), peak "
+            f"memory {peak:.2f} GiB; loss {s['first']['loss']:.4f} -> {s['last']['loss']:.4f}, bpp "
+            f"{s['first']['bpp_loss']:.4f} -> {s['last']['bpp_loss']:.4f}, distortion "
+            f"{s['first']['distortion']:.6f} -> {s['last']['distortion']:.6f}, aux "
+            f"{s['first']['aux_loss']:.2f} -> {s['last']['aux_loss']:.2f}")
+
+        adv = list(TRAIN_ADV_FLAGS)
+        s, n, peak, _ = train_cli(gdn, adv + ["-max_steps", str(TRAIN_ADV_STEPS)])
+        t = s["timing"]
+        with open(os.path.join("logs", "log.txt")) as f:
+            curve = [json.loads(line) for line in f]
+        if [c["step"] for c in curve] != [10]:
+            raise RuntimeError(f"phase 12b: curve steps {[c['step'] for c in curve]}, not [10]")
+        if sorted(os.listdir(s["ckpt_dir"])) != ["10", "12", "best_loss"]:
+            raise RuntimeError(f"phase 12b: checkpoints {sorted(os.listdir(s['ckpt_dir']))}")
+        rec = {"steps": s["steps"], "steps_per_s": t["steady_steps"] / t["steady_s"],
+               "attack_steps_per_s": t["attack_steps"] / t["attack_s"],
+               "attack_steps": t["attack_steps"], "eval_vi_step10": curve[0]["eval_loss"],
+               "lr": curve[0]["lr"], "best_eval_vi": s["best_loss"], "eval_s": t["eval_s"],
+               "gdn_launches": n, "peak_gib": peak, "first": s["first"], "last": s["last"]}
+        if not math.isfinite(rec["eval_vi_step10"]):
+            raise RuntimeError(f"phase 12b: eval vi {rec['eval_vi_step10']}")
+
+        cfg = Config(device="cuda", model="hyper", quality=1, checkpoint=CKPT)
+        fresh = create_train_state(load_model(cfg).requires_grad_(True), TRAIN_LR)
+        extra = CheckpointManager(s["ckpt_dir"]).restore(fresh)
+        exact = state_equal(fresh.state_dict(), s["state"].state_dict())
+        rec["restored_exactly"] = exact
+        if not exact or fresh.step != TRAIN_ADV_STEPS:
+            raise RuntimeError(f"phase 12b: step {fresh.step} restored, exactly: {exact}")
+        records["12b"] = rec
+        launches[f"12b --adv training x{TRAIN_ADV_STEPS}"] = n
+        log(f"phase 12b --adv training, 8 x 256x256, -steps 101: {rec['steps_per_s']:.3f} train "
+            f"steps/s (steps 2-{s['steps']}, evals excluded), inner attack "
+            f"{rec['attack_steps_per_s']:.2f} steps/s ({t['attack_steps']} steps), eval vi at step "
+            f"10 {rec['eval_vi_step10']:.4f} dB (lr {rec['lr']:g}), best {s['best_loss']:.4f}, "
+            f"gdn_fwd launches {n}, peak memory {peak:.2f} GiB; checkpoint of step 12 restores "
+            f"params and both optimizer states exactly (extra {extra})")
+
+        s, n, _, out = train_cli(gdn, adv + ["-max_steps", str(TRAIN_RESUME_STEPS)])
+        line = f"resume training from epoch 0 (step {TRAIN_ADV_STEPS})"
+        if line not in out or s["steps"] != TRAIN_RESUME_STEPS:
+            raise RuntimeError(f"phase 12b resume: {s['steps']} steps, resume line printed: "
+                               f"{line in out}")
+        if s["timing"]["attack_steps"] != (TRAIN_RESUME_STEPS - TRAIN_ADV_STEPS) * TRAIN_ADV_ATTACK_STEPS:
+            raise RuntimeError(f"phase 12b resume ran {s['timing']['attack_steps']} attack steps")
+        records["12b resume"] = {"steps": s["steps"], "gdn_launches": n, "last": s["last"]}
+        launches[f"12b resume to {TRAIN_RESUME_STEPS}"] = n
+        log(f"phase 12b resume: '{line}', on to step {s['steps']}, loss {s['last']['loss']:.4f}, "
+            f"gdn_fwd launches {n}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches
+
+
+def train_kernel_vs_plain(gdn):
+    """Phase 12c: 5 RD training steps with the kernel and with the plain
+    GDN from the same weights, batches and noise, at fixed bounds."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.io.image import to_tensor
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+    from imagecompression_adversarial_tpu_torch.train import (
+        create_train_state, lambda_for, rate_distortion_loss, train_step,
+    )
+    from imagecompression_adversarial_tpu_torch.train.data import synthetic_batches
+    from imagecompression_adversarial_tpu_torch.train.step import LR_AUX
+
+    codec = load_codec("hyper", 1, CKPT).requires_grad_(True)
+    initial = {k: v.clone() for k, v in codec.state_dict().items()}
+    stream = synthetic_batches(8, 256, seed=0)
+    batches = [to_tensor(next(stream), "cuda") for _ in range(TRAIN_KVP_STEPS)]
+    lmbda = lambda_for("mse", 1)
+    gdns = [(n, m) for n, m in codec.named_modules() if isinstance(m, GDN)]
+
+    def run():
+        codec.load_state_dict(initial)
+        result = codec(batches[0], quant_mode="noise",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        loss = rate_distortion_loss(result, batches[0], lmbda, "mse")["loss"]
+        params = [p for _, m in gdns for p in (m.gamma, m.beta)]
+        grads = [g.detach() for g in torch.autograd.grad(loss, params)]
+        state = create_train_state(codec, TRAIN_LR)
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        losses = [float(train_step(state, b, gen, TRAIN_LR, lmbda)["loss"]) for b in batches]
+        return grads, losses, {k: v.detach().clone() for k, v in codec.state_dict().items()}
+
+    (k, lk), (p, _) = kernel_and_plain(gdn, codec, run)
+    rec = {"kernel_launches": lk}
+    rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(k[1], p[1]))
+    rec["grad_rel"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(k[0], p[0]))
+    far = total = 0
+    rec["param_max_abs"] = 0.0
+    for name, a in k[2].items():
+        lr = LR_AUX if name.endswith("quantiles") else TRAIN_LR
+        diff = (a - p[2][name]).abs()
+        worst = float(diff.max())
+        rec["param_max_abs"] = max(rec["param_max_abs"], worst)
+        if worst > 2 * TRAIN_KVP_STEPS * lr:
+            raise RuntimeError(f"phase 12c: {name} {worst:.3e} apart after {TRAIN_KVP_STEPS} steps")
+        far += int((diff > lr / 10).sum())
+        total += diff.numel()
+    rec["far_share"] = far / total
+    log(f"phase 12c kernel vs plain GDN, {TRAIN_KVP_STEPS} RD steps 8 x 256x256: loss max rel "
+        f"{rec['loss_rel']:.3e} (tol {TRAIN_LOSS_RTOL}), step-1 dgamma/dbeta max rel "
+        f"{rec['grad_rel']:.3e} (tol {TRAIN_GRAD_REL}), params max |diff| "
+        f"{rec['param_max_abs']:.3e} (tol 2 x {TRAIN_KVP_STEPS} x lr), share > lr/10 "
+        f"{rec['far_share']:.2e} (tol {TRAIN_FAR_SHARE}), kernel launches {lk}")
+    if rec["loss_rel"] > TRAIN_LOSS_RTOL or rec["grad_rel"] > TRAIN_GRAD_REL or \
+            rec["far_share"] > TRAIN_FAR_SHARE:
+        raise RuntimeError("phase 12c: kernel vs plain training differ beyond the tolerances")
+    return rec, codec, initial, batches
+
+
+def profile_train_step(codec, initial, batches):
+    """Phase 12d: device time of one RD training step (after warm-up steps)
+    by kernel, in the categories of KERNEL_CATEGORIES."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.train import create_train_state, lambda_for, train_step
+
+    codec.load_state_dict(initial)
+    state = create_train_state(codec, TRAIN_LR)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    lmbda = lambda_for("mse", 1)
+    for b in batches[:PROFILE_WARMUP]:
+        train_step(state, b, gen, TRAIN_LR, lmbda)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        float(train_step(state, batches[PROFILE_WARMUP], gen, TRAIN_LR, lmbda)["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def device_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    # device-side ranges of annotations (the optimizer's "Optimizer.step#...")
+    # span kernels counted on their own, so they are left out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy = sum(device_us(e) for e in kernels)
+    if busy == 0:
+        raise RuntimeError("phase 12d: the profiler saw no device time")
+    shares = collections.Counter()
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, keys in KERNEL_CATEGORIES if any(k in name for k in keys)), "other")
+        shares[cat] += device_us(e)
+    kernels.sort(key=device_us, reverse=True)
+    top = [{"name": e.key[:100], "ms": device_us(e) / 1e3, "calls": e.count} for e in kernels[:12]]
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / wall_ms,
+           "shares": {c: v / busy for c, v in shares.most_common()}, "top": top}
+    log(f"phase 12d one RD training step profiled: wall {wall_ms:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms (idle share of this window {rec['idle_share']:.3f}); " + ", ".join(f"{c} {v:.3f}" for c, v in rec["shares"].items()))
+    for t in top:
+        log(f"phase 12d   {t['ms']:8.3f} ms {t['calls']:5d}x  {t['name']}")
+    return rec
+
+
+def phase_train_kernel_vs_plain(gdn):
+    """Phase 12c and 12d."""
+    with cudnn_deterministic():
+        rec, codec, initial, batches = train_kernel_vs_plain(gdn)
+    rec["profile"] = profile_train_step(codec, initial, batches)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1032,6 +1348,9 @@ def main() -> int:
     launches_coder = phase_coder(gdn)
     launches_slice4 = phase_slice4_path(gdn)
     launches_engines = phase_engines_kernel_vs_plain(gdn)
+    train_records, launches_train = phase_training(gdn)
+    train_records["12c"] = phase_train_kernel_vs_plain(gdn)
+    print(json.dumps({"phase12": train_records}), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -1047,6 +1366,7 @@ def main() -> int:
             **launches_coder,
             **launches_slice4,
             **launches_engines,
+            **launches_train,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

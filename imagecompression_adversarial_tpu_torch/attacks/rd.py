@@ -17,10 +17,16 @@ so each element keeps its own gradient and Adam trajectory, and the
 two-phase switch is taken per element with ``torch.where`` (as the
 reference's ``vmap`` lowers its ``cond``).  Clean forward, rate and
 evaluation run per element.
+
+``make_adv_example_fn`` is the inner attack of adversarial training, with
+the reference's other batch semantics: the batch is one attack, with one
+batch-wide input MSE, one phase for all images, and the budget an
+argument.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
@@ -252,3 +258,76 @@ def best_of_restarts(attack_fn, x: torch.Tensor, generator: torch.Generator, res
     res = attack_fn.batch(x.expand(restarts, -1, -1, -1), noises)
     best = int(torch.argmax(res["vi"]))
     return {k: v[best] for k, v in res.items()}
+
+
+@contextlib.contextmanager
+def frozen(model):
+    """Run with every parameter of ``model`` not requiring grad (restored
+    after): an attack on a model being trained then computes no parameter
+    gradients (GDN's ``dgamma``/``dbeta`` among them) and leaves no
+    ``.grad``."""
+    params = list(model.parameters())
+    flags = [p.requires_grad for p in params]
+    model.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+
+
+def make_adv_example_fn(model, cfg: RDAttackConfig) -> Callable[[torch.Tensor, float], torch.Tensor]:
+    """``adv_example(x, noise_threshold) -> im_adv`` for adversarial
+    training (port of the JAX ``make_adv_example_fn``): the RD attack's loop
+    on the batch ``x`` as one attack, with no evaluation.
+
+    The input loss is the MSE over the whole batch, and one host ``if``
+    picks the phase for every image: the input loss while it is over
+    ``noise_threshold``, else ``1 - MSE`` of the quantization-free output
+    (phase-space where the codec has an exact phase synthesis, unless
+    ``cfg.phase_space_loss`` is False) against the clean one, over the
+    whole batch.  Zero initial noise, Adam with the MultiStepLR schedule.
+    It runs under ``frozen(model)``, and its result does not depend on
+    whether the parameters require grad.
+    """
+    if cfg.debug_model or cfg.random_restarts > 1:
+        raise ValueError("make_adv_example_fn starts from zero noise: no debug_model, no restarts")
+    supported = bool(getattr(model, "supports_phase_synthesis", False))
+    use_phase = supported if cfg.phase_space_loss is None else cfg.phase_space_loss
+    if use_phase and not supported:
+        raise ValueError(
+            f"phase_space_loss=True but {type(model).__name__} has no exact phase-space synthesis"
+        )
+    lrs = multistep_lr_schedule(cfg.steps, cfg.lr, cfg.lr_milgamma).tolist()
+    eps = cfg.epsilon / 255.0
+
+    def output(im):
+        return model.g_s_phase(model.g_a(im)) if use_phase else model(im, quant_mode="none")["x_hat"]
+
+    def loss_fn(x, output_s, noise, noise_threshold):
+        im_in = bound_clip(x + bound_clip(noise, -eps, eps), 0.0, 1.0)
+        loss_i = torch.mean((x - im_in) ** 2)
+        if bool(loss_i > noise_threshold):
+            return loss_i
+        out = output(im_in)
+        out = bound_clip(out, 0.0, 1.0) if cfg.clamp else out
+        return 1.0 - torch.mean((output_s - out) ** 2)
+
+    def adv_example(x: torch.Tensor, noise_threshold: float) -> torch.Tensor:
+        x = x.contiguous(memory_format=torch.channels_last)
+        with frozen(model):
+            with torch.no_grad():
+                result_s = model(x, quant_mode="dequantize")
+                ref = (model.g_s_phase(result_s[model.phase_reference_latent]) if use_phase
+                       else result_s["x_hat"])
+                output_s = ref.clamp(0.0, 1.0) if cfg.clamp else ref
+            noise = torch.zeros_like(x)
+            opt = AdamOnNoise(noise)
+            for lr in lrs:
+                noise.requires_grad_(True)
+                (grad,) = torch.autograd.grad(loss_fn(x, output_s, noise, noise_threshold), noise)
+                noise = noise.detach()
+                opt.step(noise, grad, lr)
+        return bound_clip(x + bound_clip(noise, -eps, eps), 0.0, 1.0)
+
+    return adv_example

@@ -13,6 +13,10 @@ from typing import List, Optional
 class Config:
     device: str = "cuda"
     precision: str = "highest"  # 'highest'/'float32' turn TF32 off
+    trace: Optional[str] = None  # cli.train: torch.profiler trace of one step
+    lr_train: float = 1e-4
+    lamb: Optional[float] = None
+    batch_size: int = 8
     model: str = "hyper"
     metric: str = "ms-ssim"
     quality: int = 3
@@ -38,7 +42,10 @@ class Config:
     debug: bool = False
     clamp: bool = True
     search_steps: int = 20
-    adv: bool = False  # self_ensemble: attack through the defense
+    log: str = "./logs/log.txt"
+    recompress: Optional[int] = None
+    epochs: Optional[int] = None  # train: 200 (100 with --adv) unless set
+    adv: bool = False  # train: adversarial finetuning; self_ensemble: adaptive attack
     defend: bool = False
     method: str = "ensemble"
     ensemble_impl: str = "scan"
@@ -51,13 +58,19 @@ class Config:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="RD attack on learned image codecs and their real bitstreams (PyTorch/CUDA)"
+        description="Learned image codecs: RD attacks, real bitstreams, training (PyTorch/CUDA)"
     )
     d = Config()
     p.add_argument("-device", type=str, default=d.device,
                    help="torch device: cuda (default) or cpu")
     p.add_argument("-precision", type=str, default=d.precision,
                    help="highest|float32 (no TF32) or default|tf32")
+    p.add_argument("-trace", dest="trace", type=str, default=d.trace,
+                   help="cli.train: directory for a torch.profiler trace of one steady step")
+    p.add_argument("-lr_train", dest="lr_train", type=float, default=d.lr_train)
+    p.add_argument("-lamb", dest="lamb", type=float, default=d.lamb,
+                   help="training lambda (default: per-quality table)")
+    p.add_argument("-batch_size", type=int, default=d.batch_size)
     p.add_argument("-m", dest="model", type=str, default=d.model,
                    help="factorized|hyper|context|cheng2020|cheng2020-attn|cheng2020-gmm|debug")
     p.add_argument("-metric", dest="metric", type=str, default=d.metric,
@@ -68,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-padmode", dest="padding_mode", type=str, default=d.padding_mode)
     p.add_argument("-steps", dest="steps", type=int, default=d.steps)
     p.add_argument("--adv", action="store_true",
-                   help="self_ensemble: adaptive attack through the defense")
+                   help="cli.train: adversarial finetuning; self_ensemble: adaptive "
+                        "attack through the defense")
     p.add_argument("-random", dest="random", type=int, default=d.random,
                    help="random restarts (best-of)")
     p.add_argument("-restart_impl", dest="restart_impl", type=str,
@@ -98,6 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", dest="pad", type=int, default=d.pad)
     p.add_argument("--debug", dest="debug", action="store_true")
     p.add_argument("--no-clamp", dest="clamp", action="store_false")
+    p.add_argument("-log", "--log", dest="log", type=str, default=d.log,
+                   help="cli.train: JSONL training curve, a line an eval")
+    p.add_argument("-re", dest="recompress", type=int, default=d.recompress,
+                   help="cli.train: recompression-regularized training")
+    p.add_argument("-epochs", dest="epochs", type=int, default=d.epochs,
+                   help="training epochs (default 200, 100 with --adv)")
     p.add_argument("-ssteps", dest="search_steps", type=int, default=d.search_steps,
                    help="CW bisection rounds")
     p.add_argument("--defend", action="store_true")

@@ -27,6 +27,7 @@ from ..ops.quant import quantize
 _LIKELIHOOD_BOUND = 1e-9
 _FILTERS = (3, 3, 3, 3)  # hidden widths of the CDF-logit MLP
 _INIT_SCALE = 10.0  # initial quantile spread
+_TAIL_MASS = 1e-9  # probability mass the quantile range leaves outside
 
 
 class EntropyBottleneck(nn.Module):
@@ -58,14 +59,20 @@ class EntropyBottleneck(nn.Module):
             for k in range(self.n_layers):
                 getattr(self, f"_bias{k}").uniform_(-0.5, 0.5, generator=generator)
 
-    def logits_cumulative(self, inputs: torch.Tensor) -> torch.Tensor:
-        """CDF logits of ``inputs`` (C, 1, N)."""
+    def logits_cumulative(self, inputs: torch.Tensor, stop_gradient: bool = False) -> torch.Tensor:
+        """CDF logits of ``inputs`` (C, 1, N); ``stop_gradient`` detaches the
+        matrices, biases and factors, so that only ``inputs`` gets a
+        gradient."""
+
+        def param(name: str) -> torch.Tensor:
+            p = getattr(self, name)
+            return p.detach() if stop_gradient else p
+
         logits = inputs
         for k in range(self.n_layers):
-            matrix = getattr(self, f"_matrix{k}")
-            logits = torch.matmul(F.softplus(matrix), logits) + getattr(self, f"_bias{k}")
+            logits = torch.matmul(F.softplus(param(f"_matrix{k}")), logits) + param(f"_bias{k}")
             if k < self.n_layers - 1:
-                logits = logits + torch.tanh(getattr(self, f"_factor{k}")) * torch.tanh(logits)
+                logits = logits + torch.tanh(param(f"_factor{k}")) * torch.tanh(logits)
         return logits
 
     def likelihood(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -75,6 +82,15 @@ class EntropyBottleneck(nn.Module):
         upper = self.logits_cumulative(inputs + 0.5)
         sign = -torch.sign(lower + upper).detach()
         return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile-fitting loss, the aux optimizer's target: the CDF logits
+        of ``quantiles`` against (-t, 0, t), t = log(2 / tail_mass - 1).
+        Only ``quantiles`` gets a gradient."""
+        logits = self.logits_cumulative(self.quantiles, stop_gradient=True)
+        tail = math.log(2.0 / _TAIL_MASS - 1.0)
+        target = torch.tensor([-tail, 0.0, tail], device=logits.device).reshape(1, 1, 3)
+        return torch.sum(torch.abs(logits - target))
 
     @property
     def medians(self) -> torch.Tensor:

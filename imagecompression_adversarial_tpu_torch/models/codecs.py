@@ -103,6 +103,11 @@ class CodecModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Result:
         return self.from_latent(self.g_a(x), quant_mode, generator)
 
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy bottleneck's quantile-fitting loss (every family
+        here has one)."""
+        return self.entropy_bottleneck.aux_loss()
+
 
 class FactorizedPrior(CodecModel):
     """bmshj2018-factorized: the hyper codec's transforms with a fully

@@ -17,6 +17,13 @@ from .bounds import ste_round, universal_quant
 QUANT_MODES = ("noise", "dequantize", "ste", "none", "universal")
 
 
+def uniform_noise(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The training surrogate's uniform(-0.5, 0.5) noise of ``y``'s shape,
+    drawn from ``generator`` (the one draw of ``'noise'`` mode)."""
+    u = torch.rand(y.shape, generator=generator, device=y.device, dtype=y.dtype)
+    return u - 0.5
+
+
 def quantize(
     y: torch.Tensor,
     mode: str,
@@ -38,8 +45,7 @@ def quantize(
     if mode in ("noise", "universal") and generator is None:
         raise ValueError(f"quantize(mode={mode!r}) requires a torch.Generator")
     if mode == "noise":
-        u = torch.rand(y.shape, generator=generator, device=y.device, dtype=y.dtype)
-        return y + (u - 0.5)
+        return y + uniform_noise(y, generator)
     centered = y if means is None else y - means
     if mode == "universal":
         rounded = universal_quant(centered, generator)

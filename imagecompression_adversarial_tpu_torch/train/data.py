@@ -1,0 +1,174 @@
+"""Host-side data pipeline: image folders -> shuffled random-crop batches
+(port of ``imagecompression_adversarial_tpu/train/data.py``).
+
+All of it is numpy, with the JAX package's seeds and draw order, so each
+stream equals JAX's element for element: recursive folder listing, a
+permutation an epoch, one ``default_rng`` a file for its crop (drawn before
+the file is read, so an unreadable file shifts no other crop), drop-last.
+Files are read through the port's own PNG reader (``io/image.py``, no
+PIL): a file it cannot decode (another format, a palette PNG) is skipped,
+as the JAX loader skips a file PIL cannot open.
+
+Without a data folder, ``synthetic_batches`` gives a deterministic
+structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import glob
+import os
+import queue
+import struct
+import threading
+import zlib
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from ..io.image import read_image
+
+_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+def list_image_files(root: str) -> List[str]:
+    out = []
+    for ext in _EXTS:
+        out.extend(glob.glob(os.path.join(root, "**", f"*{ext}"), recursive=True))
+    return sorted(out)
+
+
+def _load_crop(path: str, crop: int, rng: np.random.Generator) -> Optional[np.ndarray]:
+    try:
+        img, h, w = read_image(path, padding=1)
+    except (OSError, ValueError, zlib.error, struct.error):
+        return None
+    if w < crop or h < crop:
+        return None
+    x0 = int(rng.integers(0, w - crop + 1))
+    y0 = int(rng.integers(0, h - crop + 1))
+    return img[0, y0:y0 + crop, x0:x0 + crop]
+
+
+def image_folder_batches(
+    root: str,
+    batch_size: int,
+    crop: int = 256,
+    seed: int = 0,
+    workers: int = 8,
+    epochs: Optional[int] = None,
+) -> Iterator[np.ndarray]:
+    """Yield (B, crop, crop, 3) float32 batches forever (or for ``epochs``)."""
+    files = list_image_files(root)
+    if not files:
+        raise FileNotFoundError(f"no images under {root}")
+    rng = np.random.default_rng(seed)
+
+    def one_epoch():
+        order = rng.permutation(len(files))
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            batch = []
+            futures = [
+                pool.submit(_load_crop, files[i], crop, np.random.default_rng(rng.integers(2**31)))
+                for i in order
+            ]
+            for fut in futures:
+                img = fut.result()
+                if img is None:
+                    continue
+                batch.append(img)
+                if len(batch) == batch_size:
+                    yield np.stack(batch)
+                    batch = []
+
+    e = 0
+    while epochs is None or e < epochs:
+        yield from one_epoch()
+        e += 1
+
+
+def synthetic_batches(batch_size: int, crop: int = 256, seed: int = 0) -> Iterator[np.ndarray]:
+    """Deterministic structured-noise batches (the fallback without data)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:crop, 0:crop].astype(np.float32)
+    while True:
+        phases = rng.uniform(0, 6.28, (batch_size, 3, 2)).astype(np.float32)
+        freq = rng.uniform(0.02, 0.3, (batch_size, 3, 2)).astype(np.float32)
+        imgs = []
+        for b in range(batch_size):
+            chans = [
+                0.5
+                + 0.35 * np.sin(xx * freq[b, c, 0] + phases[b, c, 0])
+                * np.cos(yy * freq[b, c, 1] + phases[b, c, 1])
+                for c in range(3)
+            ]
+            img = np.stack(chans, -1) + rng.normal(0, 0.03, (crop, crop, 3))
+            imgs.append(np.clip(img, 0, 1).astype(np.float32))
+        yield np.stack(imgs)
+
+
+def make_batches(root: Optional[str], batch_size: int, crop: int = 256,
+                 seed: int = 0) -> Iterator[np.ndarray]:
+    """Image-folder stream if the directory holds images, else synthetic."""
+    if root and os.path.isdir(root) and list_image_files(root):
+        return image_folder_batches(root, batch_size, crop, seed)
+    return synthetic_batches(batch_size, crop, seed)
+
+
+def augment_dihedral(batches: Iterator[np.ndarray], seed: int = 0) -> Iterator[np.ndarray]:
+    """A random dihedral transform (flips, rot90) of each image."""
+    rng = np.random.default_rng(seed)
+    for batch in batches:
+        out = np.empty_like(batch)
+        for i in range(batch.shape[0]):
+            img = batch[i]
+            k = rng.integers(0, 8)
+            if k & 1:
+                img = img[::-1, :, :]
+            if k & 2:
+                img = img[:, ::-1, :]
+            if k & 4:
+                img = np.rot90(img, 1, (0, 1))
+            out[i] = img
+        yield out
+
+
+def prefetch(it: Iterator, depth: int = 2) -> Iterator:
+    """Run ``it`` in a thread, ``depth`` items ahead.  An exception in the
+    producer is raised here; closing this generator stops the producer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+    failure = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in it:
+                if not put(item):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            failure.append(e)
+        put(done)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=10)

@@ -1,0 +1,162 @@
+"""Training state and step: main and aux optimizers (port of
+``imagecompression_adversarial_tpu/train/step.py``).
+
+* The main Adam runs over every parameter but the entropy bottleneck's
+  ``quantiles``, after a global-norm clip of 1.0 of those gradients (the
+  optax rule: scale by ``1 / norm`` when ``norm >= 1``, no epsilon, the
+  norm over the main group only).
+* The aux Adam (lr 1e-3) runs over exactly the ``quantiles``, on the aux
+  loss of the parameters the main update has just written.
+* ``ReduceLROnPlateau`` is the JAX package's host class (``metric <
+  best``, patience 10, factor 0.5), not torch's, whose relative threshold
+  gives another schedule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .loss import rate_distortion_loss
+
+#: The parameter name the aux optimizer owns.
+AUX_NAME = "quantiles"
+CLIP_NORM = 1.0
+LR_AUX = 1e-3
+
+
+def quantile_labels(model: torch.nn.Module) -> Dict[str, str]:
+    """``'aux'`` for the parameters named ``quantiles``, ``'main'`` for the
+    rest, by state-dict name."""
+    return {name: "aux" if name.rsplit(".", 1)[-1] == AUX_NAME else "main"
+            for name, _ in model.named_parameters()}
+
+
+def parameter_groups(model: torch.nn.Module) -> Tuple[List[torch.nn.Parameter],
+                                                      List[torch.nn.Parameter]]:
+    """(main, aux) parameters: disjoint, and together every parameter."""
+    labels = quantile_labels(model)
+    params = dict(model.named_parameters())
+    return ([p for n, p in params.items() if labels[n] == "main"],
+            [p for n, p in params.items() if labels[n] == "aux"])
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float = CLIP_NORM) -> torch.Tensor:
+    """Scale ``grads`` in place by ``max_norm / norm`` where their global
+    norm is at least ``max_norm`` (``optax.clip_by_global_norm``, on the
+    device, no sync); returns the norm."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The codec being trained, its two optimizers and the step count."""
+
+    model: torch.nn.Module
+    opt: torch.optim.Adam
+    aux_opt: torch.optim.Adam
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        """Params, both optimizer states and the step (references to the
+        live tensors, as ``nn.Module.state_dict`` gives)."""
+        return {
+            "params": self.model.state_dict(),
+            "opt_state": self.opt.state_dict(),
+            "aux_opt_state": self.aux_opt.state_dict(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, payload: dict) -> None:
+        self.model.load_state_dict(payload["params"], strict=True)
+        self.opt.load_state_dict(payload["opt_state"])
+        self.aux_opt.load_state_dict(payload["aux_opt_state"])
+        self.step = int(payload["step"])
+
+
+def create_train_state(model: torch.nn.Module, lr: float = 1e-4) -> TrainState:
+    """Both Adams (betas 0.9/0.999, eps 1e-8 outside the sqrt, as
+    ``optax.scale_by_adam``) over the two groups of a trainable model."""
+    main, aux = parameter_groups(model)
+    return TrainState(model, torch.optim.Adam(main, lr=lr), torch.optim.Adam(aux, lr=LR_AUX))
+
+
+def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d params, zeros where a parameter does not reach the loss
+    (so Adam's moments decay for it, as optax's do)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def train_step(
+    state: TrainState,
+    batch: torch.Tensor,
+    generator: torch.Generator,
+    lr: float,
+    lmbda: float,
+    metric: str = "mse",
+    recompress: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One RD step on ``batch`` (NCHW): the noise-quantized forward, the
+    rate-distortion loss (plus ``0.01 * ||y - g_a(x_hat)||`` with
+    ``recompress``), the clipped main Adam step at ``lr``, then the aux
+    step.  Returns the logs as detached device tensors."""
+    model = state.model
+    main = state.opt.param_groups[0]["params"]
+    aux = state.aux_opt.param_groups[0]["params"]
+
+    result = model(batch, quant_mode="noise", generator=generator)
+    out = rate_distortion_loss(result, batch, lmbda, metric)
+    if recompress:
+        f1 = model.g_a(result["x_hat"])
+        out["recompress_loss"] = torch.sqrt(torch.sum((result["y"] - f1) ** 2))
+        out["loss"] = out["loss"] + 0.01 * out["recompress_loss"]
+    grads = _grads(out["loss"], main)
+    clip_by_global_norm_(grads)
+    for p, g in zip(main, grads):
+        p.grad = g
+    state.opt.param_groups[0]["lr"] = lr
+    state.opt.step()
+
+    aux_loss = model.aux_loss()
+    for p, g in zip(aux, _grads(aux_loss, aux)):
+        p.grad = g
+    state.aux_opt.step()
+    for p in main + aux:
+        p.grad = None
+
+    state.step += 1
+    logs = {k: v.detach() for k, v in out.items()}
+    logs["aux_loss"] = aux_loss.detach()
+    return logs
+
+
+class ReduceLROnPlateau:
+    """Host-side plateau scheduler: factor 0.5, patience 10, min mode; an
+    epoch is bad unless its metric is strictly below the best."""
+
+    def __init__(self, lr: float, factor: float = 0.5, patience: int = 10,
+                 min_lr: float = 0.0):
+        self.lr = lr
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.best: Optional[float] = None
+        self.bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        if self.best is None or metric < self.best:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.bad_epochs = 0
+        return self.lr

@@ -1,6 +1,7 @@
 """Shared fixtures of the port-vs-JAX tests of the attack and defense
-engines: the hyper q1 demo weights on both sides, NHWC <-> NCHW, and the
-CPU convolution backends (oneDNN off and on) the comparisons run under."""
+engines and of training: the hyper q1 demo weights on both sides, NHWC <->
+NCHW, the CPU convolution backends (oneDNN off and on) the comparisons run
+under, and the same training-forward noise on both sides."""
 
 from __future__ import annotations
 
@@ -9,12 +10,14 @@ from pathlib import Path
 
 import flax.serialization
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from imagecompression_adversarial_tpu.models import init_model as j_init_model
 from imagecompression_adversarial_tpu_torch.config import Config
+from imagecompression_adversarial_tpu_torch.ops import quant as port_quant
 from imagecompression_adversarial_tpu_torch.runtime import load_model
 
 REPO = Path(__file__).resolve().parent.parent
@@ -71,3 +74,34 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _noise_tables(seed=0):
+    """Uniform(-0.5, 0.5) noise for hyper q1's y and z at 64x64, batch 2,
+    NHWC for JAX and NCHW for the port."""
+    rng = np.random.RandomState(seed)
+    shapes = [(2, 4, 4, 192), (2, 1, 1, 128)]
+    nhwc_tab = {s: rng.uniform(-0.5, 0.5, s).astype(np.float32) for s in shapes}
+    nchw_tab = {(s[0], s[3], s[1], s[2]): torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
+                for s, a in nhwc_tab.items()}
+    return nhwc_tab, nchw_tab
+
+
+@pytest.fixture
+def same_noise(monkeypatch):
+    """The same numpy noise in both sides' training forward: replaces the
+    draw of JAX's ``quantize(mode='noise')`` (``jax.random.uniform``, for
+    the y and z shapes only) and the port's ``ops.quant.uniform_noise``
+    for the test.  Every step and every call then gets the same noise."""
+    j_tab, t_tab = _noise_tables()
+    orig = jax.random.uniform
+
+    def j_uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        if tuple(shape) in j_tab:
+            return jnp.asarray(j_tab[tuple(shape)], dtype)
+        return orig(key, shape, dtype, minval, maxval)
+
+    monkeypatch.setattr(jax.random, "uniform", j_uniform)
+    monkeypatch.setattr(port_quant, "uniform_noise",
+                        lambda y, generator: t_tab[tuple(y.shape)].to(y))
+    return j_tab, t_tab
