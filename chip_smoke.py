@@ -74,16 +74,31 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     and noise, cuDNN deterministic, at fixed bounds: each step's loss
     within TRAIN_LOSS_RTOL, step 1's dgamma/dbeta within TRAIN_GRAD_REL of
     each tensor's largest element, the parameters within Adam's own bound;
-    (d) profiles one RD training step by kernel with ``torch.profiler``.
+    (d) profiles one RD training step by kernel with ``torch.profiler``;
+    (e) attacks the codec of 12b's step-12 checkpoint through
+    ``cli.attack_rd -ckpt`` (its step directory), 20 steps at 256x256;
+13. runs the RD attack through ``cli.attack_rd``'s ``run`` on the five
+    adapter families at 768x512 with ``-two_phase select``: nlaic, tic and
+    fic q3 on their demo weights, invcompress and hific on seeded weights,
+    ADAPTER_STEPS steps (fic with ``-random 2``, so twice); each prints
+    steps/s, vi, bpp_ori, bpp, peak memory and GDN launches, and fails on a
+    non-finite value, or when nlaic or fic launch no GDN kernel;
+14. runs a 20-step attack at 256x256 on nlaic and fic (demo weights) with
+    the kernel and with the plain GDN at phase 8's bounds for cheng2020
+    (ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL; fic from a random start), and the
+    real coder on all five at 768x512: the decoded latent must equal the
+    encoder's, and the trained three hold real_bpp to the ideal bits and,
+    with the PSNR, to the JAX package's own numbers.
 
-Phases 5, 8, 11 and 12c set cuDNN deterministic, so that the kernel and plain
+Phases 5, 8, 11, 12c and 14 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone; the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6, 9, 11 and 12.
+and the temporary directories of phases 6, 9, 11 and 12.  It reads five demo
+checkpoints: hyper q1, cheng2020-gmm q3, and nlaic, tic and fic q3.
 """
 
 from __future__ import annotations
@@ -105,6 +120,12 @@ T0 = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "ckpts", "demo", "hyper-q1-mse-synthetic.msgpack")
 CKPT_GMM = os.path.join(ROOT, "ckpts", "demo", "cheng2020-gmm-q3-mse-synthetic.msgpack")
+# the adapter families of phases 13 and 14 at q3: the trained three on
+# their demo trees, invcompress and hific (no demo tree) on seeded weights
+ADAPTER_CKPTS = {f: os.path.join(ROOT, "ckpts", "demo", f"{f}-q3-mse-synthetic.msgpack")
+                 for f in ("nlaic", "tic", "fic")}
+ADAPTERS = ("nlaic", "tic", "fic", "invcompress", "hific")
+ADAPTER_STEPS = 101
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, the dense TF32 tensor-core
 # rate (the kernel's product runs there) and, as a second column, the fp32
@@ -156,6 +177,11 @@ REAL_VS_EST_RTOL = 0.03
 JAX_REAL_CODEC = {
     "hyper q1": {"real_bpp": 0.2833251953125, "psnr": 24.397785186767578},
     "cheng2020-gmm q3": {"real_bpp": 0.6161092122395834, "psnr": 22.275646209716797},
+    # phase 14, the same script on the tree of this slice (the JAX package
+    # unchanged): `python tests/test_torch_realcodec.py nlaic tic fic`
+    "nlaic q3": {"real_bpp": 0.4715576171875, "psnr": 26.390838623046875},
+    "tic q3": {"real_bpp": 1.9007568359375, "psnr": 16.017681121826172},
+    "fic q3": {"real_bpp": 0.09440104166666667, "psnr": 12.553168296813965},
 }
 REAL_VS_JAX_RTOL = 0.005
 PSNR_VS_JAX_DB = 0.01
@@ -175,9 +201,10 @@ RESIZE_ATOL = 1e-5
 # C=128; cheng2020* q1-3 makes the same calls), the widest call of q6-8
 # (C=192), the first call of the self-ensemble's batch of 4 variants
 # (4 x 98,304 rows), and the calls of a training step on 8 crops of 256x256
-# (8 x 128 x 128 rows, then 32,768 and 8,192)
+# (8 x 128 x 128 rows, then 32,768 and 8,192), and the calls of nlaic q3
+# and fic at 768x512 (C=192: 98,304, 24,576 and 6,144 rows)
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
-              (128, 131072), (128, 32768), (128, 8192))
+              (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576))
 TIMED_LAUNCHES = 50
 # also timed over 500 launches and with a 64 MB write before each launch,
 # which evicts x and out from the 50 MB L2 as the path's other kernels do:
@@ -378,6 +405,12 @@ def phase_main_path(gdn):
     return launches
 
 
+def has_gdn(codec) -> bool:
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    return any(isinstance(m, GDN) for m in codec.modules())
+
+
 def load_codec(model: str, quality: int, checkpoint=None, demo_transforms: bool = False):
     """The codec on the card; ``demo_transforms`` fills every parameter that
     the cheng2020-gmm demo checkpoint shares with ``model`` from it (all of
@@ -401,11 +434,13 @@ def load_codec(model: str, quality: int, checkpoint=None, demo_transforms: bool 
 
 
 def attack_kernel_vs_plain(gdn, label: str, codec, debug_model: bool = False,
-                           noise_atol: float = NOISE_ATOL, vi_atol: float = VI_ATOL) -> int:
+                           noise_atol: float = NOISE_ATOL, vi_atol: float = VI_ATOL,
+                           random_start: bool = False) -> int:
     """20-step attack at 256x256 with the kernel and with the plain GDN,
     cuDNN set deterministic; every element of the final noise must agree
-    within ``noise_atol`` and vi within ``vi_atol`` dB.  Returns the kernel
-    run's launches."""
+    within ``noise_atol`` and vi within ``vi_atol`` dB.  ``random_start``
+    starts both runs from the same uniform(+-1e-2) noise (a restart's init,
+    drawn from a generator seeded 0).  Returns the kernel run's launches."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig, make_attack_fn
@@ -414,7 +449,8 @@ def attack_kernel_vs_plain(gdn, label: str, codec, debug_model: bool = False,
 
     x = to_tensor(synthetic_image(256, 256, seed=1), "cuda")
     attack = make_attack_fn(codec, RDAttackConfig(steps=20, two_phase_impl="select",
-                                                  debug_model=debug_model))
+                                                  debug_model=debug_model,
+                                                  random_restarts=2 if random_start else 1))
     cudnn = torch.backends.cudnn
     flags = (cudnn.deterministic, cudnn.benchmark)
     results = []
@@ -434,8 +470,7 @@ def attack_kernel_vs_plain(gdn, label: str, codec, debug_model: bool = False,
     diff = (nk - npl).abs().max().item()
     log(f"{label} attack 256x256 x20 steps: max |noise diff| {diff:.3e} (tol {noise_atol}), "
         f"vi kernel {vik:.6f} plain {vip:.6f} (tol {vi_atol}), gdn_fwd launches {lk} / {lp}")
-    has_gdn = any(isinstance(m, GDN) for m in codec.modules())
-    if (lk == 0) == has_gdn or lp != 0:
+    if (lk == 0) == has_gdn(codec) or lp != 0:
         raise RuntimeError(f"{label}: launch counts: kernel run {lk}, plain run {lp}")
     if not (math.isfinite(vik) and math.isfinite(vip)):
         raise RuntimeError(f"{label}: non-finite vi ({vik}, {vip})")
@@ -577,7 +612,11 @@ def timed_split(model):
         torch.cuda.synchronize()
         times["transforms"] += time.perf_counter() - starts[m]
 
-    hooks = [h for sub in (getattr(model, n) for n in ("g_a", "h_a", "h_s", "g_s") if hasattr(model, n))
+    # the transforms that are modules (tic, hific and invcompress make
+    # g_a and g_s methods over their own submodules)
+    subs = [getattr(model, n) for n in ("g_a", "h_a", "h_s", "g_s")
+            if isinstance(getattr(model, n, None), torch.nn.Module)]
+    hooks = [h for sub in subs
              for h in (sub.register_forward_pre_hook(pre), sub.register_forward_hook(post))]
     try:
         yield times
@@ -588,10 +627,13 @@ def timed_split(model):
             setattr(mod, name, fn)
 
 
-def coder_run(gdn, label: str, model, h: int, w: int, trained: bool):
-    """Phase 9, one run: encode and decode synthetic_image(h, w, seed=0) on
-    the card, check the round trip, and time encode and decode (then again,
-    split by ``timed_split``, for the trained runs)."""
+def coder_run(gdn, label: str, model, h: int, w: int, trained: bool, phase: str = "9",
+              est_rtol=REAL_VS_EST_RTOL):
+    """Phase 9 (and 14), one run: encode and decode synthetic_image(h, w,
+    seed=0) on the card, check the round trip, and time encode and decode
+    (then again, split by ``timed_split``, for the trained runs).
+    ``est_rtol=None`` reports real_bpp against the model's estimate without
+    holding it there."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.entropy.codec import RealCodec, coder_settings
@@ -615,7 +657,7 @@ def coder_run(gdn, label: str, model, h: int, w: int, trained: bool):
 
     if y_hat.shape != trace["y_hat"].shape or not torch.equal(y_hat, trace["y_hat"]):
         bad = int((y_hat != trace["y_hat"]).sum()) if y_hat.shape == trace["y_hat"].shape else -1
-        raise RuntimeError(f"phase 9 {label}: decoded latent differs from the encoder's at "
+        raise RuntimeError(f"phase {phase} {label}: decoded latent differs from the encoder's at "
                            f"{bad} of {y_hat.numel()} elements")
     with coder_settings():
         ref = model(x, "dequantize")
@@ -631,29 +673,32 @@ def coder_run(gdn, label: str, model, h: int, w: int, trained: bool):
         "xhat_vs_forward": (x_hat - x_ref).abs().max().item(),
     }
     if x_hat.shape != x.shape or not torch.isfinite(x_hat).all():
-        raise RuntimeError(f"phase 9 {label}: x_hat {tuple(x_hat.shape)} not finite or misshapen")
+        raise RuntimeError(f"phase {phase} {label}: x_hat {tuple(x_hat.shape)} not finite or "
+                           "misshapen")
     if not all(math.isfinite(rec[k]) for k in ("real_bpp", "ideal_bpp", "est_bpp", "psnr")):
-        raise RuntimeError(f"phase 9 {label}: non-finite result {rec}")
-    if launches == 0:
-        raise RuntimeError(f"phase 9 {label}: the coder ran without launching the GDN kernel")
-    # context's coder writes mean-shifted symbols; its forward rounds means-free
-    if model.entropy_structure != "context" and rec["xhat_vs_forward"] > CODER_XHAT_ATOL:
-        raise RuntimeError(f"phase 9 {label}: x_hat {rec['xhat_vs_forward']:.3e} from the "
+        raise RuntimeError(f"phase {phase} {label}: non-finite result {rec}")
+    if launches == 0 and has_gdn(model):
+        raise RuntimeError(f"phase {phase} {label}: the coder ran without launching the GDN kernel")
+    # context's coder writes mean-shifted symbols while its forward rounds
+    # means-free; fic's forward decodes the un-quantized latent
+    if model.entropy_structure not in ("context", "context4") and \
+            rec["xhat_vs_forward"] > CODER_XHAT_ATOL:
+        raise RuntimeError(f"phase {phase} {label}: x_hat {rec['xhat_vs_forward']:.3e} from the "
                            f"dequantize forward (tol {CODER_XHAT_ATOL})")
     gap_ideal = rec["real_bpp"] / rec["ideal_bpp"] - 1.0
     gap_est = rec["real_bpp"] / rec["est_bpp"] - 1.0
     more = ""
     if trained:
-        if abs(gap_ideal) > REAL_VS_IDEAL_RTOL or abs(gap_est) > REAL_VS_EST_RTOL:
-            raise RuntimeError(f"phase 9 {label}: real_bpp {rec['real_bpp']:.5f} vs ideal "
+        if abs(gap_ideal) > REAL_VS_IDEAL_RTOL or (est_rtol is not None and abs(gap_est) > est_rtol):
+            raise RuntimeError(f"phase {phase} {label}: real_bpp {rec['real_bpp']:.5f} vs ideal "
                                f"{gap_ideal:+.4f} (tol {REAL_VS_IDEAL_RTOL}), vs est "
-                               f"{gap_est:+.4f} (tol {REAL_VS_EST_RTOL})")
+                               f"{gap_est:+.4f} (tol {est_rtol})")
         jax_ref = JAX_REAL_CODEC[label]
         gap_jax = rec["real_bpp"] / jax_ref["real_bpp"] - 1.0
         dpsnr = rec["psnr"] - jax_ref["psnr"]
         rec.update(real_vs_jax=gap_jax, psnr_vs_jax=dpsnr)
         if abs(gap_jax) > REAL_VS_JAX_RTOL or abs(dpsnr) > PSNR_VS_JAX_DB:
-            raise RuntimeError(f"phase 9 {label}: real_bpp {gap_jax:+.5f} (tol {REAL_VS_JAX_RTOL}) "
+            raise RuntimeError(f"phase {phase} {label}: real_bpp {gap_jax:+.5f} (tol {REAL_VS_JAX_RTOL}) "
                                f"and PSNR {dpsnr:+.4f} dB (tol {PSNR_VS_JAX_DB}) from JAX's")
         more = f", vs JAX real_bpp {gap_jax:+.5f} psnr {dpsnr:+.4f} dB"
         for what, fn in (("encode", lambda: codec.compress(x)),
@@ -669,7 +714,7 @@ def coder_run(gdn, label: str, model, h: int, w: int, trained: bool):
             rec[f"{what}_split_s"] = {"total": total, **parts}
             more += f"; {what} split (s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in rec[f"{what}_split_s"].items())
-    log(f"phase 9 {label} {w}x{h}: real_bpp {rec['real_bpp']:.5f} est_bpp {rec['est_bpp']:.5f} "
+    log(f"phase {phase} {label} {w}x{h}: real_bpp {rec['real_bpp']:.5f} est_bpp {rec['est_bpp']:.5f} "
         f"ideal_bpp {rec['ideal_bpp']:.5f} (real vs ideal {gap_ideal:+.4f}, vs est {gap_est:+.4f})"
         f", psnr {rec['psnr']:.4f} dB, encode {rec['encode_s']:.3f} s, decode "
         f"{rec['decode_s']:.3f} s, gdn_fwd launches {launches}, latent round trip exact, "
@@ -1103,6 +1148,35 @@ def state_equal(a, b) -> bool:
     return True
 
 
+def attack_trained(gdn, step_dir: str, state):
+    """Phase 12e: ``cli.attack_rd -ckpt <step dir>`` on the codec that
+    phase 12b trained; the loaded parameters must be the trained ones."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli.attack_rd import run
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image
+    from imagecompression_adversarial_tpu_torch.io.weights import load_checkpoint
+
+    loaded = load_checkpoint(step_dir, "hyper")
+    trained = state.model.state_dict()
+    if loaded.keys() != trained.keys() or not all(
+            torch.equal(loaded[k].cuda(), v) for k, v in trained.items()):
+        raise RuntimeError(f"phase 12e: {step_dir} does not hold the trained parameters")
+    cfg = parse_config(["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", step_dir,
+                        "-steps", "20", "-two_phase", "select", "-device", "cuda"])
+    gdn.reset_launch_counts()
+    avg = run(cfg, images=[("synthetic-256x256", synthetic_image(256, 256, seed=3), 256, 256)])
+    launches = gdn.launch_counts["gdn_fwd"]
+    if not all(math.isfinite(avg[k]) for k in ("vi", "bpp_ori", "bpp")) or launches == 0:
+        raise RuntimeError(f"phase 12e: {avg}, gdn_fwd launches {launches}")
+    log(f"phase 12e cli.attack_rd -ckpt {os.path.basename(os.path.dirname(step_dir))}/"
+        f"{os.path.basename(step_dir)} (the trained codec, loaded exactly), 20 steps 256x256: "
+        f"vi {avg['vi']:.4f}, bpp_ori {avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, gdn_fwd "
+        f"launches {launches}")
+    return {k: avg[k] for k in ("vi", "bpp_ori", "bpp")}, launches
+
+
 def phase_training(gdn):
     """Phase 12a and 12b: RD training and --adv finetuning through
     ``cli.train`` at full width, with a resume, in a temporary directory."""
@@ -1175,6 +1249,9 @@ def phase_training(gdn):
         launches[f"12b resume to {TRAIN_RESUME_STEPS}"] = n
         log(f"phase 12b resume: '{line}', on to step {s['steps']}, loss {s['last']['loss']:.4f}, "
             f"gdn_fwd launches {n}")
+
+        records["12e"], launches["12e attack of the step-12 checkpoint"] = attack_trained(
+            gdn, os.path.join(s["ckpt_dir"], str(TRAIN_ADV_STEPS)), fresh)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1299,6 +1376,69 @@ def phase_train_kernel_vs_plain(gdn):
     return rec
 
 
+def phase_adapters(gdn):
+    """Phase 13: the RD attack on the five adapter families through the
+    attack CLI's ``run`` at 768x512."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli.attack_rd import run
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image
+
+    im = synthetic_image(512, 768, seed=0)
+    records, launches = {}, {}
+    for model in ADAPTERS:
+        flags = ["-m", model, "-q", "3", "-metric", "mse", "-steps", str(ADAPTER_STEPS),
+                 "-two_phase", "select", "-device", "cuda"]
+        if model in ADAPTER_CKPTS:
+            flags += ["-ckpt", ADAPTER_CKPTS[model]]
+        restarts = 2 if model == "fic" else 1  # fic's zero start is a critical point
+        flags += ["-random", str(restarts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gdn.reset_launch_counts()
+        avg = run(parse_config(flags), images=[("synthetic-768x512", im, 512, 768)])
+        torch.cuda.synchronize()
+        n = gdn.launch_counts["gdn_fwd"]
+        steps = ADAPTER_STEPS * restarts
+        rec = {"steps": steps, "steps_per_s": steps / avg["t"], "seconds": avg["t"],
+               "vi": avg["vi"], "bpp_ori": avg["bpp_ori"], "bpp": avg["bpp"], "gdn_launches": n,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "weights": "demo" if model in ADAPTER_CKPTS else "seeded"}
+        records[model] = rec
+        launches[f"13 {model} q3 768x512"] = n
+        log(f"phase 13 {model} q3 768x512 ({rec['weights']} weights, {steps} steps"
+            f"{', best of 2 restarts' if restarts > 1 else ''}): {rec['steps_per_s']:.2f} steps/s "
+            f"(incl. clean forward and eval, {avg['t']:.2f} s), vi {avg['vi']:.4f}, bpp_ori "
+            f"{avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, gdn_fwd launches {n}, peak memory "
+            f"{rec['peak_gib']:.2f} GiB")
+        for key in ("vi", "bpp_ori", "bpp"):
+            if not math.isfinite(avg[key]):
+                raise RuntimeError(f"phase 13 {model}: {key} is not finite ({avg[key]})")
+        if model in ("nlaic", "fic") and n == 0:
+            raise RuntimeError(f"phase 13 {model} ran without launching the GDN kernel")
+    return records, launches
+
+
+def phase_adapters_check(gdn):
+    """Phase 14: nlaic and fic with the kernel and with the plain GDN, and
+    the real coder on the five adapter families at 768x512."""
+    launches, records = {}, []
+    for model in ("nlaic", "fic"):
+        launches[f"14 {model} q3 256x256"] = attack_kernel_vs_plain(
+            gdn, f"phase 14 {model} q3", load_codec(model, 3, ADAPTER_CKPTS[model]),
+            noise_atol=ANCHOR_NOISE_ATOL, vi_atol=ANCHOR_VI_ATOL, random_start=model == "fic")
+    for model in ADAPTERS:
+        trained = model in ADAPTER_CKPTS
+        label = f"{model} q3"
+        rec = coder_run(gdn, label, load_codec(model, 3, ADAPTER_CKPTS.get(model)), 512, 768,
+                        trained=trained, phase="14", est_rtol=None)[-1]
+        launches[f"14 coder {label} 768x512"] = rec["gdn_launches"]
+        records.append(rec)
+    print(json.dumps({"coder_adapters": records}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1351,6 +1491,9 @@ def main() -> int:
     train_records, launches_train = phase_training(gdn)
     train_records["12c"] = phase_train_kernel_vs_plain(gdn)
     print(json.dumps({"phase12": train_records}), flush=True)
+    adapter_records, launches_adapters = phase_adapters(gdn)
+    print(json.dumps({"phase13": adapter_records}), flush=True)
+    launches_adapters.update(phase_adapters_check(gdn))
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -1367,6 +1510,7 @@ def main() -> int:
             **launches_slice4,
             **launches_engines,
             **launches_train,
+            **launches_adapters,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

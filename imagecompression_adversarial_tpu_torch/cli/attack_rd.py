@@ -11,7 +11,10 @@ every noise init that draws (the debug fixture's, and the restarts': its R
 restarts draw one after the other from it).  ``-random R`` keeps the best
 of R restarts, run one after the other (``-restart_impl host``) or as one
 batch (``vmap``); ``-attack_batch B`` (with ``-random 1``) attacks B images
-of one shape as one batch.
+of one shape as one batch.  ``-trace DIR`` attacks the last image once more
+under ``torch.profiler`` and writes its chrome trace into DIR.  ``-m fic``
+needs ``-random 2`` or more (its zero-noise start is a critical point), and
+says so without it.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
         n += 1
 
     items = corpus(cfg.source) if images is None else images
+    last = None
     if cfg.attack_batch > 1 and cfg.random <= 1:
         batched = make_batch_attack_fn(model, att_cfg)
         groups = {}
@@ -105,6 +109,7 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
                 dt = (time.time() - t0) / len(chunk)
                 for (name, im, h, w), res in zip(chunk, res_b):
                     report(name, res, im, h, w, dt)
+                last = xs[-1:]
     else:
         for name, im, h, w in items:
             x = to_tensor(im, device)
@@ -117,6 +122,10 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
                 res = attack(x, gen)
             res = to_host(res)
             report(name, res, im, h, w, time.time() - t0)
+            last = x
+
+    if cfg.trace and last is not None:
+        trace_attack(attack, last, cfg.trace)
 
     avg = {k: v / n for k, v in sums.items()}
     avg["dbpp"] = (avg["bpp"] - avg["bpp_ori"]) / avg["bpp_ori"]
@@ -129,8 +138,30 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
     return avg
 
 
+def trace_attack(attack, x: torch.Tensor, directory: str) -> str:
+    """Attack ``x`` once more (single start, generator seeded 0) under
+    ``torch.profiler``, every cuDNN plan already chosen, and write the
+    chrome trace into ``directory``; returns its path."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if x.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        attack(x, torch.Generator(x.device).manual_seed(0))
+        sync()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "attack_rd.json")
+    prof.export_chrome_trace(path)
+    print(f"[trace] torch.profiler trace written to {path}", flush=True)
+    return path
+
+
 def main(argv=None):
     cfg = parse_config(argv)
+    if cfg.model == "fic" and cfg.random <= 1:
+        # fic decodes the un-quantized latent, so zero-init noise sits at an
+        # exact critical point and never moves (models/fic.py)
+        print("WARNING: -m fic with zero noise init cannot leave its critical "
+              "point (vi stays 0); use -random 2 or more for uniform init", flush=True)
     if cfg.quality < 1:  # quality sweep over the family
         lo, hi = quality_range(cfg.model)
         for q in range(lo, hi + 1):

@@ -66,13 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-precision", type=str, default=d.precision,
                    help="highest|float32 (no TF32) or default|tf32")
     p.add_argument("-trace", dest="trace", type=str, default=d.trace,
-                   help="cli.train: directory for a torch.profiler trace of one steady step")
+                   help="directory for a torch.profiler chrome trace: cli.train of one "
+                        "steady step, cli.attack_rd of the last image's attack run again")
     p.add_argument("-lr_train", dest="lr_train", type=float, default=d.lr_train)
     p.add_argument("-lamb", dest="lamb", type=float, default=d.lamb,
                    help="training lambda (default: per-quality table)")
     p.add_argument("-batch_size", type=int, default=d.batch_size)
     p.add_argument("-m", dest="model", type=str, default=d.model,
-                   help="factorized|hyper|context|cheng2020|cheng2020-attn|cheng2020-gmm|debug")
+                   help="factorized|hyper|context|cheng2020|cheng2020-attn|cheng2020-gmm|"
+                        "debug|invcompress|hific|tic|nlaic|fic")
     p.add_argument("-metric", dest="metric", type=str, default=d.metric,
                    help="mse or ms-ssim (checkpoint flavour)")
     p.add_argument("-q", dest="quality", type=int, default=d.quality,
@@ -99,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", dest="source", type=str, default=d.source)
     p.add_argument("-t", dest="target", type=str, default=d.target)
     p.add_argument("-ckpt", dest="checkpoint", type=str, default=d.checkpoint,
-                   help="checkpoint: flax .msgpack or CompressAI .pth/.pth.tar")
+                   help="checkpoint: flax .msgpack, CompressAI .pth/.pth.tar, or this "
+                        "port's cli.train output (checkpoint.pt, or its step or best_loss "
+                        "directory)")
     p.add_argument("--mask_loc", nargs="+", type=int, default=d.mask_loc,
                    help="targeted ROI box x0 x1 y0 y1")
     p.add_argument("-la_bkg_in", dest="lamb_bkg_in", type=float, default=d.lamb_bkg_in)
@@ -139,6 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cli.codec: encode the -s glob to .bin bitstreams under -t")
     p.add_argument("--decode", action="store_true",
                    help="cli.codec: decode a -s glob of .bin bitstreams to PNGs under -t")
+    # flags the JAX parser accepts and no JAX entry point reads (--eval, -r,
+    # --fintune) or that configure XLA (-compile_cache): accepted and
+    # ignored, so a JAX command line runs unchanged
+    ignored = "accepted and ignored (a flag of the JAX CLI)"
+    p.add_argument("--eval", dest="_eval", action="store_true", help=ignored)
+    p.add_argument("-r", dest="_rate", action="store_true", help=ignored)
+    p.add_argument("--fintune", dest="_finetune", action="store_true", help=ignored)
+    p.add_argument("-compile_cache", dest="_compile_cache", type=str, default=None, help=ignored)
     return p
 
 

@@ -1,10 +1,12 @@
 """Real bitstreams: the codec's transforms on its device, the rANS coder on
 the host (port of ``imagecompression_adversarial_tpu/entropy/codec.py``).
 
-The equivalent of CompressAI's ``compress()``/``decompress()``.  The
-structures of the port's families are supported: ``factorized``,
-``scale_hyper``, ``context`` and ``context_gmm`` (the wavefront loop of
-``entropy/autoregressive.py``).
+The equivalent of CompressAI's ``compress()``/``decompress()``.  Every
+structure of the port's families but ``none`` (debug) is supported:
+``factorized``, ``scale_hyper``, ``mean_scale`` (tic, hific), ``context``
+and ``context_gmm`` (the wavefront loop of ``entropy/autoregressive.py``)
+and fic's ``context4``: one pass of its checkerboard context model to
+encode, four (one a phase) to decode.
 
 A stream decodes only if the decoder's ``h_s(z_hat)`` and context heads
 reproduce the encoder's to the bit.  So every call runs under
@@ -21,9 +23,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.fic import PHASE_ORDER
 from . import rans
 from .autoregressive import ARWeights, ar_decode, ar_decode_gmm, ar_encode, ar_encode_gmm
-from .tables import build_eb_tables, build_gc_tables, gc_build_indexes, ideal_bits
+from .gaussian import SCALE_BOUND, SCALES_MAX
+from .tables import (build_eb_tables, build_gc_tables, build_gmm_cdf_rows, gc_build_indexes,
+                     ideal_bits, stack_rows)
 
 
 @contextlib.contextmanager
@@ -53,7 +58,7 @@ def _nhwc_flat(t: torch.Tensor) -> torch.Tensor:
 class RealCodec:
     """Bit-exact encode and decode around a codec module."""
 
-    SUPPORTED = ("factorized", "scale_hyper", "context", "context_gmm")
+    SUPPORTED = ("factorized", "scale_hyper", "mean_scale", "context", "context_gmm", "context4")
 
     def __init__(self, module):
         structure = getattr(module, "entropy_structure", "none")
@@ -70,7 +75,7 @@ class RealCodec:
             self.medians = torch.from_numpy(self.eb_tables["medians"]).to(self.device)
             if structure != "factorized":
                 self.gc_tables = build_gc_tables()
-            if structure.startswith("context"):
+            if structure in ("context", "context_gmm"):
                 self.ar_weights = ARWeights(module)
 
     # ---------------------------------------------------------------- EB
@@ -100,6 +105,57 @@ class RealCodec:
         sym = torch.from_numpy(symbols.reshape(1, h, w, c).astype(np.float32)).to(self.device)
         return _cl(sym.permute(0, 3, 1, 2) + self.medians.reshape(1, -1, 1, 1))
 
+    # ------------------------------------------------------ context4 (fic)
+
+    @staticmethod
+    def _phases(h: int, w: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """(i, j) index arrays of each checkerboard phase, in decode order."""
+        ii, jj = np.mgrid[0:h, 0:w]
+        return [np.nonzero((ii % 2 == a) & (jj % 2 == b)) for a, b in PHASE_ORDER]
+
+    @staticmethod
+    def _phase_rows(scales: torch.Tensor, means: torch.Tensor, ii, jj):
+        """CDF rows of one phase's symbols, position-major then channel:
+        single Gaussians with the scales clamped to [SCALE_BOUND,
+        SCALES_MAX], the estimate's range; the fractional means stay in
+        the rows, since the symbols are ``round(y)``."""
+        host = torch.stack([scales[0, :, ii, jj], means[0, :, ii, jj]]).cpu().numpy()
+        sc, mu = (a.T.reshape(-1, 1) for a in host)
+        return build_gmm_cdf_rows(np.clip(sc, SCALE_BOUND, SCALES_MAX), mu, np.zeros_like(mu))
+
+    def _context4_encode(self, y: torch.Tensor, hyper: torch.Tensor,
+                         stats: Dict) -> Tuple[bytes, torch.Tensor]:
+        """One full context pass over ``round(y)``: a phase's parameters see
+        only the phases before it, so they equal the decoder's passes."""
+        y_q = torch.round(y)
+        scales, means = self.module.context(y_q, hyper)
+        symbols, rows, sizes, offsets = [], [], [], []
+        for ii, jj in self._phases(*y.shape[2:]):
+            r, s, o = self._phase_rows(scales, means, ii, jj)
+            symbols.append(y_q[0, :, ii, jj].t().reshape(-1))
+            rows.append(r)
+            sizes.append(s)
+            offsets.append(o)
+        symbols = torch.cat(symbols).cpu().numpy().astype(np.int32)
+        tables = (stack_rows(rows), np.concatenate(sizes), np.concatenate(offsets))
+        indexes = np.arange(symbols.size, dtype=np.int32)
+        stats.update(ideal_bits=ideal_bits(symbols, indexes, *tables), symbols=symbols,
+                     indexes=indexes, cdfs=tables[0], cdf_sizes=tables[1], offsets=tables[2])
+        return rans.encode_with_indexes(symbols, indexes, *tables), _cl(y_q)
+
+    def _context4_decode(self, string: bytes, hyper: torch.Tensor) -> torch.Tensor:
+        """Four context passes, each decoding one phase onto the canvas."""
+        _, _, h, w = hyper.shape
+        canvas = _cl(torch.zeros(1, self.module.M, h, w, device=self.device))
+        with rans.StreamingDecoder(string) as dec:
+            for ii, jj in self._phases(h, w):
+                scales, means = self.module.context(canvas, hyper)
+                rows, sizes, offsets = self._phase_rows(scales, means, ii, jj)
+                sym = dec.decode(np.arange(sizes.size, dtype=np.int32), rows, sizes, offsets)
+                values = torch.from_numpy(sym.reshape(len(ii), -1).astype(np.float32))
+                canvas[0, :, ii, jj] = values.t().to(self.device)
+        return canvas
+
     # ------------------------------------------------------------ public
 
     def compress(self, x: torch.Tensor, trace: Optional[Dict] = None) -> Dict:
@@ -127,21 +183,35 @@ class RealCodec:
             elif self.structure == "context":
                 y_string, trace["y_hat"] = ar_encode(y, hyper, self.ar_weights, self.gc_tables,
                                                      stats=st)
-            else:  # scale hyperprior: means-free symbols, scales from h_s
-                y_string = self._scale_hyper_encode(y, hyper, st)
-                trace["y_hat"] = _cl(torch.round(y))
+            elif self.structure == "context4":
+                y_string, trace["y_hat"] = self._context4_encode(y, hyper, st)
+            else:  # hyperpriors: scales (and means) from h_s
+                y_string, trace["y_hat"] = self._hyper_encode(y, hyper, st)
         return {"strings": [y_string, z_string], "shape": tuple(z.shape[2:]),
                 "ideal_bits": st["ideal_bits"] + z_bits}
 
-    def _scale_hyper_encode(self, y: torch.Tensor, scales: torch.Tensor, stats: Dict) -> bytes:
+    def _split_hyper(self, hyper: torch.Tensor):
+        """(scales, means) of ``h_s``'s output: the scale hyperprior's means
+        are zero, the mean-scale one's come second."""
+        if self.structure == "mean_scale":
+            return hyper.chunk(2, dim=1)
+        return hyper, torch.zeros_like(hyper)
+
+    def _hyper_encode(self, y: torch.Tensor, hyper: torch.Tensor,
+                      stats: Dict) -> Tuple[bytes, torch.Tensor]:
+        """Symbols ``round(y - means)`` under the scale-table rows; returns
+        the string and the encoder's latent ``sym + means``."""
         t = self.gc_tables
-        host = torch.stack([_nhwc_flat(scales), _nhwc_flat(y)]).cpu().numpy()
-        symbols = np.round(host[1]).astype(np.int32)
+        scales, means = self._split_hyper(hyper)
+        values = y - means
+        sym = torch.round(values)
+        host = torch.stack([_nhwc_flat(scales), _nhwc_flat(sym), _nhwc_flat(values)]).cpu().numpy()
+        symbols = host[1].astype(np.int32)
         indexes = gc_build_indexes(host[0], t["scale_table"])
         tables = (t["cdfs"], t["cdf_sizes"], t["offsets"])
         stats.update(ideal_bits=ideal_bits(symbols, indexes, *tables), symbols=symbols,
-                     indexes=indexes, values=host[1], scales=host[0])
-        return rans.encode_with_indexes(symbols, indexes, *tables)
+                     indexes=indexes, values=host[2], scales=host[0])
+        return rans.encode_with_indexes(symbols, indexes, *tables), _cl(sym + means)
 
     def decode_latent(self, strings: List[bytes], shape) -> torch.Tensor:
         """The latent ``y_hat`` (1, M, h, w) that ``strings`` code."""
@@ -155,13 +225,16 @@ class RealCodec:
                 return ar_decode_gmm(y_string, hyper, self.ar_weights)
             if self.structure == "context":
                 return ar_decode(y_string, hyper, self.ar_weights, self.gc_tables)
+            if self.structure == "context4":
+                return self._context4_decode(y_string, hyper)
             t = self.gc_tables
-            indexes = gc_build_indexes(_nhwc_flat(hyper).cpu().numpy(), t["scale_table"])
+            scales, means = self._split_hyper(hyper)
+            indexes = gc_build_indexes(_nhwc_flat(scales).cpu().numpy(), t["scale_table"])
             symbols = rans.decode_with_indexes(y_string, indexes, t["cdfs"], t["cdf_sizes"],
                                                t["offsets"])
-            _, m, h, w = hyper.shape
+            _, m, h, w = scales.shape
             y_hat = torch.from_numpy(symbols.reshape(1, h, w, m).astype(np.float32))
-            return _cl(y_hat.to(self.device).permute(0, 3, 1, 2))
+            return _cl(y_hat.to(self.device).permute(0, 3, 1, 2) + means)
 
     def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
         """``g_s(y_hat)`` clipped to [0, 1]."""

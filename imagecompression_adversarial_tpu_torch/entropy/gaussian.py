@@ -49,10 +49,17 @@ def gaussian_conditional(
     means: Optional[torch.Tensor] = None,
     quant_mode: str = "noise",
     generator: Optional[torch.Generator] = None,
+    means_free_round: bool = False,
 ):
     """Quantize ``y`` and return ``(y_hat, likelihoods)`` evaluated on the
-    quantized values (``GaussianConditional.forward`` semantics)."""
-    y_hat = quantize(y, quant_mode, means=means, generator=generator)
+    quantized values (``GaussianConditional.forward`` semantics).
+
+    ``means_free_round=True`` rounds ``y`` without the mean offset and still
+    evaluates N(mean, scale^2) at the rounded point: the convention of a
+    coder that writes plain ``round(y)`` symbols and keeps the fractional
+    mean in the CDF row (fic's ``context4``)."""
+    y_hat = quantize(y, quant_mode, means=None if means_free_round else means,
+                     generator=generator)
     lik = gaussian_likelihood(y_hat, scales, means=means)
     return y_hat, lower_bound(lik, _LIKELIHOOD_BOUND)
 

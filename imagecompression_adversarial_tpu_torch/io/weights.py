@@ -13,11 +13,16 @@ port's ``state_dict``.
   HWIO kernels become OIHW, and the transposed convs' HWIO(I, O) kernels
   IOHW.  The attention blocks of cheng2020-attn/-gmm have no CompressAI
   layout in the reference's converter; ``g_a_attn_1`` becomes
-  ``g_a.attn_1``, and those two families load from flax trees only.
+  ``g_a.attn_1``, and those two families load from flax trees only, as do
+  the adapter families (nlaic, invcompress, tic, hific, fic), whose
+  transforms keep their flax names (``g_a_nlam_1`` -> ``g_a.nlam_1``,
+  ``enc_0_1/attn/qkv`` -> ``enc_0_1.attn.qkv``).
+* ``load_checkpoint`` also reads the port's own training checkpoints.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import struct
 from typing import Any, Dict, Mapping, Tuple
@@ -25,17 +30,27 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-# flax paths whose kernel belongs to a ConvTranspose2d, per family with a
-# CompressAI layout (io/convert.py _DECONV_PATHS)
+# flax paths whose kernel belongs to a ConvTranspose2d, per family
+# (io/convert.py _DECONV_PATHS for the families with a CompressAI layout)
+_BALLE_SYNTHESIS = {"g_s_0", "g_s_2", "g_s_4", "g_s_6"}
+_MEAN_SCALE_HYPER = {"h_s_0", "h_s_2"}
 _DECONV_PATHS = {
-    "factorized": {"g_s_0", "g_s_2", "g_s_4", "g_s_6"},
-    "hyper": {"g_s_0", "g_s_2", "g_s_4", "g_s_6", "h_s_0", "h_s_2"},
-    "context": {"g_s_0", "g_s_2", "g_s_4", "g_s_6", "h_s_0", "h_s_2"},
+    "factorized": _BALLE_SYNTHESIS,
+    "hyper": _BALLE_SYNTHESIS | _MEAN_SCALE_HYPER,
+    "context": _BALLE_SYNTHESIS | _MEAN_SCALE_HYPER,
     "cheng2020": set(),
     "debug": {"g_s_0", "h_s_0", "h_s_2"},
 }
-# families that load from flax trees only, and the layout they share
-_FLAX_ONLY = {"cheng2020-attn": "cheng2020", "cheng2020-gmm": "cheng2020"}
+# families that load from flax trees only, and their transposed convs
+_FLAX_ONLY = {
+    "cheng2020-attn": set(),
+    "cheng2020-gmm": set(),
+    "nlaic": _BALLE_SYNTHESIS | _MEAN_SCALE_HYPER,
+    "fic": _BALLE_SYNTHESIS | _MEAN_SCALE_HYPER,
+    "tic": _MEAN_SCALE_HYPER | {f"unembed_{i}" for i in range(4)},
+    "hific": _MEAN_SCALE_HYPER | {f"generator/up_{i}" for i in range(4)},
+    "invcompress": set(),
+}
 
 # derived range-coder buffers of a CompressAI checkpoint (io/convert.py)
 _SKIP_SUFFIXES = (
@@ -43,9 +58,17 @@ _SKIP_SUFFIXES = (
     "mask", "likelihood_lower_bound.bound", "lower_bound_scale.bound",
 )
 
+# the file a training step directory of train/checkpoint.py holds
+TRAIN_CHECKPOINT = "checkpoint.pt"
+
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
-_SEQ_RE = re.compile(r"^(g_a|g_s|h_a|h_s|entropy_parameters)_(\d+|attn_\d+)$")
+_SEQ_RE = re.compile(r"^(g_a|g_s|h_a|h_s|entropy_parameters)_(\d+|attn_\d+|nlam_\d+)$")
+# top-level flax modules kept under their own name: the context model, and
+# the adapter families' transforms (invcompress ``inv``, hific ``encoder``
+# and ``generator``, fic ``context``, tic's stages)
+_NAMED_RE = re.compile(r"^(context_prediction|inv|encoder|generator|context"
+                       r"|(un)?embed_\d+|(enc|dec)_\d+_\d+)$")
 _EB_RE = re.compile(r"^(matrix|bias|factor)_(\d+)$")
 
 
@@ -134,22 +157,45 @@ def read_msgpack(path: str) -> Dict[str, Any]:
     return tree
 
 
-def _flax_leaves(node: Mapping[str, Any], names: Tuple[str, ...]):
-    """(torch name parts, leaf name, value) of every leaf under ``node``; a
-    node whose only child is ``conv`` is a subpel conv, whose conv is
-    ``.0`` in CompressAI's ``Sequential(conv, PixelShuffle)``."""
+def _flax_leaves(node: Mapping[str, Any], names: Tuple[str, ...], path: Tuple[str, ...]):
+    """(torch name parts, flax path of the leaf's module, leaf name, value)
+    of every leaf under ``node``; a node whose only child is ``conv`` is a
+    subpel conv, whose conv is ``.0`` in CompressAI's
+    ``Sequential(conv, PixelShuffle)``."""
     subpel = set(node) == {"conv"}
     for key, value in node.items():
         if isinstance(value, Mapping):
-            yield from _flax_leaves(value, names + ("0" if subpel else key,))
+            yield from _flax_leaves(value, names + ("0" if subpel else key,), path + (key,))
         else:
-            yield names, key, value
+            yield names, "/".join(path), key, value
+
+
+def _leaf(path: str, leaf: str, arr: np.ndarray,
+          deconv: bool) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """(torch name parts, array) of one flax leaf, or raises: conv kernels
+    HWIO -> OIHW (IOHW for a transposed conv), Dense kernels (in, out) ->
+    (out, in), LayerNorm ``scale`` -> ``weight``, invcompress's
+    ``conv3_kernel``/``conv3_bias`` -> ``conv3.weight``/``.bias``; GDN and
+    ChannelNorm ``beta``/``gamma``, ``rel_bias`` and the invertible 1x1
+    conv's (in, out) ``weight`` keep their names and layouts."""
+    if leaf in ("kernel", "conv3_kernel"):
+        name = ("conv3", "weight") if leaf == "conv3_kernel" else ("weight",)
+        if arr.ndim == 2:
+            return name, arr.T
+        return name, arr.transpose((2, 3, 0, 1) if deconv else (3, 2, 0, 1))
+    if leaf == "conv3_bias":
+        return ("conv3", "bias"), arr
+    if leaf == "scale":
+        return ("weight",), arr
+    if leaf in ("bias", "beta", "gamma", "rel_bias", "weight"):
+        return (leaf,), arr
+    raise ValueError(f"unexpected parameter path {path}/{leaf}")
 
 
 def params_from_jax(tree: Mapping[str, Any], arch: str = "hyper") -> Dict[str, torch.Tensor]:
     """Map a flax parameter tree (numpy leaves) to the port's state_dict;
     raises on a leaf it cannot place or on two leaves with one name."""
-    deconv = _DECONV_PATHS[_FLAX_ONLY.get(arch, arch)]
+    deconv = _DECONV_PATHS[arch] if arch in _DECONV_PATHS else _FLAX_ONLY[arch]
     out: Dict[str, torch.Tensor] = {}
     for module, node in tree.items():
         if module == "entropy_bottleneck":
@@ -159,22 +205,15 @@ def params_from_jax(tree: Mapping[str, Any], arch: str = "hyper") -> Dict[str, t
                 out[f"entropy_bottleneck.{name}"] = torch.from_numpy(np.array(value, np.float32))
             continue
         m = _SEQ_RE.match(module)
-        if m is None and module != "context_prediction":
+        if m is None and not _NAMED_RE.match(module):
             raise ValueError(f"unexpected parameter path {module}")
         prefix = module if m is None else f"{m.group(1)}.{m.group(2)}"
-        for names, leaf, value in _flax_leaves(node, (prefix,)):
-            arr = np.asarray(value, np.float32)
-            if leaf == "kernel":
-                perm = (2, 3, 0, 1) if names == (prefix,) and module in deconv else (3, 2, 0, 1)
-                name, arr = "weight", arr.transpose(perm)
-            elif leaf in ("bias", "beta", "gamma"):
-                name = leaf
-            else:
-                raise ValueError(f"unexpected parameter path {module}/.../{leaf}")
-            key = ".".join(names + (name,))
+        for names, path, leaf, value in _flax_leaves(node, (prefix,), (module,)):
+            parts, arr = _leaf(path, leaf, np.asarray(value, np.float32), path in deconv)
+            key = ".".join(names + parts)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key}")
-            out[key] = torch.from_numpy(arr.copy())
+            out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return out
 
 
@@ -195,7 +234,19 @@ def state_dict_from_torch(ckpt: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str, arch: str = "hyper") -> Dict[str, torch.Tensor]:
-    """``.msgpack`` (flax) or ``.pth``/``.pth.tar`` (CompressAI) -> state_dict."""
+    """A state_dict from a flax ``.msgpack``, a CompressAI ``.pth``/``.pth.tar``,
+    or this port's training checkpoint: its ``checkpoint.pt``, or the step
+    or ``best_loss`` directory that holds one (``train/checkpoint.py``),
+    whose ``state.params`` are this port's own names."""
+    if os.path.isdir(path):
+        inner = os.path.join(path, TRAIN_CHECKPOINT)
+        if not os.path.isfile(inner):
+            raise ValueError(f"{path} is a directory without a {TRAIN_CHECKPOINT}: give a step "
+                             "or best_loss directory of this port's trainer, or a file")
+        path = inner
+    if path.endswith(".pt"):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        return {k: v.float() for k, v in payload["state"]["params"].items()}
     if path.endswith((".pth", ".tar")):
         if arch not in _DECONV_PATHS:
             raise ValueError(f"{arch!r} has no CompressAI layout; load it from a flax .msgpack")

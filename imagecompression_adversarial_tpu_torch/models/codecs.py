@@ -1,7 +1,8 @@
 """Codec models (port of ``imagecompression_adversarial_tpu/models/codecs.py``):
 ``FactorizedPrior``, ``ScaleHyperprior``, ``JointAutoregressive`` (mbt2018,
-"context"), the cheng2020 family (anchor, attention, attention + GMM) and
-the reference's one-layer ``DebugCodec``.
+"context"), the cheng2020 family (anchor, attention, attention + GMM), the
+reference's one-layer ``DebugCodec`` and ``MeanScaleHyperprior``, the base
+of the adapter families tic and hific (``models/tic.py``, ``hific.py``).
 
 Module names follow CompressAI's ``nn.Sequential`` indices (``g_a.0``,
 ``h_s.2.0``, ``entropy_parameters.4``, ``entropy_bottleneck._matrix0``),
@@ -76,7 +77,9 @@ class CodecModel(nn.Module):
 
     ``entropy_structure`` tells the real coder (``entropy/codec.py``) how
     the symbols are conditioned: ``'factorized'``, ``'scale_hyper'``,
-    ``'context'``, ``'context_gmm'`` or ``'none'`` (no real coder).
+    ``'mean_scale'``, ``'context'``, ``'context_gmm'``, ``'context4'`` or
+    ``'none'`` (no real coder).  ``phase_reference_latent`` names the
+    result entry that ``g_s`` decodes (fic decodes ``'y'``).
     """
 
     entropy_structure = "none"
@@ -164,6 +167,31 @@ class ScaleHyperprior(CodecModel):
             "y_hat": y_hat,
             "z_hat": z_hat,
             "scales_hat": scales,
+            "likelihoods": {"y": y_lik, "z": z_lik},
+        }
+
+
+class MeanScaleHyperprior(CodecModel):
+    """The mean-scale hyperprior of tic and hific (subclasses build
+    ``g_a``/``g_s``, ``h_a``/``h_s`` and the bottleneck): ``z = h_a(y)``,
+    ``(scales, means) = h_s(z_hat)``, y quantized around its means."""
+
+    entropy_structure = "mean_scale"
+
+    def from_latent(self, y, quant_mode: str = "noise",
+                    generator: Optional[torch.Generator] = None) -> Result:
+        z_hat, z_lik = self.entropy_bottleneck(self.h_a(y), quant_mode, generator)
+        scales, means = self.h_s(z_hat).chunk(2, dim=1)
+        y_hat, y_lik = gaussian_conditional(
+            y, scales, means=means, quant_mode=quant_mode, generator=generator
+        )
+        return {
+            "x_hat": self.g_s(y_hat),
+            "y": y,
+            "y_hat": y_hat,
+            "z_hat": z_hat,
+            "scales_hat": scales,
+            "means_hat": means,
             "likelihoods": {"y": y_lik, "z": z_lik},
         }
 

@@ -1,6 +1,6 @@
 """Model factory: name + quality -> codec module (the rows of
-``imagecompression_adversarial_tpu/models/registry.py`` for the families
-this port has)."""
+``imagecompression_adversarial_tpu/models/registry.py``: all twelve
+families)."""
 
 from __future__ import annotations
 
@@ -19,12 +19,24 @@ from .codecs import (
     JointAutoregressive,
     ScaleHyperprior,
 )
+from .fic import FIC
+from .hific import HiFiC
+from .invcompress import InvCompress, InvertibleConv1x1
 from .layers import Conv, Deconv
+from .nlaic import NLAIC
+from .tic import TIC, Dense
 
-#: Families this port has so far.
 ARCHITECTURES = (
-    "factorized", "hyper", "context", "cheng2020", "cheng2020-attn", "cheng2020-gmm", "debug",
+    "factorized", "hyper", "context", "cheng2020", "cheng2020-attn", "debug",
+    "cheng2020-gmm", "invcompress", "hific", "tic", "nlaic", "fic",
 )
+# the adapter families' widths at every quality: invcompress's latent is
+# fixed at 768 (N is kept for symmetry), fic is Image_coding(3, 32, 192, 42, 64)
+_FIXED_DIMS = {"debug": (3, 192), "invcompress": (192, 768), "hific": (220, 220),
+               "tic": (128, 192), "fic": (192, 192)}
+# modules whose parameters init_model draws from its seeded generator; the
+# rest (norms, biases of attention) have constant inits
+_SEEDED = (Conv, Deconv, EntropyBottleneck, Dense, InvertibleConv1x1)
 
 # Quality -> (N, M), CompressAI zoo configuration.
 _FACTORIZED_CFG = {q: (128, 192) if q <= 5 else (192, 320) for q in range(1, 9)}
@@ -39,6 +51,7 @@ _CFG = {
     "cheng2020": _CHENG_CFG,
     "cheng2020-attn": _CHENG_CFG,
     "cheng2020-gmm": _CHENG_CFG,
+    "nlaic": _CONTEXT_CFG,
 }
 
 
@@ -54,10 +67,11 @@ def quality_range(model: str) -> Tuple[int, int]:
 
 
 def model_dims(model: str, quality: int) -> Tuple[int, int]:
-    """(N, M) of a family at a quality; the debug fixture has one size."""
+    """(N, M) of a family at a quality; debug and the adapter families but
+    nlaic have one size."""
     _check_family(model)
-    if model == "debug":
-        return (3, 192)
+    if model in _FIXED_DIMS:
+        return _FIXED_DIMS[model]
     if quality not in _CFG[model]:
         raise ValueError(f"quality {quality} out of range for model {model!r}")
     return _CFG[model][quality]
@@ -75,9 +89,14 @@ def init_model(model: str, quality: int, seed: int = 0) -> CodecModel:
         "cheng2020-attn": lambda: Cheng2020Attention(n),
         "cheng2020-gmm": lambda: Cheng2020AttnGMM(n),
         "debug": lambda: DebugCodec(n, m),
+        "invcompress": lambda: InvCompress(n, m),
+        "hific": lambda: HiFiC(n, m),
+        "tic": lambda: TIC(n, m),
+        "nlaic": lambda: NLAIC(n, m),
+        "fic": lambda: FIC(n, m),
     }[model]()
     generator = torch.Generator().manual_seed(seed)
     for sub in module.modules():
-        if isinstance(sub, (Conv, Deconv, EntropyBottleneck)):
+        if isinstance(sub, _SEEDED):
             sub.reset_parameters(generator)
     return module

@@ -21,9 +21,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..io.weights import TRAIN_CHECKPOINT
 from .step import TrainState
 
-FILENAME = "checkpoint.pt"
+FILENAME = TRAIN_CHECKPOINT
 BEST = "best_loss"
 
 

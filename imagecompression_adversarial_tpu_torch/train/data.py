@@ -6,8 +6,11 @@ stream equals JAX's element for element: recursive folder listing, a
 permutation an epoch, one ``default_rng`` a file for its crop (drawn before
 the file is read, so an unreadable file shifts no other crop), drop-last.
 Files are read through the port's own PNG reader (``io/image.py``, no
-PIL): a file it cannot decode (another format, a palette PNG) is skipped,
-as the JAX loader skips a file PIL cannot open.
+PIL), so only ``.png`` files are listed: a JPEG/BMP/WebP folder must be
+converted to PNG first (the JAX package also lists those, through PIL).  A
+listed file the reader cannot decode (a palette PNG, a broken file) or
+smaller than the crop is skipped, as the JAX loader skips a file PIL cannot
+open; an epoch that yields no batch raises, naming what was skipped.
 
 Without a data folder, ``synthetic_batches`` gives a deterministic
 structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
@@ -15,6 +18,7 @@ structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import glob
 import os
@@ -28,26 +32,35 @@ import numpy as np
 
 from ..io.image import read_image
 
-_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+# what the port reads, and what the JAX package also lists (through PIL)
+_EXTS = (".png",)
+_OTHER_EXTS = (".jpg", ".jpeg", ".bmp", ".webp")
 
 
-def list_image_files(root: str) -> List[str]:
+def _listing(root: str, exts) -> List[str]:
     out = []
-    for ext in _EXTS:
+    for ext in exts:
         out.extend(glob.glob(os.path.join(root, "**", f"*{ext}"), recursive=True))
     return sorted(out)
 
 
-def _load_crop(path: str, crop: int, rng: np.random.Generator) -> Optional[np.ndarray]:
+def list_image_files(root: str) -> List[str]:
+    """The PNG files under ``root``, recursively, sorted: the images this
+    port can decode."""
+    return _listing(root, _EXTS)
+
+
+def _load_crop(path: str, crop: int, rng: np.random.Generator):
+    """(crop, None), or (None, why the file was skipped)."""
     try:
         img, h, w = read_image(path, padding=1)
-    except (OSError, ValueError, zlib.error, struct.error):
-        return None
+    except (OSError, ValueError, zlib.error, struct.error) as e:
+        return None, f"unreadable ({type(e).__name__})"
     if w < crop or h < crop:
-        return None
+        return None, f"smaller than the {crop}x{crop} crop"
     x0 = int(rng.integers(0, w - crop + 1))
     y0 = int(rng.integers(0, h - crop + 1))
-    return img[0, y0:y0 + crop, x0:x0 + crop]
+    return img[0, y0:y0 + crop, x0:x0 + crop], None
 
 
 def image_folder_batches(
@@ -58,14 +71,21 @@ def image_folder_batches(
     workers: int = 8,
     epochs: Optional[int] = None,
 ) -> Iterator[np.ndarray]:
-    """Yield (B, crop, crop, 3) float32 batches forever (or for ``epochs``)."""
+    """Yield (B, crop, crop, 3) float32 batches forever (or for ``epochs``).
+    Raises ``FileNotFoundError`` when ``root`` holds no PNG, and
+    ``ValueError`` after an epoch that yields no batch."""
     files = list_image_files(root)
     if not files:
-        raise FileNotFoundError(f"no images under {root}")
+        others = _listing(root, _OTHER_EXTS)
+        why = (f"; {len(others)} {'/'.join(_OTHER_EXTS)} files there are not read (this port "
+               "decodes PNG only: convert them)" if others else "")
+        raise FileNotFoundError(f"no .png images under {root}{why}")
     rng = np.random.default_rng(seed)
 
     def one_epoch():
         order = rng.permutation(len(files))
+        skipped = collections.Counter()
+        yielded = 0
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
             batch = []
             futures = [
@@ -73,13 +93,20 @@ def image_folder_batches(
                 for i in order
             ]
             for fut in futures:
-                img = fut.result()
+                img, why = fut.result()
                 if img is None:
+                    skipped[why] += 1
                     continue
                 batch.append(img)
                 if len(batch) == batch_size:
                     yield np.stack(batch)
+                    yielded += 1
                     batch = []
+        if not yielded:
+            reasons = ", ".join(f"{n} {why}" for why, n in sorted(skipped.items()))
+            raise ValueError(
+                f"an epoch over the {len(files)} PNG files under {root} gave no batch of "
+                f"{batch_size}: {sum(skipped.values())} skipped ({reasons or 'none'})")
 
     e = 0
     while epochs is None or e < epochs:
@@ -109,8 +136,10 @@ def synthetic_batches(batch_size: int, crop: int = 256, seed: int = 0) -> Iterat
 
 def make_batches(root: Optional[str], batch_size: int, crop: int = 256,
                  seed: int = 0) -> Iterator[np.ndarray]:
-    """Image-folder stream if the directory holds images, else synthetic."""
-    if root and os.path.isdir(root) and list_image_files(root):
+    """Image-folder stream if the directory holds images, else synthetic; a
+    folder of images this port cannot decode raises (at the first batch)
+    rather than falling back."""
+    if root and os.path.isdir(root) and (list_image_files(root) or _listing(root, _OTHER_EXTS)):
         return image_folder_batches(root, batch_size, crop, seed)
     return synthetic_batches(batch_size, crop, seed)
 

@@ -27,6 +27,7 @@ from imagecompression_adversarial_tpu.metrics import bpp_from_likelihoods as j_b
 from imagecompression_adversarial_tpu.models import init_model as j_init_model
 from imagecompression_adversarial_tpu.models import init_params as j_init_params
 from imagecompression_adversarial_tpu.models import layers as jl
+from imagecompression_adversarial_tpu.models import registry as j_registry
 from imagecompression_adversarial_tpu_torch.cli import attack_rd
 from imagecompression_adversarial_tpu_torch.io.weights import load_checkpoint, params_from_jax
 from imagecompression_adversarial_tpu_torch.metrics import bpp_from_likelihoods
@@ -41,6 +42,8 @@ from imagecompression_adversarial_tpu_torch.models import (
 
 LAYER_ATOL = 1e-5
 FAMILIES = ("factorized", "hyper", "context", "cheng2020", "cheng2020-attn", "cheng2020-gmm", "debug")
+# the adapter families: tests/test_torch_adapters.py, test_torch_invcompress.py, test_torch_fic.py
+ADAPTERS = ("invcompress", "hific", "tic", "nlaic", "fic")
 # hyper's forward is compared on its demo weights in test_torch_weights.py
 NEW_FAMILIES = tuple(f for f in FAMILIES if f != "hyper")
 
@@ -211,20 +214,31 @@ def test_debug_codec_decodes_the_unquantized_latent():
 
 
 def test_registry_has_the_seven_families():
-    assert set(ARCHITECTURES) == set(FAMILIES)
+    """The seven families of ``models/codecs.py`` and, since slice 6, the
+    five adapter families: all twelve of the JAX registry, with its widths
+    and quality ranges."""
+    assert ARCHITECTURES == j_registry.ARCHITECTURES
+    assert set(ARCHITECTURES) == set(FAMILIES + ADAPTERS)
     assert quality_range("cheng2020") == quality_range("cheng2020-gmm") == (1, 6)
     assert quality_range("hyper") == quality_range("context") == quality_range("debug") == (1, 8)
     assert model_dims("context", 1) == (192, 192) and model_dims("context", 5) == (192, 320)
     assert model_dims("cheng2020-attn", 3) == (128, 128) and model_dims("cheng2020", 4) == (192, 192)
     assert model_dims("debug", 7) == (3, 192)
-    for bad in (("cheng2020", 7), ("hyper", 9), ("factorized", 0)):
+    for fam in ARCHITECTURES:
+        lo, hi = quality_range(fam)
+        assert (lo, hi) == j_registry.quality_range(fam)
+        for q in range(lo, hi + 1):
+            assert model_dims(fam, q) == j_registry.model_dims(fam, q), (fam, q)
+    assert model_dims("invcompress", 1) == (192, 768) and model_dims("hific", 8) == (220, 220)
+    assert model_dims("tic", 3) == (128, 192) and model_dims("fic", 6) == (192, 192)
+    assert model_dims("nlaic", 4) == (192, 192) and model_dims("nlaic", 5) == (192, 320)
+    for bad in (("cheng2020", 7), ("hyper", 9), ("factorized", 0), ("nlaic", 9)):
         with pytest.raises(ValueError, match="out of range"):
             model_dims(*bad)
-    for fam in ("fic", "nope"):
-        with pytest.raises(ValueError, match="not in"):
-            model_dims(fam, 1)
-        with pytest.raises(ValueError, match="not in"):
-            quality_range(fam)
+    with pytest.raises(ValueError, match="not in"):
+        model_dims("nope", 1)
+    with pytest.raises(ValueError, match="not in"):
+        quality_range("nope")
     head = init_model("cheng2020-gmm", 3).entropy_parameters[-1]
     assert (head.in_channels, head.out_channels) == (341, 9 * 128)
 

@@ -31,6 +31,7 @@ q3 (the constants ``chip_smoke.py`` holds the card to)::
 """
 
 import os
+import sys
 
 import flax.serialization
 import jax
@@ -68,8 +69,11 @@ REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CKPTS = {
     "hyper": os.path.join(REPO, "ckpts", "demo", "hyper-q1-mse-synthetic.msgpack"),
     "cheng2020-gmm": os.path.join(REPO, "ckpts", "demo", "cheng2020-gmm-q3-mse-synthetic.msgpack"),
+    **{f: os.path.join(REPO, "ckpts", "demo", f"{f}-q3-mse-synthetic.msgpack")
+       for f in ("nlaic", "tic", "fic")},
 }
-QUALITY = {"hyper": 1, "cheng2020-gmm": 3, "factorized": 1, "context": 1}
+QUALITY = {"hyper": 1, "cheng2020-gmm": 3, "factorized": 1, "context": 1, "nlaic": 3, "tic": 3,
+           "fic": 3}
 
 
 def jax_reference(model: str, h: int, w: int) -> dict:
@@ -250,5 +254,7 @@ def test_cli_encode_decode_round_trip(tmp_path):
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    for name in ("hyper", "cheng2020-gmm"):
+    # the families of chip_smoke.py phase 9 (hyper, cheng2020-gmm) and 14
+    # (nlaic, tic, fic), or those named on the command line
+    for name in sys.argv[1:] or ("hyper", "cheng2020-gmm", "nlaic", "tic", "fic"):
         print(name, QUALITY[name], "768x512", jax_reference(name, 512, 768), flush=True)

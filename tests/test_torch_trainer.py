@@ -65,14 +65,15 @@ def test_synthetic_and_dihedral_streams_equal_jax(batch, crop, seed):
 
 def _png_folder(root):
     """PNGs of several sizes in nested folders, one too small for the crop
-    and one file no reader can decode."""
+    and one PNG file no reader can decode (both sides list it and skip it;
+    the port lists no other format)."""
     rng = np.random.RandomState(0)
     sizes = [(80, 96), (64, 64), (120, 70), (40, 200), (100, 100), (66, 130), (90, 64)]
     for i, (h, w) in enumerate(sizes):
         sub = os.path.join(root, "a" if i % 2 else "b", "c" if i % 3 == 0 else "")
         os.makedirs(sub, exist_ok=True)
         write_image(rng.rand(1, h, w, 3).astype(np.float32), os.path.join(sub, f"im{i}.png"))
-    with open(os.path.join(root, "broken.jpg"), "wb") as f:
+    with open(os.path.join(root, "broken.png"), "wb") as f:
         f.write(b"not an image")
 
 

@@ -105,3 +105,69 @@ def same_noise(monkeypatch):
     monkeypatch.setattr(port_quant, "uniform_noise",
                         lambda y, generator: t_tab[tuple(y.shape)].to(y))
     return j_tab, t_tab
+
+
+def jax_params_from_port(model, jm, arch: str, input_shape=(1, 64, 64, 3)):
+    """The port model's parameters as the JAX module's flax tree (numpy):
+    the tree's paths and shapes from ``jax.eval_shape`` of its init, each
+    leaf the port tensor ``params_from_jax`` maps it to, put back in the
+    flax layout.  The inverse of ``params_from_jax`` for families without
+    a converter of their own."""
+    from imagecompression_adversarial_tpu.models import init_params as j_init_params
+    from imagecompression_adversarial_tpu_torch.io import weights
+
+    shapes = jax.eval_shape(lambda k: j_init_params(jm, k, input_shape), jax.random.PRNGKey(0))
+    state = model.state_dict()
+    deconv = weights._DECONV_PATHS.get(arch, weights._FLAX_ONLY.get(arch))
+
+    def leaf(path, sd):
+        names = [k.key for k in path]
+        tree = np.zeros(sd.shape, np.float32)
+        for name in reversed(names):
+            tree = {name: tree}
+        (key,) = weights.params_from_jax(tree, arch)
+        value = state[key].detach().cpu().numpy()
+        if len(sd.shape) == 2 and names[-1] == "kernel":  # Dense: (in, out)
+            value = value.T
+        elif len(sd.shape) == 4:
+            perm = (2, 3, 0, 1) if "/".join(names[:-1]) in deconv else (2, 3, 1, 0)
+            value = value.transpose(perm)
+        return np.ascontiguousarray(value, np.float32).reshape(sd.shape)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def perturb_(model, scale: float, seed: int = 0):
+    """Add ``scale`` x standard normal noise to every parameter (in place),
+    so zero-initialized weights (couplings, position biases) are exercised."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=gen))
+    return model
+
+
+@pytest.fixture
+def shape_noise(monkeypatch):
+    """The same numpy uniform(-0.5, 0.5) noise in both sides' ``noise``
+    quantization, for every latent shape: one draw per NHWC shape from a
+    seed, handed to ``jax.random.uniform`` (NHWC) and to the port's
+    ``uniform_noise`` (NCHW, transposed)."""
+    tables = {}
+
+    def table(nhwc_shape):
+        if nhwc_shape not in tables:
+            rng = np.random.RandomState(len(tables))
+            tables[nhwc_shape] = rng.uniform(-0.5, 0.5, nhwc_shape).astype(np.float32)
+        return tables[nhwc_shape]
+
+    def j_uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return jnp.asarray(table(tuple(shape)), dtype)
+
+    def t_uniform(y, generator):
+        b, c, h, w = y.shape
+        return torch.from_numpy(table((b, h, w, c)).transpose(0, 3, 1, 2).copy()).to(y)
+
+    monkeypatch.setattr(jax.random, "uniform", j_uniform)
+    monkeypatch.setattr(port_quant, "uniform_noise", t_uniform)
+    return tables
