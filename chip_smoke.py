@@ -88,7 +88,26 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     (ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL; fic from a random start), and the
     real coder on all five at 768x512: the decoded latent must equal the
     encoder's, and the trained three hold real_bpp to the ideal bits and,
-    with the PSNR, to the JAX package's own numbers.
+    with the PSNR, to the JAX package's own numbers;
+15. (a) trains the classifier through ``cli.classifier_train`` (synthetic
+    stream, batch 8, CLS_TRAIN_STEPS steps); (b) runs ``attack_cv
+    --cls_ckpt`` with it (hyper q1 demo weights, a 768x512 PNG,
+    CLS_ATTACK_STEPS steps), printing steps/s, vi, bpp, both labels, GDN
+    launches and peak memory, then the classifier-targeted attack (20
+    steps) with the kernel and with the plain GDN at phase 11's bounds;
+    (c) trains hific at full width through ``cli.train_hific`` (8 x
+    256x256 synthetic crops, GAN_STEPS steps, each synced so that its time
+    is read), checks finite losses, that every spectral-normed conv's ``u``
+    and ``sigma`` moved, and that the msgpack written reads back equal to
+    the trained generator and discriminator, then attacks the trained codec
+    through ``attack_rd -m hific -ckpt <that file>`` (20 steps, 256x256);
+16. runs the evaluation CLIs on two 768x512 PNGs (hyper q1 demo weights,
+    cuDNN deterministic): ``test`` with and without ``--defend``,
+    ``random_noise -noise 1e-3``, ``-degrade blurgen`` (to a BLUR_MSE
+    budget) and ``-degrade deblur`` on its output, ``recompression -re
+    50``; each prints its seconds, AVG line and GDN launches, and each that
+    runs the codec runs again with the plain GDN, the two held at
+    EVAL_BOUNDS.
 
 Phases 5, 8, 11, 12c and 14 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone; the coder sets it itself.
@@ -97,7 +116,7 @@ Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6, 9, 11 and 12.  It reads five demo
+and the temporary directories of phases 6, 9, 11, 12, 15 and 16.  It reads five demo
 checkpoints: hyper q1, cheng2020-gmm q3, and nlaic, tic and fic q3.
 """
 
@@ -255,6 +274,41 @@ KERNEL_CATEGORIES = (
                                          "cat", "index", "scatter", "gather", "softplus", "erf",
                                          "multi_tensor", "foreach")),
 )
+
+# phase 15: the classifier (a), its attack (b) and HiFiC GAN training (c).
+# 15b holds the classifier-targeted attack's kernel run (20 steps, 768x512)
+# to a float64 run of the same attack (plain GDN; codec, classifier and image
+# in float64): its noise no further from it than twice the float32 plain
+# run's distance, or NOISE_ATOL if that is larger, and vi within VI_ATOL of
+# the plain run.  Kernel against float32 plain (phase 11's check) is printed:
+# the cross-entropy's gradient reaches each pixel through the 28x28 resize,
+# small, and Adam amplifies its float32 rounding (3.1e-4 apart on the card
+# while each run repeats itself bit for bit)
+CLS_TRAIN_STEPS = 1001
+CLS_ATTACK_STEPS = 201
+CLS_LABEL = 3
+GAN_STEPS = 30
+# phase 16: the evaluation CLIs, each run with the kernel and again with the
+# plain GDN (cuDNN deterministic), their AVG values held apart by at most
+# these bounds: bpp relative, MS-SSIM absolute, the dB values (PSNR, dpsnr,
+# vi_noise, msim_dB) absolute.  "clean" runs are single forwards: the GDN
+# outputs differ by ~1e-6 relative, which flips a few latent roundings
+# (each moving the PSNR by ~1e-5 dB at 768x512); "chain" is the
+# recompression chain, which rounds its output to 8 bits each cycle and
+# carries every flip into the next cycle: its bounds are ten times the
+# largest gap, rounded up, between the port's float32 runs (oneDNN on and
+# off) and its float64 run of the same 50-cycle chain on these two images
+# on the CPU (`PYTHONPATH=.:tests python tests/test_torch_eval_clis.py`):
+# bpp 1.3e-5 relative, MS-SSIM 8.0e-5, PSNR 9.2e-4 dB and msim_dB 1.2e-3 dB
+EVAL_BOUNDS = {"clean": {"bpp": 1e-4, "msim": 1e-5, "dB": 1e-3},
+               "chain": {"bpp": 2e-4, "msim": 1e-3, "dB": 2e-2}}
+BLUR_MSE = 1e-4  # blurgen's budget: the synthetic image needs ~860 anneal steps
+RECOMPRESS_CYCLES = 50
+
+
+def eval_bound(kind: str, field: str) -> float:
+    group = "bpp" if field.startswith("bpp") else "msim" if field == "msim" else "dB"
+    return EVAL_BOUNDS[kind][group]
 
 
 def log(msg: str) -> None:
@@ -942,17 +996,18 @@ def kernel_and_plain(gdn, codec, fn):
     return out
 
 
-def hold(label, a, b, noise_atol=NOISE_ATOL, vi_atol=VI_ATOL, what="kernel vs plain"):
+def hold(label, a, b, noise_atol=NOISE_ATOL, vi_atol=VI_ATOL, what="kernel vs plain",
+         phase="11"):
     """``im_`` within ``noise_atol`` (the noise, since x is shared) and vi
     within ``vi_atol`` dB; returns the record."""
     diff = (a["im_"] - b["im_"]).abs().max().item()
     dvi = abs(a["vi"].item() - b["vi"].item())
-    log(f"phase 11 {label}, {what}: max |noise diff| {diff:.3e} (tol {noise_atol}), vi "
+    log(f"phase {phase} {label}, {what}: max |noise diff| {diff:.3e} (tol {noise_atol}), vi "
         f"{a['vi'].item():.6f} / {b['vi'].item():.6f} (tol {vi_atol})")
     if not (math.isfinite(a["vi"].item()) and math.isfinite(b["vi"].item())):
-        raise RuntimeError(f"phase 11 {label}: non-finite vi")
+        raise RuntimeError(f"phase {phase} {label}: non-finite vi")
     if diff > noise_atol or dvi > vi_atol:
-        raise RuntimeError(f"phase 11 {label}: {what} differ beyond the tolerances")
+        raise RuntimeError(f"phase {phase} {label}: {what} differ beyond the tolerances")
     return {"engine": label, "compare": what, "noise_max_abs_diff": diff, "vi_abs_diff": dvi}
 
 
@@ -1438,6 +1493,309 @@ def phase_adapters_check(gdn):
     print(json.dumps({"coder_adapters": records}), flush=True)
     return launches
 
+@contextlib.contextmanager
+def in_temp_dir(prefix: str):
+    """Run the body with a new temporary directory as the working
+    directory; the directory is removed after it."""
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        yield tmp
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_captured(fn, *args):
+    """``fn(*args)`` with its stdout shown and captured; the card synced and
+    its peak memory reset before: (result, stdout, seconds, peak GiB)."""
+    import torch
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    return res, out.getvalue(), time.time() - t, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_classifier(gdn):
+    """Phase 15a and 15b: ``cli.classifier_train`` on the synthetic stream
+    and ``attack_cv --cls_ckpt`` on hyper q1 at 768x512, then the
+    classifier-targeted attack with the kernel and with the plain GDN."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import (
+        TargetedAttackConfig, make_targeted_attack_fn,
+    )
+    from imagecompression_adversarial_tpu_torch.cli import attack_cv, classifier_train
+    from imagecompression_adversarial_tpu_torch.io.image import (
+        read_image, synthetic_image, to_tensor, write_image,
+    )
+    from imagecompression_adversarial_tpu_torch.io.weights import classifier_from_jax, read_msgpack
+    from imagecompression_adversarial_tpu_torch.models.classifier import (
+        MLPClassifier, make_logits_fn,
+    )
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    records, launches = {}, {}
+    with in_temp_dir("chip_smoke_cls_") as tmp:
+        cls = os.path.join(tmp, "classifier.msgpack")
+        loss, _, secs, peak = run_captured(classifier_train.main, [
+            "-steps", str(CLS_TRAIN_STEPS), "-batch_size", "8", "-ckpt", cls, "-device", "cuda"])
+        if not math.isfinite(loss) or not os.path.isfile(cls):
+            raise RuntimeError(f"phase 15a: final loss {loss}, file written {os.path.isfile(cls)}")
+        records["15a"] = {"steps": CLS_TRAIN_STEPS, "final_loss": loss, "seconds": secs,
+                          "steps_per_s": CLS_TRAIN_STEPS / secs, "peak_gib": peak}
+        log(f"phase 15a cli.classifier_train, synthetic stream, batch 8, {CLS_TRAIN_STEPS} steps: "
+            f"final loss {loss:.4f}, {CLS_TRAIN_STEPS / secs:.1f} steps/s ({secs:.2f} s, the "
+            f"file written included), peak memory {peak:.3f} GiB")
+
+        src = os.path.join(tmp, "synthetic01.png")
+        write_image(synthetic_image(512, 768, seed=5), src)
+        gdn.reset_launch_counts()
+        res, out, secs, peak = run_captured(attack_cv.main, [
+            "-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-s", src,
+            "--cls_ckpt", cls, "--cls_label", str(CLS_LABEL), "-steps", str(CLS_ATTACK_STEPS),
+            "-device", "cuda"])
+        n = gdn.launch_counts["gdn_fwd"]
+        line = (f"classifier: clean-recon label {res['label_clean']} -> adv-recon label "
+                f"{res['label_adv']} (target {CLS_LABEL})")
+        if line not in out.splitlines() or n == 0 or not all(
+                math.isfinite(res[k]) for k in ("vi", "bpp_ori", "bpp")):
+            raise RuntimeError(f"phase 15b: {res}, label line printed {line in out}, launches {n}")
+        records["15b"] = dict(res, steps=CLS_ATTACK_STEPS, seconds=secs, gdn_launches=n,
+                              steps_per_s=CLS_ATTACK_STEPS / secs, peak_gib=peak)
+        launches["15b attack_cv --cls_ckpt 768x512"] = n
+        log(f"phase 15b attack_cv --cls_ckpt hyper q1 768x512, {CLS_ATTACK_STEPS} steps: "
+            f"{CLS_ATTACK_STEPS / secs:.2f} steps/s (the whole CLI, {secs:.2f} s), vi "
+            f"{res['vi']:.4f}, bpp_ori {res['bpp_ori']:.4f}, bpp {res['bpp']:.4f}, labels "
+            f"{res['label_clean']} -> {res['label_adv']} (target {CLS_LABEL}), gdn_fwd launches "
+            f"{n}, peak memory {peak:.2f} GiB")
+
+        x = to_tensor(read_image(src)[0], "cuda")
+        runs = {}
+        for dtype in (torch.float32, torch.float64):
+            codec = load_codec("hyper", 1, CKPT).to(dtype)
+            classifier = MLPClassifier()
+            classifier.load_state_dict(classifier_from_jax(read_msgpack(cls)), strict=True)
+            attack = make_targeted_attack_fn(
+                codec, TargetedAttackConfig(steps=20), target_label=CLS_LABEL,
+                classifier_logits_fn=make_logits_fn(classifier.to("cuda", dtype).eval()))
+            if dtype == torch.float32:
+                (k, lk), (p, _) = kernel_and_plain(gdn, codec, lambda: attack(x))
+                with cudnn_deterministic():
+                    again = (attack(x)["im_"] - k["im_"]).abs().max().item()
+            else:  # the witness: plain GDN, everything in float64
+                for m in codec.modules():
+                    if isinstance(m, GDN):
+                        m.use_kernel = False
+                with cudnn_deterministic():
+                    w = attack(x.double())
+        d_k, d_p, d_kp = ((a["im_"].double() - b["im_"].double()).abs().max().item()
+                          for a, b in ((k, w), (p, w), (k, p)))
+        bound = max(NOISE_ATOL, 2 * d_p)
+        dvi = abs(k["vi"].item() - p["vi"].item())
+        rec = {"noise_kernel_vs_f64": d_k, "noise_plain_vs_f64": d_p, "noise_kernel_vs_plain": d_kp,
+               "vi_kernel_vs_plain": dvi, "repeat_noise_max_abs_diff": again,
+               "vi": [k["vi"].item(), p["vi"].item(), w["vi"].item()]}
+        log(f"phase 15b classifier-targeted x20 768x512: max |noise diff| kernel vs float64 plain "
+            f"{d_k:.3e} (tol {bound:.3e}: the larger of {NOISE_ATOL} and twice the float32 plain "
+            f"run's {d_p:.3e}), kernel vs float32 plain {d_kp:.3e}, the kernel run repeated "
+            f"{again:.3e}; vi kernel {k['vi'].item():.6f}, plain {p['vi'].item():.6f} (tol "
+            f"{VI_ATOL}), float64 {w['vi'].item():.6f}")
+        if d_k > bound or dvi > VI_ATOL or not math.isfinite(k["vi"].item()):
+            raise RuntimeError(f"phase 15b classifier-targeted: kernel vs plain beyond the bounds: {rec}")
+        records["15b kernel vs plain"] = rec
+        launches["15b classifier-targeted x20 768x512"] = lk
+    return records, launches
+
+
+def phase_gan(gdn):
+    """Phase 15c: ``cli.train_hific`` at hific's full widths, its checkpoint
+    read back, and 20 RD attack steps on the trained codec."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli import attack_rd, train_hific
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image
+    from imagecompression_adversarial_tpu_torch.io.weights import (
+        flax_params, load_checkpoint, read_msgpack,
+    )
+
+    made, step_s = {}, []
+    init_model, init_disc, make_step = (train_hific.init_model, train_hific.init_discriminator,
+                                        train_hific.make_gan_train_step)
+
+    def timed_step(*args):  # each step synced, so its time is the device's too
+        step = make_step(*args)
+
+        def run(*a):
+            t = time.time()
+            logs = step(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t)
+            return logs
+
+        return run
+
+    train_hific.init_model = lambda *a, **k: made.setdefault("codec", init_model(*a, **k))
+    train_hific.init_discriminator = lambda *a, **k: made.setdefault("disc", init_disc(*a, **k))
+    train_hific.make_gan_train_step = timed_step
+    try:
+        with in_temp_dir("chip_smoke_gan_") as tmp:
+            out_file = os.path.join(tmp, "hific.msgpack")
+            logs, out, secs, peak = run_captured(train_hific.main, [
+                "-max_steps", str(GAN_STEPS), "-ckpt", out_file, "-device", "cuda"])
+            codec, disc = made["codec"], made["disc"]
+            n_params = sum(p.numel() for p in codec.parameters())
+            lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+            values = [float(v) for ln in lines for v in re.findall(r" (?:loss|d) (\S+)", ln)]
+            if (len(step_s) != GAN_STEPS or len(lines) != -(-GAN_STEPS // 10)
+                    or not all(math.isfinite(v) for v in values + list(logs.values()))):
+                raise RuntimeError(f"phase 15c: {len(step_s)} steps, log lines {lines}, logs {logs}")
+            fresh = init_disc(codec.M, seed=1)
+            still = [f"{m}.{b}" for m in [f"conv_{i}" for i in range(4)] + ["logits"]
+                     for b in ("u", "sigma")
+                     if torch.equal(getattr(fresh, m).get_buffer(b),
+                                    getattr(disc, m).get_buffer(b).cpu())]
+            # a 1x1 logits conv has a one-element u that stays +-1 when it is 1
+            still = [s for s in still if s != "logits.u" or abs(float(fresh.logits.u)) != 1.0]
+            if still:
+                raise RuntimeError(f"phase 15c: spectral-norm stats that did not move: {still}")
+            t = time.time()
+            tree = read_msgpack(out_file)
+            trained = load_checkpoint(out_file, "hific")
+            state = codec.state_dict()
+            d_now = flax_params(disc)
+            same = (trained.keys() == state.keys()
+                    and all(torch.equal(trained[k], state[k].cpu()) for k in state)
+                    and tree["discriminator"].keys() == d_now.keys()
+                    and all(np.array_equal(tree["discriminator"][m][leaf], d_now[m][leaf])
+                            for m in d_now for leaf in d_now[m]))
+            read_s = time.time() - t
+            if not same:
+                raise RuntimeError("phase 15c: the msgpack does not hold the trained weights")
+            steady = sum(step_s[1:]) / (GAN_STEPS - 1)
+            rec = {"steps": GAN_STEPS, "params": n_params, "first_step_s": step_s[0],
+                   "steady_steps_per_s": 1.0 / steady, "seconds": secs, "peak_gib": peak,
+                   "file_mb": os.path.getsize(out_file) / 1e6, "read_back_s": read_s,
+                   "last": logs, "first_line": lines[0]}
+            log(f"phase 15c cli.train_hific hific full width ({n_params / 1e6:.1f}M generator "
+                f"parameters), 8 x 256x256, {GAN_STEPS} steps: steady {1.0 / steady:.2f} steps/s "
+                f"(steps 2-{GAN_STEPS}, each synced; the first took {step_s[0]:.2f} s), the whole "
+                f"CLI {secs:.2f} s, peak memory {peak:.2f} GiB; {lines[0]}; last loss "
+                f"{logs['loss']:.4f} bpp {logs['bpp']:.4f} mse {logs['mse']:.5f} perc "
+                f"{logs['perceptual']:.4f} g_adv {logs['g_adv']:.4f} d {logs['d_loss']:.4f}; every "
+                f"u and sigma moved; the {rec['file_mb']:.0f} MB msgpack reads back equal "
+                f"({read_s:.2f} s)")
+
+            cfg = parse_config(["-m", "hific", "-ckpt", out_file, "-steps", "20",
+                                "-two_phase", "select", "-device", "cuda"])
+            avg = attack_rd.run(cfg, images=[("synthetic-256x256", synthetic_image(256, 256, 3),
+                                              256, 256)])
+            if not all(math.isfinite(avg[k]) for k in ("vi", "bpp_ori", "bpp")):
+                raise RuntimeError(f"phase 15c attack of the trained codec: {avg}")
+            rec["attack"] = {k: avg[k] for k in ("vi", "bpp_ori", "bpp")}
+            log(f"phase 15c attack_rd -m hific -ckpt <the GAN file>, 20 steps 256x256: vi "
+                f"{avg['vi']:.4f}, bpp_ori {avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}")
+    finally:
+        train_hific.init_model, train_hific.init_discriminator = init_model, init_disc
+        train_hific.make_gan_train_step = make_step
+    return rec
+
+
+@contextlib.contextmanager
+def plain_gdn_in(cli_module):
+    """The CLI module's ``load_model`` gives codecs with ``GDN.use_kernel``
+    off for the body."""
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    load = cli_module.load_model
+
+    def plain(*args, **kwargs):
+        model = load(*args, **kwargs)
+        for m in model.modules():
+            if isinstance(m, GDN):
+                m.use_kernel = False
+        return model
+
+    cli_module.load_model = plain
+    try:
+        yield
+    finally:
+        cli_module.load_model = load
+
+
+def phase_eval_clis(gdn):
+    """Phase 16: the evaluation CLIs on two 768x512 PNGs (hyper q1 demo
+    weights), each with the kernel and again with the plain GDN, cuDNN
+    deterministic, held at EVAL_BOUNDS."""
+    from imagecompression_adversarial_tpu_torch.cli import random_noise, recompression
+    from imagecompression_adversarial_tpu_torch.cli import test as cli_test
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, write_image
+
+    records, launches = {}, {}
+    with in_temp_dir("chip_smoke_eval_") as tmp, cudnn_deterministic():
+        for i in (1, 2):
+            write_image(synthetic_image(512, 768, seed=10 + i), os.path.join(tmp, f"kodim0{i}.png"))
+        src = os.path.join(tmp, "kodim*.png")
+        hyper = ["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-device", "cuda"]
+        runs = (
+            ("test", cli_test, hyper + ["-s", src], "clean"),
+            ("test --defend", cli_test, hyper + ["-s", src, "--defend"], "clean"),
+            ("random_noise -noise 1e-3", random_noise, hyper + ["-s", src, "-noise", "1e-3"],
+             "clean"),
+            ("random_noise -degrade blurgen", random_noise,
+             ["-s", src, "-noise", str(BLUR_MSE), "-degrade", "blurgen", "-device", "cuda"], None),
+            ("random_noise -degrade deblur", random_noise,
+             hyper + ["-s", os.path.join(tmp, "attack", "blur", "*.png"), "-t", src,
+                      "-degrade", "deblur"], "clean"),
+            (f"recompression -re {RECOMPRESS_CYCLES}", recompression,
+             hyper + ["-s", src, "-re", str(RECOMPRESS_CYCLES)], "chain"),
+        )
+        for label, cli, argv, bounds in runs:
+            gdn.reset_launch_counts()
+            avg, out, secs, peak = run_captured(cli.run, parse_config(argv))
+            n = gdn.launch_counts["gdn_fwd"]
+            avg_line = ([ln for ln in out.splitlines() if ln.startswith("AVG:")] or [""])[-1]
+            sigmas = re.findall(r"sigma (\S+)", out)
+            rec = {"seconds": secs, "gdn_launches": n, "peak_gib": peak, "avg": avg,
+                   "avg_line": avg_line}
+            if bounds is None:  # blurgen runs no codec: it must write both PNGs, no launch
+                blurred = sorted(os.listdir(os.path.join(tmp, "attack", "blur")))
+                if blurred != ["kodim01.png", "kodim02.png"] or n != 0 or len(sigmas) != 2:
+                    raise RuntimeError(f"phase 16 {label}: wrote {blurred}, launches {n}")
+                rec["sigmas"] = [float(v) for v in sigmas]
+                log(f"phase 16 {label} 2 x 768x512: {secs:.2f} s, sigmas {sigmas} (annealed "
+                    f"from 5.0 by 0.005 to the {BLUR_MSE} MSE), gdn_fwd launches {n}")
+                records[label] = rec
+                continue
+            if n == 0 or not avg or not all(math.isfinite(v) for v in avg.values()):
+                raise RuntimeError(f"phase 16 {label}: {avg}, gdn_fwd launches {n}")
+            with plain_gdn_in(cli):
+                gdn.reset_launch_counts()
+                plain, _, plain_secs, _ = run_captured(cli.run, parse_config(argv))
+                if gdn.launch_counts["gdn_fwd"] != 0:
+                    raise RuntimeError(f"phase 16 {label}: the plain run launched the kernel")
+            gaps = {k: abs(avg[k] - plain[k]) for k in avg if k != "t"}
+            bad = {k: g for k, g in gaps.items()
+                   if g > eval_bound(bounds, k) * (abs(plain[k]) if k.startswith("bpp") else 1)}
+            rec.update(plain_seconds=plain_secs, plain=plain, gaps=gaps)
+            log(f"phase 16 {label} 2 x 768x512: {secs:.2f} s (plain GDN {plain_secs:.2f} s), "
+                f"gdn_fwd launches {n}, peak {peak:.2f} GiB; {avg_line}; kernel vs plain gaps "
+                + ", ".join(f"{k} {g:.3e}" for k, g in gaps.items()) + f" ({bounds} bounds)")
+            if bad:
+                raise RuntimeError(f"phase 16 {label}: kernel vs plain beyond the bounds: {bad}")
+            records[label] = rec
+            launches[f"16 {label} 2 x 768x512"] = n
+    return records, launches
+
 
 def main() -> int:
     import torch
@@ -1494,6 +1852,12 @@ def main() -> int:
     adapter_records, launches_adapters = phase_adapters(gdn)
     print(json.dumps({"phase13": adapter_records}), flush=True)
     launches_adapters.update(phase_adapters_check(gdn))
+    cls_records, launches_slice7 = phase_classifier(gdn)
+    cls_records["15c"] = phase_gan(gdn)
+    print(json.dumps({"phase15": cls_records}), flush=True)
+    eval_records, launches_eval = phase_eval_clis(gdn)
+    print(json.dumps({"phase16": eval_records}), flush=True)
+    launches_slice7.update(launches_eval)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -1511,6 +1875,7 @@ def main() -> int:
             **launches_engines,
             **launches_train,
             **launches_adapters,
+            **launches_slice7,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

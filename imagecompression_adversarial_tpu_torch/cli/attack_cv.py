@@ -8,8 +8,9 @@ Port of ``imagecompression_adversarial_tpu/cli/attack_cv.py``: steers the
 reconstruction of ``-s`` toward ``-t`` (inside the box, with ``--mask_loc``;
 untargeted where ``-t`` names no file) and writes
 ``./attack/targeted/<name>_fake_in.png`` and ``_fake_out.png``.  The
-classifier variant (``--cls_ckpt``) needs ``models/classifier.py``, which
-the port does not have yet (slice 6 of ROADMAP.md's Queue A): it raises.
+classifier variant (``--cls_ckpt c.msgpack --cls_label 3``, a checkpoint of
+``cli.classifier_train``) steers the reconstruction toward the classifier's
+label 3 and prints the labels of the clean and adversarial reconstructions.
 """
 
 from __future__ import annotations
@@ -18,19 +19,27 @@ import dataclasses
 import os
 from typing import Optional
 
+import torch
+
 from ..attacks.targeted import TargetedAttackConfig, make_targeted_attack_fn
 from ..config import Config, apply_precision, build_parser
 from ..io.image import read_image, to_numpy, to_tensor, write_image
+from ..io.weights import classifier_from_jax, read_msgpack
+from ..models.classifier import MLPClassifier, make_logits_fn
 from ..runtime import load_model
 from ._corpus import to_host
 
 
+def load_classifier_logits_fn(ckpt: str, device):
+    """The logits function of a classifier msgpack (``cli.classifier_train``
+    of either package), on ``device``."""
+    module = MLPClassifier()
+    module.load_state_dict(classifier_from_jax(read_msgpack(ckpt)), strict=True)
+    module.requires_grad_(False)
+    return make_logits_fn(module.to(device).eval())
+
+
 def run(cfg, cls_ckpt: Optional[str] = None, cls_label: Optional[int] = None) -> dict:
-    if cls_ckpt:
-        raise NotImplementedError(
-            "--cls_ckpt: the classifier (models/classifier.py) is not ported yet; "
-            "it comes with slice 6 of the port (ROADMAP.md, Queue A)"
-        )
     apply_precision(cfg)
     model = load_model(cfg)
     device = next(model.parameters()).device
@@ -45,7 +54,9 @@ def run(cfg, cls_ckpt: Optional[str] = None, cls_label: Optional[int] = None) ->
         lamb_bkg_out=cfg.lamb_bkg_out,
         mask_loc=tuple(cfg.mask_loc) if cfg.mask_loc else None,
     )
-    attack = make_targeted_attack_fn(model, att_cfg)
+    logits_fn = load_classifier_logits_fn(cls_ckpt, device) if cls_ckpt else None
+    attack = make_targeted_attack_fn(model, att_cfg, classifier_logits_fn=logits_fn,
+                                     target_label=cls_label)
     im_s, h, w = read_image(cfg.source)
     target = None
     if cfg.target and os.path.exists(cfg.target):
@@ -57,23 +68,30 @@ def run(cfg, cls_ckpt: Optional[str] = None, cls_label: Optional[int] = None) ->
     out = to_host({k: res[k] for k in ("bpp_ori", "bpp", "vi", "loss_i_final", "loss_o_final")})
     print(f"bpp_ori {out['bpp_ori']:.4f} bpp_adv {out['bpp']:.4f} vi {out['vi']:.4f} "
           f"loss_i {out['loss_i_final']:.6f} loss_o {out['loss_o_final']:.6f}", flush=True)
+    result = {k: out[k] for k in ("bpp_ori", "bpp", "vi")}
+    if logits_fn is not None:
+        with torch.no_grad():
+            result["label_clean"] = int(torch.argmax(logits_fn(res["output_s"])))
+            result["label_adv"] = int(torch.argmax(logits_fn(res["output_"])))
+        print(f"classifier: clean-recon label {result['label_clean']} -> adv-recon label "
+              f"{result['label_adv']} (target {cls_label})")
     out_dir = "./attack/targeted/"
     os.makedirs(out_dir, exist_ok=True)
     stem = out_dir + os.path.splitext(os.path.basename(cfg.source))[0]
     write_image(to_numpy(res["im_"]), f"{stem}_fake_in.png", h, w)
     write_image(to_numpy(res["output_"]), f"{stem}_fake_out.png", h, w)
     print(f"artifacts -> {stem}_fake_in.png / _fake_out.png")
-    return {k: out[k] for k in ("bpp_ori", "bpp", "vi")}
+    return result
 
 
 def main(argv=None):
     parser = build_parser()
     parser.add_argument("--cls_ckpt", type=str, default=None,
-                        help="classifier checkpoint: CE-targeted attack (not ported yet)")
+                        help="classifier msgpack: CE-targeted attack")
     parser.add_argument("--cls_label", type=int, default=0, help="target label for --cls_ckpt")
     ns = parser.parse_args(argv)
     cfg = Config(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(Config)})
-    run(cfg, cls_ckpt=ns.cls_ckpt, cls_label=ns.cls_label)
+    return run(cfg, cls_ckpt=ns.cls_ckpt, cls_label=ns.cls_label)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,7 @@ class Config:
     method: str = "ensemble"
     ensemble_impl: str = "scan"
     profile: Optional[str] = None  # latent range/rank profile (.npz) for clip
+    degrade: Optional[str] = None  # random_noise: blurgen | deblur
     attack_batch: int = 1
     phase_space: str = "auto"
     encode: bool = False
@@ -119,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-log", "--log", dest="log", type=str, default=d.log,
                    help="cli.train: JSONL training curve, a line an eval")
     p.add_argument("-re", dest="recompress", type=int, default=d.recompress,
-                   help="cli.train: recompression-regularized training")
+                   help="cli.train: recompression-regularized training; cli.recompression: "
+                        "the number of cycles (default: -steps)")
     p.add_argument("-epochs", dest="epochs", type=int, default=d.epochs,
                    help="training epochs (default 200, 100 with --adv)")
     p.add_argument("-ssteps", dest="search_steps", type=int, default=d.search_steps,
@@ -134,6 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-profile", dest="profile", type=str, default=d.profile,
                    help="latent range/rank profile .npz (for --defend_m clip; "
                         "defaults to the feature_range naming scheme)")
+    p.add_argument("-degrade", dest="degrade", type=str, default=d.degrade,
+                   help="cli.random_noise: blurgen (blur -s to the -noise MSE) or deblur "
+                        "(-s blurred against -t sharp)")
     p.add_argument("-attack_batch", dest="attack_batch", type=int,
                    default=d.attack_batch, help="images attacked in one batch")
     p.add_argument("-phase_space", dest="phase_space", type=str,

@@ -17,7 +17,15 @@ port's ``state_dict``.
   the adapter families (nlaic, invcompress, tic, hific, fic), whose
   transforms keep their flax names (``g_a_nlam_1`` -> ``g_a.nlam_1``,
   ``enc_0_1/attn/qkv`` -> ``enc_0_1.attn.qkv``).
-* ``load_checkpoint`` also reads the port's own training checkpoints.
+* ``load_checkpoint`` also reads the port's own training checkpoints, and
+  the codec of a GAN training file (``cli/train_hific.py``).
+* ``write_msgpack`` is ``read_msgpack``'s inverse: the bytes of
+  ``flax.serialization.to_bytes``.  ``flax_params`` gives a module's
+  parameters as a flax tree (the inverse layouts of ``_leaf``), and
+  ``codec_to_jax`` checks that tree against ``params_from_jax``.
+* The GAN discriminator and the classifier have flax trees of their own:
+  ``discriminator_from_jax`` (its ``params`` and the ``SpectralNorm_i``
+  stats) and ``classifier_from_jax``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 # flax paths whose kernel belongs to a ConvTranspose2d, per family
 # (io/convert.py _DECONV_PATHS for the families with a CompressAI layout)
@@ -60,6 +69,8 @@ _SKIP_SUFFIXES = (
 
 # the file a training step directory of train/checkpoint.py holds
 TRAIN_CHECKPOINT = "checkpoint.pt"
+# the top level of a GAN training file (cli/train_hific.py)
+GAN_KEYS = ("generator", "discriminator")
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -157,6 +168,159 @@ def read_msgpack(path: str) -> Dict[str, Any]:
     return tree
 
 
+class _Writer:
+    """Minimal msgpack encoder: maps with string keys and ndarrays, as
+    ``msgpack.packb(..., use_bin_type=True)`` lays them out."""
+
+    def __init__(self):
+        self.parts = []
+
+    def head(self, n: int, fix: int, fix_max: int, codes: Tuple[int, ...]) -> None:
+        """A length header: the fix form under ``fix_max``, else the first
+        of the 8/16/32-bit forms (``codes``, ``None`` where there is none)
+        that holds ``n``."""
+        if n < fix_max:
+            self.parts.append(bytes([fix | n]))
+            return
+        for code, fmt in zip(codes, ("B", "H", "I")):
+            if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+                self.parts.append(bytes([code]) + struct.pack(">" + fmt, n))
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def value(self, v: Any) -> None:
+        if isinstance(v, Mapping):
+            self.head(len(v), 0x80, 16, (None, 0xDE, 0xDF))
+            for key, item in v.items():
+                self.value(str(key))
+                self.value(item)
+        elif isinstance(v, str):
+            raw = v.encode()
+            self.head(len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+            self.parts.append(raw)
+        elif isinstance(v, bytes):
+            self.head(len(v), 0x00, 0, (0xC4, 0xC5, 0xC6))
+            self.parts.append(v)
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 16, (None, 0xDC, 0xDD))
+            for item in v:
+                self.value(item)
+        elif isinstance(v, int) and 0 <= v < 1 << 64:
+            if v < 128:
+                self.parts.append(bytes([v]))
+            else:
+                for code, fmt in ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")):
+                    if v < 1 << (8 * struct.calcsize(fmt)):
+                        self.parts.append(bytes([code]) + struct.pack(">" + fmt, v))
+                        break
+        elif isinstance(v, (np.ndarray, np.generic)):
+            code = _EXT_NDARRAY if isinstance(v, np.ndarray) else _EXT_NPSCALAR
+            inner = _Writer()
+            inner.value([list(v.shape), v.dtype.name, np.ascontiguousarray(v).tobytes()])
+            data = b"".join(inner.parts)
+            fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+            if len(data) in fixext:
+                self.parts.append(bytes([fixext[len(data)], code]))
+            else:
+                self.head(len(data), 0x00, 0, (0xC7, 0xC8, 0xC9))
+                self.parts.append(struct.pack(">b", code))
+            self.parts.append(data)
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} to a flax msgpack")
+
+
+def write_msgpack(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a nested dict of numpy arrays as ``flax.serialization.to_bytes``
+    does (ndarrays as msgpack extension type 1, numpy scalars as type 3),
+    creating the file's directory."""
+    writer = _Writer()
+    writer.value(tree)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"".join(writer.parts))
+
+
+def _insert(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    if path[-1] in tree:
+        raise ValueError(f"two parameters map to flax path {'/'.join(path)}")
+    tree[path[-1]] = value
+
+
+def flax_params(model: nn.Module) -> Dict[str, Any]:
+    """A module's parameters as a flax tree of float32 numpy arrays: OIHW
+    conv weights as HWIO ``kernel`` (IOHW transposed convs too), Linear
+    weights as ``(in, out)`` ``kernel``, LayerNorm weights as ``scale``;
+    ``g_a.0`` becomes ``g_a_0`` and the entropy bottleneck's ``_matrix0``
+    ``matrix_0``.  Buffers are left out."""
+    kinds = {name: type(m) for name, m in model.named_modules()}
+    tree: Dict[str, Any] = {}
+    for key, p in model.named_parameters():
+        arr = p.detach().cpu().numpy().astype(np.float32)
+        owner, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        kind = kinds[owner]
+        if leaf == "weight" and arr.ndim == 4:
+            perm = (2, 3, 0, 1) if issubclass(kind, nn.ConvTranspose2d) else (2, 3, 1, 0)
+            leaf, arr = "kernel", arr.transpose(perm)
+        elif leaf == "weight" and issubclass(kind, nn.Linear):
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and issubclass(kind, nn.LayerNorm):
+            leaf = "scale"
+        parts = owner.split(".") if owner else []
+        if parts[:1] == ["entropy_bottleneck"]:
+            m = re.match(r"^_(matrix|bias|factor)(\d+)$", leaf)
+            leaf = f"{m.group(1)}_{m.group(2)}" if m else leaf
+        elif len(parts) > 1 and _SEQ_RE.match(f"{parts[0]}_{parts[1]}"):
+            parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
+        _insert(tree, tuple(parts) + (leaf,), np.ascontiguousarray(arr))
+    return tree
+
+
+def codec_to_jax(model: nn.Module, arch: str) -> Dict[str, Any]:
+    """The codec's flax tree (``flax_params``), checked to map back onto
+    its state_dict through ``params_from_jax``; raises for a family whose
+    names the tree cannot carry (subpel convs, invcompress's ``conv3``)."""
+    tree = flax_params(model)
+    back = params_from_jax(tree, arch)
+    state = model.state_dict()
+    if back.keys() != state.keys() or not all(
+            torch.equal(back[k], state[k].detach().cpu().float()) for k in state):
+        raise ValueError(f"{arch!r}: the flax tree does not map back onto the model's state_dict")
+    return tree
+
+
+def discriminator_from_jax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``HiFiCDiscriminator`` state_dict from flax's
+    ``params`` (``latent_proj``, ``conv_0`` .. ``conv_3``, ``logits``) and
+    ``batch_stats`` (``SpectralNorm_i/<conv>/kernel/u`` and ``.../sigma``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for module, node in params.items():
+        for leaf, value in node.items():
+            (name,), arr = _leaf(module, leaf, np.asarray(value, np.float32), False)
+            out[f"{module}.{name}"] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    for node in batch_stats.values():
+        for path, value in node.items():
+            module, _, leaf = path.split("/")
+            out[f"{module}.{leaf}"] = torch.from_numpy(np.array(value, np.float32))
+    return out
+
+
+def classifier_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``MLPClassifier`` state_dict from a flax tree of
+    ``Dense_i`` layers: kernels ``(in, out)`` transposed, biases as they
+    are."""
+    out: Dict[str, torch.Tensor] = {}
+    for module, node in params.items():
+        if not re.match(r"^Dense_\d+$", module):
+            raise ValueError(f"unexpected classifier parameter path {module}")
+        for leaf, value in node.items():
+            (name,), arr = _leaf(module, leaf, np.asarray(value, np.float32), False)
+            out[f"{module}.{name}"] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    return out
+
+
 def _flax_leaves(node: Mapping[str, Any], names: Tuple[str, ...], path: Tuple[str, ...]):
     """(torch name parts, flax path of the leaf's module, leaf name, value)
     of every leaf under ``node``; a node whose only child is ``conv`` is a
@@ -251,4 +415,7 @@ def load_checkpoint(path: str, arch: str = "hyper") -> Dict[str, torch.Tensor]:
         if arch not in _DECONV_PATHS:
             raise ValueError(f"{arch!r} has no CompressAI layout; load it from a flax .msgpack")
         return state_dict_from_torch(torch.load(path, map_location="cpu", weights_only=True))
-    return params_from_jax(read_msgpack(path), arch)
+    tree = read_msgpack(path)
+    if set(tree) == set(GAN_KEYS):  # cli/train_hific.py's file: its codec
+        tree = tree["generator"]
+    return params_from_jax(tree, arch)

@@ -34,6 +34,15 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
         t.uniform_(-bound, bound, generator=generator)
 
 
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax's ``lecun_normal`` (its ``nn.Conv`` and ``nn.Dense`` kernels): a
+    normal truncated at two standard deviations, scaled so that its
+    variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 class Conv(nn.Conv2d):
     """Strided conv with PyTorch-style symmetric padding k//2."""
 

@@ -1,8 +1,14 @@
 """Training of the codecs: RD loss, main and aux optimizers, data,
-checkpoints and the training loop (port of
-``imagecompression_adversarial_tpu/train/``, without ``gan.py``)."""
+checkpoints, the training loop and the HiFiC GAN step (port of
+``imagecompression_adversarial_tpu/train/``)."""
 
 from .checkpoint import CheckpointManager, ckpt_dir_for
+from .gan import (
+    hific_generator_loss,
+    make_gan_train_step,
+    non_saturating_d_loss,
+    non_saturating_g_loss,
+)
 from .loss import LAMBDA_MSE, LAMBDA_MSSSIM, lambda_for, rate_distortion_loss, recompression_loss
 from .step import (
     ReduceLROnPlateau,
@@ -29,4 +35,8 @@ __all__ = [
     "ReduceLROnPlateau",
     "CheckpointManager",
     "ckpt_dir_for",
+    "non_saturating_g_loss",
+    "non_saturating_d_loss",
+    "hific_generator_loss",
+    "make_gan_train_step",
 ]

@@ -148,7 +148,7 @@ def test_attack_data_cli_matches_jax(tmp_path, capsys):
     assert np.mean(a != b) <= 1e-3
 
 
-def test_attack_cv_cli_matches_jax(tmp_path, monkeypatch):
+def test_attack_cv_cli_matches_jax(tmp_path, monkeypatch, capsys):
     j_cli, cli = _cli("attack_cv")
     monkeypatch.chdir(tmp_path)
     argv = FLAGS + ["-s", _png(tmp_path, 57), "-t", _png(tmp_path, 58, name="target.png"),
@@ -156,8 +156,17 @@ def test_attack_cv_cli_matches_jax(tmp_path, monkeypatch):
     _same_report(cli.run(parse_config(argv)), j_cli.run(j_parse_config(argv + J_EXTRA)),
                  fields=("bpp_ori", "bpp", "vi"))
     assert (tmp_path / "attack" / "targeted" / "kodim01_fake_in.png").exists()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        cli.main(argv + ["--cls_ckpt", "cls.msgpack", "--cls_label", "3"])
+    # the classifier variant runs and prints its label line (its parity with
+    # the JAX CLI: tests/test_torch_classifier.py)
+    from imagecompression_adversarial_tpu_torch.cli import classifier_train
+
+    classifier_train.main(["-steps", "2", "-device", "cpu", "-ckpt", "cls.msgpack",
+                           "-s", str(tmp_path / "none")])
+    capsys.readouterr()
+    res = cli.main(argv + ["--cls_ckpt", "cls.msgpack", "--cls_label", "3"])
+    out = capsys.readouterr().out
+    assert (f"classifier: clean-recon label {res['label_clean']} -> adv-recon label "
+            f"{res['label_adv']} (target 3)") in out.splitlines()
 
 
 @pytest.mark.parametrize("impl", ["host", "vmap"])

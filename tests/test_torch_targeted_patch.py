@@ -5,9 +5,10 @@ demo weights, 64x64, 6 steps).
 Exact: ``roi_masks`` (box rows ``y0:y1``, columns ``x0:x1``), the worst
 patch's location and crops.  ``local_vi_map`` at atol 1e-5.  The attacks:
 ``im_`` atol 1e-5 with oneDNN off and 1e-4 with it on, ``vi`` abs 1e-3,
-bpp rtol 1e-4.  ``models/classifier.py`` is not ported yet, so the
-classifier branch is only checked to steer a linear stand-in's logits
-toward the label; its parity test comes with the classifier.
+bpp rtol 1e-4.  Here the classifier branch is checked to steer a linear
+stand-in's logits toward the label; its parity with the JAX package, through
+the ported ``models/classifier.py`` and ``attack_cv --cls_ckpt``, is in
+``tests/test_torch_classifier.py``.
 
 ``local_vi_map`` returns ratios mse_out / mse_in, which reach the hundreds
 where the attack works: float32 resolves such values to ~1e-5 relative, so
