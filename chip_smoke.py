@@ -107,7 +107,22 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     budget) and ``-degrade deblur`` on its output, ``recompression -re
     50``; each prints its seconds, AVG line and GDN launches, and each that
     runs the codec runs again with the plain GDN, the two held at
-    EVAL_BOUNDS.
+    EVAL_BOUNDS;
+17. runs the analysis CLIs on two 768x512 PNGs (hyper q1 demo weights,
+    cuDNN deterministic): ``feature_range`` (its profile must load through
+    ``load_range_profile(..., require=('dead', 'ranks_min'))``), then
+    ``search``, which reads that profile, ``attack_linear`` and
+    ``transfer_noise`` (ANALYSIS_STEPS), the cross-model ``transfer_noise
+    -cross`` of hyper q1 and cheng2020-gmm q3 (demo weights; each lazy
+    leg's peak memory is printed, and a freed leg may leave no more than
+    LEG_HELD_MIB allocated), ``visual -degrade noise``,
+    ``visual_distribution``, ``compare``, ``mmd --do-fid --do-mmd``
+    (random features) and ``jpeg_baseline``; each prints its seconds, GDN
+    launches, peak memory and numbers, fails on a non-finite value or on a
+    codec run without a launch, and each that runs the codec runs again
+    with the plain GDN, its forward-only values held at
+    EVAL_BOUNDS["clean"]; then a 20-step cross-image transfer matrix at
+    256x256 with the kernel and with the plain GDN, held at VI_ATOL.
 
 Phases 5, 8, 11, 12c and 14 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone; the coder sets it itself.
@@ -116,7 +131,7 @@ Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6, 9, 11, 12, 15 and 16.  It reads five demo
+and the temporary directories of phases 6, 9, 11, 12, 15, 16 and 17.  It reads five demo
 checkpoints: hyper q1, cheng2020-gmm q3, and nlaic, tic and fic q3.
 """
 
@@ -304,6 +319,20 @@ EVAL_BOUNDS = {"clean": {"bpp": 1e-4, "msim": 1e-5, "dB": 1e-3},
                "chain": {"bpp": 2e-4, "msim": 1e-3, "dB": 2e-2}}
 BLUR_MSE = 1e-4  # blurgen's budget: the synthetic image needs ~860 anneal steps
 RECOMPRESS_CYCLES = 50
+# phase 17: the analysis CLIs on two 768x512 PNGs (hyper q1 demo weights;
+# the cross-model matrix adds cheng2020-gmm q3 on its demo weights), cuDNN
+# deterministic.  Each run that uses the codec runs again with the plain
+# GDN.  Its forward-only values are held at EVAL_BOUNDS["clean"]: the
+# profile's arrays, the search scores and the channel rates within the
+# "bpp" bound (1e-4) of each array's largest magnitude (float32 values
+# computed through the GDN outputs, which differ by ~1e-6 relative), the
+# PSNR within the "dB" bound.  The attacks' outcomes (ANALYSIS_STEPS) are
+# printed beside their plain runs, not held: phase 5's bounds hold 20
+# steps, so a 20-step cross-image matrix at 256x256 is held at VI_ATOL
+# instead.  After each cross-model leg is freed, the memory still
+# allocated may exceed what was allocated before the run by LEG_HELD_MIB.
+ANALYSIS_STEPS = {"attack_linear": 101, "transfer_noise": 201, "cross": 101}
+LEG_HELD_MIB = 16
 
 
 def eval_bound(kind: str, field: str) -> float:
@@ -1797,6 +1826,169 @@ def phase_eval_clis(gdn):
     return records, launches
 
 
+def phase_analysis_clis(gdn):
+    """Phase 17: the analysis CLIs on two 768x512 PNGs, each run that uses
+    the codec again with the plain GDN (cuDNN deterministic), and a 20-step
+    cross-image transfer matrix at 256x256, kernel against plain."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.analysis import (
+        cross_image_matrix, make_transfer_eval_fn,
+    )
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig, make_attack_fn
+    from imagecompression_adversarial_tpu_torch.cli import (
+        attack_linear, compare, feature_range, jpeg_baseline, mmd, search, transfer_noise, visual,
+        visual_distribution,
+    )
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.defenses import load_range_profile
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor, write_image
+
+    records, launches = {}, {}
+    with in_temp_dir("chip_smoke_analysis_") as tmp, cudnn_deterministic():
+        rng = np.random.RandomState(17)
+        for i in (1, 2):
+            im = synthetic_image(512, 768, seed=20 + i)
+            for sub, arr in (("data", im), ("noisy", np.clip(im + 0.02 * rng.randn(*im.shape), 0, 1))):
+                os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+                write_image(arr, os.path.join(tmp, sub, f"kodim0{i}.png"))
+        src, noisy = os.path.join(tmp, "data", "kodim*.png"), os.path.join(tmp, "noisy", "kodim*.png")
+        first, second = src.replace("*", "01"), src.replace("*", "02")
+        hyper = ["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-device", "cuda"]
+        cross = f"hyper:1:{CKPT},cheng2020-gmm:3:{CKPT_GMM}"
+        profile = os.path.join(tmp, "attack", "data", "hyper-mse-1_range.npz")
+
+        def arrays(path, keys):
+            data = np.load(path)
+            return {k: (np.asarray(data[k], np.float64), "rel") for k in keys}
+
+        def cfg(argv):
+            return lambda: parse_config(argv)
+
+        def cross_run(args):
+            return transfer_noise.run(args, cross_model=True, cross_specs=cross)
+
+        # (label, CLI module, fn, args thunk, values of (result, stdout), codec)
+        runs = (
+            ("feature_range", feature_range, feature_range.run, cfg(hyper + ["-s", src]),
+             lambda r, o: arrays(profile, ("channel_max", "channel_min", "per_image_max",
+                                           "per_image_min")), True),
+            ("search", search, search.run,
+             cfg(hyper + ["-s", os.path.join(tmp, "*", "kodim*.png")]),
+             lambda r, o: {"scores": (np.array([v for _, v in sorted(r)]), "rel")}, True),
+            (f"attack_linear -steps {ANALYSIS_STEPS['attack_linear']}", attack_linear,
+             attack_linear.run,
+             cfg(hyper + ["-s", src, "-steps", str(ANALYSIS_STEPS["attack_linear"])]),
+             lambda r, o: {"vi": (np.array([v["vi"] for v in r.values()]), None),
+                           "exceeded": (np.array([v["exceeded"] for v in r.values()]), None)},
+             True),
+            (f"transfer_noise -steps {ANALYSIS_STEPS['transfer_noise']}", transfer_noise,
+             transfer_noise.run,
+             cfg(hyper + ["-s", src, "-steps", str(ANALYSIS_STEPS["transfer_noise"])]),
+             lambda r, o: {"vi matrix": (np.asarray(r, np.float64), None)}, True),
+            (f"transfer_noise --cross-model -cross hyper:1,cheng2020-gmm:3 -steps "
+             f"{ANALYSIS_STEPS['cross']}", transfer_noise, cross_run,
+             cfg(["-s", src, "-steps", str(ANALYSIS_STEPS["cross"]), "-device", "cuda"]),
+             lambda r, o: {"vi matrix": (np.asarray(r, np.float64), None)}, True),
+            ("visual -degrade noise", visual, lambda a: visual.run(a, noised=True),
+             cfg(hyper + ["-s", first, "-t", os.path.join(tmp, "rec.png"), "-degrade", "noise"]),
+             lambda r, o: {"psnr": (np.array([r["psnr"]]), "dB")}, True),
+            ("visual_distribution", visual_distribution, visual_distribution.run,
+             cfg(hyper + ["-s", first, "-t", second]),
+             lambda r, o: {**arrays("hyper_1_distribution.npz", ("rate_natural",
+                                                                 "rate_adversarial")),
+                           "top channels": (np.array(r["channels_by_rate"]), None)}, True),
+            ("compare", compare, compare.main, lambda: [src, noisy, "-device", "cuda"],
+             lambda r, o: {k: (np.array([v]), None) for k, v in r.items()}, False),
+            ("mmd --do-fid --do-mmd", mmd, mmd.main,
+             lambda: [src, noisy, "--do-fid", "--do-mmd", "--mmd-subsets", "10",
+                      "--mmd-subset-size", "2", "--splits", "1", "-device", "cuda"],
+             lambda r, o: {k: (np.array(r[k], np.float64).ravel(), None)
+                           for k in ("fid", "kid", "is")}, False),
+            ("jpeg_baseline -q 50", jpeg_baseline, jpeg_baseline.main,
+             lambda: [src, "-q", "50", "-device", "cuda"],
+             lambda r, o: {k: (np.array([v]), None) for k, v in r.items()}, False),
+        )
+        for label, cli, fn, args, values, codec in runs:
+            base_gib = torch.cuda.memory_allocated() / 2**30
+            gdn.reset_launch_counts()
+            res, out, secs, peak = run_captured(fn, args())
+            n = gdn.launch_counts["gdn_fwd"]
+            vals = values(res, out)
+            rec = {"seconds": secs, "gdn_launches": n, "peak_gib": peak,
+                   "values": {k: v.ravel().tolist()[:8] for k, (v, _) in vals.items()}}
+            bad = [k for k, (v, _) in vals.items()
+                   if not np.all(np.isfinite(v.astype(np.float64)))]
+            if bad or (n == 0) == codec:
+                raise RuntimeError(f"phase 17 {label}: non-finite {bad}, gdn_fwd launches {n}")
+            if label.startswith("feature_range"):
+                load_range_profile(profile, require=("dead", "ranks_min"))
+                shutil.copy(profile, profile + ".kernel")
+            if "--cross-model" in label:
+                legs = re.findall(r"\[(attack|eval) (\d)/2\] memory: peak (\S+) GiB, (\S+) GiB "
+                                  r"allocated after it was freed", out)
+                rec["legs"] = [{"leg": f"{k} {i}", "peak_gib": float(p), "held_gib": float(h)}
+                               for k, i, p, h in legs]
+                rec["allocated_before_gib"] = base_gib
+                # each leg resets the peak statistic: the run's peak is its legs' largest
+                rec["peak_gib"] = peak = max([float(p) for _, _, p, _ in legs] or [peak])
+                held = [float(h) for *_, h in legs]
+                if len(legs) != 4 or max(held) > base_gib + LEG_HELD_MIB / 1024:
+                    raise RuntimeError(f"phase 17 {label}: a freed leg holds memory: {legs}, "
+                                       f"{base_gib:.3f} GiB allocated before the run")
+                log(f"phase 17 cross-model legs (peak GiB, GiB held after the leg was freed; "
+                    f"{base_gib:.3f} GiB allocated before): "
+                    + ", ".join(f"{k} {i} {float(p):.3f}/{float(h):.3f}" for k, i, p, h in legs))
+            if codec:
+                with plain_gdn_in(cli):
+                    gdn.reset_launch_counts()
+                    plain, plain_out, plain_secs, _ = run_captured(fn, args())
+                    if gdn.launch_counts["gdn_fwd"] != 0:
+                        raise RuntimeError(f"phase 17 {label}: the plain run launched the kernel")
+                pvals = values(plain, plain_out)
+                gaps, over = {}, {}
+                for k, (v, kind) in vals.items():
+                    gap = float(np.max(np.abs(v - pvals[k][0]))) if v.size else 0.0
+                    gaps[k] = gap
+                    if kind == "rel":
+                        scale = float(np.max(np.abs(pvals[k][0]))) or 1.0
+                        if gap > eval_bound("clean", "bpp") * scale:
+                            over[k] = gap
+                    elif kind == "dB" and gap > eval_bound("clean", "psnr"):
+                        over[k] = gap
+                rec.update(plain_seconds=plain_secs, gaps=gaps)
+                if label.startswith("feature_range"):
+                    shutil.copy(profile + ".kernel", profile)  # search reads the kernel's
+                if over:
+                    raise RuntimeError(f"phase 17 {label}: kernel vs plain beyond the bounds: {over}")
+            shown = "; ".join(f"{k} {np.array2string(v.ravel()[:5], precision=4)}"
+                              for k, (v, _) in vals.items())
+            log(f"phase 17 {label} 768x512: {secs:.2f} s"
+                + (f" (plain GDN {rec['plain_seconds']:.2f} s)" if codec else "")
+                + f", gdn_fwd launches {n}, peak {peak:.2f} GiB; {shown}"
+                + ("; kernel vs plain gaps " + ", ".join(f"{k} {g:.3e}" for k, g in
+                                                         rec["gaps"].items()) if codec else ""))
+            records[label] = rec
+            if codec:
+                launches[f"17 {label} 768x512"] = n
+
+        codec = load_codec("hyper", 1, CKPT)
+        images = [to_tensor(synthetic_image(256, 256, seed=30 + i), "cuda") for i in (1, 2)]
+        attack = make_attack_fn(codec, RDAttackConfig(steps=20, two_phase_impl="select"))
+        (mk, lk), (mp, _) = kernel_and_plain(
+            gdn, codec, lambda: cross_image_matrix(attack, make_transfer_eval_fn(codec), images))
+        gap = float(np.max(np.abs(mk - mp)))
+        log(f"phase 17 cross-image matrix x20 256x256, kernel vs plain: max |vi diff| {gap:.3e} "
+            f"(tol {VI_ATOL}), kernel {np.array2string(mk, precision=4)}, gdn_fwd launches {lk}")
+        if gap > VI_ATOL or not np.all(np.isfinite(mk)):
+            raise RuntimeError(f"phase 17 cross-image x20: kernel vs plain differ: {mk} / {mp}")
+        records["cross-image x20 256x256"] = {"kernel": mk.tolist(), "plain": mp.tolist(),
+                                              "max_abs_diff": gap}
+        launches["17 cross-image x20 256x256"] = lk
+    return records, launches
+
+
 def main() -> int:
     import torch
 
@@ -1858,6 +2050,9 @@ def main() -> int:
     eval_records, launches_eval = phase_eval_clis(gdn)
     print(json.dumps({"phase16": eval_records}), flush=True)
     launches_slice7.update(launches_eval)
+    analysis_records, launches_analysis = phase_analysis_clis(gdn)
+    print(json.dumps({"phase17": analysis_records}), flush=True)
+    launches_slice7.update(launches_analysis)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{

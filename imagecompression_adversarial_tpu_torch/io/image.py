@@ -131,15 +131,20 @@ def _encode_png(rgb: np.ndarray) -> bytes:
     )
 
 
+def read_pixels(path: str) -> np.ndarray:
+    """A PNG's (H, W, 3) uint8 RGB pixels: gray is repeated into RGB, RGBA
+    loses its alpha."""
+    with open(path, "rb") as f:
+        img = _decode_png(f.read())
+    if img.shape[-1] == 1:
+        img = np.tile(img, (1, 1, 3))
+    return img[..., :3]
+
+
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
     """Load a PNG as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
     ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha."""
-    with open(path, "rb") as f:
-        img = _decode_png(f.read()).astype(np.float32) / 255.0
-    if img.shape[-1] == 1:
-        img = np.tile(img, (1, 1, 3))
-    if img.shape[-1] == 4:
-        img = img[..., :3]
+    img = read_pixels(path).astype(np.float32) / 255.0
     h, w, _ = img.shape
     return pad_to_multiple(img, padding)[None, ...], h, w
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 import os
 import re
 import struct
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -267,14 +267,22 @@ def flax_params(model: nn.Module) -> Dict[str, Any]:
             leaf, arr = "kernel", arr.T
         elif leaf == "weight" and issubclass(kind, nn.LayerNorm):
             leaf = "scale"
-        parts = owner.split(".") if owner else []
+        parts = flax_module_path(owner)
         if parts[:1] == ["entropy_bottleneck"]:
             m = re.match(r"^_(matrix|bias|factor)(\d+)$", leaf)
             leaf = f"{m.group(1)}_{m.group(2)}" if m else leaf
-        elif len(parts) > 1 and _SEQ_RE.match(f"{parts[0]}_{parts[1]}"):
-            parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
         _insert(tree, tuple(parts) + (leaf,), np.ascontiguousarray(arr))
     return tree
+
+
+def flax_module_path(name: str) -> List[str]:
+    """The flax path of a submodule, by its torch name: a transform's
+    ``g_a.0`` is ``g_a_0`` (``h_s.2``, ``g_a.attn_1`` likewise); other
+    names keep their parts."""
+    parts = name.split(".") if name else []
+    if len(parts) > 1 and _SEQ_RE.match(f"{parts[0]}_{parts[1]}"):
+        parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
+    return parts
 
 
 def codec_to_jax(model: nn.Module, arch: str) -> Dict[str, Any]:

@@ -101,7 +101,7 @@ def lpips_fn_from_module(module: LPIPS) -> Callable:
     return distance
 
 
-def make_lpips_fn(seed: int = 0) -> Callable:
+def random_lpips(seed: int = 0) -> LPIPS:
     """LPIPS with random features (conv kernels drawn as flax draws them,
     biases 0, heads 1) from a ``torch.Generator`` seeded with ``seed``: a
     stand-in where no trained weights are at hand, not JAX's default."""
@@ -112,7 +112,12 @@ def make_lpips_fn(seed: int = 0) -> Callable:
             conv = getattr(module.features, f"conv{i}")
             _lecun_normal_(conv.weight, gen)
             conv.bias.zero_()
-    return lpips_fn_from_module(module)
+    return module
+
+
+def make_lpips_fn(seed: int = 0) -> Callable:
+    """The distance of ``random_lpips(seed)``."""
+    return lpips_fn_from_module(random_lpips(seed))
 
 
 def lpips_fn_from_params(state: Mapping[str, torch.Tensor]) -> Callable:
@@ -176,3 +181,22 @@ def lpips_params_from_torch(state: Mapping, base: Optional[Mapping[str, torch.Te
     for i in range(len(WIDTHS)):
         out[f"lin{i}"] = _tensor(state[f"lin{i}.model.1.weight"]).reshape(-1)
     return out
+
+
+def alex_feature_fn_from_params(state: Mapping[str, torch.Tensor], layer: int = -1,
+                                device="cuda") -> Callable:
+    """``(N, H, W, 3)`` numpy images in [0, 1] -> ``(N, C)`` numpy: the
+    spatial mean of one ``AlexFeatureNet`` tap (default the last), an
+    FID/KID feature extractor (``metrics/fid.py``).  ``state`` is a full
+    LPIPS state dict (its ``features.*`` are used) or a bare trunk's."""
+    trunk = {k[len("features."):]: v for k, v in state.items() if k.startswith("features.")}
+    net = AlexFeatureNet()
+    net.load_state_dict(trunk or dict(state), strict=True)
+    net = net.requires_grad_(False).eval().to(device)
+
+    @torch.no_grad()
+    def features(x: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device).permute(0, 3, 1, 2)
+        return torch.mean(net(t * 2.0 - 1.0)[layer], dim=(2, 3)).cpu().numpy()
+
+    return features
