@@ -122,17 +122,45 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     codec run without a launch, and each that runs the codec runs again
     with the plain GDN, its forward-only values held at
     EVAL_BOUNDS["clean"]; then a 20-step cross-image transfer matrix at
-    256x256 with the kernel and with the plain GDN, held at VI_ATOL.
+    256x256 with the kernel and with the plain GDN, held at VI_ATOL;
+18. drives the parallel layer (``parallel/``, ``train_step(..., mesh=)``)
+    in spawned ranks, one process each over ``torch.distributed``
+    (``parallel/launch.py::run_spmd``, a ``FileStore`` rendezvous), hyper
+    q1 on its demo weights, cuDNN deterministic, the kernel on, each run
+    held to its one-process counterpart: (b) one NCCL rank on an sp=1
+    mesh, the row-sharded forward at 768x512 (GDN_ATOL + GDN_RTOL) and a
+    PAR_SP_STEPS-step attack (NOISE_ATOL, VI_ATOL); (a) and (c) two
+    ranks, gloo on one card (NCCL refuses two ranks a device) and NCCL
+    where each rank has a card of its own: the collective probe (which
+    collectives run on CUDA tensors), the dp=2
+    corpus attack of PAR_CORPUS numpy-made 768x512 images
+    (PAR_CORPUS_STEPS steps, ``select``; NOISE_ATOL, VI_ATOL an image), the
+    sp=2 forward (PAR_XHAT_ATOL) and PAR_SP_STEPS-step attack (``select``,
+    so that the codec runs on every step), and dp=2 RD
+    and ``--adv`` training (TRAIN_KVP_STEPS steps on 8 256x256 crops, phase
+    12c's TRAIN_* bounds, every rank holding the same parameters); (d)
+    four ranks (gloo or NCCL, as in (c)), one dp x sp = 2 x 2 RD step at
+    the same bounds.  It prints each world's backend and each rank's card,
+    rate, peak memory and GDN launches (added to the ``kernels`` line), and
+    the sp=2 attack's peak beside the unsharded one.  Each rank records
+    the (C, rows) of its GDN calls; a pair that phase 3 has not held to the
+    plain GDN (GDN_SHAPES) fails the phase.  Any rank's failure or a rank
+    past PAR_TIMEOUT_S fails the phase.  On one card the ranks time-share
+    it: no number there is multi-GPU scaling.
 
 Phases 5, 8, 11, 12c and 14 set cuDNN deterministic, so that the kernel and plain
-runs differ in the GDN alone; the coder sets it itself.
+runs differ in the GDN alone, and phase 18 so that its two runs differ in
+the sharding alone; the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
-and the script exits nonzero.  It prints a ``{"coder": [...]}`` line, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
-It writes nothing but the builds (``imagecompression_adversarial_tpu_torch/_build/``)
-and the temporary directories of phases 6, 9, 11, 12, 15, 16 and 17.  It reads five demo
-checkpoints: hyper q1, cheng2020-gmm q3, and nlaic, tic and fic q3.
+and the script exits nonzero.  Phase 18's ranks are processes of their
+own, which the phase waits for and stops.  It prints a ``{"coder":
+[...]}`` line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+"device": {...}}``.  It writes nothing but the builds
+(``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
+directories of phases 6, 9, 11, 12, 15, 16, 17 and 18 (the ranks'
+rendezvous).  It reads five demo checkpoints: hyper q1, cheng2020-gmm q3,
+and nlaic, tic and fic q3.
 """
 
 from __future__ import annotations
@@ -236,9 +264,15 @@ RESIZE_ATOL = 1e-5
 # (C=192), the first call of the self-ensemble's batch of 4 variants
 # (4 x 98,304 rows), and the calls of a training step on 8 crops of 256x256
 # (8 x 128 x 128 rows, then 32,768 and 8,192), and the calls of nlaic q3
-# and fic at 768x512 (C=192: 98,304, 24,576 and 6,144 rows)
+# and fic at 768x512 (C=192: 98,304, 24,576 and 6,144 rows); then the
+# calls of phase 18's ranks that no other phase makes: 2 images a rank
+# (196,608, then 49,152 and 12,288), a half image's rows (49,152, 12,288,
+# 3,072), 4 crops a rank (65,536, 16,384, 4,096) and 4 half crops (32,768,
+# 8,192, 2,048)
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
-              (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576))
+              (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576),
+              (128, 196608), (128, 49152), (128, 12288), (128, 3072), (128, 65536),
+              (128, 16384), (128, 4096), (128, 2048))
 TIMED_LAUNCHES = 50
 # also timed over 500 launches and with a 64 MB write before each launch,
 # which evicts x and out from the 50 MB L2 as the path's other kernels do:
@@ -333,6 +367,26 @@ RECOMPRESS_CYCLES = 50
 # allocated may exceed what was allocated before the run by LEG_HELD_MIB.
 ANALYSIS_STEPS = {"attack_linear": 101, "transfer_noise": 201, "cross": 101}
 LEG_HELD_MIB = 16
+# phase 18: the parallel layer, one process a rank over torch.distributed
+# (parallel/launch.py::run_spmd): (b) one NCCL rank, (c) two ranks and (d)
+# four, over gloo when they time-share one card and over NCCL when each has
+# a card of its own (run_spmd's choice).  Every run is held to its
+# single-process counterpart, cuDNN deterministic, the kernel on: the dp=2
+# corpus attack (PAR_CORPUS 768x512 images, PAR_CORPUS_STEPS steps,
+# `select`) at NOISE_ATOL and VI_ATOL an image; the row-sharded forward's
+# x_hat at PAR_XHAT_ATOL (sp=1: at phase 3's GDN_ATOL + GDN_RTOL, since
+# its only change is the deconvolutions' exact subpixel form); the
+# row-sharded PAR_SP_STEPS-step attack (`select`, the codec on every step)
+# at NOISE_ATOL and VI_ATOL; dp=2 RD
+# and --adv training (TRAIN_KVP_STEPS steps on 8 x 256x256 crops, the
+# --adv inner attack TRAIN_ADV_ATTACK_STEPS steps) and one dp x sp = 2 x 2
+# step at phase 12c's TRAIN_* bounds, step 1's gradients of every main
+# parameter held at TRAIN_GRAD_REL
+PAR_CORPUS = 4
+PAR_CORPUS_STEPS = 101
+PAR_SP_STEPS = 20
+PAR_XHAT_ATOL = 1e-5
+PAR_TIMEOUT_S = 400
 
 
 def eval_bound(kind: str, field: str) -> float:
@@ -1989,6 +2043,392 @@ def phase_analysis_clis(gdn):
     return records, launches
 
 
+def par_rank_setup():
+    """A phase-18 rank: TF32 off and cuDNN deterministic, as the phases that
+    hold two runs to each other set them; the codec on the rank's card."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    return load_codec("hyper", 1, CKPT)
+
+
+def par_measured(fn):
+    """``fn()`` with the launch count set to 0 just before it and read just
+    after, the peak memory reset before it, and its synced seconds:
+    ``(result, {"s", "peak_gib", "launches", "gdn_shapes"})``, the last the
+    (C, rows) of every GDN call that reached the kernel's wrapper."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.kernels import gdn
+
+    shapes = set()
+    wrapper = gdn.gdn_forward
+
+    def recorded(x, gamma, beta, inverse):
+        shapes.add((int(x.shape[1]), int(x.shape[0])))
+        return wrapper(x, gamma, beta, inverse)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gdn.reset_launch_counts()
+    gdn.gdn_forward = recorded
+    try:
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+    finally:
+        gdn.gdn_forward = wrapper
+    return res, {"s": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "launches": gdn.launch_counts["gdn_fwd"], "gdn_shapes": sorted(shapes)}
+
+
+def par_batches(steps: int):
+    from imagecompression_adversarial_tpu_torch.io.image import to_tensor
+    from imagecompression_adversarial_tpu_torch.train.data import synthetic_batches
+
+    stream = synthetic_batches(8, 256, seed=0)
+    return [to_tensor(next(stream), "cuda") for _ in range(steps)]
+
+
+def par_train(codec, batches, mesh=None, adv: bool = False):
+    """Step 1's gradients of the main parameters (reduced over the mesh),
+    then one RD step a batch (with ``adv``, on its adversarial example, as
+    ``cli.train --adv -noise 0.0001`` makes it), from the same weights and
+    noise seeds as phase 12c; with a mesh, ``batches`` are this rank's
+    blocks.  Returns the gradients, the losses, the parameters and the
+    steps' synced seconds."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
+    from imagecompression_adversarial_tpu_torch.ops import shard
+    from imagecompression_adversarial_tpu_torch.train import (
+        create_train_state, lambda_for, parameter_groups, rate_distortion_loss, train_step,
+    )
+    from imagecompression_adversarial_tpu_torch.train.step import mesh_shard, reduce_gradients_
+
+    codec.requires_grad_(True)
+    lmbda = lambda_for("mse", 1)
+    main, _ = parameter_groups(codec)
+    where = mesh_shard(mesh) if mesh is not None else None
+    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
+        result = codec(batches[0], quant_mode="noise",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        loss = rate_distortion_loss(result, batches[0], lmbda, "mse")["loss"]
+    grads = [torch.zeros_like(p) if g is None else g.detach()
+             for p, g in zip(main, torch.autograd.grad(loss, main, allow_unused=True))]
+    if where is not None:
+        reduce_gradients_(grads, where)
+    state = create_train_state(codec, TRAIN_LR)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    adv_fn = (make_adv_example_fn(codec, RDAttackConfig(steps=TRAIN_ADV_ATTACK_STEPS), mesh)
+              if adv else None)
+    torch.cuda.synchronize()
+    t = time.time()
+    losses = []
+    for b in batches:
+        x = adv_fn(b, 1e-4) if adv else b
+        losses.append(float(train_step(state, x, gen, TRAIN_LR, lmbda, mesh=mesh)["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    return ([g.cpu() for g in grads], losses,
+            {k: v.detach().cpu() for k, v in codec.state_dict().items()}, seconds)
+
+
+def par_fingerprint(params) -> list:
+    return [float(v.double().sum()) for v in params.values()]
+
+
+def par_train_record(codec, adv: bool, mesh, steps: int):
+    """``par_train`` on this rank's blocks of ``steps`` batches (dim 0 over
+    ``dp``, the rows over ``sp``), measured."""
+    import torch
+    import torch.distributed as dist
+
+    from imagecompression_adversarial_tpu_torch.parallel import batch_row_sharding, local_part
+
+    batches = [local_part(mesh, b, batch_row_sharding(mesh)).contiguous(
+        memory_format=torch.channels_last) for b in par_batches(steps)]
+    (grads, losses, params, seconds), m = par_measured(
+        lambda: par_train(codec, batches, mesh, adv))
+    rank0 = dist.get_rank() == 0
+    return {"grads": grads if rank0 else None, "losses": losses,
+            "params": params if rank0 else None, "fingerprint": par_fingerprint(params),
+            "steps_per_s": steps / seconds, **m}
+
+
+def par_check_shapes(runs) -> None:
+    """Raise where a rank's GDN call had a (C, rows) that phase 3 did not
+    hold to the plain GDN."""
+    seen = {tuple(p) for m in runs for p in m["gdn_shapes"]}
+    missing = sorted(seen - set(GDN_SHAPES))
+    if missing:
+        raise RuntimeError(f"phase 18: GDN calls at (C, rows) {missing}, which phase 3 "
+                           "does not hold to the plain GDN; add them to GDN_SHAPES")
+
+
+def par_world_nccl():
+    """Phase 18b, in the one NCCL rank: the row-sharded forward and a
+    PAR_SP_STEPS-step attack on an sp=1 mesh (every conv through the halo
+    path, each deconvolution in its subpixel form) and their unsharded
+    counterparts; each attack is timed on its second run, after cuDNN
+    has met its shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.parallel import (
+        make_mesh, make_spatial_attack_fn, make_spatial_forward, replicate,
+    )
+
+    codec = par_rank_setup()
+    mesh = make_mesh(axis_names=("sp",))
+    replicate(mesh, codec)
+    x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+    cfg = RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select")
+    fwd, m_fwd = par_measured(lambda: make_spatial_forward(codec, mesh)(x)["x_hat"])
+    with torch.no_grad():
+        ref = codec(x, quant_mode="dequantize")["x_hat"]
+    sharded, unsharded = make_spatial_attack_fn(codec, cfg, mesh), make_attack_fn(codec, cfg)
+    sharded(x)
+    res, m_att = par_measured(lambda: sharded(x))
+    unsharded(x)
+    want, m_ref = par_measured(lambda: unsharded(x))
+    tol = GDN_ATOL + GDN_RTOL * ref.abs()
+    return {"backend": dist.get_backend(),
+            "xhat_max_abs": float((fwd - ref).abs().max()),
+            "xhat_within": bool(((fwd - ref).abs() <= tol).all()),
+            "noise_max_abs": float((res["im_"] - want["im_"]).abs().max()),
+            "vi": float(res["vi"]), "vi_ref": float(want["vi"]),
+            "forward": m_fwd, "attack": m_att, "attack_ref": m_ref}
+
+
+def par_world_two():
+    """Phases 18a and 18c, in each of two ranks: the collective probe, the
+    dp=2 corpus attack, the sp=2 forward and attack, dp=2 RD and --adv
+    training."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.parallel import (
+        make_mesh, make_sharded_attack_fn, make_spatial_attack_fn, make_spatial_forward, replicate,
+    )
+    from imagecompression_adversarial_tpu_torch.parallel import collective_report
+
+    out = {"probe": collective_report("cuda"), "backend": dist.get_backend(),
+           "card": torch.cuda.current_device()}
+    codec = par_rank_setup()
+    dp = make_mesh(axis_names=("dp",))
+    sp = make_mesh(axis_names=("sp",))
+    replicate(dp, codec)
+    initial = {k: v.clone() for k, v in codec.state_dict().items()}
+    rank0 = dist.get_rank() == 0
+
+    xs = np.concatenate([synthetic_image(512, 768, seed=30 + i) for i in range(PAR_CORPUS)])
+    attack = make_sharded_attack_fn(
+        codec, RDAttackConfig(steps=PAR_CORPUS_STEPS, two_phase_impl="select"), dp)
+    res, m = par_measured(lambda: attack(xs.transpose(0, 3, 1, 2)))
+    out["corpus"] = {"vi": res["vi"], "im_": res["im_"] if rank0 else None,
+                     "images_per_s": PAR_CORPUS / dp.size() / m["s"], **m}
+
+    x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+    fwd, m = par_measured(lambda: make_spatial_forward(codec, sp)(x)["x_hat"])
+    out["sp_forward"] = {"x_hat": fwd.cpu().numpy(), **m}
+    sp_attack = make_spatial_attack_fn(
+        codec, RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select"), sp)
+    sp_attack(x)  # timed on its second run, after cuDNN has met its shapes
+    res, m = par_measured(lambda: sp_attack(x))
+    out["sp_attack"] = {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
+                        "steps_per_s": PAR_SP_STEPS / m["s"], **m}
+    for label, adv in (("train_rd", False), ("train_adv", True)):
+        codec.load_state_dict(initial)
+        out[label] = par_train_record(codec, adv, dp, TRAIN_KVP_STEPS)
+    return out
+
+
+def par_world_four():
+    """Phase 18d, in each of four ranks: one dp x sp = 2 x 2 RD step."""
+    import torch
+    import torch.distributed as dist
+
+    from imagecompression_adversarial_tpu_torch.parallel import make_mesh, replicate
+
+    codec = par_rank_setup()
+    mesh = make_mesh(axis_names=("dp", "sp"), shape=(2, 2))
+    replicate(mesh, codec)
+    return {"train_dpsp": par_train_record(codec, False, mesh, 1),
+            "backend": dist.get_backend(), "card": torch.cuda.current_device()}
+
+
+def par_hold_training(label: str, ranks, ref, steps: int) -> dict:
+    """Phase 12c's bounds between a sharded run's ranks and the one-process
+    run; every rank must hold the same parameters."""
+    from imagecompression_adversarial_tpu_torch.train.step import LR_AUX
+
+    grads, losses, params, _ = ref
+    got = ranks[0]
+    rec = {"steps_per_s": [r["steps_per_s"] for r in ranks],
+           "peak_gib": [r["peak_gib"] for r in ranks], "launches": [r["launches"] for r in ranks]}
+    rec["loss_rel"] = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], losses))
+    rec["grad_rel"] = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                          for a, b in zip(got["grads"], grads))
+    far = total = 0
+    rec["param_max_abs"] = 0.0
+    for name, a in got["params"].items():
+        lr = LR_AUX if name.endswith("quantiles") else TRAIN_LR
+        diff = (a - params[name]).abs()
+        worst = float(diff.max())
+        rec["param_max_abs"] = max(rec["param_max_abs"], worst)
+        if worst > 2 * steps * lr:
+            raise RuntimeError(f"phase 18 {label}: {name} {worst:.3e} apart after {steps} steps")
+        far += int((diff > lr / 10).sum())
+        total += diff.numel()
+    rec["far_share"] = far / total
+    same = all(r["fingerprint"] == got["fingerprint"] for r in ranks)
+    log(f"phase 18 {label} vs one process, {steps} step(s): loss max rel {rec['loss_rel']:.3e} "
+        f"(tol {TRAIN_LOSS_RTOL}), step-1 gradients max rel {rec['grad_rel']:.3e} (tol "
+        f"{TRAIN_GRAD_REL}), params max |diff| {rec['param_max_abs']:.3e} (tol 2 x {steps} x lr), "
+        f"share > lr/10 {rec['far_share']:.2e} (tol {TRAIN_FAR_SHARE}), ranks equal {same}; "
+        f"per rank: steps/s {[round(v, 3) for v in rec['steps_per_s']]}, peak GiB "
+        f"{[round(v, 3) for v in rec['peak_gib']]}, GDN launches {rec['launches']}")
+    if rec["loss_rel"] > TRAIN_LOSS_RTOL or rec["grad_rel"] > TRAIN_GRAD_REL or \
+            rec["far_share"] > TRAIN_FAR_SHARE or not same:
+        raise RuntimeError(f"phase 18 {label}: the sharded run differs beyond the tolerances")
+    return rec
+
+
+def phase_parallel(gdn):
+    """Phase 18: the parallel layer in spawned ranks, each run held to its
+    one-process counterpart; returns the records and the ranks' GDN
+    launches."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn, make_batch_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.parallel import run_spmd
+
+    records, launches = {}, {}
+    t0 = time.time()
+    one = run_spmd(par_world_nccl, 1, "nccl", timeout=PAR_TIMEOUT_S)[0]
+    ok = one["xhat_within"] and one["noise_max_abs"] <= NOISE_ATOL and \
+        abs(one["vi"] - one["vi_ref"]) <= VI_ATOL
+    log(f"phase 18b one {one['backend']} rank, sp=1 at 768x512: x_hat max |diff| "
+        f"{one['xhat_max_abs']:.3e} (tol {GDN_ATOL} + {GDN_RTOL} x |x_hat|), {PAR_SP_STEPS}-step "
+        f"attack noise max |diff| {one['noise_max_abs']:.3e} (tol {NOISE_ATOL}), vi "
+        f"{one['vi']:.6f} / {one['vi_ref']:.6f} (tol {VI_ATOL}); attack {one['attack']['s']:.2f} s "
+        f"sharded / {one['attack_ref']['s']:.2f} s unsharded, peak {one['attack']['peak_gib']:.3f} "
+        f"/ {one['attack_ref']['peak_gib']:.3f} GiB, GDN launches {one['forward']['launches']} + "
+        f"{one['attack']['launches']}")
+    if not ok:
+        raise RuntimeError("phase 18b: the sp=1 runs differ from the unsharded ones")
+    launches["18b sp=1 nccl forward"] = one["forward"]["launches"]
+    launches["18b sp=1 nccl attack"] = one["attack"]["launches"]
+    records["18b"] = {k: v for k, v in one.items()}
+
+    two = run_spmd(par_world_two, 2, timeout=PAR_TIMEOUT_S)
+    log(f"phase 18a probe, 2 {two[0]['backend']} ranks on cards {[r['card'] for r in two]}, "
+        f"cuda tensors: {json.dumps(two[0]['probe'])}")
+    if any(two[0]["probe"][k] != "ok" for k in ("all_reduce", "broadcast")):
+        raise RuntimeError("phase 18a: all_reduce or broadcast fails on cuda tensors")
+    records["18a"] = {"backend": two[0]["backend"], "cards": [r["card"] for r in two],
+                      "collectives": two[0]["probe"]}
+    codec = load_codec("hyper", 1, CKPT)
+    with cudnn_deterministic():
+        # 18c: the one-process counterparts
+        xs = to_tensor(np.concatenate([synthetic_image(512, 768, seed=30 + i)
+                                       for i in range(PAR_CORPUS)]), "cuda")
+        ref, m_ref = par_measured(lambda: make_batch_attack_fn(
+            codec, RDAttackConfig(steps=PAR_CORPUS_STEPS, two_phase_impl="select"))(xs))
+        c = [r["corpus"] for r in two]
+        noise = float((torch.from_numpy(c[0]["im_"]).cuda() - ref["im_"]).abs().max())
+        dvi = float(np.abs(c[0]["vi"] - ref["vi"].cpu().numpy()).max())
+        same = all(np.array_equal(r["vi"], c[0]["vi"]) for r in c)
+        log(f"phase 18c dp=2 corpus attack, {PAR_CORPUS} x 768x512, {PAR_CORPUS_STEPS} steps: "
+            f"noise max |diff| {noise:.3e} (tol {NOISE_ATOL}), vi max |diff| {dvi:.3e} (tol "
+            f"{VI_ATOL}), vi {np.round(c[0]['vi'], 4).tolist()}, ranks equal {same}; per rank "
+            f"images/s {[round(r['images_per_s'], 3) for r in c]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in c]}, GDN launches {[r['launches'] for r in c]}; "
+            f"one process {PAR_CORPUS / m_ref['s']:.3f} images/s, {m_ref['peak_gib']:.3f} GiB")
+        if noise > NOISE_ATOL or dvi > VI_ATOL or not same:
+            raise RuntimeError("phase 18c: the dp corpus attack differs from one process")
+        records["18c corpus"] = {"noise_max_abs": noise, "vi_max_abs": dvi,
+                                 "images_per_s": [r["images_per_s"] for r in c],
+                                 "peak_gib": [r["peak_gib"] for r in c],
+                                 "one_process_images_per_s": PAR_CORPUS / m_ref["s"],
+                                 "one_process_peak_gib": m_ref["peak_gib"]}
+
+        x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+        with torch.no_grad():
+            want = codec(x, quant_mode="dequantize")["x_hat"]
+        got = torch.from_numpy(np.concatenate([r["sp_forward"]["x_hat"] for r in two], axis=2))
+        dx = float((got.cuda() - want).abs().max())
+        attack = make_attack_fn(codec, RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select"))
+        attack(x)
+        ref, m_ref = par_measured(lambda: attack(x))
+        a = [r["sp_attack"] for r in two]
+        noise = float((torch.from_numpy(np.concatenate([r["im_"] for r in a], axis=2)).cuda()
+                       - ref["im_"]).abs().max())
+        dvi = max(abs(r["vi"] - float(ref["vi"])) for r in a)
+        log(f"phase 18c sp=2 at 768x512: forward x_hat max |diff| {dx:.3e} (tol {PAR_XHAT_ATOL}), "
+            f"{PAR_SP_STEPS}-step attack noise max |diff| {noise:.3e} (tol {NOISE_ATOL}), vi "
+            f"{a[0]['vi']:.6f} / {float(ref['vi']):.6f} (tol {VI_ATOL}); per rank steps/s "
+            f"{[round(r['steps_per_s'], 2) for r in a]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in a]} against {m_ref['peak_gib']:.3f} unsharded, "
+            f"GDN launches {[r['launches'] for r in a]} against {m_ref['launches']} unsharded "
+            f"(`select`: the codec on every step); one process "
+            f"{PAR_SP_STEPS / m_ref['s']:.2f} steps/s")
+        if dx > PAR_XHAT_ATOL or noise > NOISE_ATOL or dvi > VI_ATOL:
+            raise RuntimeError("phase 18c: the sp=2 runs differ from one process")
+        records["18c sp"] = {"xhat_max_abs": dx, "noise_max_abs": noise, "vi_abs": dvi,
+                             "steps_per_s": [r["steps_per_s"] for r in a],
+                             "peak_gib": [r["peak_gib"] for r in a],
+                             "one_process_peak_gib": m_ref["peak_gib"],
+                             "one_process_steps_per_s": PAR_SP_STEPS / m_ref["s"]}
+        for label, adv in (("train_rd", False), ("train_adv", True)):
+            codec = load_codec("hyper", 1, CKPT)
+            ref = par_train(codec, par_batches(TRAIN_KVP_STEPS), adv=adv)
+            records[f"18c {label}"] = par_hold_training(
+                f"18c dp=2 {label}", [r[label] for r in two], ref, TRAIN_KVP_STEPS)
+            records[f"18c {label}"]["one_process_steps_per_s"] = TRAIN_KVP_STEPS / ref[3]
+    for r, out in enumerate(two):
+        launches[f"18c dp=2 corpus rank {r}"] = out["corpus"]["launches"]
+        launches[f"18c sp=2 forward rank {r}"] = out["sp_forward"]["launches"]
+        launches[f"18c sp=2 attack rank {r}"] = out["sp_attack"]["launches"]
+        launches[f"18c dp=2 train_rd rank {r}"] = out["train_rd"]["launches"]
+        launches[f"18c dp=2 train_adv rank {r}"] = out["train_adv"]["launches"]
+
+    four = run_spmd(par_world_four, 4, timeout=PAR_TIMEOUT_S)
+    log(f"phase 18d: 4 {four[0]['backend']} ranks on cards {[r['card'] for r in four]}")
+    records["18d"] = {"backend": four[0]["backend"], "cards": [r["card"] for r in four]}
+    with cudnn_deterministic():
+        codec = load_codec("hyper", 1, CKPT)
+        ref = par_train(codec, par_batches(1))
+        records["18d train_dpsp"] = par_hold_training(
+            "18d dp x sp = 2 x 2 train_rd", [r["train_dpsp"] for r in four], ref, 1)
+    for r, out in enumerate(four):
+        launches[f"18d dp x sp train_rd rank {r}"] = out["train_dpsp"]["launches"]
+    if any(n == 0 for n in launches.values()):
+        raise RuntimeError(f"phase 18: a rank launched no GDN kernel: {launches}")
+    runs = [one["forward"], one["attack"], *[r["train_dpsp"] for r in four]]
+    runs += [r[k] for r in two for k in ("corpus", "sp_forward", "sp_attack", "train_rd",
+                                          "train_adv")]
+    par_check_shapes(runs)
+    log(f"phase 18 GDN (C, rows) of the ranks, each held to the plain GDN in phase 3: "
+        f"{sorted({tuple(p) for m in runs for p in m['gdn_shapes']})}")
+    log(f"phase 18 done in {time.time() - t0:.1f} s")
+    return records, launches
+
+
 def main() -> int:
     import torch
 
@@ -2053,6 +2493,8 @@ def main() -> int:
     analysis_records, launches_analysis = phase_analysis_clis(gdn)
     print(json.dumps({"phase17": analysis_records}), flush=True)
     launches_slice7.update(launches_analysis)
+    parallel_records, launches_parallel = phase_parallel(gdn)
+    print(json.dumps({"phase18": parallel_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -2071,6 +2513,7 @@ def main() -> int:
             **launches_train,
             **launches_adapters,
             **launches_slice7,
+            **launches_parallel,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

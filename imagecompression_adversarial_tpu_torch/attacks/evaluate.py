@@ -10,6 +10,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..metrics import bpp_from_likelihoods, ms_ssim, vi, vi_msim
+from ..ops import shard
 
 
 @torch.no_grad()
@@ -25,7 +26,11 @@ def evaluate(
 
     ``defend_fn(x) -> (x_hat, likelihoods)`` replaces the codec's forward;
     a likelihoods dict holding ``'__bpp__'`` carries a rate the defense has
-    already reduced (the self-ensemble's winner)."""
+    already reduced (the self-ensemble's winner).
+
+    Under a row shard (``ops/shard.py``) the rate and the MSEs are the
+    whole image's, MS-SSIM gathers the rows once, and ``im_`` and
+    ``output_`` stay this shard's rows."""
     im_ = im_adv.clamp(0.0, 1.0) if clamp else im_adv
     if defend_fn is not None:
         x_hat, likelihoods = defend_fn(im_)
@@ -37,10 +42,11 @@ def evaluate(
         bpp = likelihoods["__bpp__"]
     else:
         bpp = bpp_from_likelihoods(likelihoods, im_adv.shape[2] * im_adv.shape[3])
-    mse_in = torch.mean((im_ - im_s) ** 2)
-    mse_out = torch.mean((output_ - output_s) ** 2)
-    msim_in = ms_ssim(im_, im_s)
-    msim_out = ms_ssim(output_, output_s)
+    mse_in = shard.mean((im_ - im_s) ** 2)
+    mse_out = shard.mean((output_ - output_s) ** 2)
+    g = shard.gather_rows
+    msim_in = ms_ssim(g(im_), g(im_s))
+    msim_out = ms_ssim(g(output_), g(output_s))
     return {
         "im_": im_,
         "output_": output_,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..defenses.self_ensemble import bitdepth_reduction, random_resize, self_ensemble
 from ..metrics import bpp_from_likelihoods, ms_ssim
+from ..ops import shard
 from ..ops.bounds import bound_clip
 from .common import AdamOnNoise, RDAttackConfig, init_noise, multistep_lr_schedule
 from .evaluate import evaluate
@@ -75,11 +76,13 @@ def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, cl
     full resolution, so the loss, its gradient and the trajectory are the
     full-resolution ones.  ``cond`` on a single image decides the phase
     with a host ``if`` and skips the forward while over budget; otherwise
-    both phases run and ``torch.where`` picks per element.
+    both phases run and ``torch.where`` picks per element.  Under a row
+    shard (``ops/shard.py``) the means are the whole image's, so every
+    shard takes the same branch.
     """
     eps = cfg.epsilon / 255.0
     im_in = _adversarial_input(x, bound_clip(noise, -eps, eps), cfg)
-    loss_i = torch.mean((x - im_in) ** 2, dim=_PER_ELEMENT)
+    loss_i = shard.mean((x - im_in) ** 2, dim=_PER_ELEMENT)
     zero = torch.zeros_like(loss_i)
 
     def input_loss():
@@ -99,7 +102,7 @@ def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, cl
     if cfg.att_metric == "ms-ssim":
         loss_o = ms_ssim(output_, output_s, size_average=False)
     else:
-        loss_o = 1.0 - torch.mean((output_s - output_) ** 2, dim=_PER_ELEMENT)
+        loss_o = 1.0 - shard.mean((output_s - output_) ** 2, dim=_PER_ELEMENT)
     if host_cond:
         return loss_o.sum(), (loss_i, loss_o)
     over = loss_i > cfg.noise_threshold
@@ -276,7 +279,8 @@ def frozen(model):
             p.requires_grad_(flag)
 
 
-def make_adv_example_fn(model, cfg: RDAttackConfig) -> Callable[[torch.Tensor, float], torch.Tensor]:
+def make_adv_example_fn(model, cfg: RDAttackConfig,
+                        mesh=None) -> Callable[[torch.Tensor, float], torch.Tensor]:
     """``adv_example(x, noise_threshold) -> im_adv`` for adversarial
     training (port of the JAX ``make_adv_example_fn``): the RD attack's loop
     on the batch ``x`` as one attack, with no evaluation.
@@ -289,7 +293,17 @@ def make_adv_example_fn(model, cfg: RDAttackConfig) -> Callable[[torch.Tensor, f
     whole batch.  Zero initial noise, Adam with the MultiStepLR schedule.
     It runs under ``frozen(model)``, and its result does not depend on
     whether the parameters require grad.
+
+    With a ``mesh`` (``parallel/mesh.py``), ``x`` is this rank's block of
+    a batch split over the mesh's ``dp`` axis, and both MSEs are the global
+    batch's (all-reduced), so the host ``if`` picks the same phase on every
+    rank, as JAX's psum'd program does.  A mesh whose ``sp`` axis splits
+    the rows raises: the attack has no row-sharded form here.
     """
+    if mesh is not None and "sp" in (mesh.mesh_dim_names or ()) and \
+            mesh.size(mesh.mesh_dim_names.index("sp")) > 1:
+        raise ValueError("make_adv_example_fn takes a mesh split over dp only, "
+                         "not over sp: its attack has no row-sharded form")
     if cfg.debug_model or cfg.random_restarts > 1:
         raise ValueError("make_adv_example_fn starts from zero noise: no debug_model, no restarts")
     supported = bool(getattr(model, "supports_phase_synthesis", False))
@@ -300,18 +314,22 @@ def make_adv_example_fn(model, cfg: RDAttackConfig) -> Callable[[torch.Tensor, f
         )
     lrs = multistep_lr_schedule(cfg.steps, cfg.lr, cfg.lr_milgamma).tolist()
     eps = cfg.epsilon / 255.0
+    dp = None if mesh is None else shard.mesh_axis(mesh, "dp")
+
+    def batch_mean(t):
+        return torch.mean(t) if dp is None else shard.all_mean(t, dp)
 
     def output(im):
         return model.g_s_phase(model.g_a(im)) if use_phase else model(im, quant_mode="none")["x_hat"]
 
     def loss_fn(x, output_s, noise, noise_threshold):
         im_in = bound_clip(x + bound_clip(noise, -eps, eps), 0.0, 1.0)
-        loss_i = torch.mean((x - im_in) ** 2)
+        loss_i = batch_mean((x - im_in) ** 2)
         if bool(loss_i > noise_threshold):
             return loss_i
         out = output(im_in)
         out = bound_clip(out, 0.0, 1.0) if cfg.clamp else out
-        return 1.0 - torch.mean((output_s - out) ** 2)
+        return 1.0 - batch_mean((output_s - out) ** 2)
 
     def adv_example(x: torch.Tensor, noise_threshold: float) -> torch.Tensor:
         x = x.contiguous(memory_format=torch.channels_last)

@@ -9,6 +9,8 @@ from typing import Dict, Iterable, Union
 import numpy as np
 import torch
 
+from ..ops import shard
+
 _LOG2 = math.log(2.0)
 
 
@@ -24,11 +26,13 @@ def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor
 def bpp_from_likelihoods(
     likelihoods: Union[Iterable[torch.Tensor], Dict[str, torch.Tensor]], num_pixels: int
 ) -> torch.Tensor:
-    """Entropy-estimated bits per pixel: sum(-log2 p) / num_pixels."""
+    """Entropy-estimated bits per pixel: sum(-log2 p) / num_pixels.  Under
+    a row shard (``ops/shard.py``) the sum runs over every shard and
+    ``num_pixels``, this shard's count, is scaled to the image's."""
     if isinstance(likelihoods, dict):
         likelihoods = likelihoods.values()
-    total = sum(torch.sum(torch.log(lik)) for lik in likelihoods)
-    return total / (-_LOG2 * num_pixels)
+    total = shard.row_sum(sum(torch.sum(torch.log(lik)) for lik in likelihoods))
+    return total / (-_LOG2 * num_pixels * shard.row_count())
 
 
 def vi(mse_in: torch.Tensor, mse_out: torch.Tensor) -> torch.Tensor:

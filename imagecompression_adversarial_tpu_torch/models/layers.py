@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.gdn import GDNFunction
-from ..ops.bounds import lower_bound
+from ..ops import shard
 
 # GDN reparametrization (CompressAI): parameters are stored as
 # sqrt(value + pedestal) and bounded below before squaring
@@ -44,10 +44,19 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
 
 
 class Conv(nn.Conv2d):
-    """Strided conv with PyTorch-style symmetric padding k//2."""
+    """Strided conv with PyTorch-style symmetric padding k//2.  Under a row
+    shard (``ops/shard.py``) it fetches its halo rows from the
+    neighbouring shards."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
         super().__init__(in_ch, out_ch, kernel_size, stride, kernel_size // 2)
+
+    def _conv_forward(self, x, weight, bias):
+        rows = shard.row_axis()
+        if rows is None:
+            return super()._conv_forward(x, weight, bias)
+        return shard.conv2d_rows(x, weight, bias, self.stride, self.padding, rows,
+                                 type(self).__name__)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The reference's init: kernel uniform(+-sqrt(3/fan_in)), bias
@@ -65,6 +74,8 @@ class Deconv(nn.ConvTranspose2d):
     ``forward(x, phase_output=True)`` (k=5, s=2 only) gives its exact
     subpixel form without depth-to-space: ``(n, 4*out, h, w)`` with
     phase-major channels, whose ``depth_to_space`` is the plain output.
+    Under a row shard it runs as that subpixel conv (with halo rows), then
+    ``depth_to_space``; other kernels and strides raise there.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
@@ -79,14 +90,20 @@ class Deconv(nn.ConvTranspose2d):
         _uniform_(self.bias, 1.0 / math.sqrt(k * k * self.out_channels), generator)
 
     def forward(self, x: torch.Tensor, phase_output: bool = False) -> torch.Tensor:
-        if not phase_output:
+        rows = shard.row_axis()
+        if not phase_output and rows is None:
             return super().forward(x)
         if self.kernel_size != (5, 5) or self.stride != (2, 2):
+            what = "phase_output" if phase_output else "a row shard"
             raise ValueError(
-                "Deconv phase_output requires kernel_size=5/stride=2 (the subpel "
+                f"Deconv {what} requires kernel_size=5/stride=2 (the subpel "
                 f"phase decomposition); got k={self.kernel_size[0]}, s={self.stride[0]}"
             )
-        return F.conv2d(x, self.phase_weight(), self.bias.repeat(4), padding=1)
+        if rows is None:
+            return F.conv2d(x, self.phase_weight(), self.bias.repeat(4), padding=1)
+        y = shard.conv2d_rows(x, self.phase_weight(), self.bias.repeat(4), (1, 1), (1, 1), rows,
+                              "Deconv")
+        return y if phase_output else depth_to_space(y)
 
     def phase_weight(self) -> torch.Tensor:
         """(4*out, in, 3, 3) weight of the subpixel conv.
@@ -149,8 +166,8 @@ class GDN(nn.Module):
 
     def resolved(self):
         """(gamma, beta) in the space the kernel takes."""
-        beta = lower_bound(self.beta, _BETA_BOUND) ** 2 - _PEDESTAL
-        gamma = lower_bound(self.gamma, _REPARAM_OFFSET) ** 2 - _PEDESTAL
+        beta = shard.param_lower_bound(self.beta, _BETA_BOUND) ** 2 - _PEDESTAL
+        gamma = shard.param_lower_bound(self.gamma, _REPARAM_OFFSET) ** 2 - _PEDESTAL
         return gamma, beta
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -179,8 +196,8 @@ class LinearGDN(nn.Module):
         _gdn_parameters(self, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        beta = lower_bound(self.beta, _BETA_BOUND)
-        gamma = lower_bound(self.gamma, _REPARAM_OFFSET)
+        beta = shard.param_lower_bound(self.beta, _BETA_BOUND)
+        gamma = shard.param_lower_bound(self.gamma, _REPARAM_OFFSET)
         norm = torch.einsum("nihw,oi->nohw", torch.abs(x), gamma) + beta.reshape(1, -1, 1, 1)
         return x * norm if self.inverse else x / norm
 

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from . import shard
 from .bounds import ste_round, universal_quant
 
 #: Valid quantization modes.
@@ -19,7 +20,8 @@ QUANT_MODES = ("noise", "dequantize", "ste", "none", "universal")
 
 def uniform_noise(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """The training surrogate's uniform(-0.5, 0.5) noise of ``y``'s shape,
-    drawn from ``generator`` (the one draw of ``'noise'`` mode)."""
+    drawn from ``generator`` (the one draw of ``'noise'`` mode; under a
+    shard, ``y`` has the global shape, ``ops/shard.py::local_draw``)."""
     u = torch.rand(y.shape, generator=generator, device=y.device, dtype=y.dtype)
     return u - 0.5
 
@@ -45,7 +47,7 @@ def quantize(
     if mode in ("noise", "universal") and generator is None:
         raise ValueError(f"quantize(mode={mode!r}) requires a torch.Generator")
     if mode == "noise":
-        return y + uniform_noise(y, generator)
+        return y + shard.local_draw(y, lambda full: uniform_noise(full, generator))
     centered = y if means is None else y - means
     if mode == "universal":
         rounded = universal_quant(centered, generator)

@@ -1,0 +1,293 @@
+"""Where this rank's part of a sharded tensor sits, and the collectives that
+make the codec's layers and reductions exact over the parts.
+
+The parallel layer (``parallel/``) runs one process per rank.  Under
+``sharded(rows=axis)`` every NCHW activation on the rank holds one
+contiguous block of the image's rows, equal in size on every rank of
+``axis``:
+
+* ``Conv`` (and ``MaskedConv``) fetch the rows their kernel reaches across
+  the block's edges from the neighbouring ranks (``conv2d_rows``); zero
+  rows stand in only at the image's global top and bottom, as the
+  convolution's padding does;
+* reductions over the rows become global (``mean``, ``row_sum``);
+* the training forward's noise is drawn for the global tensor and this
+  rank keeps its block (``local_draw``), so that a sharded run draws what
+  the one-process run on the whole tensor draws;
+* a parameter's gated lower bound (GDN's ``beta`` and ``gamma``) gates the
+  global gradient (``param_lower_bound``).
+
+``sharded(batch=axis)`` alone slices the noise draws by batch and gates
+the parameters' bounds on the global gradient.
+
+The collectives are ``all_reduce`` (sums) and ``all_gather_into_tensor``
+(the halo exchange, the row and result gathers), which NCCL and gloo both
+run on CUDA tensors.  The sums keep the loss replicated: their backward
+passes the gradient through unchanged, so each rank's gradients are its
+part of the global loss's, and the halo exchange's backward sends each
+halo row's gradient back to the rank that owns the row.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Callable, Iterator, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from .bounds import lower_bound
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One mesh axis as this rank sees it: its process group, this rank's
+    index along it and its size."""
+
+    group: object
+    index: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """``batch``: the axis the global batch is split over (blocks of equal
+    size, in rank order); ``rows``: the axis the rows are split over."""
+
+    batch: Optional[Axis] = None
+    rows: Optional[Axis] = None
+
+
+_CURRENT: contextvars.ContextVar[Optional[Shard]] = contextvars.ContextVar(
+    "icat_shard", default=None)
+
+
+def row_axis() -> Optional[Axis]:
+    """The row axis of the active shard, or None."""
+    s = _CURRENT.get()
+    return None if s is None else s.rows
+
+
+@contextlib.contextmanager
+def sharded(batch: Optional[Axis] = None, rows: Optional[Axis] = None) -> Iterator[Shard]:
+    """Run the enclosed code as this rank's part of a sharded run."""
+    token = _CURRENT.set(Shard(batch, rows))
+    try:
+        yield _CURRENT.get()
+    finally:
+        _CURRENT.reset(token)
+
+
+def all_reduce_(buf: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Sum ``buf`` over ``axis`` in place (not differentiable)."""
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=axis.group)
+    return buf
+
+
+# ``all_gather_into_tensor`` is named ``all_gather_single`` in newer torch
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def all_gather(slot: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's ``slot`` (of one shape on every rank) of ``group``'s
+    ``size`` ranks along a new leading axis, in rank order (not
+    differentiable)."""
+    slot = slot.contiguous()
+    out = slot.new_empty((size * slot.shape[0], *slot.shape[1:]) if slot.dim() else (size,))
+    _all_gather_flat(out, slot, group=group)
+    return out.view(size, *slot.shape)
+
+
+def gather(slot: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``all_gather`` over ``axis``."""
+    return all_gather(slot, axis.group, axis.size)
+
+
+class _AllSum(torch.autograd.Function):
+    """The sum over an axis of a tensor each rank holds a part of; the
+    backward is the identity, since the sum is the replicated value every
+    rank goes on with."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return all_reduce_(t.detach().clone().contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``t`` summed over every rank of ``axis`` (differentiable)."""
+    return _AllSum.apply(t, axis)
+
+
+def all_mean(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The mean of every element of ``t`` over every rank of ``axis``, each
+    rank holding an equal part (differentiable)."""
+    return all_sum(t.sum(), axis) / (t.numel() * axis.size)
+
+
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the row shards (``t`` itself when unsharded)."""
+    rows = row_axis()
+    return t if rows is None else all_sum(t, rows)
+
+
+def row_count() -> int:
+    """How many row shards there are (1 when unsharded)."""
+    rows = row_axis()
+    return 1 if rows is None else rows.size
+
+
+def mean(t: torch.Tensor, dim: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``torch.mean(t, dim)`` of an NCHW tensor, over the whole image when
+    its rows are sharded (``dim`` must then reduce the rows, dim 2)."""
+    rows = row_axis()
+    if rows is None:
+        return torch.mean(t) if dim is None else torch.mean(t, dim=tuple(dim))
+    dims = tuple(range(t.dim())) if dim is None else tuple(d % t.dim() for d in dim)
+    if 2 not in dims:
+        raise ValueError(f"a mean over dims {dims} keeps the sharded rows; reduce dim 2 too")
+    count = 1
+    for d in dims:
+        count *= t.shape[d]
+    total = t.sum() if dim is None else t.sum(dim=dims)
+    return all_sum(total, rows) / (count * rows.size)
+
+
+@torch.no_grad()
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The whole NCHW tensor on every rank, from each rank's rows (not
+    differentiable)."""
+    rows = row_axis()
+    if rows is None:
+        return t
+    return torch.cat(gather(t.contiguous(), rows).unbind(0), dim=2)
+
+
+def local_draw(y: torch.Tensor, draw: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """``draw(template)`` for ``y``'s part of the global tensor: the draw
+    is made for the global shape (``template`` has it, and ``y``'s dtype
+    and device) and this rank keeps its batch block and its rows."""
+    s = _CURRENT.get()
+    if s is None or (s.batch is None and s.rows is None):
+        return draw(y)
+    n, c, h, w = y.shape
+    nb = 1 if s.batch is None else s.batch.size
+    nr = 1 if s.rows is None else s.rows.size
+    b0 = 0 if s.batch is None else s.batch.index * n
+    r0 = 0 if s.rows is None else s.rows.index * h
+    full = draw(y.new_empty(()).expand(n * nb, c, h * nr, w))
+    return full[b0:b0 + n, :, r0:r0 + h]
+
+
+class _Halo(torch.autograd.Function):
+    """Pad this rank's rows with ``top`` rows of the rank above and
+    ``bottom`` rows of the rank below (zeros past the image's edges).  The
+    backward sends each halo row's gradient to the rank owning the row and
+    adds it there."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, axis):
+        ctx.top, ctx.bottom, ctx.axis = top, bottom, axis
+        h = x.shape[2]
+        # slot: the rows the rank below needs (my last `top`), then the rows
+        # the rank above needs (my first `bottom`)
+        slots = gather(torch.cat([x[:, :, h - top:], x[:, :, :bottom]], dim=2), axis)
+        i, n = axis.index, axis.size
+        above = slots[i - 1, :, :, :top] if i > 0 else x.new_zeros((*x.shape[:2], top, x.shape[3]))
+        below = (slots[i + 1, :, :, top:] if i < n - 1
+                 else x.new_zeros((*x.shape[:2], bottom, x.shape[3])))
+        return torch.cat([above, x, below], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        top, bottom, axis = ctx.top, ctx.bottom, ctx.axis
+        h = g.shape[2] - top - bottom
+        # slot: the gradient of my top halo (rows of the rank above), then of
+        # my bottom halo (rows of the rank below)
+        slots = gather(torch.cat([g[:, :, :top], g[:, :, top + h:]], dim=2).contiguous(), axis)
+        dx = g[:, :, top:top + h].clone()
+        i, n = axis.index, axis.size
+        if i < n - 1 and top:
+            dx[:, :, h - top:] += slots[i + 1, :, :, :top]
+        if i > 0 and bottom:
+            dx[:, :, :bottom] += slots[i - 1, :, :, top:]
+        return dx, None, None, None
+
+
+def halo_rows(kernel: int, stride: int, padding: int) -> Tuple[int, int]:
+    """(rows above, rows below) that a shard's block of a conv's output
+    reads beyond the block's input rows."""
+    return padding, max(kernel - stride - padding, 0)
+
+
+def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride: Tuple[int, int], padding: Tuple[int, int], axis: Axis,
+                layer: str = "conv") -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride, padding)`` of the whole image,
+    restricted to this rank's rows of the output, from this rank's rows of
+    ``x`` and the halo rows of its neighbours."""
+    kh, sh, ph = weight.shape[2], stride[0], padding[0]
+    top, bottom = halo_rows(kh, sh, ph)
+    h = x.shape[2]
+    if h % sh:
+        raise ValueError(f"{layer}: {h} rows a shard do not divide by the stride {sh}; "
+                         "the image height must divide by (shards x 64)")
+    if max(top, bottom) > h:
+        raise ValueError(f"{layer}: a {kh}-row kernel reaches {max(top, bottom)} rows past a "
+                         f"shard of {h} rows")
+    if top or bottom:
+        x = _Halo.apply(x, top, bottom, axis)
+    return F.conv2d(x, weight, bias, stride, (0, padding[1]))
+
+
+def mesh_axis(mesh, name: str) -> Axis:
+    """The axis ``name`` of a ``DeviceMesh`` as this rank sees it."""
+    if name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {name!r}; its axes are {mesh.mesh_dim_names}")
+    return Axis(mesh.get_group(name), mesh.get_local_rank(name),
+                mesh.size(mesh.mesh_dim_names.index(name)))
+
+
+class _ParamLowerBound(torch.autograd.Function):
+    """``lower_bound`` of a replicated parameter in a sharded step: the gate
+    (pass where ``x >= bound`` or the gradient points up) must see the
+    global batch's gradient, not this rank's part, since gating is not
+    additive.  The backward reduces the gradient as ``reduce_gradients_``
+    does (summed over the row shards, averaged over the batch ranks), gates
+    it, and returns this rank's share of it: the gated gradient over the
+    number of row shards, which that reduction sums back."""
+
+    @staticmethod
+    def forward(ctx, x, bound, where):
+        ctx.save_for_backward(x)
+        ctx.bound, ctx.where = bound, where
+        return x.clamp(min=bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        where = ctx.where
+        g = g.contiguous().clone()
+        for axis in (where.rows, where.batch):
+            if axis is not None:
+                all_reduce_(g, axis)
+        if where.batch is not None:
+            g /= where.batch.size
+        pass_through = (x >= ctx.bound) | (g < 0.0)
+        share = 1 if where.rows is None else where.rows.size
+        return g.masked_fill(~pass_through, 0.0) / share, None, None
+
+
+def param_lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``ops.bounds.lower_bound`` of a parameter, gated on the global
+    gradient under a shard (see ``_ParamLowerBound``)."""
+    s = _CURRENT.get()
+    if s is None or (s.batch is None and s.rows is None) or not x.requires_grad:
+        return lower_bound(x, bound)
+    return _ParamLowerBound.apply(x, bound, s)

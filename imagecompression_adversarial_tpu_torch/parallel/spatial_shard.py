@@ -1,0 +1,124 @@
+"""Exact spatial model parallelism: one image's rows split across ranks
+(port of ``imagecompression_adversarial_tpu/parallel/spatial_shard.py``).
+
+JAX annotates the rows with a mesh axis and lets GSPMD insert the conv
+halos and the loss psums.  Here each rank of the mesh's ``sp`` axis runs
+the whole codec on its block of rows under ``ops/shard.py``'s row shard:
+
+* every ``Conv`` fetches the rows its kernel reaches across the block's
+  edges from the neighbouring ranks (a 3x3 stride-1 conv 1 row each side,
+  a 5x5 stride-2 conv 2 above and 1 below), with zero rows only at the
+  image's top and bottom; every ``Deconv`` runs as its exact subpixel
+  3x3 conv (1 row each side), then ``depth_to_space``; GDN/IGDN and the
+  entropy models are pointwise and need none;
+* every reduction on the path is the whole image's: the attack's losses
+  and its two-phase decision, the evaluation's MSEs and the rate; the
+  final MS-SSIM gathers the rows once;
+* the attack's noise, Adam state and activations stay row-sharded: ``im_``
+  comes back as each rank's rows.
+
+The result equals the one-process run up to the order of float sums.
+``H`` must divide by ``sp x 64``, so that each block starts on an even
+row at every stride-2 stage.  Layers with no halo rule raise, naming the
+layer: attention (cheng2020-attn, nlaic, tic) and the adapters' own
+blocks; so do the MS-SSIM attack metric, in-loop defenses and padding.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from ..attacks.common import RDAttackConfig, init_noise
+from ..attacks.rd import make_attack_fn
+from ..entropy.factorized import EntropyBottleneck
+from ..models import codecs, layers
+from ..ops import shard
+from .mesh import axis_sharding, local_part, mesh_device
+
+ROW_MULTIPLE = 64
+
+#: Module types whose forward is exact on a block of rows: convs (halo'd),
+#: pointwise layers, and containers that only compose them.
+ROW_SHARDABLE = (
+    layers.Conv, layers.MaskedConv, layers.Deconv, layers.GDN, layers.SubpelConv,
+    layers.ResidualBlock, layers.ResidualBlockWithStride, layers.ResidualBlockUpsample,
+    nn.Sequential, nn.ReLU, nn.LeakyReLU, nn.PixelShuffle, EntropyBottleneck,
+    codecs.FactorizedPrior, codecs.ScaleHyperprior, codecs.JointAutoregressive,
+    codecs.Cheng2020Anchor, codecs.Cheng2020Attention, codecs.Cheng2020AttnGMM,
+)
+
+
+def row_sharding(mesh, axis: str = "sp"):
+    """NCHW tensors with their rows (dim 2) split along ``axis``."""
+    return axis_sharding(mesh, axis, 2)
+
+
+def check_row_shardable(model: nn.Module) -> None:
+    """Raise naming the layers of ``model`` that have no halo rule."""
+    bad = {}
+    for name, m in model.named_modules():
+        if type(m) not in ROW_SHARDABLE:
+            bad.setdefault(type(m).__name__, name or "<model>")
+    if bad:
+        found = ", ".join(f"{k} ({v})" for k, v in list(bad.items())[:4])
+        raise ValueError(f"{type(model).__name__} cannot be row-sharded: no halo rule for {found}")
+
+
+def _check_height(h: int, n_sp: int) -> None:
+    if h % (n_sp * ROW_MULTIPLE):
+        raise ValueError(f"H={h} must divide by sp*{ROW_MULTIPLE}={n_sp * ROW_MULTIPLE} "
+                         "(pad-to-64 upstream, then pick sp)")
+
+
+def make_spatial_forward(model, mesh, axis: str = "sp") -> Callable[[torch.Tensor], Dict]:
+    """``forward(x) -> result``: the ``dequantize`` forward of the whole
+    image ``x`` (``(1, 3, H, W)``, on the host or the card) with its rows
+    split over ``axis``; every tensor of the result is this rank's rows.
+    Runs in every rank."""
+    check_row_shardable(model)
+    rows = shard.mesh_axis(mesh, axis)
+    device = mesh_device(mesh)
+    placements = row_sharding(mesh, axis)
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> Dict:
+        _check_height(x.shape[2], rows.size)
+        mine = local_part(mesh, torch.as_tensor(x), placements).to(device)
+        with shard.sharded(rows=rows):
+            return model(mine.contiguous(memory_format=torch.channels_last),
+                         quant_mode="dequantize")
+
+    return forward
+
+
+def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
+                           axis: str = "sp") -> Callable[..., Dict]:
+    """RD attack on ONE image with its rows split over ``axis``:
+    ``attack(x, generator=None) -> results`` for the whole image ``x``
+    (``(1, 3, H, W)``); the scalars are the whole image's, ``im_`` and the
+    other images this rank's rows.  The initial noise, where the config
+    draws one, is drawn for the whole image and split.  Runs in every rank.
+    """
+    if cfg.att_metric == "ms-ssim":
+        raise ValueError("att_metric='ms-ssim' has no row-sharded form (its windows cross rows)")
+    if cfg.defend_in_loop or cfg.pad:
+        raise ValueError("in-loop defenses and -p padding have no row-sharded form")
+    check_row_shardable(model)
+    single = make_attack_fn(model, cfg)
+    rows = shard.mesh_axis(mesh, axis)
+    device = mesh_device(mesh)
+    placements = row_sharding(mesh, axis)
+
+    def attack(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict:
+        _check_height(x.shape[2], rows.size)
+        x = torch.as_tensor(x)
+        noise = init_noise(tuple(x.shape), single.cfg, generator, device)
+        mine = local_part(mesh, x, placements).to(device)
+        with shard.sharded(rows=rows):
+            res = single.batch(mine, local_part(mesh, noise, placements))
+        return {k: v[0] for k, v in res.items()}
+
+    return attack

@@ -18,6 +18,7 @@ import torch
 
 from ..metrics import ms_ssim
 from ..metrics.lpips import make_lpips_fn
+from ..ops import shard
 from ..ops.bounds import lower_bound
 
 _LOG2 = math.log(2.0)
@@ -46,15 +47,18 @@ def rate_distortion_loss(
     perceptual_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """``{loss, bpp_loss, distortion}`` of a codec forward on ``target``
-    (NCHW)."""
+    (NCHW).  Under a row shard (``ops/shard.py``) the rate and the MSE are
+    the whole image's; the other metrics raise there."""
     n, _, h, w = target.shape
-    bpp = sum(torch.sum(torch.log(lower_bound(lik, _LIK_FLOOR)))
-              for lik in result["likelihoods"].values())
-    bpp = bpp / (-_LOG2 * n * h * w)
+    bpp = shard.row_sum(sum(torch.sum(torch.log(lower_bound(lik, _LIK_FLOOR)))
+                            for lik in result["likelihoods"].values()))
+    bpp = bpp / (-_LOG2 * n * h * w * shard.row_count())
 
     x_hat = result["x_hat"]
+    if metric != "mse" and shard.row_axis() is not None:
+        raise ValueError(f"metric {metric!r} has no row-sharded form; only 'mse' has")
     if metric == "mse":
-        distortion = torch.mean((x_hat - target) ** 2)
+        distortion = shard.mean((x_hat - target) ** 2)
         loss = lmbda * (255.0 ** 2) * distortion + bpp
     elif metric == "ms-ssim":
         distortion = 1.0 - ms_ssim(x_hat, target)

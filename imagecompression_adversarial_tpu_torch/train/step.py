@@ -10,15 +10,21 @@
 * ``ReduceLROnPlateau`` is the JAX package's host class (``metric <
   best``, patience 10, factor 0.5), not torch's, whose relative threshold
   gives another schedule.
+* With a mesh (``parallel/mesh.py``) the step is one rank's part of a
+  data-parallel step over ``dp`` (and, where the mesh has ``sp``, of a
+  row-sharded one): the gradients are reduced before the clip, so the clip
+  and both Adams see the global batch's, as optax does after XLA's psum.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops import shard
 from .loss import rate_distortion_loss
 
 #: The parameter name the aux optimizer owns.
@@ -94,6 +100,29 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
+def mesh_shard(mesh) -> shard.Shard:
+    """The shard a mesh's rank holds: the batch split over ``dp``, and the
+    rows over ``sp`` where the mesh has that axis."""
+    names = mesh.mesh_dim_names or ()
+    return shard.Shard(shard.mesh_axis(mesh, "dp"),
+                       shard.mesh_axis(mesh, "sp") if "sp" in names else None)
+
+
+def reduce_gradients_(grads: List[torch.Tensor], where: shard.Shard,
+                      partial_rows: bool = True) -> None:
+    """Make this rank's gradients the global batch's, in place: summed over
+    the row shards (each holds its part of the loss's gradient; not where
+    ``partial_rows`` is False, as for a loss of the parameters alone), then
+    averaged over ``dp`` (each dp rank's loss is its block's mean)."""
+    axes = ([where.rows] if partial_rows and where.rows is not None else []) + [where.batch]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for axis in axes:
+        shard.all_reduce_(flat, axis)
+    flat /= where.batch.size
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def train_step(
     state: TrainState,
     batch: torch.Tensor,
@@ -102,22 +131,34 @@ def train_step(
     lmbda: float,
     metric: str = "mse",
     recompress: bool = False,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """One RD step on ``batch`` (NCHW): the noise-quantized forward, the
     rate-distortion loss (plus ``0.01 * ||y - g_a(x_hat)||`` with
     ``recompress``), the clipped main Adam step at ``lr``, then the aux
-    step.  Returns the logs as detached device tensors."""
+    step.  Returns the logs as detached device tensors.
+
+    With a ``mesh``, ``batch`` is this rank's block of the global batch
+    (its rows too, where the mesh has ``sp``), ``generator`` is seeded
+    alike on every rank (each draws the global batch's noise and keeps its
+    block), and the logs are the global batch's on every rank."""
     model = state.model
     main = state.opt.param_groups[0]["params"]
     aux = state.aux_opt.param_groups[0]["params"]
+    where = mesh_shard(mesh) if mesh is not None else None
+    if where is not None and recompress:
+        raise ValueError("recompress has no data-parallel form: its norm is not a mean")
 
-    result = model(batch, quant_mode="noise", generator=generator)
-    out = rate_distortion_loss(result, batch, lmbda, metric)
+    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
+        result = model(batch, quant_mode="noise", generator=generator)
+        out = rate_distortion_loss(result, batch, lmbda, metric)
     if recompress:
         f1 = model.g_a(result["x_hat"])
         out["recompress_loss"] = torch.sqrt(torch.sum((result["y"] - f1) ** 2))
         out["loss"] = out["loss"] + 0.01 * out["recompress_loss"]
     grads = _grads(out["loss"], main)
+    if where is not None:
+        reduce_gradients_(grads, where)
     clip_by_global_norm_(grads)
     for p, g in zip(main, grads):
         p.grad = g
@@ -125,7 +166,10 @@ def train_step(
     state.opt.step()
 
     aux_loss = model.aux_loss()
-    for p, g in zip(aux, _grads(aux_loss, aux)):
+    aux_grads = _grads(aux_loss, aux)
+    if where is not None:
+        reduce_gradients_(aux_grads, where, partial_rows=False)
+    for p, g in zip(aux, aux_grads):
         p.grad = g
     state.aux_opt.step()
     for p in main + aux:
@@ -134,6 +178,12 @@ def train_step(
     state.step += 1
     logs = {k: v.detach() for k, v in out.items()}
     logs["aux_loss"] = aux_loss.detach()
+    if where is not None:
+        # the row shards already hold the whole image's values
+        keys = list(logs)
+        flat = torch.stack([logs[k].reshape(()) for k in keys])
+        shard.all_reduce_(flat, where.batch)
+        logs = dict(zip(keys, (flat / where.batch.size).unbind()))
     return logs
 
 

@@ -1,0 +1,504 @@
+"""The port's parallel layer (``imagecompression_adversarial_tpu_torch/parallel``,
+the dp and dp x sp training steps) against the JAX package's on the CPU.
+
+The port runs one process per rank over ``torch.distributed`` (gloo on the
+CPU); each world size is spawned once, in the module fixture ``worlds``,
+which runs every scenario of ``tests/torch_spmd_cases.py`` in its ranks
+while the tests compute the JAX side here, on the conftest's 8-device
+virtual mesh.  Both sides get the same arrays: the hyper q1 demo weights,
+the port's seeded factorized and context weights as flax trees, numpy images, and
+the training forward's noise tables (``torch_parity.same_noise``'s idea:
+JAX's ``jax.random.uniform`` and the ranks' ``ops.quant.uniform_noise``
+return the same table for each global shape).  The ranks run one torch
+thread with oneDNN off, as ``tests/test_torch_train.py`` does.
+
+Bounds, each with its source:
+* mesh shapes and ``shard_batch`` slices, ``tile_image``: exact;
+  ``untile_image`` of ``tile_image``: the identity within 1e-6, and
+  ``tiled_forward`` of the identity within 1e-6 of JAX's (float64 blend
+  rounded to float32 on both sides); through the factorized codec within
+  1e-5 of JAX's (float32 convolutions in another order);
+* the dp corpus attack: per-image vi within ``VI_ATOL`` dB and bpp_ori
+  within ``BPP_RTOL`` (``tests/torch_parity.py``, the bounds of
+  ``tests/test_torch_attack_rd.py``);
+* the row-sharded forward: ``x_hat`` atol 1e-5 and the log-likelihood sums
+  rtol 1e-4; the row-sharded attack: vi, mse_in and bpp_ori rtol 1e-4,
+  atol 1e-6 (JAX's own bounds, ``tests/test_spatial_shard.py``);
+* training steps (RD, the context family, ``--adv``, dp x sp): the bounds
+  of ``tests/test_torch_train.py``: step 1's loss terms rtol 1e-5 and its
+  gradients within 1e-4 of each tensor's largest element; later steps'
+  losses rtol 1e-3; the parameters after 3 steps within 2 x 3 x lr, at most
+  1e-4 of the elements more than lr / 10 apart.
+"""
+
+import concurrent.futures
+import pickle
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from imagecompression_adversarial_tpu.attacks import RDAttackConfig as JRDAttackConfig
+from imagecompression_adversarial_tpu.attacks.rd import make_adv_example_fn as j_make_adv
+from imagecompression_adversarial_tpu.models import init_model as j_init_model
+from imagecompression_adversarial_tpu.parallel import batch_attack as j_batch_attack
+from imagecompression_adversarial_tpu.parallel import mesh as j_mesh
+from imagecompression_adversarial_tpu.parallel import spatial as j_spatial
+from imagecompression_adversarial_tpu.parallel import spatial_shard as j_spatial_shard
+from imagecompression_adversarial_tpu.train import loss as j_loss
+from imagecompression_adversarial_tpu.train import step as j_step
+from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+from imagecompression_adversarial_tpu_torch.io.weights import params_from_jax
+from imagecompression_adversarial_tpu_torch.models.registry import init_model
+from imagecompression_adversarial_tpu_torch.parallel import (
+    check_row_shardable,
+    choose_backend,
+    make_spatial_attack_fn,
+    run_spmd,
+    tile_image,
+    tiled_forward,
+    untile_image,
+)
+from imagecompression_adversarial_tpu_torch.train import lambda_for
+from imagecompression_adversarial_tpu_torch.train.data import synthetic_batches
+
+import torch_spmd_cases as cases
+from torch_parity import BPP_RTOL, VI_ATOL, hyper_models, jax_params_from_port
+
+LOSS_RTOL = 1e-5
+UNIT_ATOL = 1e-6
+GRAD_REL = 1e-4
+TRAJ_LOSS_RTOL = 1e-3
+LR = cases.LR
+STEPS = 3
+PARAM_ATOL = 2 * STEPS * LR
+QUANTILE_ATOL = 2 * STEPS * 1e-3
+FAR_SHARE = 1e-4
+WORLD_TIMEOUT_S = 600
+# the dp x sp step's image height: JAX's own gradients on a (2, 2) mesh of
+# CPU devices differ from its unsharded ones where a shard holds one or two
+# latent rows (128 and 256 image rows) and agree at 512 (run this file as a
+# script to print the gaps; ROADMAP Queue C 15)
+DPSP_ROWS = 512
+
+DP_SCENARIOS = ["mesh_and_batch", "tiles_identity", "tiles_codec", "corpus_attack", "train_rd",
+                "train_context", "train_adv", "adv_branches"]
+SP_SCENARIOS = ["sp_forward", "sp_attack", "sp_attack_select", "sp_unaligned", "train_dpsp",
+                "adv_rejects_sp"]
+
+
+def _noise_tables(shapes, seed):
+    """Uniform(-0.5, 0.5) tables by NHWC shape (JAX) and NCHW shape (port)."""
+    rng = np.random.RandomState(seed)
+    nhwc = {s: rng.uniform(-0.5, 0.5, s).astype(np.float32) for s in shapes}
+    nchw = {(s[0], s[3], s[1], s[2]): np.ascontiguousarray(a.transpose(0, 3, 1, 2))
+            for s, a in nhwc.items()}
+    return nhwc, nchw
+
+
+NOISE = {
+    "hyper": _noise_tables([(2, 4, 4, 192), (2, 1, 1, 128)], 0),
+    "context": _noise_tables([(2, 4, 4, 192), (2, 1, 1, 192)], 1),
+    "dpsp": _noise_tables([(2, 32, 4, 192), (2, 8, 1, 128)], 2),
+}
+
+
+def _batches(n, size, seed):
+    stream = synthetic_batches(2, size, seed)
+    return [next(stream) for _ in range(n)]
+
+
+def _adv_x():
+    """A synthetic image and a saturated one (the clip takes every upward
+    move of its noise): alone, each would pick its phase at other steps."""
+    x = _batches(1, 64, 3)[0].copy()
+    x[1] = 1.0
+    return x
+
+
+def _inputs():
+    _, jp, _ = hyper_models()
+    rng = np.random.RandomState(0)
+    return {
+        "params": {
+            "hyper": jp,
+            **{arch: jax_params_from_port(init_model(arch, 1), j_init_model(arch, 1), arch)
+               for arch in ("factorized", "context")},
+        },
+        "batch16": np.arange(16 * 4 * 4 * 3, dtype=np.float32).reshape(16, 4, 4, 3),
+        "tile_x": np.random.RandomState(1).rand(1, 512, 512, 3).astype(np.float32),
+        "tile_codec_x": np.random.RandomState(2).rand(1, 320, 320, 3).astype(np.float32),
+        "corpus": rng.rand(5, 64, 64, 3).astype(np.float32),
+        "sp_x": np.random.RandomState(3).rand(1, 256, 128, 3).astype(np.float32),
+        "train_batches": _batches(STEPS, 64, 0),
+        "dpsp_batches": [b[:, :, :64] for b in _batches(STEPS, DPSP_ROWS, 1)],
+        "noise": {k: v[1] for k, v in NOISE.items()},
+        "adv_x": _adv_x(),
+    }
+
+
+class Worlds:
+    """The two spawned worlds, run in background threads while the tests
+    compute the JAX side."""
+
+    def __init__(self, tmp):
+        self.inputs = _inputs()
+        path = str(tmp / "inputs.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(self.inputs, f)
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+        self._dp = self._pool.submit(run_spmd, cases.run_world, 2, "gloo", "cpu",
+                                     (path, DP_SCENARIOS), WORLD_TIMEOUT_S)
+        self._sp = self._pool.submit(run_spmd, cases.run_world, 4, "gloo", "cpu",
+                                     (path, SP_SCENARIOS), WORLD_TIMEOUT_S)
+
+    def ranks(self, scenario):
+        """Each rank's result of ``scenario``."""
+        world = self._dp if scenario in DP_SCENARIOS else self._sp
+        return [r[scenario] for r in world.result()]
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    w = Worlds(tmp_path_factory.mktemp("spmd"))
+    yield w
+    w.close()
+
+
+def _devices(n):
+    return np.array(jax.devices("cpu")[:n])
+
+
+def _rel_close(a, b, rel):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    return err <= rel, err
+
+
+# -- training steps -------------------------------------------------------------------
+
+
+def _jax_noise(monkeypatch, key):
+    table = NOISE[key][0]
+    orig = jax.random.uniform
+
+    def uniform(k, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        if tuple(shape) in table:
+            return jnp.asarray(table[tuple(shape)], dtype)
+        return orig(k, shape, dtype, minval, maxval)
+
+    monkeypatch.setattr(jax.random, "uniform", uniform)
+
+
+def _jax_grads(jm, jp, batch, mesh=None, batch_spec=None):
+    """JAX's gradient of the RD loss on ``batch``, jitted unsharded or with
+    the batch sharded by ``batch_spec`` over ``mesh``."""
+    lmbda = lambda_for("mse", 1)
+
+    def loss_fn(p, b):
+        result = jm.apply({"params": p}, b, quant_mode="noise", rngs={"quant": jax.random.PRNGKey(0)})
+        return j_loss.rate_distortion_loss(result, b, lmbda, "mse")["loss"]
+
+    if mesh is None:
+        return jax.jit(jax.grad(loss_fn))(jp, jnp.asarray(batch))
+    repl, batch_sh = NamedSharding(mesh, P()), NamedSharding(mesh, batch_spec)
+    fn = jax.jit(jax.grad(loss_fn), in_shardings=(repl, batch_sh), out_shardings=repl)
+    with mesh:
+        return fn(jax.device_put(jp, repl), jax.device_put(batch, batch_sh))
+
+
+def _grad_gaps(a, b):
+    """Per leaf, ``_rel_close``'s error of ``a`` against ``b``."""
+    return {jax.tree_util.keystr(k): _rel_close(x, y, GRAD_REL)[1] for (k, x), (_, y) in zip(
+        jax.tree_util.tree_flatten_with_path(a)[0], jax.tree_util.tree_flatten_with_path(b)[0])}
+
+
+def _jax_training(jm, jp, batches, mesh, batch_spec, adv=False):
+    """Step 1's gradients (not with ``adv``: they are the RD case's) and the
+    logs and parameters of one step a batch, JAX's train step jitted with
+    the batch sharded by ``batch_spec``."""
+    lmbda = lambda_for("mse", 1)
+    grads = None if adv else _jax_grads(jm, jp, batches[0])
+    state, train_step = j_step.create_train_state(jm, jp)
+    adv_fn = j_make_adv(jm, JRDAttackConfig(steps=cases.ADV_STEPS, noise_threshold=cases.ADV_THRESHOLD))
+
+    def step(s, b, r):
+        if adv:
+            b = adv_fn(s.params, b, jnp.float32(cases.ADV_THRESHOLD))
+        return train_step(s, b, r, LR, lmbda, "mse")
+
+    repl, batch_sh = NamedSharding(mesh, P()), NamedSharding(mesh, batch_spec)
+    fn = jax.jit(step, in_shardings=(repl, batch_sh, repl), out_shardings=(repl, repl))
+    # placed as the outputs will be, so that steps 2 and 3 reuse step 1's program
+    state = jax.device_put(state, repl)
+    logs = []
+    with mesh:
+        for i, b in enumerate(batches):
+            state, out = fn(state, jax.device_put(b, batch_sh),
+                            jax.device_put(jax.random.PRNGKey(i), repl))
+            logs.append({k: float(v) for k, v in out.items()})
+    return grads, logs, jax.tree_util.tree_map(np.asarray, state.params)
+
+
+def _check_training(ranks, arch, grads, logs, params):
+    want_g = {} if grads is None else params_from_jax(jax.tree_util.tree_map(np.asarray, grads), arch)
+    want_p = params_from_jax(params, arch)
+    for rank, got in enumerate(ranks):
+        assert (got["grads"] is None) == (grads is None)
+        for name, g in (got["grads"] or {}).items():
+            ok, err = _rel_close(g, want_g[name].numpy(), GRAD_REL)
+            assert ok, f"rank {rank} step-1 gradient {name}: {err}"
+        for i, (a, b) in enumerate(zip(got["logs"], logs)):
+            for k in ("loss", "bpp_loss", "distortion", "aux_loss"):
+                rtol = LOSS_RTOL if i == 0 else TRAJ_LOSS_RTOL
+                np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=UNIT_ATOL if i == 0 else 0,
+                                           err_msg=f"rank {rank} step {i + 1} {k}")
+        far = total = 0
+        for name, p in got["params"].items():
+            atol = QUANTILE_ATOL if name.endswith("quantiles") else PARAM_ATOL
+            diff = np.abs(p - want_p[name].numpy())
+            assert float(diff.max()) <= atol, f"rank {rank} {name}: {float(diff.max())}"
+            far += int((diff > atol / (2 * STEPS) / 10).sum())
+            total += diff.size
+        assert far <= FAR_SHARE * total, f"rank {rank}: {far} of {total} elements apart"
+        # every rank holds the same parameters after the steps
+        for name, p in got["params"].items():
+            np.testing.assert_array_equal(p, ranks[0]["params"][name], err_msg=name)
+
+
+@pytest.mark.parametrize("scenario, arch, noise, adv", [
+    ("train_rd", "hyper", "hyper", False),
+    ("train_context", "context", "context", False),
+    ("train_adv", "hyper", "hyper", True),
+])
+def test_dp_training_matches_jax(worlds, monkeypatch, scenario, arch, noise, adv):
+    _jax_noise(monkeypatch, noise)
+    jm = j_init_model(arch, 1)
+    jp = worlds.inputs["params"][arch]
+    out = _jax_training(jm, jp, worlds.inputs["train_batches"], Mesh(_devices(2), ("dp",)),
+                        P("dp"), adv)
+    _check_training(worlds.ranks(scenario), arch, *out)
+
+
+def test_adv_example_takes_one_branch_on_every_rank(worlds):
+    """The inner attack's host ``if`` under dp: with the batch's global
+    MSEs every rank takes the output phase in the same steps, as JAX's
+    psum'd program and the one-process batch do; with each rank's own MSEs
+    the two ranks would branch apart (and the next collective would hang).
+    The adversarial example equals JAX's within the pixels' bound of
+    ``tests/test_torch_train.py`` (1e-4)."""
+    jm, jp, _ = hyper_models()
+    want = np.asarray(jax.jit(j_make_adv(jm, JRDAttackConfig(steps=cases.BRANCH_STEPS)))(
+        jp, jnp.asarray(worlds.inputs["adv_x"]), jnp.float32(cases.BRANCH_THRESHOLD)))
+    ranks = worlds.ranks("adv_branches")
+    assert [r["own"] for r in ranks] == [3, 5]
+    assert [r["global"] for r in ranks] == [4, 4]
+    got = np.concatenate([r["global_im"] for r in ranks])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_dp_sp_training_matches_jax(worlds, monkeypatch):
+    _jax_noise(monkeypatch, "dpsp")
+    jm, jp, _ = hyper_models()
+    mesh = Mesh(_devices(4).reshape(2, 2), ("dp", "sp"))
+    batches = worlds.inputs["dpsp_batches"]
+    out = _jax_training(jm, jp, batches, mesh, P("dp", "sp"))
+    _check_training(worlds.ranks("train_dpsp"), "hyper", *out)
+
+
+# -- row sharding -------------------------------------------------------------------
+
+
+def _sp_mesh():
+    return Mesh(_devices(4), ("sp",))
+
+
+def test_row_sharded_forward_matches_jax(worlds):
+    jm, jp, _ = hyper_models()
+    x = worlds.inputs["sp_x"]
+    want = j_spatial_shard.make_spatial_forward(jm, _sp_mesh())(jp, x)
+    ranks = worlds.ranks("sp_forward")
+    x_hat = np.concatenate([r["x_hat"] for r in ranks], axis=1)
+    np.testing.assert_allclose(x_hat, np.asarray(want["x_hat"]), rtol=0, atol=1e-5)
+    for k, lik in want["likelihoods"].items():
+        got = sum(r["loglik"][k] for r in ranks)
+        np.testing.assert_allclose(got, float(jnp.sum(jnp.log(lik))), rtol=1e-4)
+
+
+def _check_row_sharded_attack(worlds, scenario, impl):
+    jm, jp, _ = hyper_models()
+    cfg = JRDAttackConfig(steps=5, noise_threshold=1e-4, two_phase_impl=impl)
+    want = j_spatial_shard.make_spatial_attack_fn(jm, cfg, _sp_mesh())(jp, worlds.inputs["sp_x"])
+    ranks = worlds.ranks(scenario)
+    for got in ranks:
+        for k in ("vi", "mse_in", "bpp_ori"):
+            np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+        # the adversarial image stays row-sharded: each rank holds its rows
+        assert got["rows"] == got["x_rows"] == (1, 3, 64, 128)
+    im_ = np.concatenate([r["im_"] for r in ranks], axis=1)
+    assert im_.shape == np.asarray(want["im_"]).shape
+
+
+def test_row_sharded_attack_matches_jax(worlds):
+    _check_row_sharded_attack(worlds, "sp_attack", "cond")
+
+
+def test_row_sharded_select_attack_matches_jax(worlds):
+    """``select`` runs the codec on every step, as chip_smoke.py phase 18
+    times it."""
+    _check_row_sharded_attack(worlds, "sp_attack_select", "select")
+
+
+def test_adv_example_rejects_a_row_sharded_mesh(worlds):
+    for got in worlds.ranks("adv_rejects_sp"):
+        assert got["raised"] is not None and "not over sp" in got["raised"]
+
+
+def test_row_sharding_rejects_unaligned_height(worlds):
+    for got in worlds.ranks("sp_unaligned"):
+        assert got["raised"] is not None and "sp*64=256" in got["raised"]
+
+
+@pytest.mark.parametrize("arch, layer", [("cheng2020-attn", "AttentionBlock"), ("nlaic", None),
+                                         ("tic", None)])
+def test_row_sharding_rejects_layers_without_a_halo_rule(arch, layer):
+    with pytest.raises(ValueError, match="no halo rule") as info:
+        check_row_shardable(init_model(arch, 1))
+    if layer:
+        assert layer in str(info.value)
+
+
+def test_row_sharded_attack_rejects_ms_ssim():
+    with pytest.raises(ValueError, match="ms-ssim"):
+        make_spatial_attack_fn(None, RDAttackConfig(att_metric="ms-ssim"), None)
+
+
+# -- mesh, shard_batch, tiles ---------------------------------------------------
+
+
+def test_mesh_shapes_and_batch_slices_match_jax(worlds):
+    want1 = dict(j_mesh.make_mesh(2, ("dp",)).shape)
+    want2 = dict(j_mesh.make_mesh(2, ("dp", "sp")).shape)
+    sharded = j_mesh.shard_batch(j_mesh.make_mesh(2), worlds.inputs["batch16"])
+    shards = sorted(sharded.addressable_shards, key=lambda s: s.index[0].start)
+    for rank, got in enumerate(worlds.ranks("mesh_and_batch")):
+        assert got["shape1"] == want1 == {"dp": 2}
+        assert got["shape2"] == want2 == {"dp": 2, "sp": 1}
+        np.testing.assert_array_equal(got["slice"], np.asarray(shards[rank].data))
+
+
+@pytest.mark.parametrize("h, w", [(512, 768), (448, 640), (320, 320)])
+def test_tile_image_matches_jax(h, w):
+    x = np.random.RandomState(h + w).rand(1, h, w, 3).astype(np.float32)
+    tiles, meta = tile_image(x, 256, 64)
+    j_tiles, j_meta = j_spatial.tile_image(x, 256, 64)
+    np.testing.assert_array_equal(tiles, j_tiles)
+    assert meta == j_meta
+    np.testing.assert_allclose(untile_image(tiles, meta), x, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(untile_image(tiles, meta), j_spatial.untile_image(j_tiles, j_meta))
+
+
+def test_tile_image_rejects_unaligned_tiles():
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tile_image(np.zeros((1, 256, 256, 3), np.float32), 200, 64)
+
+
+def test_tiled_forward_identity_matches_jax(worlds):
+    x = worlds.inputs["tile_x"]
+    want = j_spatial.tiled_forward(lambda t: t, x, 256, 64, mesh=j_mesh.make_mesh(2))
+    for got in worlds.ranks("tiles_identity"):
+        np.testing.assert_allclose(got["out"], want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got["out"], x, rtol=0, atol=1e-6)
+
+
+def test_tiled_forward_without_a_mesh_matches_jax():
+    x = np.random.RandomState(4).rand(1, 448, 640, 3).astype(np.float32)
+    want = j_spatial.tiled_forward(lambda t: t, x, 256, 64)
+    got = tiled_forward(lambda t: t * 1.0, x, 256, 64, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_tiled_forward_through_codec_matches_jax(worlds):
+    module = j_init_model("factorized", 1)
+    params = worlds.inputs["params"]["factorized"]
+    fwd = jax.jit(lambda t: jnp.clip(
+        module.apply({"params": params}, t, quant_mode="dequantize")["x_hat"], 0.0, 1.0))
+    want = j_spatial.tiled_forward(fwd, worlds.inputs["tile_codec_x"], 256, 64,
+                                   mesh=j_mesh.make_mesh(2))
+    for got in worlds.ranks("tiles_codec"):
+        assert got["out"].shape == (1, 320, 320, 3)
+        np.testing.assert_allclose(got["out"], want, rtol=0, atol=1e-5)
+
+
+# -- the dp corpus attack ---------------------------------------------------------
+
+
+def test_corpus_attack_pads_ragged_batch_and_matches_jax(worlds):
+    jm, jp, _ = hyper_models()
+    mesh = Mesh(_devices(2), ("dp",))
+    want = j_batch_attack.make_sharded_attack_fn(jm, JRDAttackConfig(steps=3), mesh)(
+        jp, worlds.inputs["corpus"])
+    results = worlds.ranks("corpus_attack")
+    for got in results:
+        assert got["vi"].shape == (5,) and got["im_"].shape == (5, 1, 3, 64, 64)
+        np.testing.assert_allclose(got["vi"], want["vi"], rtol=0, atol=VI_ATOL)
+        np.testing.assert_allclose(got["bpp_ori"], want["bpp_ori"], rtol=BPP_RTOL)
+        np.testing.assert_array_equal(got["vi"], results[0]["vi"])
+
+
+# -- the launcher ---------------------------------------------------------------------
+
+
+def test_run_spmd_raises_when_a_rank_raises():
+    t = time.time()
+    with pytest.raises(Exception, match="rank 1 fails on purpose"):
+        run_spmd(cases.failing_rank, 2, "gloo", "cpu", timeout=120)
+    assert time.time() - t < 120
+
+
+def test_run_spmd_raises_on_timeout():
+    t = time.time()
+    with pytest.raises(TimeoutError, match="did not finish"):
+        run_spmd(cases.stalled_rank, 2, "gloo", "cpu", timeout=3)
+    assert time.time() - t < 60
+
+
+def test_backend_choice_never_moves_cuda_to_the_cpu():
+    assert choose_backend(4, "cpu") == "gloo"
+    with pytest.raises(ValueError, match="gloo"):
+        choose_backend(2, "cpu", "nccl")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_spmd(cases.failing_rank, 2)
+
+
+if __name__ == "__main__":
+    # JAX's sharded RD gradients against its unsharded ones (ROADMAP Queue
+    # C 15): the largest per-leaf gap, as a share of the leaf's largest
+    # element, on three meshes at three heights (batch 2, 64 columns).
+    # Run: JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_parallel.py
+    import conftest  # noqa: F401  (the 8 virtual CPU devices, `highest` precision)
+
+    jm, jp, _ = hyper_models()
+    orig = jax.random.uniform
+    for rows in (128, 256, 512):
+        table = _noise_tables([(2, rows // 16, 4, 192), (2, rows // 64, 1, 128)], 2)[0]
+        jax.random.uniform = lambda k, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0: (
+            jnp.asarray(table[tuple(shape)], dtype) if tuple(shape) in table
+            else orig(k, shape, dtype, minval, maxval))
+        batch = _batches(1, rows, 1)[0][:, :, :64]
+        want = _jax_grads(jm, jp, batch)
+        for shape in ((2, 1), (1, 2), (2, 2)):
+            mesh = Mesh(_devices(4)[:shape[0] * shape[1]].reshape(shape), ("dp", "sp"))
+            gaps = _grad_gaps(_jax_grads(jm, jp, batch, mesh, P("dp", "sp")), want)
+            leaf, gap = max(gaps.items(), key=lambda kv: kv[1])
+            print(f"{rows} rows, mesh dp x sp = {shape[0]} x {shape[1]}: largest gap {gap:.3e} "
+                  f"({leaf})", flush=True)
+        jax.random.uniform = orig

@@ -1,0 +1,274 @@
+"""The ranks' side of ``tests/test_torch_parallel.py``: each function runs
+in every rank of a ``run_spmd`` world on the CPU (gloo), imports only
+torch, numpy and the port, and returns numpy arrays.
+
+``run_world(inputs_path, scenarios)`` runs the named scenarios in order in
+one world (one spawn a world size) and returns ``{scenario: result}`` from
+each rank.  The inputs (the JAX parameter trees as numpy, the images, the
+training noise tables) come from the test process in one pickle, so that
+both sides see the same arrays; the noise tables replace
+``ops.quant.uniform_noise`` in the ranks as ``torch_parity.same_noise``
+does in the test process, keyed by the global shape the ranks draw for.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
+from imagecompression_adversarial_tpu_torch.io.weights import params_from_jax
+from imagecompression_adversarial_tpu_torch.models.registry import init_model
+from imagecompression_adversarial_tpu_torch.ops import quant, shard
+from imagecompression_adversarial_tpu_torch.parallel import (
+    batch_row_sharding,
+    batch_sharding,
+    local_part,
+    make_mesh,
+    make_sharded_attack_fn,
+    make_spatial_attack_fn,
+    make_spatial_forward,
+    mesh_shape,
+    replicate,
+    row_sharding,
+    shard_batch,
+    tiled_forward,
+)
+from imagecompression_adversarial_tpu_torch.train import (
+    create_train_state,
+    lambda_for,
+    rate_distortion_loss,
+    train_step,
+)
+from imagecompression_adversarial_tpu_torch.train.step import mesh_shard, reduce_gradients_
+
+LR = 1e-4
+ADV_STEPS = 2
+ADV_THRESHOLD = 1e-4
+# the inner attack's branch case: at this budget, 10 steps on the batch
+# ``adv_x`` take the output phase in 3 steps on image 0 alone, 5 on image 1
+# alone and 4 on the two together
+BRANCH_STEPS = 10
+BRANCH_THRESHOLD = 2e-4
+
+
+def nchw(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def _model(inputs: dict, arch: str, trainable: bool = False):
+    model = init_model(arch, 1)
+    model.load_state_dict(params_from_jax(inputs["params"][arch], arch), strict=True)
+    return model.requires_grad_(trainable).to(memory_format=torch.channels_last).eval()
+
+
+def _use_noise(tables: Dict[tuple, np.ndarray]) -> None:
+    """``ops.quant.uniform_noise`` returns the NCHW table of the shape it
+    is asked for (the global shape, under a shard)."""
+    tabs = {k: torch.from_numpy(v) for k, v in tables.items()}
+    quant.uniform_noise = lambda y, generator: tabs[tuple(y.shape)].to(y)
+
+
+# -- dp = 2 -----------------------------------------------------------------
+
+
+def mesh_and_batch(inputs):
+    mesh = make_mesh(2, ("dp",), device_type="cpu")
+    mesh2 = make_mesh(2, ("dp", "sp"), device_type="cpu")
+    return {"shape1": mesh_shape(mesh), "shape2": mesh_shape(mesh2),
+            "slice": shard_batch(mesh, inputs["batch16"]).numpy()}
+
+
+def tiles_identity(inputs):
+    mesh = make_mesh(device_type="cpu")
+    return {"out": tiled_forward(lambda t: t, inputs["tile_x"], 256, 64, mesh=mesh)}
+
+
+def tiles_codec(inputs):
+    mesh = make_mesh(device_type="cpu")
+    model = _model(inputs, "factorized")
+
+    @torch.no_grad()
+    def fwd(t):
+        return model(t.contiguous(memory_format=torch.channels_last),
+                     quant_mode="dequantize")["x_hat"].clamp(0.0, 1.0)
+
+    return {"out": tiled_forward(fwd, inputs["tile_codec_x"], 256, 64, mesh=mesh)}
+
+
+def corpus_attack(inputs):
+    mesh = make_mesh(device_type="cpu")
+    model = replicate(mesh, _model(inputs, "hyper"))
+    attack = make_sharded_attack_fn(model, RDAttackConfig(steps=3), mesh)
+    out = attack(nchw(inputs["corpus"]))
+    return {k: out[k] for k in ("vi", "mse_in", "bpp_ori", "bpp", "im_")}
+
+
+def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: bool = False):
+    """Step 1's reduced gradients (not with ``adv``: they are the RD
+    case's), then one step a batch (with ``adv``, on the adversarial example
+    of the batch), under the noise tables ``noise``: the logs of each step
+    and the final parameters, from this rank."""
+    _use_noise(inputs["noise"][noise])
+    model = replicate(mesh, _model(inputs, arch, trainable=True))
+    where = mesh_shard(mesh)
+    lmbda = lambda_for("mse", 1)
+
+    def local(b):
+        return local_part(mesh, nchw(b), batch_row_sharding(mesh)).contiguous(
+            memory_format=torch.channels_last)
+
+    grads = None
+    if not adv:
+        names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                              if n != "entropy_bottleneck.quantiles"])
+        with shard.sharded(where.batch, where.rows):
+            result = model(local(batches[0]), quant_mode="noise", generator=torch.Generator())
+            loss = rate_distortion_loss(result, local(batches[0]), lmbda, "mse")["loss"]
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+        reduce_gradients_(grads, where)
+        grads = {n: g.numpy() for n, g in zip(names, grads)}
+
+    state = create_train_state(model, LR)
+    adv_fn = make_adv_example_fn(model, RDAttackConfig(steps=ADV_STEPS, noise_threshold=ADV_THRESHOLD),
+                                 mesh) if adv else None
+    logs = []
+    for b in batches:
+        x = local(b)
+        if adv:
+            x = adv_fn(x, ADV_THRESHOLD)
+        out = train_step(state, x, torch.Generator(), LR, lmbda, "mse", mesh=mesh)
+        logs.append({k: float(v) for k, v in out.items()})
+    return {"grads": grads, "logs": logs,
+            "params": {k: v.detach().numpy() for k, v in model.state_dict().items()}}
+
+
+def train_rd(inputs):
+    return _train(inputs, make_mesh(device_type="cpu"), "hyper", inputs["train_batches"], "hyper")
+
+
+def train_context(inputs):
+    return _train(inputs, make_mesh(device_type="cpu"), "context", inputs["train_batches"],
+                  "context")
+
+
+def train_adv(inputs):
+    return _train(inputs, make_mesh(device_type="cpu"), "hyper", inputs["train_batches"], "hyper",
+                  adv=True)
+
+
+def adv_branches(inputs):
+    """The inner attack on one image a rank, with the batch's global MSEs
+    (the mesh) and with each rank's own: the steps each took in the output
+    phase (``g_a`` calls, less the clean forward's) and the global run's
+    adversarial example."""
+    mesh = make_mesh(device_type="cpu")
+    model = _model(inputs, "hyper")
+    x = local_part(mesh, nchw(inputs["adv_x"]), batch_sharding(mesh))
+    out = {}
+    for name, m in (("own", None), ("global", mesh)):
+        calls = []
+        hook = model.g_a.register_forward_hook(lambda *_: calls.append(1))
+        im = make_adv_example_fn(model, RDAttackConfig(steps=BRANCH_STEPS), m)(x, BRANCH_THRESHOLD)
+        hook.remove()
+        out[name] = len(calls) - 1
+        out[f"{name}_im"] = nhwc(im)
+    return out
+
+
+# -- sp = 4, and dp x sp = 2 x 2 ----------------------------------------------
+
+
+def sp_forward(inputs):
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    model = replicate(mesh, _model(inputs, "hyper"))
+    out = make_spatial_forward(model, mesh)(nchw(inputs["sp_x"]))
+    return {"x_hat": nhwc(out["x_hat"]),
+            "loglik": {k: float(torch.log(v).double().sum()) for k, v in out["likelihoods"].items()}}
+
+
+def _sp_attack(inputs, impl: str):
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    model = replicate(mesh, _model(inputs, "hyper"))
+    cfg = RDAttackConfig(steps=5, noise_threshold=1e-4, two_phase_impl=impl)
+    res = make_spatial_attack_fn(model, cfg, mesh)(nchw(inputs["sp_x"]))
+    x_rows = local_part(mesh, nchw(inputs["sp_x"]), row_sharding(mesh))
+    return {**{k: float(res[k]) for k in ("vi", "mse_in", "bpp_ori", "bpp")},
+            "im_": nhwc(res["im_"]), "rows": tuple(res["im_"].shape),
+            "x_rows": tuple(x_rows.shape)}
+
+
+def sp_attack(inputs):
+    return _sp_attack(inputs, "cond")
+
+
+def sp_attack_select(inputs):
+    return _sp_attack(inputs, "select")
+
+
+def sp_unaligned(inputs):
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    fwd = make_spatial_forward(_model(inputs, "hyper"), mesh)
+    try:
+        fwd(torch.zeros(1, 3, 192, 128))
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def train_dpsp(inputs):
+    mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+    return _train(inputs, mesh, "hyper", inputs["dpsp_batches"], "dpsp")
+
+
+def adv_rejects_sp(inputs):
+    """``make_adv_example_fn`` on a dp x sp mesh: the error it raises."""
+    mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+    try:
+        make_adv_example_fn(_model(inputs, "hyper"), RDAttackConfig(steps=ADV_STEPS), mesh)
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+SCENARIOS = {f.__name__: f for f in (
+    mesh_and_batch, tiles_identity, tiles_codec, corpus_attack, train_rd, train_context,
+    train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_unaligned, train_dpsp,
+    adv_rejects_sp)}
+
+
+def run_world(inputs_path: str, scenarios: List[str]) -> Dict[str, dict]:
+    torch.set_num_threads(1)
+    with open(inputs_path, "rb") as f:
+        inputs = pickle.load(f)
+    out = {}
+    with torch.backends.mkldnn.flags(enabled=False):
+        for name in scenarios:
+            out[name] = SCENARIOS[name](inputs)
+            dist.barrier()
+    return out
+
+
+def failing_rank():
+    """Rank 1 raises while rank 0 waits in a collective."""
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return "unreachable"
+
+
+def stalled_rank():
+    """Every rank sleeps past the caller's timeout."""
+    import time
+
+    time.sleep(600)
