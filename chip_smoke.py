@@ -15,7 +15,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    the card's bound, and prints the launch the kernel picks (rows per tile,
    blocks an SM, grid); the training path's largest call (131,072 rows)
    and the 6,144- and 24,576-row calls are also timed over 500 launches and
-   with L2 flushed before each launch;
+   with L2 flushed before each launch; the megapixel calls (786,432,
+   3,145,728 and 12,582,912 rows; the last forward only) too;
 4. runs the attack CLI's ``run`` path (hyper q=1, the committed demo
    weights, a 768x512 image made with numpy, 1001 steps,
    ``-two_phase select``) and counts the kernel's launches in it;
@@ -140,15 +141,34 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     and ``--adv`` training (TRAIN_KVP_STEPS steps on 8 256x256 crops, phase
     12c's TRAIN_* bounds, every rank holding the same parameters); (d)
     four ranks (gloo or NCCL, as in (c)), one dp x sp = 2 x 2 RD step at
-    the same bounds.  It prints each world's backend and each rank's card,
-    rate, peak memory and GDN launches (added to the ``kernels`` line), and
-    the sp=2 attack's peak beside the unsharded one.  Each rank records
+    the same bounds; also in (c), sp=2 runs of the large-image slice: the
+    paper's model (cheng2020-gmm q3, demo weights) forward and a
+    PAR_SP_STEPS-step `select` attack at 768x512 (ANCHOR_NOISE_ATOL,
+    ANCHOR_VI_ATOL), the MS-SSIM attack (MSSSIM_FAR_SHARE, VI_ATOL) and a
+    split attack at PAR_SPLIT_SIZE (NOISE_ATOL, VI_ATOL).  It prints each
+    world's backend and each rank's card, rate, peak memory and GDN
+    launches (added to the ``kernels`` line), and the sp=2 attacks' peaks
+    beside the unsharded ones.  Each rank records
     the (C, rows) of its GDN calls; a pair that phase 3 has not held to the
     plain GDN (GDN_SHAPES) fails the phase.  Any rank's failure or a rank
     past PAR_TIMEOUT_S fails the phase.  On one card the ranks time-share
-    it: no number there is multi-GPU scaling.
+    it: no number there is multi-GPU scaling;
+19. megapixel attacks on one card through the large-image path
+    (``split_eval``), cuDNN deterministic, each run's peak memory
+    (``torch.cuda.max_memory_allocated``), steps/s and GDN launches
+    printed: (a) hyper q1 (demo weights) at 4096x3072 (12.6 MP), MP_STEPS
+    `select` steps single-program, then split, held to each other at
+    NOISE_ATOL and VI_ATOL; (b) the split attack again in the same process,
+    with the memory held after both; (c) a split attack at 9344x7040 (65.8
+    MP), or at the largest size below it that fits, beside the
+    single-program peak scaled from (a); (d) cheng2020-gmm q3 at
+    4096x3072, single-program, then split, held to each other at
+    ANCHOR_NOISE_ATOL and ANCHOR_VI_ATOL; (e) ``cli.attack_rd --split_eval`` (`cond`, MP_CLI_STEPS
+    steps) on a 4096x3072 PNG; (f) the 4096x3072 split attack with the
+    kernel and with the plain GDN at NOISE_ATOL and VI_ATOL.  A (C, rows)
+    of its runs that phase 3 did not hold is held here.
 
-Phases 5, 8, 11, 12c and 14 set cuDNN deterministic, so that the kernel and plain
+Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
 the sharding alone; the coder sets it itself.
 
@@ -158,8 +178,8 @@ own, which the phase waits for and stops.  It prints a ``{"coder":
 [...]}`` line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
-directories of phases 6, 9, 11, 12, 15, 16, 17 and 18 (the ranks'
-rendezvous).  It reads five demo checkpoints: hyper q1, cheng2020-gmm q3,
+directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
+rendezvous) and 19.  It reads five demo checkpoints: hyper q1, cheng2020-gmm q3,
 and nlaic, tic and fic q3.
 """
 
@@ -268,12 +288,22 @@ RESIZE_ATOL = 1e-5
 # calls of phase 18's ranks that no other phase makes: 2 images a rank
 # (196,608, then 49,152 and 12,288), a half image's rows (49,152, 12,288,
 # 3,072), 4 crops a rank (65,536, 16,384, 4,096) and 4 half crops (32,768,
-# 8,192, 2,048)
+# 8,192, 2,048); then the megapixel calls of phase 19 (and of phase 18's
+# one-process 2048x1536 run): 4096x3072 (3,145,728, 786,432, 196,608
+# rows), 8192x6144 (12,582,912, 3,145,728, 786,432) and 9344x7040
+# (16,445,440, 4,111,360, 1,027,840)
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
               (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576),
               (128, 196608), (128, 49152), (128, 12288), (128, 3072), (128, 65536),
-              (128, 16384), (128, 4096), (128, 2048))
+              (128, 16384), (128, 4096), (128, 2048), (128, 786432), (128, 3145728),
+              (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440))
+# dx is checked up to this many rows; the larger calls (2.1 GB a tensor
+# and more) hold their forward alone, so that the input, its gradient, both
+# routes' outputs and dx and the backward's temporaries need not fit at
+# once, and take HUGE_LAUNCHES a timing (13 ms and more a launch)
+DX_MAX_ROWS = 4_000_000
 TIMED_LAUNCHES = 50
+HUGE_LAUNCHES = 10
 # also timed over 500 launches and with a 64 MB write before each launch,
 # which evicts x and out from the 50 MB L2 as the path's other kernels do:
 # the calls small enough to stay in L2 between back-to-back launches, and
@@ -387,6 +417,45 @@ PAR_CORPUS_STEPS = 101
 PAR_SP_STEPS = 20
 PAR_XHAT_ATOL = 1e-5
 PAR_TIMEOUT_S = 400
+# the slice-9 sp=2 runs (phase 18c): cheng2020-gmm q3 at 768x512, its
+# attack held at phase 8's ANCHOR_* bounds (its ~65 convs amplify the sums'
+# order as they amplify the GDN's); the MS-SSIM attack (`cond`), where a
+# few pixels have gradients near Adam's eps (1e-8) and move apart on any
+# change in the sums' order (tests/test_torch_parallel.py on the CPU:
+# 39-41 of 98,304 elements past 1e-5 at 256x128 after 5 steps): at most
+# MSSSIM_FAR_SHARE of the pixels more than NOISE_ATOL apart, vi within
+# VI_ATOL (1.61e-5 of the pixels past it on an H100 80GB HBM3 at 700 W,
+# so the share leaves room of ~12x); its budget, PAR_MSSSIM_NOISE, lets the output phase (whose loss
+# gathers the whole image) run on most steps (at 1e-4 it ran on 1 of 20:
+# 24 GDN launches a rank); a split attack at PAR_SPLIT_SIZE (H, W)
+MSSSIM_FAR_SHARE = 2e-4
+PAR_MSSSIM_NOISE = 1e-3
+PAR_SPLIT_SIZE = (1536, 2048)
+# phase 19: megapixel attacks on one card (hyper q1 and cheng2020-gmm q3 on
+# their demo weights, seeded numpy images, cuDNN deterministic, `select`
+# unless named): (a) MP_SIZE (H, W) single-program, then split, held to
+# each other at phase 5's bounds; (b) the split attack again in the same
+# process; (c) MP_LARGE split, or the largest size below it, each side
+# MP_SHRINK of the last and a multiple of 64, that fits.  9344x7040 (65.8
+# MP) is the largest 64-aligned 4:3 size whose widest activation (128
+# channels at half resolution) stays under 2**31 elements: past that,
+# cuDNN's 3x3 conv (128 channels, forward and input gradient) took 39 s
+# against 1.4 s just under it on an H100 80GB HBM3 at 700 W.
+# At 8192x6144 the single-program peak scaled from (a) is 63.3 GiB, which
+# the card holds; at 9344x7040 it is 82.7 GiB; (d) cheng2020-gmm
+# single-program, then split, at MP_SIZE, held to each other at phase 8's
+# ANCHOR_* bounds; (e) cli.attack_rd --split_eval on an MP_SIZE PNG
+# (`cond`); (f) the MP_SIZE split attack with the kernel and with the plain
+# GDN at phase 5's bounds
+MP_SIZE = (3072, 4096)
+MP_STEPS = 21
+MP_LARGE = (7040, 9344)
+MP_LARGE_STEPS = 5
+MP_SHRINK = 0.9
+MP_GMM_STEPS = 11
+MP_CLI_STEPS = 101
+MP_KVP_STEPS = 11
+MP_FAR_SHARE = 1e-3
 
 
 def eval_bound(kind: str, field: str) -> float:
@@ -444,73 +513,97 @@ def phase_kernel_vs_plain(gdn):
     flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
     records = []
     for c, rows in GDN_SHAPES:
-        x = 2.0 * torch.randn(rows, c, device="cuda", generator=gen)
-        gamma = 0.1 * torch.eye(c, device="cuda") + 0.01 * torch.rand(
-            c, c, device="cuda", generator=gen
-        )
-        beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
-        g = torch.randn(rows, c, device="cuda", generator=gen)
-        for inverse in (False, True):
-            torch.cuda.synchronize()
-            layout = gdn.kernel_layout(rows, c, inverse)
-            outs = []
-            for use_kernel in (True, False):
+        records += gdn_shape_records(gdn, c, rows, gen, flush_buf)
+    return records
+
+
+def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
+    """Phase 3's check and timings at one (C, rows), GDN and IGDN: the
+    forward of kernel and plain version on the same inputs, dx up to
+    DX_MAX_ROWS rows."""
+    import torch
+
+    x = 2.0 * torch.randn(rows, c, device="cuda", generator=gen)
+    gamma = 0.1 * torch.eye(c, device="cuda") + 0.01 * torch.rand(
+        c, c, device="cuda", generator=gen
+    )
+    beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
+    with_dx = rows <= DX_MAX_ROWS
+    g = torch.randn(rows, c, device="cuda", generator=gen) if with_dx else None
+    records = []
+    for inverse in (False, True):
+        torch.cuda.synchronize()
+        layout = gdn.kernel_layout(rows, c, inverse)
+        outs = []
+        for use_kernel in (True, False):
+            if with_dx:
                 xg = x.clone().requires_grad_(True)
                 out = gdn.GDNFunction.apply(xg, gamma, beta, inverse, use_kernel)
                 (dx,) = torch.autograd.grad(out, xg, g)
                 outs.append((out.detach(), dx))
-            torch.cuda.synchronize()
-            errs = {}
-            for k, p, what in ((outs[0][0], outs[1][0], "forward"), (outs[0][1], outs[1][1], "dx")):
-                if not torch.isfinite(k).all():
-                    raise RuntimeError(f"gdn C={c} rows={rows} inverse={inverse}: non-finite {what}")
-                bad = (k - p).abs() > GDN_ATOL + GDN_RTOL * p.abs()
-                if bad.any():
-                    raise RuntimeError(
-                        f"gdn C={c} rows={rows} inverse={inverse}: {what} differs at "
-                        f"{int(bad.sum())} elements, max |diff| {(k - p).abs().max().item():.3e}"
-                    )
-                errs[what] = (k - p).abs().max().item()
-            def kernel():
-                gdn.gdn_forward(x, gamma, beta, inverse)
+                del xg, out, dx
+            else:
+                fwd = gdn.gdn_forward if use_kernel else gdn.gdn_forward_reference
+                outs.append((fwd(x, gamma, beta, inverse), None))
+        torch.cuda.synchronize()
+        errs = {"dx": None}
+        checks = [(outs[0][0], outs[1][0], "forward")]
+        if with_dx:
+            checks.append((outs[0][1], outs[1][1], "dx"))
+        for k, p, what in checks:
+            if not torch.isfinite(k).all():
+                raise RuntimeError(f"gdn C={c} rows={rows} inverse={inverse}: non-finite {what}")
+            bad = (k - p).abs() > GDN_ATOL + GDN_RTOL * p.abs()
+            if bad.any():
+                raise RuntimeError(
+                    f"gdn C={c} rows={rows} inverse={inverse}: {what} differs at "
+                    f"{int(bad.sum())} elements, max |diff| {(k - p).abs().max().item():.3e}"
+                )
+            errs[what] = (k - p).abs().max().item()
+        del outs, checks
 
-            ms = time_ms(kernel)
-            plain_ms = time_ms(lambda: gdn.gdn_forward_reference(x, gamma, beta, inverse))
-            library_ms = time_ms(lambda: torch.addmm(beta, x * x, gamma.T))
-            nbytes = 4 * (2 * rows * c + c * c + c)
-            flops = rows * c * (2 * c + 4)
-            byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-            op_ms = 1e3 * flops / TF32_FLOP_PER_S
-            rec = {
-                "C": c, "rows": rows, "inverse": inverse, "max_abs_err": errs["forward"],
-                "dx_max_abs_err": errs["dx"],
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(byte_ms, op_ms),
-                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                "fp32_bound_ms": max(byte_ms, 1e3 * flops / FP32_FLOP_PER_S),
-                "layout": layout,
-            }
-            more = ""
-            if rows in L2_FLUSHED_ROWS:
-                rec["ms_500"] = time_ms(kernel, LONG_LAUNCHES)
-                rec["ms_l2_flushed"] = time_ms_flushed(kernel, flush_buf.zero_)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(LONG_LAUNCHES):
-                    kernel()
-                rec["host_ms"] = 1e3 * (time.perf_counter() - t0) / LONG_LAUNCHES
-                torch.cuda.synchronize()
-                more = (f" (x{LONG_LAUNCHES} {rec['ms_500']:.4f}, L2 flushed "
-                        f"{rec['ms_l2_flushed']:.4f}, host enqueue {rec['host_ms']:.4f})")
-            records.append(rec)
-            log(
-                f"phase 3 {'IGDN' if inverse else 'GDN '} C={c} rows={rows}: max_abs_err "
-                f"{errs['forward']:.3e} (dx {errs['dx']:.3e})  kernel {ms:.4f} ms{more}  plain "
-                f"{plain_ms:.4f} ms  addmm {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']}; fp32-pipe bound {rec['fp32_bound_ms']:.4f} ms)  "
-                f"launch: {layout['tile']}-row tiles, {layout['blocks_per_sm']} blocks/SM, "
-                f"grid {layout['grid']}, {layout['smem_bytes']} B shared"
-            )
+        def kernel():
+            gdn.gdn_forward(x, gamma, beta, inverse)
+
+        n = TIMED_LAUNCHES if with_dx else HUGE_LAUNCHES
+        ms = time_ms(kernel, n)
+        plain_ms = time_ms(lambda: gdn.gdn_forward_reference(x, gamma, beta, inverse), n)
+        library_ms = time_ms(lambda: torch.addmm(beta, x * x, gamma.T), n)
+        nbytes = 4 * (2 * rows * c + c * c + c)
+        flops = rows * c * (2 * c + 4)
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        op_ms = 1e3 * flops / TF32_FLOP_PER_S
+        rec = {
+            "C": c, "rows": rows, "inverse": inverse, "max_abs_err": errs["forward"],
+            "dx_max_abs_err": errs["dx"],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "fp32_bound_ms": max(byte_ms, 1e3 * flops / FP32_FLOP_PER_S),
+            "layout": layout,
+        }
+        more = ""
+        if rows in L2_FLUSHED_ROWS:
+            rec["ms_500"] = time_ms(kernel, LONG_LAUNCHES)
+            rec["ms_l2_flushed"] = time_ms_flushed(kernel, flush_buf.zero_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LONG_LAUNCHES):
+                kernel()
+            rec["host_ms"] = 1e3 * (time.perf_counter() - t0) / LONG_LAUNCHES
+            torch.cuda.synchronize()
+            more = (f" (x{LONG_LAUNCHES} {rec['ms_500']:.4f}, L2 flushed "
+                    f"{rec['ms_l2_flushed']:.4f}, host enqueue {rec['host_ms']:.4f})")
+        records.append(rec)
+        dx_err = "not checked" if errs["dx"] is None else f"{errs['dx']:.3e}"
+        log(
+            f"phase {phase} {'IGDN' if inverse else 'GDN '} C={c} rows={rows}: max_abs_err "
+            f"{errs['forward']:.3e} (dx {dx_err})  kernel {ms:.4f} ms{more}  plain "
+            f"{plain_ms:.4f} ms  addmm {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; fp32-pipe bound {rec['fp32_bound_ms']:.4f} ms)  "
+            f"launch: {layout['tile']}-row tiles, {layout['blocks_per_sm']} blocks/SM, "
+            f"grid {layout['grid']}, {layout['smem_bytes']} B shared"
+        )
     return records
 
 
@@ -2054,7 +2147,7 @@ def par_rank_setup():
     return load_codec("hyper", 1, CKPT)
 
 
-def par_measured(fn):
+def measured(fn):
     """``fn()`` with the launch count set to 0 just before it and read just
     after, the peak memory reset before it, and its synced seconds:
     ``(result, {"s", "peak_gib", "launches", "gdn_shapes"})``, the last the
@@ -2152,7 +2245,7 @@ def par_train_record(codec, adv: bool, mesh, steps: int):
 
     batches = [local_part(mesh, b, batch_row_sharding(mesh)).contiguous(
         memory_format=torch.channels_last) for b in par_batches(steps)]
-    (grads, losses, params, seconds), m = par_measured(
+    (grads, losses, params, seconds), m = measured(
         lambda: par_train(codec, batches, mesh, adv))
     rank0 = dist.get_rank() == 0
     return {"grads": grads if rank0 else None, "losses": losses,
@@ -2191,14 +2284,14 @@ def par_world_nccl():
     replicate(mesh, codec)
     x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
     cfg = RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select")
-    fwd, m_fwd = par_measured(lambda: make_spatial_forward(codec, mesh)(x)["x_hat"])
+    fwd, m_fwd = measured(lambda: make_spatial_forward(codec, mesh)(x)["x_hat"])
     with torch.no_grad():
         ref = codec(x, quant_mode="dequantize")["x_hat"]
     sharded, unsharded = make_spatial_attack_fn(codec, cfg, mesh), make_attack_fn(codec, cfg)
     sharded(x)
-    res, m_att = par_measured(lambda: sharded(x))
+    res, m_att = measured(lambda: sharded(x))
     unsharded(x)
-    want, m_ref = par_measured(lambda: unsharded(x))
+    want, m_ref = measured(lambda: unsharded(x))
     tol = GDN_ATOL + GDN_RTOL * ref.abs()
     return {"backend": dist.get_backend(),
             "xhat_max_abs": float((fwd - ref).abs().max()),
@@ -2235,23 +2328,121 @@ def par_world_two():
     xs = np.concatenate([synthetic_image(512, 768, seed=30 + i) for i in range(PAR_CORPUS)])
     attack = make_sharded_attack_fn(
         codec, RDAttackConfig(steps=PAR_CORPUS_STEPS, two_phase_impl="select"), dp)
-    res, m = par_measured(lambda: attack(xs.transpose(0, 3, 1, 2)))
+    res, m = measured(lambda: attack(xs.transpose(0, 3, 1, 2)))
     out["corpus"] = {"vi": res["vi"], "im_": res["im_"] if rank0 else None,
                      "images_per_s": PAR_CORPUS / dp.size() / m["s"], **m}
 
     x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
-    fwd, m = par_measured(lambda: make_spatial_forward(codec, sp)(x)["x_hat"])
+    fwd, m = measured(lambda: make_spatial_forward(codec, sp)(x)["x_hat"])
     out["sp_forward"] = {"x_hat": fwd.cpu().numpy(), **m}
     sp_attack = make_spatial_attack_fn(
         codec, RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select"), sp)
     sp_attack(x)  # timed on its second run, after cuDNN has met its shapes
-    res, m = par_measured(lambda: sp_attack(x))
+    res, m = measured(lambda: sp_attack(x))
     out["sp_attack"] = {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
                         "steps_per_s": PAR_SP_STEPS / m["s"], **m}
+    out.update(par_sp_slice9(codec, sp, x))
     for label, adv in (("train_rd", False), ("train_adv", True)):
         codec.load_state_dict(initial)
         out[label] = par_train_record(codec, adv, dp, TRAIN_KVP_STEPS)
     return out
+
+
+def par_sp_slice9(codec, sp, x):
+    """Phase 18c's sp=2 runs of the large-image slice, in each rank: the
+    paper's model (cheng2020-gmm q3, demo weights) forward and a
+    PAR_SP_STEPS-step `select` attack at 768x512, the MS-SSIM attack
+    (PAR_SP_STEPS steps, `cond`) and a split attack at PAR_SPLIT_SIZE
+    (`select`), each timed on its first run."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.parallel import (
+        make_spatial_attack_fn, make_spatial_forward, replicate,
+    )
+
+    def attack(model, image, **kw):
+        fn = make_spatial_attack_fn(model, RDAttackConfig(steps=PAR_SP_STEPS, **kw), sp)
+        res, m = measured(lambda: fn(image))
+        return {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
+                "steps_per_s": PAR_SP_STEPS / m["s"], **m}
+
+    out = {}
+    gmm = replicate(sp, load_codec("cheng2020-gmm", 3, CKPT_GMM))
+    fwd, m = measured(lambda: make_spatial_forward(gmm, sp)(x)["x_hat"])
+    out["sp_gmm_forward"] = {"x_hat": fwd.cpu().numpy(), **m}
+    out["sp_gmm_attack"] = attack(gmm, x, two_phase_impl="select")
+    del gmm, fwd
+    out["sp_msssim"] = attack(codec, x, att_metric="ms-ssim", noise_threshold=PAR_MSSSIM_NOISE)
+    h, w = PAR_SPLIT_SIZE
+    out["sp_split"] = attack(codec, to_tensor(synthetic_image(h, w, seed=44), "cuda"),
+                             two_phase_impl="select", split_eval=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_hold_slice9(codec, two, records, launches) -> None:
+    """Phase 18c: the sp=2 runs of ``par_sp_slice9`` held to one process."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+
+    def rows(key, field="im_"):
+        return torch.from_numpy(np.concatenate([r[key][field] for r in two], axis=2)).cuda()
+
+    def one_process(model, image, **kw):
+        fn = make_attack_fn(model, RDAttackConfig(steps=PAR_SP_STEPS, **kw))
+        return measured(lambda: fn(image))
+
+    def held(label, key, ref, m_ref, noise_atol, vi_atol, far_share=0.0):
+        a = [r[key] for r in two]
+        diff = (rows(key) - ref["im_"]).abs()
+        far = float((diff > noise_atol).float().mean())
+        dvi = max(abs(r["vi"] - float(ref["vi"])) for r in a)
+        bound = f"share > {noise_atol} {far:.2e} (tol {far_share})" if far_share else \
+            f"(tol {noise_atol})"
+        log(f"phase 18c sp=2 {label}: noise max |diff| {float(diff.max()):.3e} {bound}, vi "
+            f"{a[0]['vi']:.6f} / {float(ref['vi']):.6f} (tol {vi_atol}); per rank steps/s "
+            f"{[round(r['steps_per_s'], 2) for r in a]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in a]} against {m_ref['peak_gib']:.3f} in one "
+            f"process, GDN launches {[r['launches'] for r in a]} against {m_ref['launches']}; one "
+            f"process {PAR_SP_STEPS / m_ref['s']:.2f} steps/s")
+        if far > far_share or dvi > vi_atol or (not far_share and float(diff.max()) > noise_atol):
+            raise RuntimeError(f"phase 18c sp=2 {label}: differs from one process")
+        records[f"18c sp {label}"] = {
+            "noise_max_abs": float(diff.max()), "far_share": far, "vi_abs": dvi,
+            "steps_per_s": [r["steps_per_s"] for r in a], "peak_gib": [r["peak_gib"] for r in a],
+            "one_process_steps_per_s": PAR_SP_STEPS / m_ref["s"],
+            "one_process_peak_gib": m_ref["peak_gib"]}
+        for r, out in enumerate(a):
+            launches[f"18c sp=2 {label} rank {r}"] = out["launches"]
+
+    x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+    gmm = load_codec("cheng2020-gmm", 3, CKPT_GMM)
+    with torch.no_grad():
+        want = gmm(x, quant_mode="dequantize")["x_hat"]
+    dx = float((rows("sp_gmm_forward", "x_hat") - want).abs().max())
+    log(f"phase 18c sp=2 cheng2020-gmm q3 forward at 768x512: x_hat max |diff| {dx:.3e} (tol "
+        f"{PAR_XHAT_ATOL}), GDN launches {[r['sp_gmm_forward']['launches'] for r in two]}")
+    if dx > PAR_XHAT_ATOL:
+        raise RuntimeError("phase 18c: the sp=2 cheng2020-gmm forward differs from one process")
+    records["18c sp cheng2020-gmm forward"] = {"xhat_max_abs": dx}
+    for r, out in enumerate(two):
+        launches[f"18c sp=2 cheng2020-gmm forward rank {r}"] = out["sp_gmm_forward"]["launches"]
+    held(f"cheng2020-gmm q3 {PAR_SP_STEPS}-step select attack 768x512", "sp_gmm_attack",
+         *one_process(gmm, x, two_phase_impl="select"), ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL)
+    del gmm
+    held(f"MS-SSIM {PAR_SP_STEPS}-step cond attack 768x512", "sp_msssim",
+         *one_process(codec, x, att_metric="ms-ssim", noise_threshold=PAR_MSSSIM_NOISE),
+         NOISE_ATOL, VI_ATOL, MSSSIM_FAR_SHARE)
+    h, w = PAR_SPLIT_SIZE
+    xl = to_tensor(synthetic_image(h, w, seed=44), "cuda")
+    held(f"split {PAR_SP_STEPS}-step select attack {w}x{h}", "sp_split",
+         *one_process(codec, xl, two_phase_impl="select", split_eval=True), NOISE_ATOL, VI_ATOL)
 
 
 def par_world_four():
@@ -2347,7 +2538,7 @@ def phase_parallel(gdn):
         # 18c: the one-process counterparts
         xs = to_tensor(np.concatenate([synthetic_image(512, 768, seed=30 + i)
                                        for i in range(PAR_CORPUS)]), "cuda")
-        ref, m_ref = par_measured(lambda: make_batch_attack_fn(
+        ref, m_ref = measured(lambda: make_batch_attack_fn(
             codec, RDAttackConfig(steps=PAR_CORPUS_STEPS, two_phase_impl="select"))(xs))
         c = [r["corpus"] for r in two]
         noise = float((torch.from_numpy(c[0]["im_"]).cuda() - ref["im_"]).abs().max())
@@ -2374,7 +2565,7 @@ def phase_parallel(gdn):
         dx = float((got.cuda() - want).abs().max())
         attack = make_attack_fn(codec, RDAttackConfig(steps=PAR_SP_STEPS, two_phase_impl="select"))
         attack(x)
-        ref, m_ref = par_measured(lambda: attack(x))
+        ref, m_ref = measured(lambda: attack(x))
         a = [r["sp_attack"] for r in two]
         noise = float((torch.from_numpy(np.concatenate([r["im_"] for r in a], axis=2)).cuda()
                        - ref["im_"]).abs().max())
@@ -2394,6 +2585,7 @@ def phase_parallel(gdn):
                              "peak_gib": [r["peak_gib"] for r in a],
                              "one_process_peak_gib": m_ref["peak_gib"],
                              "one_process_steps_per_s": PAR_SP_STEPS / m_ref["s"]}
+        par_hold_slice9(codec, two, records, launches)
         for label, adv in (("train_rd", False), ("train_adv", True)):
             codec = load_codec("hyper", 1, CKPT)
             ref = par_train(codec, par_batches(TRAIN_KVP_STEPS), adv=adv)
@@ -2421,12 +2613,219 @@ def phase_parallel(gdn):
         raise RuntimeError(f"phase 18: a rank launched no GDN kernel: {launches}")
     runs = [one["forward"], one["attack"], *[r["train_dpsp"] for r in four]]
     runs += [r[k] for r in two for k in ("corpus", "sp_forward", "sp_attack", "train_rd",
-                                          "train_adv")]
+                                          "train_adv", "sp_gmm_forward", "sp_gmm_attack",
+                                          "sp_msssim", "sp_split")]
     par_check_shapes(runs)
     log(f"phase 18 GDN (C, rows) of the ranks, each held to the plain GDN in phase 3: "
         f"{sorted({tuple(p) for m in runs for p in m['gdn_shapes']})}")
     log(f"phase 18 done in {time.time() - t0:.1f} s")
     return records, launches
+
+
+def mp_attack(codec, steps: int, split: bool):
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig, make_attack_fn
+
+    return make_attack_fn(codec, RDAttackConfig(steps=steps, two_phase_impl="select",
+                                                split_eval=split))
+
+
+def mp_run(label: str, attack, x, steps: int, runs: list) -> tuple:
+    """``attack(x)`` measured; logs steps/s (the clean forward and the
+    evaluation included), peak and held memory, vi, bpp and GDN launches;
+    fails on a non-finite value or no launch.  Returns (result, record)."""
+    import torch
+
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    res, m = measured(lambda: attack(x))
+    runs.append(m)
+    vals = {k: float(res[k]) for k in ("vi", "bpp_ori", "bpp")}
+    rec = {"size": [x.shape[3], x.shape[2]], "steps": steps, "s": m["s"],
+           "steps_per_s": steps / m["s"], "peak_gib": m["peak_gib"],
+           "allocated_before_gib": before, "launches": m["launches"], **vals}
+    log(f"phase {label} {x.shape[3]}x{x.shape[2]}: {steps} steps in {m['s']:.2f} s "
+        f"({rec['steps_per_s']:.3f} steps/s, the clean forward and the evaluation included), "
+        f"peak {m['peak_gib']:.3f} GiB ({before:.3f} GiB allocated before it), vi "
+        f"{vals['vi']:.4f}, bpp_ori {vals['bpp_ori']:.4f}, bpp {vals['bpp']:.4f}, GDN launches "
+        f"{m['launches']}")
+    if not all(math.isfinite(v) for v in vals.values()) or m["launches"] == 0:
+        raise RuntimeError(f"phase {label}: non-finite result or no GDN launch")
+    return res, rec
+
+
+def expandable_segments(on: bool) -> None:
+    """The caching allocator's ``expandable_segments`` setting, for the
+    allocations that follow."""
+    import torch
+
+    setting = f"expandable_segments:{on}"
+    set_ = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (set_ or torch.cuda.memory._set_allocator_settings)(setting)
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_megapixel(gdn):
+    """Phase 19: attacks on images of 12.6 MP and more on one card, the
+    large-image path (``split_eval``); returns the records, the GDN
+    launches of each run and phase-3 records of any row count phase 3 did
+    not hold."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli.attack_rd import main as cli_main
+    from imagecompression_adversarial_tpu_torch.io.image import (
+        synthetic_image, to_tensor, write_image,
+    )
+
+    t0 = time.time()
+    records, launches, runs = {}, {}, []
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    h, w = MP_SIZE
+    codec = load_codec("hyper", 1, CKPT)
+    x = to_tensor(synthetic_image(h, w, seed=40), "cuda")
+    with cudnn_deterministic():
+        # one step first: the first call at this size meets the libraries' set-up
+        mp_attack(codec, 1, False)(x)
+        free_card()
+        res, rec = mp_run("19a hyper q1 single-program", mp_attack(codec, MP_STEPS, False), x,
+                          MP_STEPS, runs)
+        single = {"im_": res["im_"], "vi": res["vi"]}
+        del res
+        free_card()
+        split_fn = mp_attack(codec, MP_STEPS, True)
+        res, rec_split = mp_run("19a hyper q1 split", split_fn, x, MP_STEPS, runs)
+        split = {"im_": res["im_"], "vi": res["vi"]}
+        del res
+        rec_split.update(hold("hyper q1 4096x3072", split, single,
+                              what="split vs single-program", phase="19a"))
+        records["19a single"], records["19a split"] = rec, rec_split
+        launches["19a single-program 4096x3072"] = rec["launches"]
+        launches["19a split 4096x3072"] = rec_split["launches"]
+        free_card()
+        res, rec_again = mp_run("19b hyper q1 split, again in the same process", split_fn, x,
+                                MP_STEPS, runs)
+        rec_again["equal_to_first"] = bool(torch.equal(res["im_"], split["im_"]))
+        del res, split, single
+        free_card()
+        rec_again["allocated_after_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        log(f"phase 19b the second split run's noise equals the first's: "
+            f"{rec_again['equal_to_first']}; {rec_again['allocated_after_gib']:.3f} GiB allocated "
+            f"after both were freed")
+        records["19b split again"] = rec_again
+        launches["19b split 4096x3072 again"] = rec_again["launches"]
+
+        # (c) the split attack above what one program could hold; the
+        # allocator maps its blocks into growing segments, or the blocks
+        # that 19a-b and the clean forward freed leave no room for the
+        # backward's largest tensors (without it, at 9344x7040: 10.5 GiB
+        # reserved but unallocated when 7.8 GiB were asked for)
+        per_px = rec["peak_gib"] / (h * w)
+        hl, wl = MP_LARGE
+        expandable_segments(True)
+        while True:
+            guess = per_px * hl * wl
+            log(f"phase 19c {wl}x{hl}: the single-program peak scaled from 4096x3072 would be "
+                f"{guess:.1f} GiB, the card holds {card_gib:.1f} GiB")
+            try:
+                xl = to_tensor(synthetic_image(hl, wl, seed=42), "cuda")
+                res, rec = mp_run("19c hyper q1 split", mp_attack(codec, MP_LARGE_STEPS, True), xl,
+                                  MP_LARGE_STEPS, runs)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"phase 19c {wl}x{hl} does not fit: {str(e).splitlines()[0]}")
+            xl = None
+            free_card()
+            hl, wl = (int(hl * MP_SHRINK) // 64 * 64, int(wl * MP_SHRINK) // 64 * 64)
+        rec["single_program_peak_scaled_gib"] = guess
+        rec["card_gib"] = card_gib
+        records["19c split large"] = rec
+        launches[f"19c split {wl}x{hl}"] = rec["launches"]
+        del res, xl, codec
+        free_card()
+        expandable_segments(False)
+
+        gmm = load_codec("cheng2020-gmm", 3, CKPT_GMM)
+        mp_attack(gmm, 1, True)(x)  # the libraries' set-up at this model's shapes
+        free_card()
+        res, rec = mp_run("19d cheng2020-gmm q3 single-program",
+                          mp_attack(gmm, MP_GMM_STEPS, False), x, MP_GMM_STEPS, runs)
+        single = {"im_": res["im_"], "vi": res["vi"]}
+        del res
+        free_card()
+        res, rec_split = mp_run("19d cheng2020-gmm q3 split", mp_attack(gmm, MP_GMM_STEPS, True),
+                                x, MP_GMM_STEPS, runs)
+        rec_split.update(hold("cheng2020-gmm q3 4096x3072", res, single, ANCHOR_NOISE_ATOL,
+                              ANCHOR_VI_ATOL, what="split vs single-program", phase="19d"))
+        records["19d cheng2020-gmm single"], records["19d cheng2020-gmm split"] = rec, rec_split
+        launches["19d cheng2020-gmm q3 single-program 4096x3072"] = rec["launches"]
+        launches["19d cheng2020-gmm q3 split 4096x3072"] = rec_split["launches"]
+        del res, single, gmm
+        free_card()
+
+    # (e) the CLI on a PNG, its defaults (`cond`) but for the steps
+    with in_temp_dir("chip_smoke_mp_") as tmp:
+        src = os.path.join(tmp, "megapixel.png")
+        t = time.time()
+        write_image(synthetic_image(h, w, seed=43), src)
+        t_write = time.time() - t
+        gdn.reset_launch_counts()
+        _, out, seconds, peak = run_captured(cli_main, [
+            "-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-s", src,
+            "-steps", str(MP_CLI_STEPS), "--split_eval", "-device", "cuda"])
+        n = gdn.launch_counts["gdn_fwd"]
+    avg = [ln for ln in out.splitlines() if ln.startswith("AVG: ")]
+    vals = dict(zip(*[iter(avg[0].split()[1:])] * 2)) if avg else {}
+    records["19e cli --split_eval"] = {"s": seconds, "peak_gib": peak, "launches": n,
+                                       "png_write_s": t_write, "avg": avg[0] if avg else None}
+    log(f"phase 19e cli.attack_rd --split_eval {w}x{h} PNG, {MP_CLI_STEPS} steps (cond): "
+        f"{seconds:.2f} s with the PNG read, peak {peak:.3f} GiB, GDN launches {n}; PNG written "
+        f"in {t_write:.2f} s")
+    if not avg or not all(math.isfinite(float(vals[k])) for k in ("vi", "bpp_ori", "bpp_adv")) \
+            or n == 0:
+        raise RuntimeError(f"phase 19e: no finite AVG line or no GDN launch: {avg}")
+    launches["19e cli.attack_rd --split_eval 4096x3072"] = n
+
+    # (f) the kernel against the plain GDN on the 12.6 MP split attack
+    codec = load_codec("hyper", 1, CKPT)
+    (k, lk), (p, _) = kernel_and_plain(gdn, codec, lambda: mp_attack(codec, MP_KVP_STEPS, True)(x))
+    diff = (k["im_"] - p["im_"]).abs().flatten()
+    far = int((diff > NOISE_ATOL).sum())
+    q = torch.quantile(diff[torch.randperm(diff.numel(), device=diff.device)[:1 << 24]],
+                       torch.tensor([0.5, 0.99, 0.9999], device=diff.device)).tolist()
+    dvi = abs(k["vi"].item() - p["vi"].item())
+    records["19f kernel vs plain"] = {
+        "noise_max_abs": float(diff.max()), "far": far, "far_share": far / diff.numel(),
+        "quantiles_50_99_9999": q, "vi_abs": dvi}
+    log(f"phase 19f hyper q1 split {w}x{h} x{MP_KVP_STEPS}, kernel vs plain: max |noise diff| "
+        f"{float(diff.max()):.3e}, {far} of {diff.numel()} elements more than {NOISE_ATOL} apart "
+        f"(share {far / diff.numel():.2e}, tol {MP_FAR_SHARE}), median {q[0]:.2e}, 99% {q[1]:.2e}, "
+        f"99.99% {q[2]:.2e}; vi {k['vi'].item():.6f} / {p['vi'].item():.6f} (tol {VI_ATOL})")
+    if far > MP_FAR_SHARE * diff.numel() or dvi > VI_ATOL:
+        raise RuntimeError("phase 19f: kernel vs plain differ beyond the tolerances")
+    launches[f"19f split {w}x{h} x{MP_KVP_STEPS} kernel run"] = lk
+    del k, p, codec, x
+    free_card()
+
+    # every (C, rows) the phase's runs gave the kernel, held to the plain GDN
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    seen = sorted({tuple(p) for m in runs for p in m["gdn_shapes"]})
+    shape_records = []
+    for c, rows in seen:
+        if (c, rows) not in GDN_SHAPES:
+            shape_records += gdn_shape_records(gdn, c, rows, gen, flush_buf, phase="19")
+    log(f"phase 19 GDN (C, rows): {seen}; held to the plain GDN in phase 3"
+        + (f", and here: {[(r['C'], r['rows']) for r in shape_records[::2]]}" if shape_records
+           else ""))
+    log(f"phase 19 done in {time.time() - t0:.1f} s")
+    return records, launches, shape_records
 
 
 def main() -> int:
@@ -2495,6 +2894,9 @@ def main() -> int:
     launches_slice7.update(launches_analysis)
     parallel_records, launches_parallel = phase_parallel(gdn)
     print(json.dumps({"phase18": parallel_records}, default=float), flush=True)
+    mp_records, launches_mp, mp_shapes = phase_megapixel(gdn)
+    print(json.dumps({"phase19": mp_records}, default=float), flush=True)
+    records += mp_shapes
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -2514,6 +2916,7 @@ def main() -> int:
             **launches_adapters,
             **launches_slice7,
             **launches_parallel,
+            **launches_mp,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],

@@ -14,18 +14,23 @@ import torch
 class RDAttackConfig:
     """Knobs of the canonical RD distortion attack.
 
-    The port runs the non-split attack.  ``defend_in_loop`` (``'ensemble'``,
-    ``'bitdepth'``, ``'resize'`` or ``'clip'``) makes it adaptive: the
-    output loss goes through that defense; ``ensemble_impl`` says how the
-    in-loop self-ensemble runs its 8 variants.  ``debug_model``
-    (the reference's debug fixture) draws the initial noise from
-    uniform(+-sqrt(noise_threshold)) and leaves the input unclipped.
-    ``remat`` is accepted and ignored: eager autograd keeps the forward's
-    activations, and at 768x512 they fit on an 80 GB card.  ``phase_space_loss=None``
-    (auto) turns the phase-space loss on for the plain L2 attack on a codec
-    with an exact phase synthesis.  ``two_phase_impl='cond'`` decides the
-    phase with a host ``if`` (one device sync a step); ``'select'`` always
-    runs the output phase and blends with ``torch.where`` (no sync).
+    ``defend_in_loop`` (``'ensemble'``, ``'bitdepth'``, ``'resize'`` or
+    ``'clip'``) makes the attack adaptive: the output loss goes through
+    that defense; ``ensemble_impl`` says how the in-loop self-ensemble runs
+    its 8 variants.  ``debug_model`` (the reference's debug fixture) draws
+    the initial noise from uniform(+-sqrt(noise_threshold)) and leaves the
+    input unclipped.  ``phase_space_loss=None`` (auto) turns the
+    phase-space loss on for the plain L2 attack on a codec with an exact
+    phase synthesis.  ``two_phase_impl='cond'`` decides the phase with a
+    host ``if`` (one device sync a step); ``'select'`` always runs the
+    output phase and blends with ``torch.where`` (no sync).
+
+    ``split_eval`` runs the large-image attack (``attacks/rd.py``): the
+    phase-space loss's autograd graph checkpointed by stage; it needs the
+    phase-space loss and takes one image at a time.  ``remat`` is accepted
+    and ignored: the single-program attack keeps every activation (at
+    768x512 they fit on an 80 GB card, and a recompute would slow it),
+    and the split attack always recomputes.
     """
 
     steps: int = 1001
@@ -43,6 +48,7 @@ class RDAttackConfig:
     padding_mode: str = "reflect"
     remat: bool = True
     phase_space_loss: Optional[bool] = None
+    split_eval: bool = False
     two_phase_impl: str = "cond"
 
 

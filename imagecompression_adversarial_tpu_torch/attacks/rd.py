@@ -18,6 +18,14 @@ two-phase switch is taken per element with ``torch.where`` (as the
 reference's ``vmap`` lowers its ``cond``).  Clean forward, rate and
 evaluation run per element.
 
+``RDAttackConfig.split_eval`` gives the large-image attack (the
+reference's two-program ``_make_split_attack_fn``): the same loop, with
+the phase-space loss's autograd graph checkpointed by stage
+(``staged_phase_fn``).  In eager PyTorch the loop's graph is gone when
+its step ends and the evaluation already runs one piece at a time under
+``no_grad``, so the checkpoint is all the reference's second program
+stands for here.
+
 ``make_adv_example_fn`` is the inner attack of adversarial training, with
 the reference's other batch semantics: the batch is one attack, with one
 batch-wide input MSE, one phase for all images, and the budget an
@@ -31,10 +39,13 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..defenses.self_ensemble import bitdepth_reduction, random_resize, self_ensemble
 from ..metrics import bpp_from_likelihoods, ms_ssim
+from ..models.layers import GDN
 from ..ops import shard
 from ..ops.bounds import bound_clip
 from .common import AdamOnNoise, RDAttackConfig, init_noise, multistep_lr_schedule
@@ -66,19 +77,29 @@ def _output(model, im_in, cfg: RDAttackConfig, clip_fn):
     return model(im_in, quant_mode="none")["x_hat"]
 
 
-def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, clip_fn=None):
+def _ms_ssim_rows(a, b):
+    """Per-element MS-SSIM of the whole images; under a row shard each
+    rank gathers them (``shard.all_rows``) and its gradient comes back to
+    its own rows."""
+    return ms_ssim(shard.all_rows(a), shard.all_rows(b), size_average=False)
+
+
+def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, clip_fn=None,
+                 phase_fn=None):
     """Two-phase RD attack loss of a batch: ``(loss, (loss_i, loss_o))``
     with ``loss`` the sum over the batch and ``loss_i``/``loss_o`` per
     element.
 
-    With ``phase`` the output is the phase-space synthesis and ``output_s``
-    its clean counterpart: MSE is invariant under the permutation back to
-    full resolution, so the loss, its gradient and the trajectory are the
+    With ``phase`` the output is the phase-space synthesis (``phase_fn``,
+    by default ``g_s_phase(g_a(.))``) and ``output_s`` its clean
+    counterpart: MSE is invariant under the permutation back to full
+    resolution, so the loss, its gradient and the trajectory are the
     full-resolution ones.  ``cond`` on a single image decides the phase
     with a host ``if`` and skips the forward while over budget; otherwise
     both phases run and ``torch.where`` picks per element.  Under a row
     shard (``ops/shard.py``) the means are the whole image's, so every
-    shard takes the same branch.
+    shard takes the same branch, and the MS-SSIM metric runs on the whole
+    images.
     """
     eps = cfg.epsilon / 255.0
     im_in = _adversarial_input(x, bound_clip(noise, -eps, eps), cfg)
@@ -87,7 +108,7 @@ def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, cl
 
     def input_loss():
         if cfg.att_metric == "ms-ssim":
-            return 1.0 - ms_ssim(x, im_in, size_average=False)
+            return 1.0 - _ms_ssim_rows(x, im_in)
         return loss_i
 
     host_cond = cfg.two_phase_impl == "cond" and x.shape[0] == 1
@@ -95,12 +116,12 @@ def _attack_loss(model, x, output_s, noise, cfg: RDAttackConfig, phase: bool, cl
         return input_loss().sum(), (loss_i, zero)
 
     if phase:
-        x_ = model.g_s_phase(model.g_a(im_in))
+        x_ = phase_fn(im_in) if phase_fn is not None else model.g_s_phase(model.g_a(im_in))
     else:
         x_ = _output(model, im_in, cfg, clip_fn)
     output_ = bound_clip(x_, 0.0, 1.0) if cfg.clamp else x_
     if cfg.att_metric == "ms-ssim":
-        loss_o = ms_ssim(output_, output_s, size_average=False)
+        loss_o = _ms_ssim_rows(output_, output_s)
     else:
         loss_o = 1.0 - shard.mean((output_s - output_) ** 2, dim=_PER_ELEMENT)
     if host_cond:
@@ -151,12 +172,21 @@ def make_attack_fn(
     ``latent_transform`` (y -> y') is the latent clamp that
     ``defend_in_loop='clip'`` attacks through.  ``attack.batch(xs,
     noises)`` attacks a ``(B, 3, H, W)`` batch from the given initial
-    noises and returns the results stacked on a new leading axis.
+    noises and returns the results stacked on a new leading axis;
+    ``attack.run(x, noise)`` attacks one image from the given initial
+    noise.  A ``cfg.split_eval`` attack checkpoints its loss by stage
+    (``staged_phase_fn``) and has no ``batch``: it takes one image at a
+    time.
     """
+    if cfg.split_eval:
+        _check_split(cfg)
     cfg = _resolve(model, cfg)
     if cfg.defend_in_loop == "clip" and latent_transform is None:
         raise ValueError("defend_in_loop='clip' needs a latent_transform")
+    if cfg.split_eval and not cfg.phase_space_loss:
+        raise ValueError("split_eval requires phase_space_loss=True")
     lrs = multistep_lr_schedule(cfg.steps, cfg.lr, cfg.lr_milgamma).tolist()
+    phase_fn = staged_phase_fn(model) if cfg.split_eval else None
     clip_fn = None
     if latent_transform is not None:
 
@@ -191,7 +221,8 @@ def make_attack_fn(
         opt = AdamOnNoise(noise)
         for lr in lrs:
             noise.requires_grad_(True)
-            loss, _ = _attack_loss(model, xs, loss_ref, noise, cfg, cfg.phase_space_loss, clip_fn)
+            loss, _ = _attack_loss(model, xs, loss_ref, noise, cfg, cfg.phase_space_loss, clip_fn,
+                                   phase_fn)
             (grad,) = torch.autograd.grad(loss, noise)
             noise = noise.detach()
             opt.step(noise, grad, lr)
@@ -222,16 +253,77 @@ def make_attack_fn(
         results = run(xs, noises)
         return {k: torch.stack([r[k] for r in results]) for k in results[0]}
 
-    attack.batch = batch
+    attack.run = lambda x, noise: run(x, noise)[0]
+    if not cfg.split_eval:
+        attack.batch = batch
     attack.cfg = cfg
     return attack
+
+
+def _check_split(cfg: RDAttackConfig) -> None:
+    """What the split attack rejects (the reference's conditions, in its
+    words): anything but the plain L2 loss, and the debug fixture."""
+    if cfg.defend_in_loop or cfg.pad or cfg.att_metric == "ms-ssim":
+        raise ValueError("split_eval supports the plain L2 attack only "
+                         "(no ms-ssim metric, in-loop defense, or -p padding)")
+    if cfg.debug_model:
+        raise ValueError("split_eval does not support debug_model")
+
+
+def _stages(layers: nn.Sequential) -> List[List[nn.Module]]:
+    """The children of ``layers`` in stages: a conv and the GDN after it
+    make one stage, any other child (a cheng2020 block) is one."""
+    stages: List[List[nn.Module]] = []
+    for m in layers:
+        if isinstance(m, GDN) and stages and len(stages[-1]) == 1 and \
+                not isinstance(stages[-1][0], GDN):
+            stages[-1].append(m)
+        else:
+            stages.append([m])
+    return stages
+
+
+def staged_phase_fn(model) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``g_s_phase(g_a(im))`` with its autograd graph checkpointed by stage
+    (``torch.utils.checkpoint``, non-reentrant): the backward keeps each
+    stage's input and recomputes the stage's inside when it reaches it.
+
+    Without it the graph holds two full tensors a stage (the conv's input
+    and the GDN's); with it one, plus one stage's inside at a time.  One
+    checkpoint around the whole loss would save nothing here, since its
+    recompute would store every activation again.  The last analysis
+    stage and the first synthesis stage run as one, so the latent y is
+    recomputed (the reference's ``remat_policy='full'``).  The recompute
+    enters the row shard its forward ran under and reuses the same
+    modules, so the GDN calls go through the same kernel.  The stages
+    draw no random numbers, so the RNG state is not kept."""
+    analysis, synthesis = _stages(model.g_a), _stages(model.g_s)
+    last = synthesis[-1][-1]
+    segments = analysis[:-1] + [analysis[-1] + synthesis[0]] + synthesis[1:]
+
+    def run(where, layers, t):
+        with shard.within(where):
+            for m in layers:
+                t = m(t, phase_output=True) if m is last else m(t)
+        return t
+
+    def phase_fn(im: torch.Tensor) -> torch.Tensor:
+        where = shard.current()
+        for layers in segments:
+            im = checkpoint(run, where, layers, im, use_reentrant=False, preserve_rng_state=False)
+        return im
+
+    return phase_fn
 
 
 def make_batch_attack_fn(model, cfg: RDAttackConfig):
     """``batched(xs, generators=None)``: attack each image of a ``(B, 3, H,
     W)`` batch independently, in one batched loop; element ``b`` draws its
     initial noise (where the config draws one) from ``generators[b]``.
-    Results are stacked on a leading axis of size B."""
+    Results are stacked on a leading axis of size B.  A ``split_eval``
+    config raises: the split attack takes one image at a time."""
+    if cfg.split_eval:
+        raise ValueError("split_eval attacks one image at a time; use attack_batch=1")
     single = make_attack_fn(model, cfg)
 
     def batched(xs: torch.Tensor, generators: Optional[List[torch.Generator]] = None):
@@ -249,13 +341,16 @@ def best_of_restarts(attack_fn, x: torch.Tensor, generator: torch.Generator, res
     (the first of equals).  Restart ``r`` starts from the ``r``-th noise
     drawn from ``generator``.  ``impl='host'`` runs them one after the
     other; ``'vmap'`` runs them as one batched attack over the restarts'
-    noises (the same noises, so the same results up to float rounding)."""
-    if impl == "host":
+    noises (the same noises, so the same results up to float rounding).
+    A split attack always runs them one after the other: a batch would
+    hold every restart's loop at once and forfeit the memory the split
+    saves."""
+    if impl not in ("vmap", "host"):
+        raise ValueError(f"impl={impl!r} not in ('vmap', 'host')")
+    if impl == "host" or attack_fn.cfg.split_eval:
         results = [attack_fn(x, generator) for _ in range(restarts)]
         best = max(range(restarts), key=lambda i: float(results[i]["vi"]))
         return results[best]
-    if impl != "vmap":
-        raise ValueError(f"impl={impl!r} not in ('vmap', 'host')")
     noises = torch.cat([init_noise(tuple(x.shape), attack_fn.cfg, generator, x.device)
                         for _ in range(restarts)])
     res = attack_fn.batch(x.expand(restarts, -1, -1, -1), noises)

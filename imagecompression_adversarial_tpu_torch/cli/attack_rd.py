@@ -3,6 +3,7 @@
     python -m imagecompression_adversarial_tpu_torch.cli.attack_rd \
         -m hyper -q 1 -ckpt ckpts/demo/hyper-q1-mse-synthetic.msgpack \
         -s 'kodim*.png' -steps 1001 [-random 2 [-restart_impl vmap]] [-attack_batch 2]
+        [--split_eval]
 
 Same flags, per-image line and ``AVG:`` line as
 ``imagecompression_adversarial_tpu/cli/attack_rd.py``; ``-device cpu`` runs
@@ -12,7 +13,11 @@ restarts draw one after the other from it).  ``-random R`` keeps the best
 of R restarts, run one after the other (``-restart_impl host``) or as one
 batch (``vmap``); ``-attack_batch B`` (with ``-random 1``) attacks B images
 of one shape as one batch.  ``-trace DIR`` attacks the last image once more
-under ``torch.profiler`` and writes its chrome trace into DIR.  ``-m fic``
+under ``torch.profiler`` and writes its chrome trace into DIR.
+``--split_eval`` runs the large-image attack (``attacks/rd.py``: the loop
+checkpointed by stage, then the evaluation one piece at a time), which
+takes one image at a time: with ``-attack_batch`` above 1 it raises, and
+its restarts run one after the other.  ``-m fic``
 needs ``-random 2`` or more (its zero-noise start is a critical point), and
 says so without it.
 """
@@ -52,6 +57,7 @@ def run(cfg, images: Optional[Iterable[Image]] = None) -> dict:
         pad=cfg.pad,
         padding_mode=cfg.padding_mode,
         phase_space_loss={"auto": None, "on": True, "off": False}[cfg.phase_space],
+        split_eval=cfg.split_eval,
         two_phase_impl=cfg.two_phase_impl,
     )
     attack = make_attack_fn(model, att_cfg)

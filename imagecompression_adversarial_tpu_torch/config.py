@@ -53,6 +53,7 @@ class Config:
     degrade: Optional[str] = None  # random_noise: blurgen | deblur
     attack_batch: int = 1
     phase_space: str = "auto"
+    split_eval: bool = False  # attack_rd: the large-image attack (attacks/rd.py)
     encode: bool = False
     decode: bool = False
 
@@ -144,6 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-phase_space", dest="phase_space", type=str,
                    default=d.phase_space, choices=("auto", "on", "off"),
                    help="phase-space attack loss (auto: on when equivalent)")
+    p.add_argument("--split_eval", dest="split_eval", action="store_true",
+                   help="attack scan and eval as separate stages "
+                        "(megapixel single-card attacks)")
     p.add_argument("--encode", action="store_true",
                    help="cli.codec: encode the -s glob to .bin bitstreams under -t")
     p.add_argument("--decode", action="store_true",

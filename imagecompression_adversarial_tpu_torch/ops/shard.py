@@ -21,7 +21,8 @@ contiguous block of the image's rows, equal in size on every rank of
 the parameters' bounds on the global gradient.
 
 The collectives are ``all_reduce`` (sums) and ``all_gather_into_tensor``
-(the halo exchange, the row and result gathers), which NCCL and gloo both
+(the halo exchange, the row and result gathers, the MS-SSIM loss's whole
+image: ``all_rows``), which NCCL and gloo both
 run on CUDA tensors.  The sums keep the loss replicated: their backward
 passes the gradient through unchanged, so each rank's gradients are its
 part of the global loss's, and the halo exchange's backward sends each
@@ -74,9 +75,24 @@ def row_axis() -> Optional[Axis]:
 @contextlib.contextmanager
 def sharded(batch: Optional[Axis] = None, rows: Optional[Axis] = None) -> Iterator[Shard]:
     """Run the enclosed code as this rank's part of a sharded run."""
-    token = _CURRENT.set(Shard(batch, rows))
+    with within(Shard(batch, rows)) as s:
+        yield s
+
+
+def current() -> Optional[Shard]:
+    """The active shard, or None."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def within(s: Optional[Shard]) -> Iterator[Optional[Shard]]:
+    """Run the enclosed code under ``s`` (a ``current()`` taken earlier).
+    A checkpoint's recompute runs in the backward, on the autograd
+    engine's thread for CUDA tensors, where the caller's shard is not set:
+    the recomputed code enters the shard its forward saw."""
+    token = _CURRENT.set(s)
     try:
-        yield _CURRENT.get()
+        yield s
     finally:
         _CURRENT.reset(token)
 
@@ -163,10 +179,30 @@ def mean(t: torch.Tensor, dim: Optional[Sequence[int]] = None) -> torch.Tensor:
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
     """The whole NCHW tensor on every rank, from each rank's rows (not
     differentiable)."""
+    return all_rows(t)
+
+
+class _AllRows(torch.autograd.Function):
+    """The whole NCHW tensor on every rank, from each rank's rows.  Every
+    rank goes on to compute the same loss from it, so the gradient of a
+    rank's rows is their slice of the whole tensor's gradient: the backward
+    keeps that slice and sends nothing."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.index, ctx.h = axis.index, t.shape[2]
+        return torch.cat(gather(t.contiguous(), axis).unbind(0), dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, :, ctx.index * ctx.h:(ctx.index + 1) * ctx.h], None
+
+
+def all_rows(t: torch.Tensor) -> torch.Tensor:
+    """``gather_rows``, differentiable: the attack's MS-SSIM loss takes the
+    whole image's windows, pools and means from it."""
     rows = row_axis()
-    if rows is None:
-        return t
-    return torch.cat(gather(t.contiguous(), rows).unbind(0), dim=2)
+    return t if rows is None else _AllRows.apply(t, rows)
 
 
 def local_draw(y: torch.Tensor, draw: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:

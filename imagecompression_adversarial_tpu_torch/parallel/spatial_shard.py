@@ -11,17 +11,30 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
   image's top and bottom; every ``Deconv`` runs as its exact subpixel
   3x3 conv (1 row each side), then ``depth_to_space``; GDN/IGDN and the
   entropy models are pointwise and need none;
+* cheng2020's blocks compose those: residual blocks and units are 1x1
+  and 3x3 stride-1 convs (no halo, and 1 row each side) and 3x3 stride-2
+  convs (1 row above); a sub-pixel conv is a 3x3 conv, then a shuffle
+  within each row; the attention block's sigmoid gate, products and sums
+  are pointwise; the context model is a halo'd 5x5 masked conv, the
+  entropy parameters 1x1 convs, the GMM pointwise;
 * every reduction on the path is the whole image's: the attack's losses
   and its two-phase decision, the evaluation's MSEs and the rate; the
-  final MS-SSIM gathers the rows once;
+  final MS-SSIM gathers the rows once.  The MS-SSIM attack metric gathers
+  the 3-channel images every step (``ops/shard.py::all_rows``), whose
+  backward hands each rank its own rows: exact, and at 4096x3072 151 MB a
+  gather against GiBs of codec activations, where a halo rule for its
+  11-row windows at five scales would also need its pools and per-scale
+  means made global;
 * the attack's noise, Adam state and activations stay row-sharded: ``im_``
-  comes back as each rank's rows.
+  comes back as each rank's rows;
+* a ``split_eval`` config checkpoints the loop by stage on each rank's
+  rows: the recompute fetches its halos again.
 
 The result equals the one-process run up to the order of float sums.
 ``H`` must divide by ``sp x 64``, so that each block starts on an even
 row at every stride-2 stage.  Layers with no halo rule raise, naming the
-layer: attention (cheng2020-attn, nlaic, tic) and the adapters' own
-blocks; so do the MS-SSIM attack metric, in-loop defenses and padding.
+layer: the adapters' own blocks (nlaic, tic, invcompress, hific, fic);
+so do in-loop defenses and padding.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ ROW_MULTIPLE = 64
 ROW_SHARDABLE = (
     layers.Conv, layers.MaskedConv, layers.Deconv, layers.GDN, layers.SubpelConv,
     layers.ResidualBlock, layers.ResidualBlockWithStride, layers.ResidualBlockUpsample,
+    layers.ResidualUnit, layers.AttentionBlock,
     nn.Sequential, nn.ReLU, nn.LeakyReLU, nn.PixelShuffle, EntropyBottleneck,
     codecs.FactorizedPrior, codecs.ScaleHyperprior, codecs.JointAutoregressive,
     codecs.Cheng2020Anchor, codecs.Cheng2020Attention, codecs.Cheng2020AttnGMM,
@@ -100,10 +114,9 @@ def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
     ``attack(x, generator=None) -> results`` for the whole image ``x``
     (``(1, 3, H, W)``); the scalars are the whole image's, ``im_`` and the
     other images this rank's rows.  The initial noise, where the config
-    draws one, is drawn for the whole image and split.  Runs in every rank.
+    draws one, is drawn for the whole image and split.  Any attack metric;
+    a ``split_eval`` config runs the split attack.  Runs in every rank.
     """
-    if cfg.att_metric == "ms-ssim":
-        raise ValueError("att_metric='ms-ssim' has no row-sharded form (its windows cross rows)")
     if cfg.defend_in_loop or cfg.pad:
         raise ValueError("in-loop defenses and -p padding have no row-sharded form")
     check_row_shardable(model)
@@ -117,8 +130,8 @@ def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
         x = torch.as_tensor(x)
         noise = init_noise(tuple(x.shape), single.cfg, generator, device)
         mine = local_part(mesh, x, placements).to(device)
+        noise = local_part(mesh, noise, placements)
         with shard.sharded(rows=rows):
-            res = single.batch(mine, local_part(mesh, noise, placements))
-        return {k: v[0] for k, v in res.items()}
+            return single.run(mine, noise)
 
     return attack

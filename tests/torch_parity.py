@@ -22,6 +22,7 @@ from imagecompression_adversarial_tpu_torch.runtime import load_model
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = str(REPO / "ckpts" / "demo" / "hyper-q1-mse-synthetic.msgpack")
+CKPT_GMM = str(REPO / "ckpts" / "demo" / "cheng2020-gmm-q3-mse-synthetic.msgpack")
 
 # im_ atol vs JAX by whether torch's CPU convolutions use oneDNN (the bounds
 # of tests/test_torch_attack_rd.py: Adam turns gradient error on pixels
@@ -41,14 +42,25 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).cpu().numpy()
 
 
+def _demo_models(arch: str, quality: int, ckpt: str):
+    with open(ckpt, "rb") as f:
+        jp = flax.serialization.msgpack_restore(f.read())
+    jp = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
+    model = load_model(Config(device="cpu", model=arch, quality=quality, checkpoint=ckpt))
+    return j_init_model(arch, quality), jp, model
+
+
 @functools.lru_cache(maxsize=None)
 def hyper_models():
     """(JAX module, numpy params, port model) of hyper q1 on the demo weights."""
-    with open(CKPT, "rb") as f:
-        jp = flax.serialization.msgpack_restore(f.read())
-    jp = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
-    model = load_model(Config(device="cpu", model="hyper", quality=1, checkpoint=CKPT))
-    return j_init_model("hyper", 1), jp, model
+    return _demo_models("hyper", 1, CKPT)
+
+
+@functools.lru_cache(maxsize=None)
+def cheng_models():
+    """(JAX module, numpy params, port model) of cheng2020-gmm q3 on the
+    demo weights."""
+    return _demo_models("cheng2020-gmm", 3, CKPT_GMM)
 
 
 def jax_apply(jm, jp):

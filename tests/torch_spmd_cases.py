@@ -50,6 +50,13 @@ from imagecompression_adversarial_tpu_torch.train.step import mesh_shard, reduce
 LR = 1e-4
 ADV_STEPS = 2
 ADV_THRESHOLD = 1e-4
+# the row-sharded attacks of hyper q1 and of cheng2020-gmm q3 (the demo
+# weights); the MS-SSIM attack decides its phase with the host ``if``, and
+# at its budget the output phase, whose loss gathers the whole image, runs
+# on every step (at 1e-4, on 1 of 5)
+SP_ATTACK = dict(steps=5, noise_threshold=1e-4)
+MSSSIM_ATTACK = dict(steps=5, noise_threshold=1e-3, att_metric="ms-ssim")
+CHENG_ATTACK = dict(steps=3, two_phase_impl="select")
 # the inner attack's branch case: at this budget, 10 steps on the batch
 # ``adv_x`` take the output phase in 3 steps on image 0 alone, 5 on image 1
 # alone and 4 on the two together
@@ -197,23 +204,44 @@ def sp_forward(inputs):
             "loglik": {k: float(torch.log(v).double().sum()) for k, v in out["likelihoods"].items()}}
 
 
-def _sp_attack(inputs, impl: str):
+def _sp_attack(inputs, arch: str = "hyper", image: str = "sp_x", **cfg):
+    """The row-sharded attack of ``arch`` on the image ``image``, over every
+    rank of the world, with ``RDAttackConfig(**cfg)``."""
     mesh = make_mesh(axis_names=("sp",), device_type="cpu")
-    model = replicate(mesh, _model(inputs, "hyper"))
-    cfg = RDAttackConfig(steps=5, noise_threshold=1e-4, two_phase_impl=impl)
-    res = make_spatial_attack_fn(model, cfg, mesh)(nchw(inputs["sp_x"]))
-    x_rows = local_part(mesh, nchw(inputs["sp_x"]), row_sharding(mesh))
-    return {**{k: float(res[k]) for k in ("vi", "mse_in", "bpp_ori", "bpp")},
+    model = replicate(mesh, _model(inputs, arch))
+    res = make_spatial_attack_fn(model, RDAttackConfig(**cfg), mesh)(nchw(inputs[image]))
+    x_rows = local_part(mesh, nchw(inputs[image]), row_sharding(mesh))
+    return {**{k: float(res[k]) for k in ("vi", "mse_in", "bpp_ori", "bpp", "vi_msim")},
             "im_": nhwc(res["im_"]), "rows": tuple(res["im_"].shape),
             "x_rows": tuple(x_rows.shape)}
 
 
 def sp_attack(inputs):
-    return _sp_attack(inputs, "cond")
+    return _sp_attack(inputs, **SP_ATTACK, two_phase_impl="cond")
 
 
 def sp_attack_select(inputs):
-    return _sp_attack(inputs, "select")
+    return _sp_attack(inputs, **SP_ATTACK, two_phase_impl="select")
+
+
+def sp_attack_msssim(inputs):
+    return _sp_attack(inputs, **MSSSIM_ATTACK)
+
+
+def sp2_split_attack(inputs):
+    return _sp_attack(inputs, **SP_ATTACK, split_eval=True)
+
+
+def sp2_cheng_forward(inputs):
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    model = replicate(mesh, _model(inputs, "cheng2020-gmm"))
+    out = make_spatial_forward(model, mesh)(nchw(inputs["cheng_x"]))
+    return {"x_hat": nhwc(out["x_hat"]),
+            "loglik": {k: float(torch.log(v).double().sum()) for k, v in out["likelihoods"].items()}}
+
+
+def sp2_cheng_attack(inputs):
+    return _sp_attack(inputs, "cheng2020-gmm", "cheng_x", **CHENG_ATTACK)
 
 
 def sp_unaligned(inputs):
@@ -243,8 +271,9 @@ def adv_rejects_sp(inputs):
 
 SCENARIOS = {f.__name__: f for f in (
     mesh_and_batch, tiles_identity, tiles_codec, corpus_attack, train_rd, train_context,
-    train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_unaligned, train_dpsp,
-    adv_rejects_sp)}
+    train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_attack_msssim,
+    sp_unaligned, train_dpsp, adv_rejects_sp, sp2_split_attack, sp2_cheng_forward,
+    sp2_cheng_attack)}
 
 
 def run_world(inputs_path: str, scenarios: List[str]) -> Dict[str, dict]:
