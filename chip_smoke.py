@@ -4,7 +4,9 @@
 
 Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 
-1. requires CUDA and prints the card's name and power limit;
+1. requires CUDA and prints the card's name and power limit, and whether
+   tensorstore, zstandard and libzstd are there (the routes of a reader of
+   the JAX trainer's zstd-compressed orbax trees);
 2. builds the GDN kernel with nvcc (``kernels/_build.py``) and prints what
    ``ptxas -v`` reports of it: registers, shared memory, spills (any spill
    fails the phase); builds the host rANS coder with g++;
@@ -145,7 +147,16 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     paper's model (cheng2020-gmm q3, demo weights) forward and a
     PAR_SP_STEPS-step `select` attack at 768x512 (ANCHOR_NOISE_ATOL,
     ANCHOR_VI_ATOL), the MS-SSIM attack (MSSSIM_FAR_SHARE, VI_ATOL) and a
-    split attack at PAR_SPLIT_SIZE (NOISE_ATOL, VI_ATOL).  It prints each
+    split attack at PAR_SPLIT_SIZE (NOISE_ATOL, VI_ATOL); (e) in the same
+    two ranks, the five adapter families at q3 (phase 13's weights) on
+    sp=2: the forward at 768x512 (PAR_XHAT_ATOL of its scale) and a
+    PAR_ADAPTER_STEPS-step `select` attack (nlaic and fic at
+    ANCHOR_NOISE_ATOL and ANCHOR_VI_ATOL, fic from a random start and also
+    with the plain GDN; tic, hific and invcompress at ADAPTER_FAR_SHARE and
+    ADAPTER_VI_ATOL), and for tic, invcompress and hific a
+    PAR_ADAPTER_LARGE_STEPS-step attack at PAR_ADAPTER_LARGE_SIZE (cuDNN
+    deterministic, then its default heuristics), each rank's peak beside
+    one process's.  It prints each
     world's backend and each rank's card, rate, peak memory and GDN
     launches (added to the ``kernels`` line), and the sp=2 attacks' peaks
     beside the unsharded ones.  Each rank records
@@ -170,7 +181,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
-the sharding alone; the coder sets it itself.
+the sharding alone (18e repeats its 2048x1536 runs with cuDNN's default
+heuristics, whose peaks it compares); the coder sets it itself.
 
 Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  Phase 18's ranks are processes of their
@@ -291,12 +303,14 @@ RESIZE_ATOL = 1e-5
 # 8,192, 2,048); then the megapixel calls of phase 19 (and of phase 18's
 # one-process 2048x1536 run): 4096x3072 (3,145,728, 786,432, 196,608
 # rows), 8192x6144 (12,582,912, 3,145,728, 786,432) and 9344x7040
-# (16,445,440, 4,111,360, 1,027,840)
+# (16,445,440, 4,111,360, 1,027,840); then phase 18e's nlaic and fic
+# (C=192) on half a 768x512 image a rank: 49,152, 12,288 and 3,072 rows
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
               (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576),
               (128, 196608), (128, 49152), (128, 12288), (128, 3072), (128, 65536),
               (128, 16384), (128, 4096), (128, 2048), (128, 786432), (128, 3145728),
-              (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440))
+              (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440),
+              (192, 49152), (192, 12288), (192, 3072))
 # dx is checked up to this many rows; the larger calls (2.1 GB a tensor
 # and more) hold their forward alone, so that the input, its gradient, both
 # routes' outputs and dx and the backward's temporaries need not fit at
@@ -416,7 +430,7 @@ PAR_CORPUS = 4
 PAR_CORPUS_STEPS = 101
 PAR_SP_STEPS = 20
 PAR_XHAT_ATOL = 1e-5
-PAR_TIMEOUT_S = 400
+PAR_TIMEOUT_S = 600
 # the slice-9 sp=2 runs (phase 18c): cheng2020-gmm q3 at 768x512, its
 # attack held at phase 8's ANCHOR_* bounds (its ~65 convs amplify the sums'
 # order as they amplify the GDN's); the MS-SSIM attack (`cond`), where a
@@ -431,6 +445,37 @@ PAR_TIMEOUT_S = 400
 MSSSIM_FAR_SHARE = 2e-4
 PAR_MSSSIM_NOISE = 1e-3
 PAR_SPLIT_SIZE = (1536, 2048)
+# phase 18e, the adapter families on sp=2 (slice 10), each at q3 (phase
+# 13's weights) and held to one process: the `dequantize` forward at
+# 768x512 at PAR_XHAT_ATOL times the largest |x_hat| where that exceeds 1
+# (18c's bound is for outputs in [0, 1]; seeded hific's reach 2.46, and its
+# sp=2 forward sat 1.007e-5 from one process on an H100 80GB HBM3 at
+# 700 W, 4.1e-6 of its scale); a PAR_ADAPTER_STEPS-step `select` attack
+# at 768x512 (fic from a random start), nlaic and fic at phase 14's bounds
+# (ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL), fic's also with the plain GDN at
+# them; tic, hific and invcompress, whose float32 trajectories part on
+# pixels whose gradient sits near Adam's eps (on the CPU at 128x128, 3
+# steps: hific's sp=2 and one-process runs 9.7-12.9% of the pixels past
+# 1e-4, tests/test_torch_parallel_adapters.py; on that card 12.35% at
+# 768x512 and vi 2.6e-3 dB apart), at most ADAPTER_FAR_SHARE of the pixels
+# more than NOISE_ATOL apart and vi within ADAPTER_VI_ATOL; and, for the
+# three families with no split attack, a PAR_ADAPTER_LARGE_STEPS-step
+# attack at PAR_ADAPTER_LARGE_SIZE (H, W), whose peak a rank is set beside
+# one process's, once under cuDNN deterministic and once with its default
+# heuristics (as the CLIs run; LARGE_RUNS): the peaks carry the workspace
+# of the algorithm picked for each shape (hific's one-process 768x512
+# attack peaked at 9.24 GiB under deterministic against phase 13's 2.29
+# GiB at default flags), so the default runs record the allocator's
+# history (HISTORY_ENTRIES events at most) and report the cuDNN
+# workspace live at their peak
+PAR_ADAPTER_STEPS = 10
+ADAPTER_FAR_SHARE = 0.25
+ADAPTER_VI_ATOL = 0.02
+PAR_ADAPTER_LARGE = ("tic", "invcompress", "hific")
+PAR_ADAPTER_LARGE_SIZE = (1536, 2048)
+PAR_ADAPTER_LARGE_STEPS = 3
+LARGE_RUNS = (("large", True), ("large_default", False))  # (record, cuDNN deterministic)
+HISTORY_ENTRIES = 2_000_000
 # phase 19: megapixel attacks on one card (hyper q1 and cheng2020-gmm q3 on
 # their demo weights, seeded numpy images, cuDNN deterministic, `select`
 # unless named): (a) MP_SIZE (H, W) single-program, then split, held to
@@ -456,6 +501,23 @@ MP_GMM_STEPS = 11
 MP_CLI_STEPS = 101
 MP_KVP_STEPS = 11
 MP_FAR_SHARE = 1e-3
+
+
+def zstd_routes() -> dict:
+    """Whether tensorstore and a zstd module import, and the libzstd that
+    ctypes finds."""
+    import ctypes.util
+    import importlib
+
+    out = {}
+    for mod in ("tensorstore", "zstandard"):
+        try:
+            importlib.import_module(mod)
+            out[mod] = "imports"
+        except ImportError as e:
+            out[mod] = f"{type(e).__name__}: {e}"
+    out["libzstd"] = ctypes.util.find_library("zstd")
+    return out
 
 
 def eval_bound(kind: str, field: str) -> float:
@@ -641,6 +703,14 @@ def has_gdn(codec) -> bool:
     return any(isinstance(m, GDN) for m in codec.modules())
 
 
+def use_gdn_kernel(codec, on: bool) -> None:
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+
+    for m in codec.modules():
+        if isinstance(m, GDN):
+            m.use_kernel = on
+
+
 def load_codec(model: str, quality: int, checkpoint=None, demo_transforms: bool = False):
     """The codec on the card; ``demo_transforms`` fills every parameter that
     the cheng2020-gmm demo checkpoint shares with ``model`` from it (all of
@@ -675,7 +745,6 @@ def attack_kernel_vs_plain(gdn, label: str, codec, debug_model: bool = False,
 
     from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig, make_attack_fn
     from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
-    from imagecompression_adversarial_tpu_torch.models.layers import GDN
 
     x = to_tensor(synthetic_image(256, 256, seed=1), "cuda")
     attack = make_attack_fn(codec, RDAttackConfig(steps=20, two_phase_impl="select",
@@ -687,9 +756,7 @@ def attack_kernel_vs_plain(gdn, label: str, codec, debug_model: bool = False,
     try:
         cudnn.deterministic, cudnn.benchmark = True, False
         for use_kernel in (True, False):
-            for m in codec.modules():
-                if isinstance(m, GDN):
-                    m.use_kernel = use_kernel
+            use_gdn_kernel(codec, use_kernel)
             gdn.reset_launch_counts()
             res = attack(x, torch.Generator("cuda").manual_seed(0))
             torch.cuda.synchronize()
@@ -1132,12 +1199,14 @@ def adaptive_step_split(cfg, im, reps: int = 5):
 
 
 @contextlib.contextmanager
-def cudnn_deterministic():
+def cudnn_deterministic(on: bool = True):
+    """cuDNN deterministic, no benchmarking; with ``on`` False, its default
+    heuristics (what the CLIs run), whose algorithms ask less workspace."""
     import torch
 
     cudnn = torch.backends.cudnn
     flags = (cudnn.deterministic, cudnn.benchmark)
-    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.deterministic, cudnn.benchmark = on, False
     try:
         yield
     finally:
@@ -1150,23 +1219,17 @@ def kernel_and_plain(gdn, codec, fn):
     run must launch the kernel and the plain run must not."""
     import torch
 
-    from imagecompression_adversarial_tpu_torch.models.layers import GDN
-
     out = []
     with cudnn_deterministic():
         try:
             for use_kernel in (True, False):
-                for m in codec.modules():
-                    if isinstance(m, GDN):
-                        m.use_kernel = use_kernel
+                use_gdn_kernel(codec, use_kernel)
                 gdn.reset_launch_counts()
                 res = fn()
                 torch.cuda.synchronize()
                 out.append((res, gdn.launch_counts["gdn_fwd"]))
         finally:
-            for m in codec.modules():
-                if isinstance(m, GDN):
-                    m.use_kernel = True
+            use_gdn_kernel(codec, True)
     if out[0][1] == 0 or out[1][1] != 0:
         raise RuntimeError(f"launch counts: kernel run {out[0][1]}, plain run {out[1][1]}")
     return out
@@ -2342,6 +2405,7 @@ def par_world_two():
     out["sp_attack"] = {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
                         "steps_per_s": PAR_SP_STEPS / m["s"], **m}
     out.update(par_sp_slice9(codec, sp, x))
+    out.update(par_sp_adapters(sp, x))
     for label, adv in (("train_rd", False), ("train_adv", True)):
         codec.load_state_dict(initial)
         out[label] = par_train_record(codec, adv, dp, TRAIN_KVP_STEPS)
@@ -2443,6 +2507,203 @@ def par_hold_slice9(codec, two, records, launches) -> None:
     xl = to_tensor(synthetic_image(h, w, seed=44), "cuda")
     held(f"split {PAR_SP_STEPS}-step select attack {w}x{h}", "sp_split",
          *one_process(codec, xl, two_phase_impl="select", split_eval=True), NOISE_ATOL, VI_ATOL)
+
+
+def adapter_attack_cfg(model: str, steps: int):
+    """Phase 18e's `select` attack of ``model``; fic starts from a restart's
+    random noise (its zero start is a critical point), drawn for the whole
+    image from a generator seeded 0."""
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+
+    return RDAttackConfig(steps=steps, two_phase_impl="select",
+                          random_restarts=2 if model == "fic" else 1)
+
+
+def cudnn_workspace_at_peak(run):
+    """``run()`` with the allocator's history recorded (C++ stacks):
+    ``(result, GiB live at the history's peak, GiB of those that cuDNN's
+    convolution plans asked as workspace)``, the latter the blocks
+    allocated under ``run_conv_plan``."""
+    import torch
+
+    torch.cuda.memory._record_memory_history(max_entries=HISTORY_ENTRIES, stacks="all")
+    try:
+        res = run()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, cur, peak, at_peak = {}, 0, 0, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            ws = any("run_conv_plan" in f.get("name", "") for f in ev.get("frames", ()))
+            live[ev["addr"]] = (ev["size"], ws)
+            cur += ev["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])[0]
+    workspace = sum(size for size, ws in at_peak.values() if ws)
+    return res, peak / 2 ** 30, workspace / 2 ** 30
+
+
+def adapter_run(fn, x, steps: int, host: bool = True, history: bool = False) -> dict:
+    """``fn(x, generator)`` measured: its vi, ``im_`` (copied to the host
+    with ``host``), rate, peak memory and GDN launches; with ``history``
+    also the cuDNN workspace live at the peak (``cudnn_workspace_at_peak``;
+    the recording slows the run)."""
+    import torch
+
+    def call():
+        return fn(x, torch.Generator("cuda").manual_seed(0))
+
+    workspace = None
+    if history:
+        (res, _, workspace), m = measured(lambda: cudnn_workspace_at_peak(call))
+    else:
+        res, m = measured(call)
+    im = res["im_"]
+    return {"vi": float(res["vi"]), "finite": bool(torch.isfinite(im).all()),
+            "im_": im.cpu().numpy() if host else im, "steps_per_s": steps / m["s"],
+            "workspace_gib": workspace, **m}
+
+
+def par_sp_adapters(sp, x):
+    """Phase 18e's sp=2 runs of slice 10, in each rank: each adapter family
+    at q3 (phase 13's weights), the `dequantize` forward and a
+    PAR_ADAPTER_STEPS-step attack at 768x512 (fic's with the kernel and
+    with the plain GDN), and for the three families with no split attack a
+    PAR_ADAPTER_LARGE_STEPS-step attack at PAR_ADAPTER_LARGE_SIZE (cuDNN
+    deterministic, then its default heuristics); each timed on its first
+    run."""
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.parallel import (
+        make_spatial_attack_fn, make_spatial_forward, replicate,
+    )
+
+    out = {}
+    h, w = PAR_ADAPTER_LARGE_SIZE
+    for model in ADAPTERS:
+        codec = replicate(sp, load_codec(model, 3, ADAPTER_CKPTS.get(model)))
+        fwd, m = measured(lambda: make_spatial_forward(codec, sp)(x)["x_hat"])
+        rec = {"forward": {"x_hat": fwd.cpu().numpy(), **m}}
+        attack = make_spatial_attack_fn(codec, adapter_attack_cfg(model, PAR_ADAPTER_STEPS), sp)
+        rec["attack"] = adapter_run(attack, x, PAR_ADAPTER_STEPS)
+        if model == "fic":
+            use_gdn_kernel(codec, False)
+            rec["attack_plain"] = adapter_run(attack, x, PAR_ADAPTER_STEPS)
+            use_gdn_kernel(codec, True)
+        if model in PAR_ADAPTER_LARGE:
+            xl = to_tensor(synthetic_image(h, w, seed=45), "cuda")
+            for key, deterministic in LARGE_RUNS:
+                with cudnn_deterministic(deterministic):
+                    rec[key] = adapter_run(make_spatial_attack_fn(
+                        codec, adapter_attack_cfg(model, PAR_ADAPTER_LARGE_STEPS), sp), xl,
+                        PAR_ADAPTER_LARGE_STEPS, history=not deterministic)
+            del xl
+        out[f"sp_{model}"] = rec
+        del codec, attack, fwd
+        free_card()
+    return out
+
+
+def par_hold_adapters(two, records, launches) -> None:
+    """Phase 18e: the sp=2 runs of ``par_sp_adapters`` held to one process
+    (cuDNN deterministic, as the ranks run), and fic's plain-GDN run to its
+    kernel run."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+
+    def rows(recs, field="im_"):
+        return torch.from_numpy(np.concatenate([r[field] for r in recs], axis=2)).cuda()
+
+    def held(label, recs, ref, noise_atol, vi_atol, far_share, steps):
+        diff = (rows(recs) - ref["im_"]).abs()
+        far = float((diff > NOISE_ATOL).float().mean())
+        dvi = max(abs(r["vi"] - ref["vi"]) for r in recs)
+        peak = max(r["peak_gib"] for r in recs)
+        workspace = "" if ref["workspace_gib"] is None else (
+            f" (cuDNN workspace live at the peak {[round(r['workspace_gib'], 3) for r in recs]} "
+            f"against {ref['workspace_gib']:.3f} GiB; the allocator's history on)")
+        log(f"phase 18e sp=2 {label}: noise max |diff| {float(diff.max()):.3e} (tol "
+            f"{noise_atol}), share > {NOISE_ATOL} {far:.3e} (tol {far_share}), vi "
+            f"{recs[0]['vi']:.6f} / {ref['vi']:.6f} (tol {vi_atol}); per rank steps/s "
+            f"{[round(r['steps_per_s'], 3) for r in recs]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in recs]} against {ref['peak_gib']:.3f} in one "
+            f"process (ratio {peak / ref['peak_gib']:.3f}){workspace}, GDN launches "
+            f"{[r['launches'] for r in recs]} against {ref['launches']}; one process "
+            f"{ref['steps_per_s']:.3f} steps/s")
+        if not (all(r["finite"] for r in recs) and math.isfinite(ref["vi"])) or \
+                float(diff.max()) > noise_atol or far > far_share or dvi > vi_atol:
+            raise RuntimeError(f"phase 18e sp=2 {label}: differs from one process")
+        return {"noise_max_abs": float(diff.max()), "far_share": far, "vi_abs": dvi,
+                "steps_per_s": [r["steps_per_s"] for r in recs],
+                "peak_gib": [r["peak_gib"] for r in recs], "peak_ratio": peak / ref["peak_gib"],
+                "workspace_gib": [r["workspace_gib"] for r in recs],
+                "one_process_workspace_gib": ref["workspace_gib"],
+                "launches": [r["launches"] for r in recs],
+                "one_process_steps_per_s": ref["steps_per_s"],
+                "one_process_peak_gib": ref["peak_gib"]}
+
+    x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+    h, w = PAR_ADAPTER_LARGE_SIZE
+    for model in ADAPTERS:
+        a = [r[f"sp_{model}"] for r in two]
+        trained = model in ("nlaic", "fic")  # the two with GDN and phase 14's bounds
+        codec = load_codec(model, 3, ADAPTER_CKPTS.get(model))
+        with torch.no_grad():
+            want = codec(x, quant_mode="dequantize")["x_hat"]
+        dx = float((rows([r["forward"] for r in a], "x_hat") - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        log(f"phase 18e sp=2 {model} q3 forward at 768x512: x_hat max |diff| {dx:.3e} (tol "
+            f"{PAR_XHAT_ATOL} x {scale:.3f}, the largest |x_hat| or 1), GDN launches "
+            f"{[r['forward']['launches'] for r in a]}, peak GiB "
+            f"{[round(r['forward']['peak_gib'], 3) for r in a]}")
+        if dx > PAR_XHAT_ATOL * scale:
+            raise RuntimeError(f"phase 18e: the sp=2 {model} forward differs from one process")
+        rec = {"xhat_max_abs": dx, "xhat_scale": scale}
+        bounds = ((ANCHOR_NOISE_ATOL, ANCHOR_VI_ATOL, 1.0) if trained else
+                  (float("inf"), ADAPTER_VI_ATOL, ADAPTER_FAR_SHARE))
+        ref = adapter_run(make_attack_fn(codec, adapter_attack_cfg(model, PAR_ADAPTER_STEPS)), x,
+                          PAR_ADAPTER_STEPS, host=False)
+        rec["attack"] = held(f"{model} q3 {PAR_ADAPTER_STEPS}-step select attack 768x512",
+                             [r["attack"] for r in a], ref, *bounds, PAR_ADAPTER_STEPS)
+        if model == "fic":
+            k, p = [r["attack"] for r in a], [r["attack_plain"] for r in a]
+            noise = float((rows(k) - rows(p)).abs().max())
+            dvi = abs(k[0]["vi"] - p[0]["vi"])
+            log(f"phase 18e sp=2 fic q3 attack 768x512, kernel vs plain GDN: noise max |diff| "
+                f"{noise:.3e} (tol {ANCHOR_NOISE_ATOL}), vi {k[0]['vi']:.6f} / {p[0]['vi']:.6f} "
+                f"(tol {ANCHOR_VI_ATOL}), GDN launches {[r['launches'] for r in p]} (plain)")
+            if noise > ANCHOR_NOISE_ATOL or dvi > ANCHOR_VI_ATOL or any(r["launches"] for r in p):
+                raise RuntimeError("phase 18e: fic's sp=2 kernel and plain-GDN runs differ")
+            rec["attack_kernel_vs_plain"] = {"noise_max_abs": noise, "vi_abs": dvi}
+        if model in PAR_ADAPTER_LARGE:
+            xl = to_tensor(synthetic_image(h, w, seed=45), "cuda")
+            fn = make_attack_fn(codec, adapter_attack_cfg(model, PAR_ADAPTER_LARGE_STEPS))
+            for key, deterministic in LARGE_RUNS:
+                with cudnn_deterministic(deterministic):
+                    ref = adapter_run(fn, xl, PAR_ADAPTER_LARGE_STEPS, host=False,
+                                      history=not deterministic)
+                rec[key] = held(
+                    f"{model} q3 {PAR_ADAPTER_LARGE_STEPS}-step select attack {w}x{h}, cuDNN "
+                    f"{'deterministic' if deterministic else 'default heuristics'}",
+                    [r[key] for r in a], ref, float("inf"), ADAPTER_VI_ATOL, ADAPTER_FAR_SHARE,
+                    PAR_ADAPTER_LARGE_STEPS)
+                del ref
+            del xl, fn
+        records[f"18e sp {model}"] = rec
+        if trained:
+            for r, out in enumerate(a):
+                for key in ("forward", "attack"):
+                    if out[key]["launches"] == 0:
+                        raise RuntimeError(f"phase 18e: sp=2 {model} {key} launched no GDN kernel")
+                    launches[f"18e sp=2 {model} {key} rank {r}"] = out[key]["launches"]
+        del codec, want
+        free_card()
 
 
 def par_world_four():
@@ -2586,6 +2847,7 @@ def phase_parallel(gdn):
                              "one_process_peak_gib": m_ref["peak_gib"],
                              "one_process_steps_per_s": PAR_SP_STEPS / m_ref["s"]}
         par_hold_slice9(codec, two, records, launches)
+        par_hold_adapters(two, records, launches)
         for label, adv in (("train_rd", False), ("train_adv", True)):
             codec = load_codec("hyper", 1, CKPT)
             ref = par_train(codec, par_batches(TRAIN_KVP_STEPS), adv=adv)
@@ -2615,6 +2877,7 @@ def phase_parallel(gdn):
     runs += [r[k] for r in two for k in ("corpus", "sp_forward", "sp_attack", "train_rd",
                                           "train_adv", "sp_gmm_forward", "sp_gmm_attack",
                                           "sp_msssim", "sp_split")]
+    runs += [m[k] for r in two for m in (r[f"sp_{f}"] for f in ADAPTERS) for k in m]
     par_check_shapes(runs)
     log(f"phase 18 GDN (C, rows) of the ranks, each held to the plain GDN in phase 3: "
         f"{sorted({tuple(p) for m in runs for p in m['gdn_shapes']})}")
@@ -2846,6 +3109,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"phase 1 device: {name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    log(f"phase 1 what an orbax tree's reader could use here (its chunks and nodes are zstd): "
+        f"{json.dumps(zstd_routes())}")
 
     t = time.time()
     cached = _build.library_path().is_file()

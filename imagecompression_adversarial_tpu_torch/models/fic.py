@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..entropy.factorized import EntropyBottleneck
 from ..entropy.gaussian import gaussian_conditional
+from ..ops import shard
 from ..ops.quant import quantize
 from .codecs import CodecModel, Result, _balle_analysis, _balle_synthesis, _mean_scale_hyper
 from .layers import Conv
@@ -34,9 +35,10 @@ from .layers import Conv
 PHASE_ORDER = ((0, 0), (1, 1), (0, 1), (1, 0))
 
 
-def phase_masks(h: int, w: int, device=None) -> torch.Tensor:
-    """(4, 1, H, W) float masks of the phases, in decode order."""
-    ii = torch.arange(h, device=device)[:, None] % 2
+def phase_masks(h: int, w: int, device=None, row0: int = 0) -> torch.Tensor:
+    """(4, 1, H, W) float masks of the phases, in decode order, for the
+    rows ``row0`` to ``row0 + H`` of the latent (a row shard's block)."""
+    ii = (torch.arange(h, device=device)[:, None] + row0) % 2
     jj = torch.arange(w, device=device)[None, :] % 2
     return torch.stack([((ii == a) & (jj == b)).float() for a, b in PHASE_ORDER])[:, None]
 
@@ -45,7 +47,9 @@ class Context4(nn.Module):
     """For each phase k: ``(scales_k, means_k) = ctx{k}([hyper_feats,
     y_hat * visible_k])``, a conv5x5 -> lrelu -> conv5x5 -> lrelu -> conv1x1
     stack, where ``visible_k`` masks in the phases before k; only phase k's
-    positions of its output are kept."""
+    positions of its output are kept.  Under a row shard the masks follow
+    the block's global rows, and the 5x5 convs fetch the neighbours'
+    ``y_hat * visible_k`` as their halo."""
 
     def __init__(self, M: int, hidden: int = 192):
         super().__init__()
@@ -57,7 +61,8 @@ class Context4(nn.Module):
 
     def forward(self, y_hat: torch.Tensor, hyper_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        masks = phase_masks(y_hat.shape[2], y_hat.shape[3], y_hat.device).to(y_hat.dtype)
+        h, w = y_hat.shape[2:]
+        masks = phase_masks(h, w, y_hat.device, shard.row_offset(h)).to(y_hat.dtype)
         scales = torch.zeros_like(y_hat)
         means = torch.zeros_like(y_hat)
         visible = torch.zeros_like(masks[0])

@@ -12,6 +12,12 @@ context coder (``entropy/autoregressive.py::ARWeights``) reads.
 
 NCHW layout: ``squeeze2`` orders the 4C output channels as (C, f1, f2),
 the glow order of the reference's NHWC ``transpose(0, 1, 3, 5, 2, 4)``.
+
+Under a row shard (``ops/shard.py``) the squeezes, the invertible 1x1
+convs and the couplings' channel splits act on each block's own rows, and
+the couplings' 5x5 and 3x3 convs fetch their halos: exact while every
+block starts on an even row at each of the four levels (``squeeze2``
+checks it).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..entropy.factorized import EntropyBottleneck
+from ..ops import shard
 from .codecs import JointAutoregressive
 from .layers import Conv, MaskedConv, SubpelConv
 
@@ -31,8 +38,13 @@ _SLOPE = 0.2  # the couplings' leaky ReLU
 
 def squeeze2(x: torch.Tensor) -> torch.Tensor:
     """Space-to-depth by 2: channel ``c*4 + 2*f1 + f2`` holds pixel
-    ``(2i + f1, 2j + f2)`` of channel c."""
+    ``(2i + f1, 2j + f2)`` of channel c.  Under a row shard each block
+    squeezes its own rows, which pairs the global rows right only when the
+    block starts on an even row: its row count must be even."""
     n, c, h, w = x.shape
+    if h % 2 and shard.row_axis() is not None:
+        raise ValueError(f"squeeze2: a shard of {h} rows starts on an odd row at some rank; "
+                         "the image height must divide by (shards x 64)")
     x = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(n, c * 4, h // 2, w // 2)
 

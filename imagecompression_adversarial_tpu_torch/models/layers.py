@@ -75,7 +75,8 @@ class Deconv(nn.ConvTranspose2d):
     subpixel form without depth-to-space: ``(n, 4*out, h, w)`` with
     phase-major channels, whose ``depth_to_space`` is the plain output.
     Under a row shard it runs as that subpixel conv (with halo rows), then
-    ``depth_to_space``; other kernels and strides raise there.
+    ``depth_to_space``, for k=5 and k=3 at stride 2; other kernels and
+    strides raise there.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
@@ -93,11 +94,12 @@ class Deconv(nn.ConvTranspose2d):
         rows = shard.row_axis()
         if not phase_output and rows is None:
             return super().forward(x)
-        if self.kernel_size != (5, 5) or self.stride != (2, 2):
-            what = "phase_output" if phase_output else "a row shard"
+        k, s = self.kernel_size[0], self.stride[0]
+        if s != 2 or k not in ((5,) if phase_output else (3, 5)):
+            what = "phase_output requires kernel_size=5" if phase_output else \
+                "a row shard requires kernel_size 3 or 5"
             raise ValueError(
-                f"Deconv {what} requires kernel_size=5/stride=2 (the subpel "
-                f"phase decomposition); got k={self.kernel_size[0]}, s={self.stride[0]}"
+                f"Deconv {what}/stride=2 (the subpel phase decomposition); got k={k}, s={s}"
             )
         if rows is None:
             return F.conv2d(x, self.phase_weight(), self.bias.repeat(4), padding=1)
@@ -106,22 +108,24 @@ class Deconv(nn.ConvTranspose2d):
         return y if phase_output else depth_to_space(y)
 
     def phase_weight(self) -> torch.Tensor:
-        """(4*out, in, 3, 3) weight of the subpixel conv.
+        """(4*out, in, 3, 3) weight of the subpixel conv, k = 5 or 3.
 
-        Output pixel o = 2i + k - 2 (tap k in 0..4), so the even phase takes
-        taps {4, 2, 0} and the odd phase {-, 3, 1}; rows and columns factor.
-        Output channel (2a + b) * out + f holds phase (a, b) of channel f.
+        Output pixel o = 2i - k//2 + t (tap t of k), so phase a of output
+        row m = (o - a) / 2 reads input row m + d (d = -1, 0, +1 are the
+        3x3 conv's offsets) through tap a + k//2 - 2d, where that lies in
+        0..k-1, and through a zero elsewhere: for k=5 the even phase takes
+        taps {4, 2, 0} and the odd phase {-, 3, 1}; for k=3 {-, 1, -} and
+        {-, 2, 0}.  Rows and columns factor.  Output channel
+        (2a + b) * out + f holds phase (a, b) of channel f.
         """
-        w = self.weight  # (in, out, 5, 5)
-        zero = torch.zeros_like(w[:, :, :1])
-        rows = (w[:, :, [4, 2, 0]], torch.cat([zero, w[:, :, [3, 1]]], dim=2))
-        phases = []
-        for a in (0, 1):
-            r = rows[a]
-            zc = torch.zeros_like(r[..., :1])
-            cols = (r[..., [4, 2, 0]], torch.cat([zc, r[..., [3, 1]]], dim=3))
-            phases += [cols[0], cols[1]]
-        return torch.cat(phases, dim=1).transpose(0, 1)  # (4*out, in, 3, 3)
+        w = self.weight  # (in, out, k, k)
+        k = w.shape[2]
+        taps = [[t if 0 <= t < k else k for t in (a + k // 2 - 2 * d for d in (-1, 0, 1))]
+                for a in (0, 1)]
+        idx = torch.tensor(taps, device=w.device)  # (phase, offset); k is a zero tap
+        w = F.pad(w, (0, 1, 0, 1))[:, :, idx[:, None, :, None], idx[None, :, None, :]]
+        # (in, out, a, b, 3, 3) -> (a, b, out, in, 3, 3)
+        return w.permute(2, 3, 1, 0, 4, 5).reshape(-1, w.shape[0], 3, 3)
 
 
 def depth_to_space(y: torch.Tensor, block: int = 2) -> torch.Tensor:

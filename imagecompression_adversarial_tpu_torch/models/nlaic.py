@@ -26,13 +26,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import shard
 from .codecs import JointAutoregressive, _balle_analysis, _balle_synthesis, _mean_scale_hyper
 from .layers import Conv, ResidualUnit
 
 
 class NonLocalBlock(nn.Module):
     """Embedded-Gaussian non-local attention, ``x + out(softmax(theta(x)
-    phi(x)^T / sqrt(d)) g(x))`` over all H*W positions, d = C/2."""
+    phi(x)^T / sqrt(d)) g(x))`` over all H*W positions, d = C/2.  Under a
+    row shard the queries are this rank's rows and the keys and values
+    every rank's (``shard.shared_rows``, whose backward sums every rank's
+    gradient of them)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -45,10 +49,15 @@ class NonLocalBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
 
-        def tokens(conv):  # (n, 1, H*W, d): one head
-            return conv(x).flatten(2).transpose(1, 2).unsqueeze(1)
+        def tokens(t):  # (n, 1, rows*W, d): one head
+            return t.flatten(2).transpose(1, 2).unsqueeze(1)
 
-        att = F.scaled_dot_product_attention(tokens(self.theta), tokens(self.phi), tokens(self.g))
+        keys, values = self.phi(x), self.g(x)
+        if shard.row_axis() is not None:  # every rank's rows, in one gather
+            keys, values = shard.shared_rows(torch.cat([keys, values], dim=1)).chunk(2, dim=1)
+        # the memory-efficient backend wants each token's channels contiguous
+        att = F.scaled_dot_product_attention(tokens(self.theta(x)), tokens(keys).contiguous(),
+                                             tokens(values).contiguous())
         att = att.squeeze(1).transpose(1, 2).reshape(n, -1, h, w)
         return x + self.out(att)
 

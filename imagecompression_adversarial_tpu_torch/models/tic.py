@@ -11,6 +11,11 @@ The blocks work in NHWC, as the reference: ``nn.Linear`` layers hold the
 flax ``Dense`` kernels transposed, the layer norms keep flax's eps 1e-6,
 and the MLP's GELU is flax's tanh approximation.  The attention of a 4x4
 window is 16 tokens, so it is written out as matmuls.
+
+Under a row shard (``ops/shard.py``) each block's rows hold whole windows
+(its row count divides by 4 at every stage), the shifted block's roll of
+the rows wraps across the ranks (``shard.roll_rows``), and the layer
+norms, Dense layers and MLP act on each token alone.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..entropy.factorized import EntropyBottleneck
+from ..ops import shard
 from .codecs import MeanScaleHyperprior, _mean_scale_hyper
 from .layers import Conv, Deconv
 
@@ -102,14 +108,18 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         win = self.window
-        # jnp.roll by -win // 2, which is -2 for win 4, and back by win // 2
+        if h % win and shard.row_axis() is not None:
+            raise ValueError(f"SwinBlock: a shard of {h} rows does not divide into {win}-row "
+                             "windows; the image height must divide by (shards x 64)")
+        # jnp.roll by -win // 2, which is -2 for win 4, and back by win // 2;
+        # the rows (dim 1) roll across the row shards, with wrap-around
         back, fwd = -win // 2, win // 2
         y = self.norm1(x)
         if self.shift:
-            y = torch.roll(y, (back, back), dims=(1, 2))
+            y = torch.roll(shard.roll_rows(y, back, dim=1), back, dims=2)
         y = window_merge(self.attn(window_partition(y, win)), win, b, h, w)
         if self.shift:
-            y = torch.roll(y, (fwd, fwd), dims=(1, 2))
+            y = torch.roll(shard.roll_rows(y, fwd, dim=1), fwd, dims=2)
         x = x + y
         z = self.mlp2(F.gelu(self.mlp1(self.norm2(x)), approximate="tanh"))
         return x + z

@@ -11,6 +11,10 @@ contiguous block of the image's rows, equal in size on every rank of
   rows stand in only at the image's global top and bottom, as the
   convolution's padding does;
 * reductions over the rows become global (``mean``, ``row_sum``);
+* a cyclic roll of the rows (tic's shifted windows) exchanges the rows
+  that wrap between neighbouring blocks (``roll_rows``), and a layer
+  whose every output reads every row (nlaic's keys and values) gathers
+  them (``shared_rows``); ``row_offset`` places a block in the image;
 * the training forward's noise is drawn for the global tensor and this
   rank keeps its block (``local_draw``), so that a sharded run draws what
   the one-process run on the whole tensor draws;
@@ -21,8 +25,8 @@ contiguous block of the image's rows, equal in size on every rank of
 the parameters' bounds on the global gradient.
 
 The collectives are ``all_reduce`` (sums) and ``all_gather_into_tensor``
-(the halo exchange, the row and result gathers, the MS-SSIM loss's whole
-image: ``all_rows``), which NCCL and gloo both
+(the halo exchange, the rolls, the row and result gathers, the MS-SSIM
+loss's whole image: ``all_rows``), which NCCL and gloo both
 run on CUDA tensors.  The sums keep the loss replicated: their backward
 passes the gradient through unchanged, so each rank's gradients are its
 part of the global loss's, and the halo exchange's backward sends each
@@ -203,6 +207,82 @@ def all_rows(t: torch.Tensor) -> torch.Tensor:
     whole image's windows, pools and means from it."""
     rows = row_axis()
     return t if rows is None else _AllRows.apply(t, rows)
+
+
+class _SharedRows(torch.autograd.Function):
+    """The whole NCHW tensor on every rank, from each rank's rows, where
+    each rank computes its own part of the loss from it (the non-local
+    block's keys and values, attended by this rank's queries): the
+    gradient of a rank's rows is the sum of every rank's gradient of
+    them, so the backward sums the whole tensor's gradient over the ranks
+    and keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis, ctx.h = axis, t.shape[2]
+        return torch.cat(gather(t.contiguous(), axis).unbind(0), dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, h = ctx.axis.index, ctx.h
+        g = all_reduce_(g.contiguous().clone(), ctx.axis)
+        return g[:, :, i * h:(i + 1) * h].contiguous(), None
+
+
+def shared_rows(t: torch.Tensor) -> torch.Tensor:
+    """The whole NCHW tensor from each rank's rows, for a use in which each
+    rank's part of the loss reads every row (differentiable; ``t`` itself
+    when unsharded)."""
+    rows = row_axis()
+    return t if rows is None else _SharedRows.apply(t, rows)
+
+
+def row_offset(h: int) -> int:
+    """The global index of the first row of this rank's block of ``h``
+    rows (0 when unsharded)."""
+    rows = row_axis()
+    return 0 if rows is None else rows.index * h
+
+
+class _RollRows(torch.autograd.Function):
+    """``torch.roll(x, shift, dim)`` of the whole tensor along its sharded
+    rows (``dim``), with wrap-around, restricted to this rank's block: for
+    ``shift`` -k the block drops its first k rows and takes the first k of
+    the next rank (the last rank those of the first); +k the mirror.  The
+    roll permutes rows, so its backward is the roll by ``-shift``."""
+
+    @staticmethod
+    def forward(ctx, x, shift, dim, axis):
+        ctx.shift, ctx.dim, ctx.axis = shift, dim, axis
+        return _roll_rows(x, shift, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roll_rows(g, -ctx.shift, ctx.dim, ctx.axis), None, None, None
+
+
+def _roll_rows(x: torch.Tensor, shift: int, dim: int, axis: Axis) -> torch.Tensor:
+    h, k = x.shape[dim], abs(shift)
+    if k > h:
+        raise ValueError(f"a roll by {shift} reaches past a shard of {h} rows")
+    if k == 0:
+        return x
+    i, n = axis.index, axis.size
+    if shift < 0:  # my first k rows go to the rank above
+        slots = gather(x.narrow(dim, 0, k), axis)
+        return torch.cat([x.narrow(dim, k, h - k), slots[(i + 1) % n]], dim=dim)
+    slots = gather(x.narrow(dim, h - k, k), axis)  # my last k rows go to the rank below
+    return torch.cat([slots[(i - 1) % n], x.narrow(dim, 0, h - k)], dim=dim)
+
+
+def roll_rows(x: torch.Tensor, shift: int, dim: int = 2) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=dim)`` of the whole image along its rows
+    (``dim``: 2 for NCHW, 1 for NHWC), on this rank's block when the rows
+    are sharded (differentiable)."""
+    rows = row_axis()
+    if rows is None:
+        return torch.roll(x, shift, dims=dim)
+    return _RollRows.apply(x, shift, dim, rows)
 
 
 def local_draw(y: torch.Tensor, draw: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:

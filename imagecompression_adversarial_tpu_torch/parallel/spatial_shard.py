@@ -7,16 +7,32 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
 
 * every ``Conv`` fetches the rows its kernel reaches across the block's
   edges from the neighbouring ranks (a 3x3 stride-1 conv 1 row each side,
-  a 5x5 stride-2 conv 2 above and 1 below), with zero rows only at the
-  image's top and bottom; every ``Deconv`` runs as its exact subpixel
-  3x3 conv (1 row each side), then ``depth_to_space``; GDN/IGDN and the
-  entropy models are pointwise and need none;
+  a 5x5 stride-2 conv 2 above and 1 below, a 7x7 stride-1 conv 3 each
+  side), with zero rows only at the image's top and bottom; every
+  ``Deconv`` at stride 2 (k=5, and hific's and tic's k=3) runs as its
+  exact subpixel 3x3 conv (1 row each side), then ``depth_to_space``;
+  GDN/IGDN and the entropy models are pointwise and need none;
 * cheng2020's blocks compose those: residual blocks and units are 1x1
   and 3x3 stride-1 convs (no halo, and 1 row each side) and 3x3 stride-2
   convs (1 row above); a sub-pixel conv is a 3x3 conv, then a shuffle
   within each row; the attention block's sigmoid gate, products and sums
   are pointwise; the context model is a halo'd 5x5 masked conv, the
   entropy parameters 1x1 convs, the GMM pointwise;
+* the adapter families: hific's ``ChannelNorm`` normalises over the
+  channels of each pixel, so it is pointwise, and its blocks compose
+  convs; invcompress's squeezes pair rows within a block, which is exact
+  while each block starts on an even row at all four levels (``H`` a
+  multiple of ``sp x 64`` gives it; ``squeeze2`` checks it), and its
+  invertible 1x1 convs and coupling splits are pointwise; tic's blocks
+  hold whole 4-row windows (at 1/16 scale ``sp x 64`` rows give 4k a
+  block; ``SwinBlock`` checks it), the shifted block's roll of the rows
+  by -2 and back wraps across the ranks (``shard.roll_rows``: each rank
+  takes the first 2 rows of the next), and its layer norms, Dense layers
+  and MLP act on each token alone; fic's ``Context4`` takes its
+  checkerboard masks from the block's global row offset; nlaic's
+  non-local block attends from this rank's queries to the keys and
+  values of every rank (``shard.shared_rows``, whose backward sums every
+  rank's gradient of a rank's rows);
 * every reduction on the path is the whole image's: the attack's losses
   and its two-phase decision, the evaluation's MSEs and the rate; the
   final MS-SSIM gathers the rows once.  The MS-SSIM attack metric gathers
@@ -28,13 +44,13 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
 * the attack's noise, Adam state and activations stay row-sharded: ``im_``
   comes back as each rank's rows;
 * a ``split_eval`` config checkpoints the loop by stage on each rank's
-  rows: the recompute fetches its halos again.
+  rows: the recompute fetches its halos and gathers again.
 
 The result equals the one-process run up to the order of float sums.
 ``H`` must divide by ``sp x 64``, so that each block starts on an even
 row at every stride-2 stage.  Layers with no halo rule raise, naming the
-layer: the adapters' own blocks (nlaic, tic, invcompress, hific, fic);
-so do in-loop defenses and padding.
+layer (the ``debug`` fixture's stride-1 transposed conv); so do in-loop
+defenses and padding.  Nothing falls back to an unsharded run.
 """
 
 from __future__ import annotations
@@ -47,7 +63,7 @@ import torch.nn as nn
 from ..attacks.common import RDAttackConfig, init_noise
 from ..attacks.rd import make_attack_fn
 from ..entropy.factorized import EntropyBottleneck
-from ..models import codecs, layers
+from ..models import codecs, fic, hific, invcompress, layers, nlaic, tic
 from ..ops import shard
 from .mesh import axis_sharding, local_part, mesh_device
 
@@ -62,6 +78,13 @@ ROW_SHARDABLE = (
     nn.Sequential, nn.ReLU, nn.LeakyReLU, nn.PixelShuffle, EntropyBottleneck,
     codecs.FactorizedPrior, codecs.ScaleHyperprior, codecs.JointAutoregressive,
     codecs.Cheng2020Anchor, codecs.Cheng2020Attention, codecs.Cheng2020AttnGMM,
+    hific.HiFiC, hific.HiFiCEncoder, hific.HiFiCGenerator, hific.HiFiCResidualBlock,
+    hific.ChannelNorm,
+    invcompress.InvCompress, invcompress.InvComp, invcompress.CouplingLayer,
+    invcompress.InvertibleConv1x1, invcompress.Bottleneck, invcompress.ZeroConv,
+    tic.TIC, tic.SwinBlock, tic.WindowAttention, tic.Dense, nn.LayerNorm,
+    fic.FIC, fic.Context4,
+    nlaic.NLAIC, nlaic.NLAM, nlaic.NonLocalBlock,
 )
 
 

@@ -459,7 +459,7 @@ def test_row_sharding_rejects_unaligned_height(worlds):
         assert got["raised"] is not None and "sp*64=256" in got["raised"]
 
 
-@pytest.mark.parametrize("arch, layer", [("nlaic", None), ("tic", None)])
+@pytest.mark.parametrize("arch, layer", [("debug", "DebugCodec")])
 def test_row_sharding_rejects_layers_without_a_halo_rule(arch, layer):
     with pytest.raises(ValueError, match="no halo rule") as info:
         check_row_shardable(init_model(arch, 1))
@@ -467,7 +467,8 @@ def test_row_sharding_rejects_layers_without_a_halo_rule(arch, layer):
         assert layer in str(info.value)
 
 
-@pytest.mark.parametrize("arch", ["cheng2020", "cheng2020-attn", "cheng2020-gmm"])
+@pytest.mark.parametrize("arch", ["cheng2020", "cheng2020-attn", "cheng2020-gmm", "hific",
+                                  "invcompress", "tic", "fic", "nlaic"])
 def test_row_sharding_takes_the_cheng2020_family(arch):
     check_row_shardable(init_model(arch, 1))
 

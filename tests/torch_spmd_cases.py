@@ -13,8 +13,11 @@ does in the test process, keyed by the global shape the ranks draw for.
 
 from __future__ import annotations
 
+import copy
+import os
 import pickle
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -22,7 +25,10 @@ import torch.distributed as dist
 
 from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
 from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
+from imagecompression_adversarial_tpu_torch.config import Config
 from imagecompression_adversarial_tpu_torch.io.weights import params_from_jax
+from imagecompression_adversarial_tpu_torch.models.layers import GDN
+from imagecompression_adversarial_tpu_torch.models.nlaic import NonLocalBlock
 from imagecompression_adversarial_tpu_torch.models.registry import init_model
 from imagecompression_adversarial_tpu_torch.ops import quant, shard
 from imagecompression_adversarial_tpu_torch.parallel import (
@@ -37,8 +43,10 @@ from imagecompression_adversarial_tpu_torch.parallel import (
     replicate,
     row_sharding,
     shard_batch,
+    spatial_shard,
     tiled_forward,
 )
+from imagecompression_adversarial_tpu_torch.runtime import load_model
 from imagecompression_adversarial_tpu_torch.train import (
     create_train_state,
     lambda_for,
@@ -57,6 +65,15 @@ ADV_THRESHOLD = 1e-4
 SP_ATTACK = dict(steps=5, noise_threshold=1e-4)
 MSSSIM_ATTACK = dict(steps=5, noise_threshold=1e-3, att_metric="ms-ssim")
 CHENG_ATTACK = dict(steps=3, two_phase_impl="select")
+# the adapter families on sp = 2 (tests/test_torch_parallel_adapters.py), at
+# q3: tic, fic and nlaic on their demo trees, hific and invcompress on
+# seeded weights moved by ADAPTER_PERTURB x normal noise (so that the
+# zero-initialized couplings act), as tests/test_torch_adapters.py does
+ADAPTERS = ("hific", "invcompress", "tic", "fic", "nlaic")
+DEMO = Path(__file__).resolve().parent.parent / "ckpts" / "demo"
+ADAPTER_SEED = 5
+ADAPTER_PERTURB = 0.01
+ADAPTER_ATTACK = dict(steps=3, two_phase_impl="select")
 # the inner attack's branch case: at this budget, 10 steps on the batch
 # ``adv_x`` take the output phase in 3 steps on image 0 alone, 5 on image 1
 # alone and 4 on the two together
@@ -244,6 +261,134 @@ def sp2_cheng_attack(inputs):
     return _sp_attack(inputs, "cheng2020-gmm", "cheng_x", **CHENG_ATTACK)
 
 
+def adapter_model(arch: str):
+    """The port's ``arch`` q3 codec on the CPU, frozen, channels_last: the
+    demo tree where there is one, else the seeded weights moved by
+    ADAPTER_PERTURB x normal noise (``torch_parity.perturb_``'s draw)."""
+    ckpt = DEMO / f"{arch}-q3-mse-synthetic.msgpack"
+    if ckpt.is_file():
+        return load_model(Config(device="cpu", model=arch, quality=3, checkpoint=str(ckpt)))
+    model = init_model(arch, 3, seed=ADAPTER_SEED)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(ADAPTER_PERTURB * torch.randn(p.shape, generator=gen))
+    return model.requires_grad_(False).to(memory_format=torch.channels_last).eval()
+
+
+def in_dtype(model, dtype: torch.dtype):
+    """``model`` in ``dtype``; in float64 its GDNs take the plain version
+    (the kernel is float32)."""
+    if dtype == torch.float64:
+        for m in model.modules():
+            if isinstance(m, GDN):
+                m.use_kernel = False
+    return model.to(dtype)
+
+
+def adapter_noise(inputs, arch: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The attack's initial noise (NCHW): ``fic_noise`` for fic, whose
+    zero start is a critical point, zeros for the rest."""
+    x = nchw(inputs["adapter_x"])
+    return (nchw(inputs["fic_noise"]) if arch == "fic" else torch.zeros_like(x)).to(dtype)
+
+
+def _forward_rows(out) -> dict:
+    """A forward's x_hat and likelihoods (this rank's rows, NHWC) and the
+    log-likelihood sums of those rows."""
+    return {"x_hat": nhwc(out["x_hat"]),
+            "lik": {k: nhwc(v) for k, v in out["likelihoods"].items()},
+            "loglik": {k: float(torch.log(v).double().sum()) for k, v in out["likelihoods"].items()}}
+
+
+def _adapter_attack(inputs, model, arch: str, mesh, **cfg):
+    """The sp=2 attack of ``model`` (``arch``, replicated over ``mesh``) on
+    ``adapter_x`` from ``adapter_noise``, in the model's dtype."""
+    dtype = next(model.parameters()).dtype
+    attack = make_spatial_attack_fn(model, RDAttackConfig(**cfg), mesh)
+    noise = adapter_noise(inputs, arch, dtype)
+    draw = spatial_shard.init_noise
+    spatial_shard.init_noise = lambda *_: noise
+    try:
+        res = attack(nchw(inputs["adapter_x"]).to(dtype))
+    finally:
+        spatial_shard.init_noise = draw
+    return {**{k: float(res[k]) for k in ("vi", "mse_in", "bpp_ori", "bpp", "vi_msim")},
+            "im_": nhwc(res["im_"]), "rows": tuple(res["im_"].shape)}
+
+
+def sp2_adapter(inputs, arch: str):
+    """The sp=2 ``dequantize`` forward of ``arch`` and its ADAPTER_ATTACK,
+    in float32 and in float64."""
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    model = replicate(mesh, adapter_model(arch))
+    fwd = _forward_rows(make_spatial_forward(model, mesh)(nchw(inputs["adapter_x"])))
+    return {"forward": fwd,
+            "attack": _adapter_attack(inputs, model, arch, mesh, **ADAPTER_ATTACK),
+            "attack_f64": _adapter_attack(inputs, in_dtype(copy.deepcopy(model), torch.float64),
+                                          arch, mesh, **ADAPTER_ATTACK)}
+
+
+def sp2_nlaic_split(inputs):
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    return _adapter_attack(inputs, replicate(mesh, adapter_model("nlaic")), "nlaic", mesh,
+                           **ADAPTER_ATTACK, split_eval=True)
+
+
+def _rank_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``t``'s rows (``dim``) on the world's one axis."""
+    n, i = dist.get_world_size(), dist.get_rank()
+    h = t.shape[dim] // n
+    return t.narrow(dim, i * h, h)
+
+
+def roll_rows_case(inputs):
+    """``shard.roll_rows`` of ``roll_x`` (NCHW, rows dim 2; and its NHWC
+    view, rows dim 1) by each shift of ``roll_shifts``: this rank's rows of
+    the output and of the gradient of ``sum(out * roll_w)``."""
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    rows = shard.mesh_axis(mesh, "sp")
+    out = {}
+    for layout, dim in (("nchw", 2), ("nhwc", 1)):
+        x, w = (torch.from_numpy(inputs[k]) for k in ("roll_x", "roll_w"))
+        if layout == "nhwc":
+            x, w = x.permute(0, 2, 3, 1), w.permute(0, 2, 3, 1)
+        for shift in inputs["roll_shifts"]:
+            xl = _rank_rows(x, dim).clone().requires_grad_(True)
+            with shard.sharded(rows=rows):
+                y = shard.roll_rows(xl, shift, dim=dim)
+            (y * _rank_rows(w, dim)).sum().backward()
+            out[(layout, shift)] = {"y": y.detach().numpy(), "dx": xl.grad.numpy()}
+    return out
+
+
+def shared_rows_case(inputs):
+    """``shard.shared_rows`` of this rank's rows of ``roll_x``, each rank's
+    loss its own weighting ``sum(full * roll_w * (rank + 1))`` of the whole
+    tensor: the whole tensor and this rank's gradient.  Then the sp=2
+    non-local block on ``nl_x`` (weights ``nl_state``): this rank's
+    output rows, its input gradient under the loss ``sum(out * nl_w)``,
+    and its parameter gradients summed over the ranks."""
+    mesh = make_mesh(axis_names=("sp",), device_type="cpu")
+    rows = shard.mesh_axis(mesh, "sp")
+    x = torch.from_numpy(inputs["roll_x"])
+    xl = _rank_rows(x, 2).clone().requires_grad_(True)
+    with shard.sharded(rows=rows):
+        full = shard.shared_rows(xl)
+    (full * torch.from_numpy(inputs["roll_w"]) * (rows.index + 1)).sum().backward()
+    out = {"full": full.detach().numpy(), "dx": xl.grad.numpy()}
+
+    blk = NonLocalBlock(inputs["nl_x"].shape[1])
+    blk.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["nl_state"].items()})
+    xl = _rank_rows(torch.from_numpy(inputs["nl_x"]), 2).clone().requires_grad_(True)
+    with shard.sharded(rows=rows):
+        y = blk(xl)
+    (y * _rank_rows(torch.from_numpy(inputs["nl_w"]), 2)).sum().backward()
+    grads = {k: shard.all_reduce_(p.grad.clone(), rows).numpy() for k, p in blk.named_parameters()}
+    out.update(nl_y=y.detach().numpy(), nl_dx=xl.grad.numpy(), nl_grads=grads)
+    return out
+
+
 def sp_unaligned(inputs):
     mesh = make_mesh(axis_names=("sp",), device_type="cpu")
     fwd = make_spatial_forward(_model(inputs, "hyper"), mesh)
@@ -273,10 +418,16 @@ SCENARIOS = {f.__name__: f for f in (
     mesh_and_batch, tiles_identity, tiles_codec, corpus_attack, train_rd, train_context,
     train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_attack_msssim,
     sp_unaligned, train_dpsp, adv_rejects_sp, sp2_split_attack, sp2_cheng_forward,
-    sp2_cheng_attack)}
+    sp2_cheng_attack, sp2_nlaic_split, roll_rows_case, shared_rows_case)}
+SCENARIOS.update({f"sp2_{arch}": (lambda inputs, arch=arch: sp2_adapter(inputs, arch))
+                  for arch in ADAPTERS})
 
 
-def run_world(inputs_path: str, scenarios: List[str]) -> Dict[str, dict]:
+def run_world(inputs_path: str, scenarios: List[str],
+              stream_dir: Optional[str] = None) -> Dict[str, dict]:
+    """With ``stream_dir``, each rank also writes each scenario's result
+    there as it finishes (``<scenario>.<rank>.pkl``), so that the test
+    process can check it while the world goes on."""
     torch.set_num_threads(1)
     with open(inputs_path, "rb") as f:
         inputs = pickle.load(f)
@@ -284,6 +435,11 @@ def run_world(inputs_path: str, scenarios: List[str]) -> Dict[str, dict]:
     with torch.backends.mkldnn.flags(enabled=False):
         for name in scenarios:
             out[name] = SCENARIOS[name](inputs)
+            if stream_dir is not None:
+                path = os.path.join(stream_dir, f"{name}.{dist.get_rank()}.pkl")
+                with open(path + ".tmp", "wb") as f:
+                    pickle.dump(out[name], f)
+                os.replace(path + ".tmp", path)
             dist.barrier()
     return out
 
