@@ -4,9 +4,8 @@
 
 Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 
-1. requires CUDA and prints the card's name and power limit, and whether
-   tensorstore, zstandard and libzstd are there (the routes of a reader of
-   the JAX trainer's zstd-compressed orbax trees);
+1. requires CUDA and prints the card's name and power limit, and the
+   libzstd that the orbax reader (phase 20) loads;
 2. builds the GDN kernel with nvcc (``kernels/_build.py``) and prints what
    ``ptxas -v`` reports of it: registers, shared memory, spills (any spill
    fails the phase); builds the host rANS coder with g++;
@@ -143,7 +142,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     and ``--adv`` training (TRAIN_KVP_STEPS steps on 8 256x256 crops, phase
     12c's TRAIN_* bounds, every rank holding the same parameters); (d)
     four ranks (gloo or NCCL, as in (c)), one dp x sp = 2 x 2 RD step at
-    the same bounds; also in (c), sp=2 runs of the large-image slice: the
+    the same bounds, step 1's gradients in float64 (PAR_F64_GRAD_REL); also
+    in (c), sp=2 runs of the large-image slice: the
     paper's model (cheng2020-gmm q3, demo weights) forward and a
     PAR_SP_STEPS-step `select` attack at 768x512 (ANCHOR_NOISE_ATOL,
     ANCHOR_VI_ATOL), the MS-SSIM attack (MSSSIM_FAR_SHARE, VI_ATOL) and a
@@ -177,7 +177,21 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     ANCHOR_NOISE_ATOL and ANCHOR_VI_ATOL; (e) ``cli.attack_rd --split_eval`` (`cond`, MP_CLI_STEPS
     steps) on a 4096x3072 PNG; (f) the 4096x3072 split attack with the
     kernel and with the plain GDN at NOISE_ATOL and VI_ATOL.  A (C, rows)
-    of its runs that phase 3 did not hold is held here.
+    of its runs that phase 3 did not hold is held here;
+20. resumes the JAX trainer's committed orbax tree (slice 11): (a) reads
+    its step 2000 with the port's reader (OCDBT, zarr v2, libzstd through
+    ctypes), printing the seconds and bytes read, and holds every leaf's
+    path, shape and dtype and the exact sums of params, mu, nu and count to
+    the constants the CPU test pins to JAX's restore; (b) runs
+    ``cli.train -m hyper -q 4 -metric mse --adv -steps 300`` (the flags
+    that name the tree; synthetic batches of 8 256x256 crops) in a
+    temporary directory
+    holding a copy of that step alone, which must print its resume line,
+    take the one step to the ``--adv`` hard stop, save step 2001 and leave
+    2000, 2001 and ``best_loss``, step 2000's files unchanged; it prints the
+    step's time, the inner attack's rate, GDN launches and peak memory;
+    (c) takes one resumed ``train_step`` with the kernel and with the plain
+    GDN, held at phase 12c's bounds with the restored lr.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -191,14 +205,16 @@ own, which the phase waits for and stops.  It prints a ``{"coder":
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous) and 19.  It reads five demo checkpoints: hyper q1, cheng2020-gmm q3,
-and nlaic, tic and fic q3.
+rendezvous), 19 and 20.  It reads five demo checkpoints: hyper q1,
+cheng2020-gmm q3, and nlaic, tic and fic q3; and step 2000 of the orbax
+tree ``ckpts/adv/hyper-0.013-mse-0.0001-300``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes.util
 import io
 import json
 import math
@@ -221,20 +237,18 @@ ADAPTER_CKPTS = {f: os.path.join(ROOT, "ckpts", "demo", f"{f}-q3-mse-synthetic.m
 ADAPTERS = ("nlaic", "tic", "fic", "invcompress", "hific")
 ADAPTER_STEPS = 101
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, the dense TF32 tensor-core
-# rate (the kernel's product runs there) and, as a second column, the fp32
-# rate outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, the fp32 rate outside the
+# tensor cores (the kernel's product runs there) and, as a second column,
+# the dense TF32 tensor-core rate (where v4's ran)
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 
 # kernel vs plain version, elementwise |k - p| <= ATOL + RTOL * |p|.  The
-# plain version is an fp32 product (TF32 off).  The kernel's is 3xTF32: x^2
-# and gamma are each split into a TF32 hi part and a TF32 lo part (rounded
-# to nearest), and hi*hi + hi*lo + lo*hi accumulate in fp32; only lo*lo,
-# about 2^-22 relative, is dropped, and every term is non-negative, so norm
-# stays within about 1e-6 relative of the fp32 product and out within half
-# that plus rsqrtf/sqrtf's 2 ulp
+# plain version is an fp32 product (TF32 off).  The kernel's is an fp32 FMA
+# chain in the product's order (equal to cuBLAS's on an H100), and
+# rsqrtf/sqrtf are within 2 ulp; v4's 3xTF32 (the previous version) kept norm within
+# about 1e-6 relative, which these bounds were set for
 GDN_RTOL, GDN_ATOL = 1e-5, 1e-6
 # 20-step attack, kernel vs plain GDN: Adam divides each gradient by its
 # running RMS plus 1e-8, so a pixel whose gradient is near 1e-8 moves by up
@@ -425,7 +439,17 @@ LEG_HELD_MIB = 16
 # and --adv training (TRAIN_KVP_STEPS steps on 8 x 256x256 crops, the
 # --adv inner attack TRAIN_ADV_ATTACK_STEPS steps) and one dp x sp = 2 x 2
 # step at phase 12c's TRAIN_* bounds, step 1's gradients of every main
-# parameter held at TRAIN_GRAD_REL
+# parameter held at TRAIN_GRAD_REL.  Under dp x sp, step 1's gradients are
+# held in float64 (the plain GDN) at PAR_F64_GRAD_REL instead: at 256x256
+# a rank holds two rows of z, and the float32 sharded run's scale
+# pre-activations sit up to 1.4e-6 from one process's (other conv shapes,
+# other sums), so a scale within that of its 0.11 bound is gated in one
+# run and not in the other.  On an H100 80GB HBM3 at 700 W one such scale
+# put h_s.4's gradient 5.1e-4 apart with the plain GDN (and with the
+# kernel, which equals it); in float64 the pre-activations were equal and
+# the gradients 8.1e-15 apart.  The bound: float64 rounding (2**-53) times
+# the 524,288 terms of the largest sum, 5.8e-11, rounded up
+PAR_F64_GRAD_REL = 1e-10
 PAR_CORPUS = 4
 PAR_CORPUS_STEPS = 101
 PAR_SP_STEPS = 20
@@ -501,22 +525,63 @@ MP_GMM_STEPS = 11
 MP_CLI_STEPS = 101
 MP_KVP_STEPS = 11
 MP_FAR_SHARE = 1e-3
+# phase 20: the resume of the JAX trainer's committed orbax tree (slice 11).
+# (a) The port's reader on ORBAX_STEP: every leaf's path, shape and dtype
+# (their sha256) and the exact float64 sums and sums of
+# squares of the params and of both Adams' mu, nu and count
+# (ORBAX_FINGERPRINT), the constants tests/test_torch_orbax.py pins to
+# JAX's own restore of that step; (b) cli.train with ORBAX_FLAGS, the flags
+# that name that tree (-metric mse included: both packages default to
+# ms-ssim), in a temporary directory holding a copy of the step alone: it
+# resumes at step ORBAX_STEP_NUMBER, takes the one step to the --adv hard
+# stop, saves the next step and keeps the copy (-max_steps stops the run
+# at that same step, and bounds it should the resume fail); (c) one
+# train_step from the restored state with the kernel and with the plain
+# GDN at phase 12c's bounds, lr the restored one (the step's loss, step
+# 1's dgamma and dbeta within TRAIN_GRAD_REL, the params after the step)
+ORBAX_STEP_NUMBER = 2000
+ORBAX_STEP = os.path.join(ROOT, "ckpts", "adv", "hyper-0.013-mse-0.0001-300",
+                          str(ORBAX_STEP_NUMBER))
+ORBAX_FLAGS = ("-m", "hyper", "-q", "4", "-metric", "mse", "--adv", "-steps", "300",
+               "-max_steps", str(ORBAX_STEP_NUMBER + 1))
+ORBAX_FINGERPRINT = {
+    "leaves": "65cfc983dca442e1adf6a6748bfae1b500e02bcfc8008ea187b6ca473fc917ab",
+    "params": [283.78110468620116, 28868.738369090566],
+    "mu": [-20.214313928732814, 1654.3832925467962],
+    "nu": [24872.635254693283, 4409598.030982538],
+    "count": [4000.0, 8000000.0],
+}
 
 
-def zstd_routes() -> dict:
-    """Whether tensorstore and a zstd module import, and the libzstd that
-    ctypes finds."""
-    import ctypes.util
-    import importlib
+def orbax_fingerprint(tree) -> dict:
+    """An orbax item's tree (nested dicts; None for its empty leaves) in
+    brief: ``leaves``, the sha256 of each leaf's dotted path, shape and
+    dtype, sorted, and for the params and both Adams' ``mu``, ``nu`` and
+    ``count`` the float64 sum and sum of squares, each exact to the last
+    bit (``math.fsum``; a float32's square is exact in float64), so that
+    two machines agree to the bit."""
+    import hashlib
 
-    out = {}
-    for mod in ("tensorstore", "zstandard"):
-        try:
-            importlib.import_module(mod)
-            out[mod] = "imports"
-        except ImportError as e:
-            out[mod] = f"{type(e).__name__}: {e}"
-    out["libzstd"] = ctypes.util.find_library("zstd")
+    import numpy as np
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, child in node.items():
+                yield from walk(child, path + (str(key),))
+        elif node is not None:
+            yield path, np.asarray(node)
+
+    lines, groups = [], {"params": [], "mu": [], "nu": [], "count": []}
+    for path, arr in walk(tree, ()):
+        lines.append(f"{'.'.join(path)} {list(arr.shape)} {arr.dtype.str}")
+        group = "params" if path[:2] == ("state", "params") else next(
+            (g for g in ("mu", "nu", "count") if g in path), None)
+        if group:
+            groups[group].append(arr.astype(np.float64).ravel())
+    out = {"leaves": hashlib.sha256("\n".join(sorted(lines)).encode()).hexdigest()}
+    for group, arrays in groups.items():
+        flat = np.concatenate(arrays).tolist() if arrays else []
+        out[group] = [math.fsum(flat), math.fsum(x * x for x in flat)]
     return out
 
 
@@ -634,14 +699,14 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
         nbytes = 4 * (2 * rows * c + c * c + c)
         flops = rows * c * (2 * c + 4)
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        op_ms = 1e3 * flops / TF32_FLOP_PER_S
+        op_ms = 1e3 * flops / FP32_FLOP_PER_S
         rec = {
             "C": c, "rows": rows, "inverse": inverse, "max_abs_err": errs["forward"],
             "dx_max_abs_err": errs["dx"],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "fp32_bound_ms": max(byte_ms, 1e3 * flops / FP32_FLOP_PER_S),
+            "tf32_bound_ms": max(byte_ms, 1e3 * flops / TF32_FLOP_PER_S),
             "layout": layout,
         }
         more = ""
@@ -662,7 +727,7 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
             f"phase {phase} {'IGDN' if inverse else 'GDN '} C={c} rows={rows}: max_abs_err "
             f"{errs['forward']:.3e} (dx {dx_err})  kernel {ms:.4f} ms{more}  plain "
             f"{plain_ms:.4f} ms  addmm {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}; fp32-pipe bound {rec['fp32_bound_ms']:.4f} ms)  "
+            f"({rec['bound_by']}; TF32 tensor-core bound {rec['tf32_bound_ms']:.4f} ms)  "
             f"launch: {layout['tile']}-row tiles, {layout['blocks_per_sm']} blocks/SM, "
             f"grid {layout['grid']}, {layout['smem_bytes']} B shared"
         )
@@ -1396,19 +1461,21 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def train_cli(gdn, args):
-    """``cli.train``'s ``main`` on ``args`` in the current directory:
+def train_cli(gdn, args, base=None):
+    """``cli.train``'s ``main`` on ``args`` in the current directory, after
+    ``base`` (by default phase 12's flags and the hyper q1 demo weights):
     (summary, GDN launches, peak GiB, stdout)."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.cli import train as cli_train
 
+    base = list(TRAIN_FLAGS) + ["-ckpt", CKPT] if base is None else list(base)
     out = io.StringIO()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gdn.reset_launch_counts()
     with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
-        summary = cli_train.main(list(TRAIN_FLAGS) + ["-ckpt", CKPT] + list(args))
+        summary = cli_train.main(base + list(args))
     torch.cuda.synchronize()
     launches = gdn.launch_counts["gdn_fwd"]
     for key in ("loss", "best_loss"):
@@ -1518,7 +1585,7 @@ def phase_training(gdn):
 
         cfg = Config(device="cuda", model="hyper", quality=1, checkpoint=CKPT)
         fresh = create_train_state(load_model(cfg).requires_grad_(True), TRAIN_LR)
-        extra = CheckpointManager(s["ckpt_dir"]).restore(fresh)
+        extra = CheckpointManager(s["ckpt_dir"], "hyper").restore(fresh)
         exact = state_equal(fresh.state_dict(), s["state"].state_dict())
         rec["restored_exactly"] = exact
         if not exact or fresh.step != TRAIN_ADV_STEPS:
@@ -2249,6 +2316,39 @@ def par_batches(steps: int):
     return [to_tensor(next(stream), "cuda") for _ in range(steps)]
 
 
+def par_step1_grads(codec, batch, mesh=None):
+    """Step 1's gradients of the main parameters for the noise-quantized RD
+    loss of ``batch`` (this rank's block under ``mesh``), reduced over the
+    mesh."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.ops import shard
+    from imagecompression_adversarial_tpu_torch.train import (
+        lambda_for, parameter_groups, rate_distortion_loss,
+    )
+    from imagecompression_adversarial_tpu_torch.train.step import mesh_shard, reduce_gradients_
+
+    codec.requires_grad_(True)
+    main, _ = parameter_groups(codec)
+    where = mesh_shard(mesh) if mesh is not None else None
+    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
+        result = codec(batch, quant_mode="noise",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        loss = rate_distortion_loss(result, batch, lambda_for("mse", 1), "mse")["loss"]
+    grads = [torch.zeros_like(p) if g is None else g.detach()
+             for p, g in zip(main, torch.autograd.grad(loss, main, allow_unused=True))]
+    if where is not None:
+        reduce_gradients_(grads, where)
+    return grads
+
+
+def wide(codec):
+    """``codec`` in float64 with the plain GDN (the kernel takes float32)."""
+    codec = codec.double()
+    use_gdn_kernel(codec, False)
+    return codec
+
+
 def par_train(codec, batches, mesh=None, adv: bool = False):
     """Step 1's gradients of the main parameters (reduced over the mesh),
     then one RD step a batch (with ``adv``, on its adversarial example, as
@@ -2260,24 +2360,12 @@ def par_train(codec, batches, mesh=None, adv: bool = False):
 
     from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
     from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
-    from imagecompression_adversarial_tpu_torch.ops import shard
     from imagecompression_adversarial_tpu_torch.train import (
-        create_train_state, lambda_for, parameter_groups, rate_distortion_loss, train_step,
+        create_train_state, lambda_for, train_step,
     )
-    from imagecompression_adversarial_tpu_torch.train.step import mesh_shard, reduce_gradients_
 
-    codec.requires_grad_(True)
+    grads = par_step1_grads(codec, batches[0], mesh)
     lmbda = lambda_for("mse", 1)
-    main, _ = parameter_groups(codec)
-    where = mesh_shard(mesh) if mesh is not None else None
-    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
-        result = codec(batches[0], quant_mode="noise",
-                       generator=torch.Generator(device="cuda").manual_seed(0))
-        loss = rate_distortion_loss(result, batches[0], lmbda, "mse")["loss"]
-    grads = [torch.zeros_like(p) if g is None else g.detach()
-             for p, g in zip(main, torch.autograd.grad(loss, main, allow_unused=True))]
-    if where is not None:
-        reduce_gradients_(grads, where)
     state = create_train_state(codec, TRAIN_LR)
     gen = torch.Generator(device="cuda").manual_seed(42)
     adv_fn = (make_adv_example_fn(codec, RDAttackConfig(steps=TRAIN_ADV_ATTACK_STEPS), mesh)
@@ -2707,31 +2795,50 @@ def par_hold_adapters(two, records, launches) -> None:
 
 
 def par_world_four():
-    """Phase 18d, in each of four ranks: one dp x sp = 2 x 2 RD step."""
+    """Phase 18d, in each of four ranks: one dp x sp = 2 x 2 RD step, and
+    step 1's gradients again in float64."""
     import torch
     import torch.distributed as dist
 
-    from imagecompression_adversarial_tpu_torch.parallel import make_mesh, replicate
+    from imagecompression_adversarial_tpu_torch.parallel import (
+        batch_row_sharding, local_part, make_mesh, replicate,
+    )
 
     codec = par_rank_setup()
     mesh = make_mesh(axis_names=("dp", "sp"), shape=(2, 2))
     replicate(mesh, codec)
-    return {"train_dpsp": par_train_record(codec, False, mesh, 1),
-            "backend": dist.get_backend(), "card": torch.cuda.current_device()}
+    record = par_train_record(codec, False, mesh, 1)
+    codec = replicate(mesh, wide(par_rank_setup()))
+    batch = local_part(mesh, par_batches(1)[0], batch_row_sharding(mesh)).contiguous(
+        memory_format=torch.channels_last)
+    grads = [g.cpu() for g in par_step1_grads(codec, batch.double(), mesh)]
+    record["grads_f64"] = grads if dist.get_rank() == 0 else None
+    return {"train_dpsp": record, "backend": dist.get_backend(),
+            "card": torch.cuda.current_device()}
 
 
-def par_hold_training(label: str, ranks, ref, steps: int) -> dict:
+def par_hold_training(label: str, ranks, ref, steps: int, grads_f64=None) -> dict:
     """Phase 12c's bounds between a sharded run's ranks and the one-process
-    run; every rank must hold the same parameters."""
+    run; every rank must hold the same parameters.  With ``grads_f64`` (the
+    one-process float64 gradients), step 1's gradients are held in float64
+    at PAR_F64_GRAD_REL, and the float32 ones are recorded."""
     from imagecompression_adversarial_tpu_torch.train.step import LR_AUX
+
+    def grad_rel(got, want):
+        return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(got, want))
 
     grads, losses, params, _ = ref
     got = ranks[0]
     rec = {"steps_per_s": [r["steps_per_s"] for r in ranks],
            "peak_gib": [r["peak_gib"] for r in ranks], "launches": [r["launches"] for r in ranks]}
     rec["loss_rel"] = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], losses))
-    rec["grad_rel"] = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-                          for a, b in zip(got["grads"], grads))
+    rec["grad_rel"] = grad_rel(got["grads"], grads)
+    grad_tol = TRAIN_GRAD_REL
+    if grads_f64 is not None:
+        rec["grad_rel_f32"] = rec["grad_rel"]
+        rec["grad_rel"] = grad_rel(got["grads_f64"], grads_f64)
+        grad_tol = PAR_F64_GRAD_REL
     far = total = 0
     rec["param_max_abs"] = 0.0
     for name, a in got["params"].items():
@@ -2747,11 +2854,12 @@ def par_hold_training(label: str, ranks, ref, steps: int) -> dict:
     same = all(r["fingerprint"] == got["fingerprint"] for r in ranks)
     log(f"phase 18 {label} vs one process, {steps} step(s): loss max rel {rec['loss_rel']:.3e} "
         f"(tol {TRAIN_LOSS_RTOL}), step-1 gradients max rel {rec['grad_rel']:.3e} (tol "
-        f"{TRAIN_GRAD_REL}), params max |diff| {rec['param_max_abs']:.3e} (tol 2 x {steps} x lr), "
+        f"{grad_tol}{', float64; float32 %.3e' % rec['grad_rel_f32'] if grads_f64 is not None else ''}"
+        f"), params max |diff| {rec['param_max_abs']:.3e} (tol 2 x {steps} x lr), "
         f"share > lr/10 {rec['far_share']:.2e} (tol {TRAIN_FAR_SHARE}), ranks equal {same}; "
         f"per rank: steps/s {[round(v, 3) for v in rec['steps_per_s']]}, peak GiB "
         f"{[round(v, 3) for v in rec['peak_gib']]}, GDN launches {rec['launches']}")
-    if rec["loss_rel"] > TRAIN_LOSS_RTOL or rec["grad_rel"] > TRAIN_GRAD_REL or \
+    if rec["loss_rel"] > TRAIN_LOSS_RTOL or rec["grad_rel"] > grad_tol or \
             rec["far_share"] > TRAIN_FAR_SHARE or not same:
         raise RuntimeError(f"phase 18 {label}: the sharded run differs beyond the tolerances")
     return rec
@@ -2867,8 +2975,10 @@ def phase_parallel(gdn):
     with cudnn_deterministic():
         codec = load_codec("hyper", 1, CKPT)
         ref = par_train(codec, par_batches(1))
+        exact = [g.cpu() for g in par_step1_grads(wide(load_codec("hyper", 1, CKPT)),
+                                                  par_batches(1)[0].double())]
         records["18d train_dpsp"] = par_hold_training(
-            "18d dp x sp = 2 x 2 train_rd", [r["train_dpsp"] for r in four], ref, 1)
+            "18d dp x sp = 2 x 2 train_rd", [r["train_dpsp"] for r in four], ref, 1, exact)
     for r, out in enumerate(four):
         launches[f"18d dp x sp train_rd rank {r}"] = out["train_dpsp"]["launches"]
     if any(n == 0 for n in launches.values()):
@@ -3091,12 +3201,131 @@ def phase_megapixel(gdn):
     return records, launches, shape_records
 
 
+def phase_orbax_resume(gdn):
+    """Phase 20: the resume of the JAX trainer's committed orbax step
+    (slice 11): (a) the port's reader, (b) ``cli.train`` with ORBAX_FLAGS
+    in a temporary directory holding a copy of the step alone, (c) one
+    resumed ``train_step`` with the kernel and with the plain GDN."""
+    import copy
+    import filecmp
+
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.io import zstd
+    from imagecompression_adversarial_tpu_torch.io.image import to_tensor
+    from imagecompression_adversarial_tpu_torch.models.layers import GDN
+    from imagecompression_adversarial_tpu_torch.train import (
+        create_train_state, lambda_for, orbax, rate_distortion_loss, train_step,
+    )
+    from imagecompression_adversarial_tpu_torch.train.data import synthetic_batches
+    from imagecompression_adversarial_tpu_torch.train.step import LR_AUX
+
+    records, launches = {}, {}
+    t = time.time()
+    tree, nbytes = orbax.read_item(ORBAX_STEP)
+    read_s = time.time() - t
+    fp = orbax_fingerprint(tree)
+    if fp != ORBAX_FINGERPRINT:
+        raise RuntimeError(f"phase 20a: fingerprint {fp}, the CPU test pinned {ORBAX_FINGERPRINT}")
+    records["20a"] = {"read_s": read_s, "bytes_read": nbytes, "libzstd": zstd.version(),
+                      "fingerprint": fp}
+    log(f"phase 20a orbax reader (OCDBT + zarr v2 + libzstd {zstd.version()}) on "
+        f"{os.path.relpath(ORBAX_STEP, ROOT)}: {read_s:.3f} s, {nbytes} bytes read; every leaf's "
+        f"path, shape and dtype and the exact float64 sums of params, mu, nu and count equal "
+        f"the CPU test's (JAX's restore)")
+
+    with in_temp_dir("chip_smoke_orbax_") as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpts", "adv", os.path.basename(os.path.dirname(ORBAX_STEP)))
+        copied = os.path.join(ckpt_dir, str(ORBAX_STEP_NUMBER))
+        shutil.copytree(ORBAX_STEP, copied)
+        t = time.time()
+        s, n, peak, out = train_cli(gdn, ORBAX_FLAGS, base=())
+        run_s = time.time() - t
+        line = f"resume training from epoch 1 (step {ORBAX_STEP_NUMBER})"
+        left = sorted(os.listdir(ckpt_dir))
+        want = [str(ORBAX_STEP_NUMBER), str(ORBAX_STEP_NUMBER + 1), "best_loss"]
+        if line not in out or s["steps"] != ORBAX_STEP_NUMBER + 1 or left != want or \
+                os.path.realpath(s["ckpt_dir"]) != os.path.realpath(ckpt_dir):
+            raise RuntimeError(f"phase 20b: resume line printed {line in out}, {s['steps']} steps, "
+                               f"{left} left in {s['ckpt_dir']}")
+        files = [os.path.relpath(os.path.join(d, f), ORBAX_STEP)
+                 for d, _, fs in os.walk(ORBAX_STEP) for f in fs]
+        _, changed, missing = filecmp.cmpfiles(ORBAX_STEP, copied, files, shallow=False)
+        if changed or missing:
+            raise RuntimeError(f"phase 20b: the resumed step's files changed {changed + missing}")
+        t = s["timing"]
+        rec = {"steps": s["steps"], "run_s": run_s, "step_s": t["first_step_s"],
+               "attack_steps_per_s": t["attack_steps"] / t["attack_s"],
+               "attack_steps": t["attack_steps"], "eval_s": t["eval_s"],
+               "eval_vi": s["best_loss"], "gdn_launches": n, "peak_gib": peak,
+               "loss": s["loss"], "left": left}
+        records["20b"] = rec
+        launches["20 resume hyper q4 --adv"] = n
+        log(f"phase 20b cli.train {' '.join(ORBAX_FLAGS)} on a copy of step "
+            f"{ORBAX_STEP_NUMBER}: '{line}', the step to {s['steps']} in {t['first_step_s']:.2f} s "
+            f"({1 / t['first_step_s']:.3f} steps/s; inner attack {rec['attack_steps_per_s']:.2f} "
+            f"steps/s over {t['attack_steps']} steps), the final eval {t['eval_s']:.2f} s (vi "
+            f"{s['best_loss']:.4f}), the whole run {run_s:.2f} s, loss {s['loss']:.4f}, gdn_fwd "
+            f"launches {n}, peak memory {peak:.2f} GiB; left {left}, step "
+            f"{ORBAX_STEP_NUMBER}'s files unchanged")
+
+    codec = load_codec("hyper", 4).requires_grad_(True)
+    payload = orbax.train_state_dict(tree, create_train_state(codec, TRAIN_LR), "hyper")
+    lr, lmbda = float(tree["extra"]["lr"]), lambda_for("mse", 4)
+    batch = to_tensor(next(synthetic_batches(8, 256, seed=0)), "cuda")
+
+    def gdn_grads(model, x):
+        """dgamma and dbeta of every GDN for the noise-quantized RD loss."""
+        result = model(x, quant_mode="noise",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        loss = rate_distortion_loss(result, x, lmbda, "mse")["loss"]
+        params = [p for m in model.modules() if isinstance(m, GDN) for p in (m.gamma, m.beta)]
+        return [g.detach() for g in torch.autograd.grad(loss, params)]
+
+    def run():
+        state = create_train_state(codec, lr)
+        state.load_state_dict(copy.deepcopy(payload))
+        grads = gdn_grads(codec, batch)
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        step_loss = float(train_step(state, batch, gen, lr, lmbda)["loss"])
+        return grads, step_loss, {k: v.detach().clone() for k, v in codec.state_dict().items()}
+
+    (k, lk), (p, _) = kernel_and_plain(gdn, codec, run)
+    rec = {"kernel_launches": lk, "lr": lr, "loss_rel": abs(k[1] - p[1]) / abs(p[1]),
+           "grad_rel": max(float((a - b).abs().max() / b.abs().max())
+                           for a, b in zip(k[0], p[0]))}
+    far = total = 0
+    rec["param_max_abs"] = 0.0
+    for name, a in k[2].items():
+        step_lr = LR_AUX if name.endswith("quantiles") else lr
+        diff = (a - p[2][name]).abs()
+        rec["param_max_abs"] = max(rec["param_max_abs"], float(diff.max()))
+        if float(diff.max()) > 2 * step_lr:
+            raise RuntimeError(f"phase 20c: {name} {float(diff.max()):.3e} apart after one step")
+        far += int((diff > step_lr / 10).sum())
+        total += diff.numel()
+    rec["far_share"] = far / total
+    records["20c"] = rec
+    log(f"phase 20c kernel vs plain GDN, one resumed step (lr {lr:g}), 8 x 256x256: loss rel "
+        f"{rec['loss_rel']:.3e} (tol {TRAIN_LOSS_RTOL}), dgamma/dbeta max rel {rec['grad_rel']:.3e} "
+        f"(tol {TRAIN_GRAD_REL}), params "
+        f"max |diff| {rec['param_max_abs']:.3e} (tol "
+        f"2 x lr), share > lr/10 {rec['far_share']:.2e} (tol {TRAIN_FAR_SHARE}), kernel "
+        f"launches {lk}")
+    if rec["loss_rel"] > TRAIN_LOSS_RTOL or rec["grad_rel"] > TRAIN_GRAD_REL or \
+            rec["far_share"] > TRAIN_FAR_SHARE:
+        raise RuntimeError(f"phase 20c: kernel vs plain resumed step differ beyond the tolerances: "
+                           f"{json.dumps(rec)}")
+    return records, launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
+    from imagecompression_adversarial_tpu_torch.io import zstd
     from imagecompression_adversarial_tpu_torch.kernels import _build, gdn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3109,8 +3338,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"phase 1 device: {name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    log(f"phase 1 what an orbax tree's reader could use here (its chunks and nodes are zstd): "
-        f"{json.dumps(zstd_routes())}")
+    log(f"phase 1 libzstd for the orbax reader: {ctypes.util.find_library('zstd')}, version "
+        f"{zstd.version()}")
 
     t = time.time()
     cached = _build.library_path().is_file()
@@ -3162,6 +3391,8 @@ def main() -> int:
     mp_records, launches_mp, mp_shapes = phase_megapixel(gdn)
     print(json.dumps({"phase19": mp_records}, default=float), flush=True)
     records += mp_shapes
+    orbax_records, launches_orbax = phase_orbax_resume(gdn)
+    print(json.dumps({"phase20": orbax_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -3182,6 +3413,7 @@ def main() -> int:
             **launches_slice7,
             **launches_parallel,
             **launches_mp,
+            **launches_orbax,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -3189,7 +3421,7 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "fp32_bound_ms": head["fp32_bound_ms"],
+        "tf32_bound_ms": head["tf32_bound_ms"],
         "shape": {"rows": head["rows"], "C": head["C"], "inverse": head["inverse"]},
         "per_shape": records,
     }]}), flush=True)

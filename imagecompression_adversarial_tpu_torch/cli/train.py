@@ -9,7 +9,10 @@ the GPU (port of ``imagecompression_adversarial_tpu/cli/train.py``).
         --adv -noise 0.0001 -steps 101 -max_steps 12
 
 Checkpoints go to ``./ckpts/{anchor|adv|recompress}/...`` under the
-working directory, and a rerun there resumes from the latest.  ``-data``
+working directory, and a rerun there resumes from the latest, also from
+the JAX trainer's orbax steps (``-m hyper -q 4 -metric mse --adv -steps
+300`` resumes ``ckpts/adv/hyper-0.013-mse-0.0001-300/2000``; it needs
+libzstd).  ``-data``
 (or the directory of ``-s``) names the training images; without one the
 batches are synthetic.  ``-device cpu`` runs on the CPU.
 """

@@ -1,5 +1,5 @@
-// Fused GDN / IGDN forward for Hopper (sm_90a): the channel product on the
-// tensor cores in 3xTF32, accurate to fp32.
+// Fused GDN / IGDN forward for Hopper (sm_90a): the channel product in fp32
+// FMA, in the order of an fp32 matrix product.
 //
 // Replaces the Pallas kernel `_gdn_kernel` launched by `_gdn_forward`
 // (scripts/pallas_gdn.py:59-100).  On a (rows, C) view of channels_last
@@ -9,19 +9,22 @@
 //   out[n, o]  = x[n, o] * rsqrt(norm[n, o])     (GDN)
 //   out[n, o]  = x[n, o] * sqrt(norm[n, o])      (IGDN)
 //
-// Bound: bytes.  The largest call of the hyper attack (rows 98,304, C=128)
-// must read x and write out once, 2 x 50.3 MB, 30 us at 3.35 TB/s; its
-// product is 3.2 GFLOP, 6.6 us at the TF32 tensor-core peak and 19.8 us for
-// the three TF32 products below.  On the fp32 pipes the same product takes
-// 48 us, so the product moves to the tensor cores.
+// Bound: operations.  The largest call of a hyper training step (rows
+// 131,072, C=128) must read x and write out once, 2 x 67.1 MB, 40 us at
+// 3.35 TB/s; its product is 4.3 GFLOP, 64 us at the fp32 peak of 67
+// TFLOP/s (8.7 us at the TF32 tensor-core peak).
 //
-// Accuracy: one TF32 product keeps 11 significant bits of each factor, about
-// 5e-4 relative error in norm.  Each factor v is split into
-// hi = tf32(v) and lo = tf32(v - hi), both rounded to nearest as cvt.rna does
-// (raw fp32 bits would be truncated by the unit), and the product is taken
-// as lo*hi + hi*lo + hi*hi, dropping only lo*lo (about 2^-22 relative).  x^2
-// and gamma are non-negative, so no term cancels and norm stays within about
-// 1e-6 relative of an fp32 product; the sums accumulate in fp32.
+// Accuracy: each norm is one fp32 FMA chain over i = 0 .. C-1 from zero,
+// then + beta: the order cuBLAS's SGEMM takes for these shapes on an H100,
+// where the two agree bit for bit (kernels/gdn_accuracy.py).  v4, the previous version,
+// ran the product on the tensor cores in 3xTF32 (each factor split into
+// TF32 hi and lo parts, three products), within ~1e-6 relative of fp32 in
+// every output, but the tensor core adds its products to the accumulator
+// without rounding to nearest: at trained weights that small bias did not
+// cancel in the training gradients' sums over rows, and dgamma sat 2.1e-4
+// from the fp32 product's, 24x fp32's own distance from float64
+// (PERF.md).  Summing each k step apart fixed the gradients but not the
+// attacks' kernel-vs-plain spread, which fp32 FMA in cuBLAS's order closes.
 //
 // Design: 8 warps a block.  Each block copies gamma once into shared memory
 // (row-major (o, i), row stride Cp + 4 floats, zero-padded; it serves as the
@@ -37,22 +40,20 @@
 //   double buffer saved about 4% of the device time of a call that the
 //   host's launch cost already exceeds (PERF.md), so it was left out.
 // - Each warp owns 16 rows and kJ (a template parameter: 2, 4, 6 or 8)
-//   8-column output tiles.  Per k step of 8 it loads its x fragment, squares
-//   and splits it, then loads and splits gamma's fragment for each output
-//   tile and issues three mma.sync.m16n8k8 TF32 products.  With kJ fixed and
-//   gamma padded to the rows the warps cover, that loop unrolls without
-//   branches and the tiles' load, split and product chains interleave; with
-//   a run-time count each tile waited out its own latencies.
-// - Fragments are loaded by hand from shared memory in the PTX ISA's
-//   m16n8k8 layout: WMMA's TF32 loads compile to generic loads with 64-bit
-//   address arithmetic per element.  The padded row stride keeps every
-//   fragment load free of bank conflicts.
+//   8-column output tiles; a lane holds rows g and g + 8 and channels 2t and
+//   2t + 1 of each tile (g = lane / 4, t = lane % 4; v4's m16n8k8
+//   accumulator layout, which the epilogue keeps).  Per k step of 8 a lane
+//   loads and squares its two rows' 8 channels of x (two float4 loads a
+//   row, shared by the kJ tiles), then for each tile loads its two gamma
+//   rows' 8 channels and issues 32 FMAs: 1 shared load to 8 FMAs.  With kJ
+//   fixed and gamma padded to the rows the warps cover, that loop unrolls
+//   without branches.  The padded row stride keeps the loads free of bank
+//   conflicts (lanes that share a row read one address).
 // - The epilogue works on the accumulator registers: add beta, apply
 //   rsqrt/sqrt, multiply by x from the shared tile, write out (four lanes
 //   write a 32-byte run of a row).  x is read from device memory once and
 //   out written once; x^2 and norm stay on chip.
-// In practice it runs at about 4x the byte bound on the largest call; the
-// three TF32 products through mma.sync are the likely pace-setter (PERF.md).
+// Its times beside v4's and the bound are in PERF.md.
 // icat_gdn_layout reports the tile height, blocks an SM and grid a call
 // picks.
 // C may be any value up to kMaxC; rows whose byte offset or base pointer is
@@ -152,27 +153,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// cvt.rna.tf32.f32 for finite v: the magnitude rounded to 10 mantissa bits,
-// ties away from zero (the instruction adds a check for inf and NaN)
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// d += a * b on a 16x8x8 TF32 tile; fragments as in the PTX ISA's m16n8k8
-// layout, with g = lane / 4 and t = lane % 4: a = A[g][t], A[g+8][t],
-// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1]
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// v[0..7] = p[0..7]; p 16-byte aligned
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
 template <bool kInverse, int kJ>
@@ -193,8 +179,6 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 
   const int group = warp % l.groups;
   const int first = kJ * (warp / l.groups);  // first 8-column tile
-  // this lane's row of gamma for output channel 8 * first + g
-  const float* gr = gs + (8 * first + g) * l.ld;
   const int ntiles = (rows + l.tile - 1) / l.tile;
   // x tile `tile` into shared memory, rows past the end zero-filled
   auto copy_tile = [&](int tile) {
@@ -219,20 +203,28 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     for (int j = 0; j < kJ; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
     for (int k0 = 0; k0 < l.Cp; k0 += 8) {
-      const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
-                          xr[8 * l.ld + k0 + t + 4]};
-      uint32_t a_hi[4], a_lo[4];
+      float s0[8], s1[8];  // x^2 of rows g and g + 8, channels k0 .. k0 + 7
+      load8(xr + k0, s0);
+      load8(xr + 8 * l.ld + k0, s1);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
+      for (int kk = 0; kk < 8; ++kk) {
+        s0[kk] *= s0[kk];
+        s1[kk] *= s1[kk];
+      }
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
-        const float* b = gr + 8 * j * l.ld + k0 + t;
-        uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-        split_tf32(b[0], b0_hi, b0_lo);
-        split_tf32(b[4], b1_hi, b1_lo);
-        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
-        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
-        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);
+        // gamma's rows for output channels o and o + 1 of tile j
+        const float* gc = gs + (8 * (first + j) + 2 * t) * l.ld + k0;
+        float c0[8], c1[8];
+        load8(gc, c0);
+        load8(gc + l.ld, c1);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          acc[j][0] = fmaf(s0[kk], c0[kk], acc[j][0]);
+          acc[j][1] = fmaf(s0[kk], c1[kk], acc[j][1]);
+          acc[j][2] = fmaf(s1[kk], c0[kk], acc[j][2]);
+          acc[j][3] = fmaf(s1[kk], c1[kk], acc[j][3]);
+        }
       }
     }
 

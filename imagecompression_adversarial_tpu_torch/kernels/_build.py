@@ -130,7 +130,11 @@ def build_rans() -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
-    lib = ctypes.CDLL(str(build()))
+    return declare_gdn(ctypes.CDLL(str(build())))
+
+
+def declare_gdn(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signatures of ``csrc/gdn.cu``'s entry points."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.icat_gdn_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.icat_gdn_fwd.restype = i32

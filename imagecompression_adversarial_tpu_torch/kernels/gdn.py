@@ -8,14 +8,13 @@ channels_last activations::
     norm[n, o] = sum_i gamma[o, i] * x[n, i]^2 + beta[o]
     out = x * rsqrt(norm)   (GDN)      out = x * sqrt(norm)   (IGDN)
 
-Bound on an H100 SXM: for the largest call on the hyper q=1 attack path
-(768x512 input, rows 98,304, C=128) the x read plus the out write is
-2 x 50.3 MB, about 30 us at 3.35 TB/s; the channel sum is 3.2 GFLOP, 6.6 us
-at the 495 TFLOP/s TF32 tensor-core peak (48 us on the fp32 pipes).  So the
-kernel is bounded by bytes.  It runs the product on the tensor cores in
-3xTF32 (each factor split into two TF32 parts, three products), which keeps
-fp32 accuracy, and reads x once from device memory and writes out once,
-keeping x^2 and the norm on chip.
+Bound on an H100 SXM: for the largest call of a hyper training step
+(8 x 256x256 crops, rows 131,072, C=128) the x read plus the out write is
+2 x 67.1 MB, 40 us at 3.35 TB/s; the channel sum is 4.3 GFLOP, 64 us at the
+67 TFLOP/s fp32 peak.  So the kernel is bounded by operations.  It takes
+the sum as an fp32 FMA chain in the order of an fp32 matrix product (bit for
+bit cuBLAS's on an H100, ``kernels/gdn_accuracy.py``), and reads x once
+from device memory and writes out once, keeping x^2 and the norm on chip.
 
 ``gdn_forward`` sends a CUDA tensor to the kernel and a CPU tensor to
 ``gdn_forward_reference``; it raises on any other device, dtype, layout or

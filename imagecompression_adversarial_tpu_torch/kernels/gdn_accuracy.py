@@ -1,0 +1,343 @@
+"""How the GDN kernel forms its channel product, and what each way costs in
+accuracy and time on the card.
+
+Usage (needs an NVIDIA GPU and nvcc)::
+
+    python -m imagecompression_adversarial_tpu_torch.kernels.gdn_accuracy \
+        [--out FILE]
+
+``csrc/gdn.cu`` is built in variants that differ only in a warp's k step
+of 8 channels: the committed one (fp32 FMA) and v4's tensor-core step
+(3xTF32, the previous version) with the products of ``TF32_PRODUCTS``; the rest of the
+kernel is the committed source.  For each variant, on the
+weights of the JAX trainer's committed orbax step 2000 (hyper q4) and 8
+synthetic 256x256 crops (``chip_smoke.py`` phase 20c's inputs):
+
+* forward: every GDN/IGDN call of one noise-quantized forward, the signed
+  mean of the output's relative error against a float64 product, per call
+  (a bias shows there; rounding to nearest has none), and the largest
+  |relative error|;
+* gradient: dgamma and dbeta of every GDN for the RD loss, the largest
+  distance over the tensors, relative to each tensor's largest element,
+  from the plain float32 GDN's (phase 20c's measure) and from a float64
+  run of the plain GDN (codec and batch in float64, the float32 draws of
+  the noise);
+* time: CUDA events, the median of 20 launches at 131,072 rows and C=128
+  (that forward's largest call) and at 98,304 rows and C=192.
+
+The plain float32 GDN (cuBLAS, TF32 off) is measured beside them.  Prints
+one JSON object, and writes it to ``--out`` where given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import _build, gdn
+
+ROOT = _build.PACKAGE_DIR.parent
+STEP = ROOT / "ckpts" / "adv" / "hyper-0.013-mse-0.0001-300" / "2000"
+
+# The tensor-core helpers of v4, put before the kernel for the
+# TF32 variants.
+TF32_HELPERS = """\
+// cvt.rna.tf32.f32 for finite v: the magnitude rounded to 10 mantissa bits,
+// ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a * b on a 16x8x8 TF32 tile, fragments in the PTX ISA's m16n8k8 layout
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+"""
+# v4's k step: x^2's fragment (rows g and g + 8, channels k0 + t and
+# k0 + t + 4) and gamma's for each output tile split into TF32 hi and lo
+# parts, then PRODUCTS' products into acc[j], the lane's four sums of the
+# tile (D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]).
+TF32_STEP = """\
+      const float* gr = gs + (8 * first + g) * l.ld;
+      const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
+                          xr[8 * l.ld + k0 + t + 4]};
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float* b = gr + 8 * j * l.ld + k0 + t;
+        uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+        split_tf32(b[0], b0_hi, b0_lo);
+        split_tf32(b[4], b1_hi, b1_lo);
+{products}
+      }"""
+TF32_PRODUCTS = {
+    # every product accumulated in acc by the tensor core (v4)
+    "3xTF32, one accumulator": """\
+        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
+    # the same with the lo*lo term kept
+    "4xTF32, one accumulator": """\
+        mma_tf32(acc[j], a_lo, b0_lo, b1_lo);
+        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
+    # the k step's products summed from zero by the tensor core and added
+    # to acc by an fp32 add (rounded to nearest)
+    "3xTF32, k step apart": """\
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(part, a_lo, b0_hi, b1_hi);
+        mma_tf32(part, a_hi, b0_lo, b1_lo);
+        mma_tf32(part, a_hi, b0_hi, b1_hi);
+        for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
+    "4xTF32, k step apart": """\
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(part, a_lo, b0_lo, b1_lo);
+        mma_tf32(part, a_lo, b0_hi, b1_hi);
+        mma_tf32(part, a_hi, b0_lo, b1_lo);
+        mma_tf32(part, a_hi, b0_hi, b1_hi);
+        for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
+}
+#: The variant csrc/gdn.cu holds (v5): fp32 FMA in cuBLAS's order.
+COMMITTED = "fp32 FMA"
+# The body of the kernel's loop over k steps of 8 channels, and the kernel's
+# first line, in the committed source.
+STEP_BODY = re.compile(
+    r"(    for \(int k0 = 0; k0 < l\.Cp; k0 \+= 8\) \{\n)(.*?)(\n    \}\n\n    const int n0)",
+    re.S)
+KERNEL_START = "template <bool kInverse, int kJ>\n"
+PLAIN = "plain float32 (cuBLAS)"
+
+
+def step_body(source: str) -> str:
+    """The committed kernel's k step."""
+    found = STEP_BODY.findall(source)
+    if len(found) != 1 or source.count(KERNEL_START) != 1:
+        raise ValueError(f"csrc/gdn.cu: {len(found)} k-step loops found, expected one")
+    return found[0][1]
+
+
+def variants(source: str) -> dict:
+    """name -> the kernel's source with that k step: the committed one and
+    the TF32 ones (with the tensor-core helpers)."""
+    step_body(source)
+    out = {COMMITTED: source}
+    helpers = source.replace(KERNEL_START, TF32_HELPERS + KERNEL_START)
+    for name, products in TF32_PRODUCTS.items():
+        body = TF32_STEP.replace("{products}", products)
+        out[name] = STEP_BODY.sub(lambda m: m.group(1) + body + m.group(3), helpers)
+    return out
+
+
+def build_variants(workdir: Path) -> dict:
+    """Every variant's library, nvcc run for all at once: name -> CDLL."""
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for i, (name, text) in enumerate(variants(_build.SOURCES[0].read_text()).items()):
+        src = workdir / f"gdn_{i}.cu"
+        src.write_text(text)
+        out = workdir / f"libgdn_{i}.so"
+        procs[name] = (out, subprocess.Popen(_build.nvcc_command(nvcc, [src], out),
+                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                             text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
+        libs[name] = _build.declare_gdn(ctypes.CDLL(str(out)))
+    return libs
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """``gdn_forward`` launching ``lib``'s kernel."""
+    load = _build.load_library
+    _build.load_library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.load_library = load
+
+
+@contextlib.contextmanager
+def float32_noise():
+    """The training forward's uniform noise drawn in float32 and cast to
+    the latent's dtype, so that a float64 run gets a float32 run's draws."""
+    from ..ops import quant
+
+    draw = quant.uniform_noise
+    quant.uniform_noise = lambda y, generator: draw(y.float(), generator).to(y.dtype)
+    try:
+        yield
+    finally:
+        quant.uniform_noise = draw
+
+
+def resumed_codec():
+    """hyper q4 on the card with step 2000's params."""
+    from ..config import Config
+    from ..runtime import load_model
+    from ..train import create_train_state, orbax
+
+    codec = load_model(Config(device="cuda", model="hyper", quality=4))
+    tree, _ = orbax.read_item(str(STEP))
+    payload = orbax.train_state_dict(tree, create_train_state(codec, 1e-4), "hyper")
+    codec.load_state_dict(payload["params"])
+    return codec.requires_grad_(True)
+
+
+def gdn_layers(codec):
+    from ..models.layers import GDN
+
+    return [m for m in codec.modules() if isinstance(m, GDN)]
+
+
+def gdn_grads(codec, x):
+    """dgamma and dbeta of every GDN for the noise-quantized RD loss."""
+    from ..train import lambda_for, rate_distortion_loss
+
+    result = codec(x, quant_mode="noise",
+                   generator=torch.Generator(device=x.device).manual_seed(0))
+    loss = rate_distortion_loss(result, x, lambda_for("mse", 4), "mse")["loss"]
+    params = [p for m in gdn_layers(codec) for p in (m.gamma, m.beta)]
+    return [g.detach() for g in torch.autograd.grad(loss, params)]
+
+
+def gdn_calls(codec, x):
+    """(x rows view, gamma, beta, inverse) of every GDN call of one forward."""
+    calls = []
+
+    def hook(m, args):
+        gamma, beta = m.resolved()
+        nhwc = args[0].detach().contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        calls.append((nhwc.reshape(-1, nhwc.shape[-1]).contiguous(), gamma.detach().contiguous(),
+                      beta.detach().contiguous(), m.inverse))
+
+    handles = [m.register_forward_pre_hook(hook) for m in gdn_layers(codec)]
+    try:
+        with torch.no_grad():
+            codec(x, quant_mode="noise", generator=torch.Generator(device=x.device).manual_seed(0))
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def forward_error(fwd, calls):
+    """Per call, the signed mean of ``fwd``'s relative error against the
+    float64 product; and the largest |relative error| over all calls."""
+    means, worst = [], 0.0
+    for x, gamma, beta, inverse in calls:
+        exact = gdn.gdn_forward_reference(x.double(), gamma.double(), beta.double(), inverse)
+        rel = (fwd(x, gamma, beta, inverse).double() - exact) / exact.abs().clamp_min(1e-30)
+        rel = rel[exact != 0]
+        means.append(float(rel.mean()))
+        worst = max(worst, float(rel.abs().max()))
+    return {"mean_rel": means, "max_rel": worst}
+
+
+def grad_distance(grads, ref):
+    return max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
+               for a, b in zip(grads, ref))
+
+
+def time_ms(fwd, rows, c, gen):
+    x = torch.randn(rows, c, device="cuda", generator=gen)
+    gamma = 0.1 * torch.eye(c, device="cuda") + 0.01 * torch.rand(c, c, device="cuda",
+                                                                   generator=gen)
+    beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
+    times = []
+    for _ in range(21):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fwd(x, gamma, beta, False)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", help="also write the JSON object to this file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("gdn_accuracy: needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from ..io.image import to_tensor
+    from ..train.data import synthetic_batches
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    codec = resumed_codec()
+    batch = to_tensor(next(synthetic_batches(8, 256, seed=0)), "cuda")
+    calls = gdn_calls(codec, batch)
+
+    wide = resumed_codec().double()
+    for m in gdn_layers(wide):
+        m.use_kernel = False
+    with float32_noise():
+        exact = gdn_grads(wide, batch.double())
+    del wide
+
+    for m in gdn_layers(codec):
+        m.use_kernel = False
+    plain = gdn_grads(codec, batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"card": smi, "torch": torch.__version__, "step": str(STEP.relative_to(ROOT)),
+              "calls": [(c[0].shape[1], c[0].shape[0], c[3]) for c in calls], "variants": {}}
+    result["variants"][PLAIN] = {
+        "forward": forward_error(gdn.gdn_forward_reference, calls),
+        "grad_from_plain": 0.0, "grad_from_f64": grad_distance(plain, exact),
+        "ms_131072x128": time_ms(gdn.gdn_forward_reference, 131072, 128, gen),
+        "ms_98304x192": time_ms(gdn.gdn_forward_reference, 98304, 192, gen)}
+    for m in gdn_layers(codec):
+        m.use_kernel = True
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants(Path(tmp))
+        for name, lib in libs.items():
+            with kernel_library(lib):
+                gdn.reset_launch_counts()
+                grads = gdn_grads(codec, batch)
+                if gdn.launch_counts["gdn_fwd"] == 0:
+                    raise RuntimeError(f"{name}: the kernel was not launched")
+                result["variants"][name] = {
+                    "forward": forward_error(gdn.gdn_forward, calls),
+                    "grad_from_plain": grad_distance(grads, plain),
+                    "grad_from_f64": grad_distance(grads, exact),
+                    "ms_131072x128": time_ms(gdn.gdn_forward, 131072, 128, gen),
+                    "ms_98304x192": time_ms(gdn.gdn_forward, 98304, 192, gen)}
+            print(name, json.dumps(result["variants"][name]), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,16 +1,22 @@
-"""Checkpoints of the training state on ``torch.save`` (port of
+"""Checkpoints of the training state (port of
 ``imagecompression_adversarial_tpu/train/checkpoint.py``, which uses orbax).
 
 The directory scheme is the JAX package's:
 ``./ckpts/{anchor|adv|recompress}/{model}-{lambda}-{metric}[...]`` under
-the working directory, one subdirectory a step (the newest ``max_to_keep``
-kept) and a ``best_loss`` copy.  Each holds one ``checkpoint.pt``: params,
-both optimizer states, the step and ``extra`` (epoch, eval loss, lr).
+the working directory, one subdirectory a step and a ``best_loss`` copy.
 
-The port does not read orbax checkpoints.  A step directory without a
-``checkpoint.pt`` (an orbax tree of the JAX package, such as the committed
-``ckpts/adv/hyper-0.013-mse-0.0001-300/``) makes ``restore`` and ``save``
-raise, naming the format; nothing in it is read, pruned or overwritten.
+* The port writes one ``checkpoint.pt`` (``torch.save``) a step: params,
+  both optimizer states, the step and ``extra`` (epoch, eval loss, lr).
+* It restores a step of either format: its own ``checkpoint.pt``, or an
+  orbax step of the JAX trainer (``_CHECKPOINT_METADATA`` and the item in
+  ``default/``), read by ``train/orbax.py`` without JAX.  So a run resumes
+  where the JAX trainer stopped.  A step directory with neither raises,
+  naming what it holds.
+* Saves keep JAX's rules: the newest ``max_to_keep`` step numbers of both
+  formats are kept and older step directories removed whole, and a new
+  best replaces ``best_loss`` whole.  The port never writes into an orbax
+  directory, and it never removes a step directory of neither format.
+  JAX's orbax manager does not read the port's ``checkpoint.pt`` steps.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..io.weights import TRAIN_CHECKPOINT
+from . import orbax
 from .step import TrainState
 
 FILENAME = TRAIN_CHECKPOINT
@@ -44,21 +51,21 @@ def ckpt_dir_for(cfg, lamb: float) -> str:
 
 
 def _foreign(path: str) -> ValueError:
-    kind = ("an orbax checkpoint of the JAX package"
-            if os.path.exists(os.path.join(path, "_CHECKPOINT_METADATA")) else "not this port's format")
     return ValueError(
-        f"{path} holds no {FILENAME} ({kind}); this package reads and writes only its own "
-        "torch.save checkpoints: train in another working directory or move that tree away"
+        f"{path} holds neither this port's {FILENAME} nor an orbax checkpoint of the JAX "
+        f"package ({orbax.CHECKPOINT_METADATA}): train in another working directory or move it"
     )
 
 
 class CheckpointManager:
-    """Numbered step checkpoints plus a mirrored ``best_loss`` one."""
+    """Numbered step checkpoints plus a mirrored ``best_loss`` one.
+    ``arch`` (the model family) maps an orbax step's flax parameters."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, arch: str, max_to_keep: int = 3):
         os.makedirs(directory, exist_ok=True)
         self.directory = directory
         self.max_to_keep = max_to_keep
+        self.arch = arch
 
     def _steps(self):
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -66,6 +73,9 @@ class CheckpointManager:
 
     def _write(self, path: str, payload: Dict[str, Any]) -> None:
         if os.path.isdir(path) and os.listdir(path) and not os.path.isfile(os.path.join(path, FILENAME)):
+            if orbax.is_orbax_step(path):
+                raise ValueError(f"{path} is an orbax checkpoint of the JAX package; this port "
+                                 "does not write into one")
             raise _foreign(path)
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, FILENAME + ".tmp")
@@ -77,10 +87,13 @@ class CheckpointManager:
         payload = {"state": state.state_dict(), "extra": dict(extra or {})}
         self._write(os.path.join(self.directory, str(step)), payload)
         if is_best:
-            self._write(os.path.join(self.directory, BEST), payload)
+            best = os.path.join(self.directory, BEST)
+            if os.path.isdir(best):
+                shutil.rmtree(best)
+            self._write(best, payload)
         for old in self._steps()[:-self.max_to_keep]:
             path = os.path.join(self.directory, str(old))
-            if os.path.isfile(os.path.join(path, FILENAME)):
+            if os.path.isfile(os.path.join(path, FILENAME)) or orbax.is_orbax_step(path):
                 shutil.rmtree(path)
 
     def latest_step(self) -> Optional[int]:
@@ -94,8 +107,11 @@ class CheckpointManager:
         if step is None:
             return None
         path = os.path.join(self.directory, str(step))
-        if not os.path.isfile(os.path.join(path, FILENAME)):
+        if os.path.isfile(os.path.join(path, FILENAME)):
+            payload = torch.load(os.path.join(path, FILENAME), map_location="cpu",
+                                 weights_only=True)
+            state.load_state_dict(payload["state"])
+            return payload["extra"]
+        if not orbax.is_orbax_step(path):
             raise _foreign(path)
-        payload = torch.load(os.path.join(path, FILENAME), map_location="cpu", weights_only=True)
-        state.load_state_dict(payload["state"])
-        return payload["extra"]
+        return orbax.restore(path, state, self.arch)

@@ -12,7 +12,9 @@ recompression-regularized training (``-re``); port of
 * otherwise the eval is the noise-quantized RD loss of the held-out batch,
   every 1000 steps with ``-re`` and 10000 without;
 * ``ReduceLROnPlateau`` on the eval value, a checkpoint at each eval (and a
-  ``best_loss`` copy), a final one, and resume from the latest.
+  ``best_loss`` copy), a final one, and resume from the latest step: the
+  port's own, or an orbax step of the JAX trainer (``train/orbax.py``),
+  whose ``extra.lr`` the scheduler takes up.
 
 The noise of the quantization surrogate comes from a ``torch.Generator``
 seeded with 42 at every start (resume included), as JAX seeds
@@ -83,7 +85,7 @@ def train(cfg: Config, data_root: Optional[str] = None, max_steps: Optional[int]
         epochs_num = min(epochs_num, 2)
     ckpt_dir = ckpt_dir_for(cfg, lamb)
     print(f"Save ckpts to: {ckpt_dir}")
-    ckpts = CheckpointManager(ckpt_dir)
+    ckpts = CheckpointManager(ckpt_dir, cfg.model)
 
     extra = ckpts.restore(state)
     start_epoch = 0

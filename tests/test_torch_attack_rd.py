@@ -167,8 +167,10 @@ def test_cli_run_prints_report_lines(tmp_path, capsys):
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
-# the port needs none of these; PNGs go through its own codec (io/image.py)
-_FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "PIL", "imagecompression_adversarial_tpu")
+# the port needs none of these; PNGs go through its own codec (io/image.py),
+# orbax trees through its own reader (train/orbax.py) and libzstd
+_FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "PIL", "tensorstore", "zstandard",
+              "imagecompression_adversarial_tpu")
 
 
 def _imports(path):

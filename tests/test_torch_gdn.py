@@ -5,7 +5,8 @@ the JAX package's GDN layer (the einsum the repository ships) and with the
 Pallas kernel ``scripts/pallas_gdn.gdn_fused`` in interpret mode.  Tolerance
 atol 1e-5: float32 on both sides, with the channel sum taken in another
 order.  The kernel itself runs only on the card: ``test_torch_gdn_cuda.py``;
-its 3xTF32 arithmetic is emulated here in float32.
+the 3xTF32 arithmetic of its v4, which the accuracy probe still builds, is
+emulated here in float32.
 """
 
 import os
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from imagecompression_adversarial_tpu.models.layers import GDN as JaxGDN
-from imagecompression_adversarial_tpu_torch.kernels import _build, gdn
+from imagecompression_adversarial_tpu_torch.kernels import _build, gdn, gdn_accuracy
 from imagecompression_adversarial_tpu_torch.models.layers import GDN
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
@@ -84,6 +85,22 @@ def test_gdn_function_matches_pallas_interpret(inverse):
     np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgrads[2]), atol=1e-4)
 
 
+@pytest.mark.parametrize("variant", [gdn_accuracy.COMMITTED, *gdn_accuracy.TF32_PRODUCTS])
+def test_accuracy_probe_variant_swaps_the_k_step(variant):
+    """``kernels/gdn_accuracy.py`` builds the kernel with another k step: the
+    committed source is its COMMITTED variant, and a TF32 variant differs
+    from it only in the k step's body and the tensor-core helpers."""
+    source = _build.SOURCES[0].read_text()
+    text = gdn_accuracy.variants(source)[variant]
+    body = gdn_accuracy.step_body(text)
+    assert (text == source) == (variant == gdn_accuracy.COMMITTED)
+    if variant != gdn_accuracy.COMMITTED:
+        assert gdn_accuracy.TF32_PRODUCTS[variant] in body and "fmaf" not in body
+        restored = text.replace(gdn_accuracy.TF32_HELPERS, "").replace(
+            body, gdn_accuracy.step_body(source))
+        assert restored == source
+
+
 def _tf32(t):
     """``cvt.rna.tf32.f32`` on float32: round the magnitude to the nearest
     value with 10 mantissa bits, ties away from zero."""
@@ -93,8 +110,9 @@ def _tf32(t):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("c", [128, 192])
 def test_3xtf32_split_keeps_fp32_accuracy(c, inverse):
-    """The kernel's product, emulated: x^2 and gamma split into TF32 hi and
-    lo parts, summed as lo*hi + hi*lo + hi*hi in float32.  It stays within
+    """v4's product (the kernel's previous version, now the 3xTF32 variants
+    of ``kernels/gdn_accuracy.py``), emulated: x^2 and gamma split into
+    TF32 hi and lo parts, summed as lo*hi + hi*lo + hi*hi in float32.  It stays within
     the card tests' tolerance (rtol 1e-5, atol 1e-6) of a float64 reference
     on their input recipe; one TF32 product (hi*hi) does not."""
     gen = torch.Generator().manual_seed(0)

@@ -3,10 +3,8 @@
 Run where there is an NVIDIA GPU and nvcc (no JAX needed):
 ``python -m pytest tests/test_torch_gdn_cuda.py -m cuda -q``.  Elsewhere
 every test skips.  Tolerance rtol 1e-5, atol 1e-6: the plain version is an
-fp32 product (TF32 off); the kernel's is 3xTF32 on the tensor cores, which
-drops only the lo*lo term (about 2^-22 relative) of non-negative terms, so
-norm stays within about 1e-6 relative (``test_torch_gdn.py`` emulates it);
-rsqrtf/sqrtf are within 2 ulp.
+fp32 product (TF32 off); the kernel's is an fp32 FMA chain in the same
+order, and rsqrtf/sqrtf are within 2 ulp.
 """
 
 import pytest

@@ -13,11 +13,15 @@ JAX package on the CPU.
   (Adam's own bound over 5 steps), with at most 1e-4 of the elements more
   than lr / 10 apart: the bounds of ``tests/test_torch_train.py`` and their
   reasons.
-* The port refuses a directory holding an orbax checkpoint of the JAX
-  package, and writes nothing there.
+* A step directory with neither the port's ``checkpoint.pt`` nor orbax's
+  ``_CHECKPOINT_METADATA`` is refused, and nothing is written there; after
+  a resume from an orbax step of the JAX package, saves remove only whole
+  directories JAX's manager would remove.  The orbax reader itself is
+  ``tests/test_torch_orbax.py``'s.
 """
 
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -128,7 +132,7 @@ def test_checkpoint_round_trip_is_exact_and_keeps_three(tmp_path):
 
     for _ in range(2):  # optimizer state with moments
         train_step(state, x, torch.Generator().manual_seed(1), LR, 0.0018)
-    ckpts = CheckpointManager(str(tmp_path))
+    ckpts = CheckpointManager(str(tmp_path), "hyper")
     for step in range(1, 6):
         ckpts.save(step, state, extra={"epoch": 0, "loss": 1.0 / step, "lr": LR}, is_best=step == 2)
     assert sorted(os.listdir(tmp_path)) == ["3", "4", "5", "best_loss"]
@@ -149,37 +153,58 @@ def test_checkpoint_round_trip_is_exact_and_keeps_three(tmp_path):
 
 
 def test_orbax_directory_is_refused(tmp_path, monkeypatch):
-    """The committed orbax tree raises on restore, naming the format; the
-    trainer stops on a copy of its layout before writing anything."""
-    state = _state()
-    with pytest.raises(ValueError, match="orbax checkpoint of the JAX package"):
-        CheckpointManager(str(ORBAX_DIR)).restore(state)
-
+    """A step directory of neither format raises on restore, naming both,
+    and the trainer stops before writing anything.  After restoring a copy
+    of the committed orbax step 2000, saves keep the newest three step
+    numbers of both formats, remove an older orbax step whole, replace an
+    orbax ``best_loss`` whole, keep a directory of neither format and leave
+    step 2000's bytes as they were."""
     monkeypatch.chdir(tmp_path)
     cfg = Config(device="cpu", model="hyper", quality=1, metric="mse", adv=True, steps=3,
                  noise=1e-4, batch_size=1)
     foreign = os.path.join(ckpt_dir_for(cfg, 0.0018), "10")
     os.makedirs(foreign)
-    open(os.path.join(foreign, "_CHECKPOINT_METADATA"), "w").close()
-    with pytest.raises(ValueError, match="orbax"):
+    open(os.path.join(foreign, "notes.txt"), "w").close()
+    with pytest.raises(ValueError, match="neither this port's checkpoint.pt nor an orbax"):
+        CheckpointManager(os.path.dirname(foreign), "hyper").restore(_state())
+    with pytest.raises(ValueError, match="neither"):
         train(cfg, max_steps=1, crop=64)
-    with pytest.raises(ValueError, match="orbax"):
-        CheckpointManager(os.path.dirname(foreign)).save(10, state)
+    with pytest.raises(ValueError, match="neither"):
+        CheckpointManager(os.path.dirname(foreign), "hyper").save(10, _state())
     written = [f for _, _, files in os.walk(tmp_path) for f in files]
-    assert written == ["_CHECKPOINT_METADATA"]
+    assert written == ["notes.txt"]
+
+    root = tmp_path / "resume"
+    shutil.copytree(ORBAX_DIR / "2000", root / "2000")
+    for fake in ("1980", "1990", "best_loss"):  # orbax's commit marker alone
+        (root / fake).mkdir()
+        (root / fake / "_CHECKPOINT_METADATA").write_text("{}")
+    (root / "1970").mkdir()
+    (root / "1970" / "notes.txt").write_text("")
+    before = {p: p.read_bytes() for p in (root / "2000").rglob("*") if p.is_file()}
+    state = create_train_state(init_model("hyper", 4, 0).requires_grad_(True), LR)
+    ckpts = CheckpointManager(str(root), "hyper")
+    extra = ckpts.restore(state)
+    assert state.step == 2000 and extra["lr"] == 1.5625e-07
+    ckpts.save(2001, state, extra=dict(extra, epoch=0), is_best=True)
+    assert sorted(os.listdir(root)) == ["1970", "1990", "2000", "2001", "best_loss"]
+    assert os.listdir(root / "best_loss") == ["checkpoint.pt"]
+    ckpts.save(2002, state, extra=dict(extra, epoch=0))
+    assert sorted(os.listdir(root)) == ["1970", "2000", "2001", "2002", "best_loss"]
+    assert {p: p.read_bytes() for p in (root / "2000").rglob("*") if p.is_file()} == before
 
 
 # -- the loop ---------------------------------------------------------------
 
 
-def _params_close(got, want, steps):
-    atol = 2 * steps * LR
+def _params_close(got, want, steps, lr=LR):
+    atol = 2 * steps * lr
     far = total = 0
     for name, p in got.items():
         bound = 2 * steps * 1e-3 if name.endswith("quantiles") else atol
         diff = (p - want[name]).abs()
         assert float(diff.max()) <= bound, f"{name}: {float(diff.max())}"
-        far += int((diff > LR / 10).sum()) if not name.endswith("quantiles") else 0
+        far += int((diff > lr / 10).sum()) if not name.endswith("quantiles") else 0
         total += diff.numel()
     assert far <= FAR_SHARE * total, f"{far} of {total} elements more than lr / 10 apart"
 

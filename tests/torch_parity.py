@@ -89,10 +89,10 @@ def one_torch_thread():
 
 
 def _noise_tables(seed=0):
-    """Uniform(-0.5, 0.5) noise for hyper q1's y and z at 64x64, batch 2,
-    NHWC for JAX and NCHW for the port."""
+    """Uniform(-0.5, 0.5) noise for the y and z of hyper q1-5 at 64x64,
+    batch 2 and then batch 1, NHWC for JAX and NCHW for the port."""
     rng = np.random.RandomState(seed)
-    shapes = [(2, 4, 4, 192), (2, 1, 1, 128)]
+    shapes = [(2, 4, 4, 192), (2, 1, 1, 128), (1, 4, 4, 192), (1, 1, 1, 128)]
     nhwc_tab = {s: rng.uniform(-0.5, 0.5, s).astype(np.float32) for s in shapes}
     nchw_tab = {(s[0], s[3], s[1], s[2]): torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
                 for s, a in nhwc_tab.items()}
