@@ -156,7 +156,15 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     ADAPTER_VI_ATOL), and for tic, invcompress and hific a
     PAR_ADAPTER_LARGE_STEPS-step attack at PAR_ADAPTER_LARGE_SIZE (cuDNN
     deterministic, then its default heuristics), each rank's peak beside
-    one process's.  It prints each
+    one process's; (f) slice 12: in the two ranks of (c), PAR_DEFENSE_STEPS-step
+    `select` attacks at 768x512 on sp=2 through the self-ensemble
+    (``batch``), the bit-depth reduction and the resize and with ``-p
+    64``, each held to one process (PAR_DEFENSE_FAR_SHARE, VI_ATOL;
+    bpp_ori within PAR_BPP_RTOL), and the resize's again with the plain GDN, held to its
+    kernel run; in the four ranks of (d), one dp x sp = 2 x 2 step with
+    ``recompress`` on the ``--adv`` inner attack's example (PAR_ADV_STEPS
+    steps), held to one process in float32 (phase 12c's bounds) and in
+    float64 (PAR_F64_ATOL).  It prints each
     world's backend and each rank's card, rate, peak memory and GDN
     launches (added to the ``kernels`` line), and the sp=2 attacks' peaks
     beside the unsharded ones.  Each rank records
@@ -318,13 +326,17 @@ RESIZE_ATOL = 1e-5
 # one-process 2048x1536 run): 4096x3072 (3,145,728, 786,432, 196,608
 # rows), 8192x6144 (12,582,912, 3,145,728, 786,432) and 9344x7040
 # (16,445,440, 4,111,360, 1,027,840); then phase 18e's nlaic and fic
-# (C=192) on half a 768x512 image a rank: 49,152, 12,288 and 3,072 rows
+# (C=192) on half a 768x512 image a rank: 49,152, 12,288 and 3,072 rows;
+# then phase 18f's -p 64 clean forward, a rank's half of the 896x640
+# padded image: 71,680, 17,920 and 4,480 rows (its ensemble's batches of 4
+# variant blocks make 196,608, 49,152 and 12,288, held above)
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
               (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576),
               (128, 196608), (128, 49152), (128, 12288), (128, 3072), (128, 65536),
               (128, 16384), (128, 4096), (128, 2048), (128, 786432), (128, 3145728),
               (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440),
-              (192, 49152), (192, 12288), (192, 3072))
+              (192, 49152), (192, 12288), (192, 3072), (128, 71680), (128, 17920),
+              (128, 4480))
 # dx is checked up to this many rows; the larger calls (2.1 GB a tensor
 # and more) hold their forward alone, so that the input, its gradient, both
 # routes' outputs and dx and the backward's temporaries need not fit at
@@ -500,6 +512,33 @@ PAR_ADAPTER_LARGE_SIZE = (1536, 2048)
 PAR_ADAPTER_LARGE_STEPS = 3
 LARGE_RUNS = (("large", True), ("large_default", False))  # (record, cuDNN deterministic)
 HISTORY_ENTRIES = 2_000_000
+# phase 18f, slice 12 (hyper q1, demo weights, cuDNN deterministic): in the
+# two ranks of 18c, PAR_DEFENSE_STEPS-step `select` attacks at 768x512 on
+# sp=2 through each in-loop defense of PAR_DEFENSES and with -p PAR_PAD
+# (its padded 640 rows divide by sp x 64), held to one process at the
+# bounds of 18c's MS-SSIM attack: at most PAR_DEFENSE_FAR_SHARE of the
+# pixels more than NOISE_ATOL apart (a pixel whose gradient sits near
+# Adam's eps moves apart on any change in the sums' order: the first
+# bitdepth run on an H100 80GB HBM3 at 700 W sat 1.260e-4 from one
+# process, the ensemble's 1.192e-6, while float64 sharded and one-process
+# ensemble runs were equal) and vi within VI_ATOL; bpp_ori within
+# PAR_BPP_RTOL, the CPU tests' row-sharded bound; and the resize again
+# with the plain GDN, held to its kernel run at the same bounds.  In the
+# four ranks of 18d, one dp x sp = 2 x 2 step with `recompress` on the
+# --adv inner attack's example (PAR_ADV_STEPS steps, -noise 0.0001) of
+# 18d's batch, held to one process in float32 at phase 12c's bounds (the
+# example at NOISE_ATOL) and, where float32 parts (18d), in float64 with
+# the plain GDN at PAR_F64_ATOL (the example, the parameters) and
+# PAR_F64_GRAD_REL (the losses)
+PAR_DEFENSE_STEPS = 10
+PAR_PAD = 64
+PAR_DEFENSES = {"ensemble": dict(defend_in_loop="ensemble", ensemble_impl="batch"),
+                "bitdepth": dict(defend_in_loop="bitdepth"),
+                "resize": dict(defend_in_loop="resize"), "pad": dict(pad=PAR_PAD)}
+PAR_BPP_RTOL = 1e-4
+PAR_DEFENSE_FAR_SHARE = MSSSIM_FAR_SHARE
+PAR_ADV_STEPS = 20
+PAR_F64_ATOL = 1e-9
 # phase 19: megapixel attacks on one card (hyper q1 and cheng2020-gmm q3 on
 # their demo weights, seeded numpy images, cuDNN deterministic, `select`
 # unless named): (a) MP_SIZE (H, W) single-program, then split, held to
@@ -2493,6 +2532,7 @@ def par_world_two():
     out["sp_attack"] = {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
                         "steps_per_s": PAR_SP_STEPS / m["s"], **m}
     out.update(par_sp_slice9(codec, sp, x))
+    out.update(par_sp_defenses(codec, sp, x))
     out.update(par_sp_adapters(sp, x))
     for label, adv in (("train_rd", False), ("train_adv", True)):
         codec.load_state_dict(initial)
@@ -2595,6 +2635,118 @@ def par_hold_slice9(codec, two, records, launches) -> None:
     xl = to_tensor(synthetic_image(h, w, seed=44), "cuda")
     held(f"split {PAR_SP_STEPS}-step select attack {w}x{h}", "sp_split",
          *one_process(codec, xl, two_phase_impl="select", split_eval=True), NOISE_ATOL, VI_ATOL)
+
+
+def par_defense_cfg(name: str):
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+
+    return RDAttackConfig(steps=PAR_DEFENSE_STEPS, two_phase_impl="select", **PAR_DEFENSES[name])
+
+
+def par_sp_defenses(codec, sp, x):
+    """Phase 18f's sp=2 runs of slice 12, in each rank: the attack through
+    each in-loop defense and with -p (PAR_DEFENSES), each timed on its
+    first run, and the resize's again with the plain GDN."""
+    from imagecompression_adversarial_tpu_torch.parallel import make_spatial_attack_fn
+
+    def run(name):
+        fn = make_spatial_attack_fn(codec, par_defense_cfg(name), sp)
+        res, m = measured(lambda: fn(x))
+        return {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
+                "bpp_ori": float(res["bpp_ori"]), "steps_per_s": PAR_DEFENSE_STEPS / m["s"], **m}
+
+    out = {f"sp_{name}": run(name) for name in PAR_DEFENSES}
+    use_gdn_kernel(codec, False)
+    out["sp_resize_plain"] = run("resize")
+    use_gdn_kernel(codec, True)
+    return out
+
+
+def par_hold_defenses(codec, two, records, launches) -> None:
+    """Phase 18f: the sp=2 runs of ``par_sp_defenses`` held to one process
+    (cuDNN deterministic, as the ranks run), and the resize's plain-GDN run
+    to its kernel run."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+
+    def rows(key):
+        return torch.from_numpy(np.concatenate([r[key]["im_"] for r in two], axis=2)).cuda()
+
+    x = to_tensor(synthetic_image(512, 768, seed=0), "cuda")
+    failed = []
+    for name in PAR_DEFENSES:
+        ref, m_ref = measured(lambda: make_attack_fn(codec, par_defense_cfg(name))(x))
+        a = [r[f"sp_{name}"] for r in two]
+        diff = (rows(f"sp_{name}") - ref["im_"]).abs()
+        far = float((diff > NOISE_ATOL).float().mean())
+        dvi = max(abs(r["vi"] - float(ref["vi"])) for r in a)
+        dbpp = max(abs(r["bpp_ori"] / float(ref["bpp_ori"]) - 1.0) for r in a)
+        label = f"18f sp=2 {PAR_DEFENSE_STEPS}-step select attack 768x512, " + (
+            f"-p {PAR_PAD}" if name == "pad" else f"defense {name}")
+        log(f"phase {label}: noise max |diff| {float(diff.max()):.3e}, share > {NOISE_ATOL} "
+            f"{far:.2e} (tol {PAR_DEFENSE_FAR_SHARE}), vi {a[0]['vi']:.6f} / "
+            f"{float(ref['vi']):.6f} (tol {VI_ATOL}), bpp_ori rel {dbpp:.2e} (tol "
+            f"{PAR_BPP_RTOL}); per rank steps/s "
+            f"{[round(r['steps_per_s'], 3) for r in a]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in a]} against {m_ref['peak_gib']:.3f} in one "
+            f"process, GDN launches {[r['launches'] for r in a]} against {m_ref['launches']}; one "
+            f"process {PAR_DEFENSE_STEPS / m_ref['s']:.3f} steps/s")
+        if far > PAR_DEFENSE_FAR_SHARE or dvi > VI_ATOL or dbpp > PAR_BPP_RTOL or \
+                not math.isfinite(a[0]["vi"]):
+            failed.append(label)
+        records[f"18f sp {name}"] = {
+            "noise_max_abs": float(diff.max()), "far_share": far, "vi_abs": dvi,
+            "bpp_ori_rel": dbpp, "steps_per_s": [r["steps_per_s"] for r in a],
+            "peak_gib": [r["peak_gib"] for r in a], "launches": [r["launches"] for r in a],
+            "one_process_steps_per_s": PAR_DEFENSE_STEPS / m_ref["s"],
+            "one_process_peak_gib": m_ref["peak_gib"], "one_process_launches": m_ref["launches"]}
+        for r, out in enumerate(a):
+            launches[f"18f sp=2 {name} rank {r}"] = out["launches"]
+    k, p = [r["sp_resize"] for r in two], [r["sp_resize_plain"] for r in two]
+    diff = (rows("sp_resize") - rows("sp_resize_plain")).abs()
+    far = float((diff > NOISE_ATOL).float().mean())
+    dvi = abs(k[0]["vi"] - p[0]["vi"])
+    log(f"phase 18f sp=2 resize attack 768x512, kernel vs plain GDN: noise max |diff| "
+        f"{float(diff.max()):.3e}, share > {NOISE_ATOL} {far:.2e} (tol {PAR_DEFENSE_FAR_SHARE}), "
+        f"vi {k[0]['vi']:.6f} / {p[0]['vi']:.6f} (tol {VI_ATOL}), GDN launches "
+        f"{[r['launches'] for r in p]} (plain)")
+    if far > PAR_DEFENSE_FAR_SHARE or dvi > VI_ATOL or any(r["launches"] for r in p):
+        failed.append("the resize's kernel and plain-GDN runs")
+    records["18f sp resize kernel vs plain"] = {"noise_max_abs": float(diff.max()),
+                                                "far_share": far, "vi_abs": dvi}
+    if failed:
+        raise RuntimeError(f"phase 18f: differs from its reference: {failed}")
+
+
+def par_adv_recompress_step(codec, batch, mesh=None):
+    """One RD step with ``recompress`` on the --adv inner attack's example
+    of ``batch`` (PAR_ADV_STEPS steps at -noise 0.0001), from the codec's
+    weights, the noise seeded as in phase 12c; with a mesh, ``batch`` is
+    this rank's block.  Returns the example, the logs, the parameters and
+    the synced seconds of the attack and the step."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
+    from imagecompression_adversarial_tpu_torch.train import (
+        create_train_state, lambda_for, train_step,
+    )
+
+    codec.requires_grad_(True)
+    adv_fn = make_adv_example_fn(codec, RDAttackConfig(steps=PAR_ADV_STEPS), mesh)
+    state = create_train_state(codec, TRAIN_LR)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    torch.cuda.synchronize()
+    t = time.time()
+    x_adv = adv_fn(batch, 1e-4)
+    logs = train_step(state, x_adv, gen, TRAIN_LR, lambda_for("mse", 1), recompress=True, mesh=mesh)
+    logs = {k: float(v) for k, v in logs.items()}
+    torch.cuda.synchronize()
+    return (x_adv.cpu(), logs, {k: v.detach().cpu() for k, v in codec.state_dict().items()},
+            time.time() - t)
 
 
 def adapter_attack_cfg(model: str, steps: int):
@@ -2795,8 +2947,10 @@ def par_hold_adapters(two, records, launches) -> None:
 
 
 def par_world_four():
-    """Phase 18d, in each of four ranks: one dp x sp = 2 x 2 RD step, and
-    step 1's gradients again in float64."""
+    """Phases 18d and 18f, in each of four ranks: one dp x sp = 2 x 2 RD
+    step, and step 1's gradients again in float64; one step with
+    ``recompress`` on the --adv inner attack's example, in float32 and in
+    float64."""
     import torch
     import torch.distributed as dist
 
@@ -2813,8 +2967,18 @@ def par_world_four():
         memory_format=torch.channels_last)
     grads = [g.cpu() for g in par_step1_grads(codec, batch.double(), mesh)]
     record["grads_f64"] = grads if dist.get_rank() == 0 else None
-    return {"train_dpsp": record, "backend": dist.get_backend(),
-            "card": torch.cuda.current_device()}
+    out = {"train_dpsp": record, "backend": dist.get_backend(),
+           "card": torch.cuda.current_device()}
+    # 18f: the --adv inner attack and recompression on dp x sp, float32
+    # with the kernel, then float64 with the plain GDN
+    for key, codec, b in (("adv_recompress", par_rank_setup(), batch),
+                          ("adv_recompress_f64", wide(par_rank_setup()), batch.double())):
+        (x_adv, logs, params, seconds), m = measured(
+            lambda: par_adv_recompress_step(replicate(mesh, codec), b, mesh))
+        out[key] = {"x_adv": x_adv, "logs": logs,
+                    "params": params if dist.get_rank() == 0 else None,
+                    "fingerprint": par_fingerprint(params), "step_s": seconds, **m}
+    return out
 
 
 def par_hold_training(label: str, ranks, ref, steps: int, grads_f64=None) -> dict:
@@ -2863,6 +3027,69 @@ def par_hold_training(label: str, ranks, ref, steps: int, grads_f64=None) -> dic
             rec["far_share"] > TRAIN_FAR_SHARE or not same:
         raise RuntimeError(f"phase 18 {label}: the sharded run differs beyond the tolerances")
     return rec
+
+
+def par_hold_adv_recompress(four, records) -> None:
+    """Phase 18f: the four ranks' dp x sp step with ``recompress`` on the
+    --adv inner attack's example, held to one process: in float32 (the
+    kernel) at phase 12c's bounds and in float64 (the plain GDN) at
+    PAR_F64_ATOL and PAR_F64_GRAD_REL; every rank must hold the same
+    parameters."""
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.train.step import LR_AUX
+
+    for key, make, f64 in (("adv_recompress", lambda: load_codec("hyper", 1, CKPT), False),
+                           ("adv_recompress_f64", lambda: wide(load_codec("hyper", 1, CKPT)),
+                            True)):
+        batch = par_batches(1)[0]
+        with cudnn_deterministic():
+            x_ref, logs_ref, params_ref, s_ref = par_adv_recompress_step(
+                make(), batch.double() if f64 else batch)
+        ranks = [r[key] for r in four]
+        # rank = 2 x (dp index) + (sp index); a rank holds half the rows of
+        # half the batch
+        x_adv = torch.cat([torch.cat([ranks[2 * d + i]["x_adv"] for i in range(2)], dim=2)
+                           for d in range(2)])
+        noise = float((x_adv - x_ref).abs().max())
+        loss_rel = max(abs(r["logs"][k] / logs_ref[k] - 1.0) for r in ranks
+                       for k in ("loss", "recompress_loss"))
+        far = total = 0
+        worst = 0.0
+        for name, a in ranks[0]["params"].items():
+            diff = (a - params_ref[name]).abs()
+            lr = LR_AUX if name.endswith("quantiles") else TRAIN_LR
+            worst = max(worst, float(diff.max()) / (2 * lr))
+            far += int((diff > lr / 10).sum())
+            total += diff.numel()
+        same = all(r["fingerprint"] == ranks[0]["fingerprint"] for r in ranks)
+        param_max = max(float((a - params_ref[n]).abs().max())
+                        for n, a in ranks[0]["params"].items())
+        if f64:
+            bounds = f"example tol {PAR_F64_ATOL}, losses tol {PAR_F64_GRAD_REL}, params tol " \
+                     f"{PAR_F64_ATOL}"
+            ok = noise <= PAR_F64_ATOL and loss_rel <= PAR_F64_GRAD_REL and \
+                param_max <= PAR_F64_ATOL
+        else:
+            bounds = f"example tol {NOISE_ATOL}, losses tol {TRAIN_LOSS_RTOL}, params tol 2 x " \
+                     f"lr, share > lr/10 {far / total:.2e} (tol {TRAIN_FAR_SHARE})"
+            ok = noise <= NOISE_ATOL and loss_rel <= TRAIN_LOSS_RTOL and worst <= 1.0 and \
+                far <= TRAIN_FAR_SHARE * total
+        log(f"phase 18f dp x sp = 2 x 2 recompress step on the {PAR_ADV_STEPS}-step --adv example "
+            f"({'float64, plain GDN' if f64 else 'float32, the kernel'}) vs one process: example "
+            f"max |diff| {noise:.3e}, loss and recompress_loss max rel {loss_rel:.3e}, params max "
+            f"|diff| {param_max:.3e} ({bounds}), ranks equal {same}; recompress_loss "
+            f"{ranks[0]['logs']['recompress_loss']:.6f}; per rank: s "
+            f"{[round(r['step_s'], 3) for r in ranks]} (one process {s_ref:.3f}), peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in ranks]}, GDN "
+            f"launches {[r['launches'] for r in ranks]}")
+        if not ok or not same or (not f64 and any(r["launches"] == 0 for r in ranks)):
+            raise RuntimeError(f"phase 18f {key}: the dp x sp step differs from one process")
+        records[f"18f dp x sp {key}"] = {
+            "example_max_abs": noise, "loss_rel": loss_rel, "param_max_abs": param_max,
+            "far_share": far / total, "step_s": [r["step_s"] for r in ranks],
+            "one_process_step_s": s_ref, "peak_gib": [r["peak_gib"] for r in ranks],
+            "launches": [r["launches"] for r in ranks]}
 
 
 def phase_parallel(gdn):
@@ -2955,6 +3182,7 @@ def phase_parallel(gdn):
                              "one_process_peak_gib": m_ref["peak_gib"],
                              "one_process_steps_per_s": PAR_SP_STEPS / m_ref["s"]}
         par_hold_slice9(codec, two, records, launches)
+        par_hold_defenses(codec, two, records, launches)
         par_hold_adapters(two, records, launches)
         for label, adv in (("train_rd", False), ("train_adv", True)):
             codec = load_codec("hyper", 1, CKPT)
@@ -2979,14 +3207,18 @@ def phase_parallel(gdn):
                                                   par_batches(1)[0].double())]
         records["18d train_dpsp"] = par_hold_training(
             "18d dp x sp = 2 x 2 train_rd", [r["train_dpsp"] for r in four], ref, 1, exact)
+    par_hold_adv_recompress(four, records)
     for r, out in enumerate(four):
         launches[f"18d dp x sp train_rd rank {r}"] = out["train_dpsp"]["launches"]
+        launches[f"18f dp x sp --adv + recompress rank {r}"] = out["adv_recompress"]["launches"]
     if any(n == 0 for n in launches.values()):
         raise RuntimeError(f"phase 18: a rank launched no GDN kernel: {launches}")
     runs = [one["forward"], one["attack"], *[r["train_dpsp"] for r in four]]
+    runs += [r["adv_recompress"] for r in four]
     runs += [r[k] for r in two for k in ("corpus", "sp_forward", "sp_attack", "train_rd",
                                           "train_adv", "sp_gmm_forward", "sp_gmm_attack",
-                                          "sp_msssim", "sp_split")]
+                                          "sp_msssim", "sp_split",
+                                          *(f"sp_{name}" for name in PAR_DEFENSES))]
     runs += [m[k] for r in two for m in (r[f"sp_{f}"] for f in ADAPTERS) for k in m]
     par_check_shapes(runs)
     log(f"phase 18 GDN (C, rows) of the ranks, each held to the plain GDN in phase 3: "

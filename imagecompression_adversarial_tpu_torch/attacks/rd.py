@@ -63,7 +63,9 @@ def _adversarial_input(x, noise_c, cfg: RDAttackConfig):
 
 def _output(model, im_in, cfg: RDAttackConfig, clip_fn):
     """The quantization-free reconstruction, through the in-loop defense.
-    The ensemble and the latent clip take one image at a time."""
+    The ensemble and the latent clip take one image at a time.  Under a
+    row shard the ensemble and the resize work on the whole image and
+    return this rank's rows (``defenses/self_ensemble.py``)."""
     mode = cfg.defend_in_loop
     if mode == "ensemble":
         return torch.cat([self_ensemble(model, im, "none", cfg.ensemble_impl)["x_hat"]
@@ -199,9 +201,14 @@ def make_attack_fn(
     def clean(x):
         """Clean reconstruction, rate and loss reference of one image."""
         if cfg.pad:
+            # the whole image reflect-padded; under a row shard each rank
+            # runs the codec on its rows of the padded image, and takes its
+            # rows of the cropped reconstruction
             p = cfg.pad
-            result_s = model(F.pad(x, (p, p, p, p), mode=cfg.padding_mode), "dequantize")
-            output_s = result_s["x_hat"][:, :, p:-p, p:-p].clamp(0.0, 1.0)
+            padded = F.pad(shard.gather_rows(x), (p, p, p, p), mode=cfg.padding_mode)
+            result_s = model(shard.own_rows(padded), "dequantize")
+            output_s = shard.own_rows(
+                shard.gather_rows(result_s["x_hat"])[:, :, p:-p, p:-p].clamp(0.0, 1.0))
         else:
             result_s = model(x, quant_mode="dequantize")
             output_s = result_s["x_hat"].clamp(0.0, 1.0) if cfg.clamp else result_s["x_hat"]
@@ -390,15 +397,13 @@ def make_adv_example_fn(model, cfg: RDAttackConfig,
     whether the parameters require grad.
 
     With a ``mesh`` (``parallel/mesh.py``), ``x`` is this rank's block of
-    a batch split over the mesh's ``dp`` axis, and both MSEs are the global
-    batch's (all-reduced), so the host ``if`` picks the same phase on every
-    rank, as JAX's psum'd program does.  A mesh whose ``sp`` axis splits
-    the rows raises: the attack has no row-sharded form here.
+    a batch split over the mesh's ``dp`` axis and, where the mesh has an
+    ``sp`` axis, of its rows split over ``sp`` (``H`` a multiple of ``sp x
+    64``; the codec must be row-shardable).  The clean forward and the loop
+    run under that shard (``ops/shard.py``), and both MSEs are the global
+    batch's, summed over both axes, so the host ``if`` picks the same
+    phase on every rank, as JAX's GSPMD program does on the whole batch.
     """
-    if mesh is not None and "sp" in (mesh.mesh_dim_names or ()) and \
-            mesh.size(mesh.mesh_dim_names.index("sp")) > 1:
-        raise ValueError("make_adv_example_fn takes a mesh split over dp only, "
-                         "not over sp: its attack has no row-sharded form")
     if cfg.debug_model or cfg.random_restarts > 1:
         raise ValueError("make_adv_example_fn starts from zero noise: no debug_model, no restarts")
     supported = bool(getattr(model, "supports_phase_synthesis", False))
@@ -409,10 +414,22 @@ def make_adv_example_fn(model, cfg: RDAttackConfig,
         )
     lrs = multistep_lr_schedule(cfg.steps, cfg.lr, cfg.lr_milgamma).tolist()
     eps = cfg.epsilon / 255.0
-    dp = None if mesh is None else shard.mesh_axis(mesh, "dp")
+    dp = rows = None
+    if mesh is not None:
+        dp = shard.mesh_axis(mesh, "dp")
+        if "sp" in (mesh.mesh_dim_names or ()):
+            from ..parallel.spatial_shard import check_row_shardable
+
+            rows = shard.mesh_axis(mesh, "sp")
+            check_row_shardable(model)
 
     def batch_mean(t):
-        return torch.mean(t) if dp is None else shard.all_mean(t, dp)
+        if dp is None:
+            return torch.mean(t)
+        total, count = shard.all_sum(t.sum(), dp), t.numel() * dp.size
+        if rows is not None:
+            total, count = shard.all_sum(total, rows), count * rows.size
+        return total / count
 
     def output(im):
         return model.g_s_phase(model.g_a(im)) if use_phase else model(im, quant_mode="none")["x_hat"]
@@ -427,8 +444,12 @@ def make_adv_example_fn(model, cfg: RDAttackConfig,
         return 1.0 - batch_mean((output_s - out) ** 2)
 
     def adv_example(x: torch.Tensor, noise_threshold: float) -> torch.Tensor:
+        if rows is not None and x.shape[2] % shard.ROW_MULTIPLE:
+            raise ValueError(f"H={x.shape[2] * rows.size} must divide by "
+                             f"sp*{shard.ROW_MULTIPLE}={rows.size * shard.ROW_MULTIPLE}")
         x = x.contiguous(memory_format=torch.channels_last)
-        with frozen(model):
+        where = shard.sharded(dp, rows) if dp is not None else contextlib.nullcontext()
+        with frozen(model), where:
             with torch.no_grad():
                 result_s = model(x, quant_mode="dequantize")
                 ref = (model.g_s_phase(result_s[model.phase_reference_latent]) if use_phase

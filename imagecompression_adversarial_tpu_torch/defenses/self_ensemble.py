@@ -11,6 +11,21 @@ swapped); ``impl='scan'`` runs one variant at a time, each under
 ``torch.utils.checkpoint``, so that a backward through the defense holds
 one variant's activations at a time.  Everything is differentiable, so an
 adaptive attack can optimize through the defense.
+
+Under a row shard (``ops/shard.py``, the parallel layer's ``sp``) each
+defense computes what the unsharded one computes.  The bit-depth
+reduction is pointwise.  The resize reads rows across the blocks' edges,
+and the rotated variants swap rows and columns, so those two gather the
+3-channel image (``shard.shared_rows``, whose backward sums every rank's
+gradient of a rank's rows), work on the whole image and keep this rank's
+rows (``shard.own_rows``).  The ensemble runs the codec on each rank's
+row block of each variant, gathers the 8 reconstructions, picks the
+winner on the whole image (every rank picks the same) and keeps this
+rank's rows of it; its rate sums the ranks' likelihoods.  At 4096x3072
+in float32 a gathered image is 151 MB on every rank: the resize gathers
+one a step, the ensemble nine (the input and 8 reconstructions, 1.36 GB)
+and builds the 8 whole variants (1.21 GB), against the codec activations
+of its 8 variants' blocks.
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import shard
 from ..ops.bounds import ste_round
 
 _LOG2 = math.log(2.0)
@@ -47,10 +63,9 @@ def dihedral_inverse_group(x_hats_flip: torch.Tensor, x_hats_rot: torch.Tensor) 
     return torch.stack(inv_flips + inv_rots)
 
 
-def _bpp(likelihoods: Dict[str, torch.Tensor], num_pixels: int) -> torch.Tensor:
-    """Estimated bpp of each element of a batch: (n,)."""
-    total = sum(torch.log(lik).flatten(1).sum(1) for lik in likelihoods.values())
-    return total / (-_LOG2 * num_pixels)
+def _log_lik(likelihoods: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sum of the log-likelihoods of each element of a batch: (n,)."""
+    return sum(torch.log(lik).flatten(1).sum(1) for lik in likelihoods.values())
 
 
 def self_ensemble(
@@ -59,37 +74,45 @@ def self_ensemble(
     quant_mode: str = "dequantize",
     impl: str = "batch",
 ) -> Dict[str, torch.Tensor]:
-    """Geometric self-ensemble defense on a ``(1, C, H, W)`` image.
+    """Geometric self-ensemble defense on a ``(1, C, H, W)`` image (this
+    rank's rows of it under a row shard).
 
     ``apply_fn(im, quant_mode=...)`` is the codec's forward.  Returns
-    ``x_hat`` (the winner, un-transformed and clamped to [0, 1]), its
-    ``bpp``, ``best_idx`` and ``best_mse``; the winner is picked on the
-    device (first minimum), with no host sync.
+    ``x_hat`` (the winner, un-transformed and clamped to [0, 1]; this
+    rank's rows under a row shard), its ``bpp``, ``best_idx`` and
+    ``best_mse``; the winner is picked on the device (first minimum), with
+    no host sync.
     """
-    flips, rots = dihedral_forward(x)
-    num_pixels = x.shape[2] * x.shape[3]
+    whole = shard.shared_rows(x)
+    flips, rots = (shard.own_rows(v) for v in dihedral_forward(whole))
+    num_pixels = whole.shape[2] * whole.shape[3]
     if impl == "scan":
+        where = shard.current()
 
         def body(v):
-            result = apply_fn(v, quant_mode=quant_mode)
-            return result["x_hat"][0], _bpp(result["likelihoods"], num_pixels)[0]
+            # the recompute runs on the autograd engine's thread for CUDA
+            # tensors: it enters the row shard its forward ran under
+            with shard.within(where):
+                result = apply_fn(v, quant_mode=quant_mode)
+            return result["x_hat"][0], _log_lik(result["likelihoods"])[0]
 
         outs = [checkpoint(body, flips[i:i + 1], use_reentrant=False) for i in range(4)]
         outs += [checkpoint(body, rots[i:i + 1], use_reentrant=False) for i in range(4)]
-        bpps = torch.stack([o[1] for o in outs])
-        recon = dihedral_inverse_group(torch.stack([o[0] for o in outs[:4]]),
-                                       torch.stack([o[0] for o in outs[4:]]))
+        log_lik = torch.stack([o[1] for o in outs])
+        x_hats = (torch.stack([o[0] for o in outs[:4]]), torch.stack([o[0] for o in outs[4:]]))
     elif impl == "batch":
         res_f = apply_fn(flips, quant_mode=quant_mode)
         res_r = apply_fn(rots, quant_mode=quant_mode)
-        bpps = torch.cat([_bpp(r["likelihoods"], num_pixels) for r in (res_f, res_r)])
-        recon = dihedral_inverse_group(res_f["x_hat"], res_r["x_hat"])
+        log_lik = torch.cat([_log_lik(r["likelihoods"]) for r in (res_f, res_r)])
+        x_hats = (res_f["x_hat"], res_r["x_hat"])
     else:
         raise ValueError(f"impl={impl!r} not in ['batch', 'scan']")
-    mses = torch.mean((recon - x) ** 2, dim=(1, 2, 3))
+    bpps = shard.row_sum(log_lik) / (-_LOG2 * num_pixels)
+    recon = dihedral_inverse_group(*(shard.shared_rows(v) for v in x_hats))
+    mses = torch.mean((recon - whole) ** 2, dim=(1, 2, 3))
     best = torch.argmin(mses).reshape(1)
     return {
-        "x_hat": torch.index_select(recon, 0, best).clamp(0.0, 1.0),
+        "x_hat": shard.own_rows(torch.index_select(recon, 0, best)).clamp(0.0, 1.0),
         "bpp": bpps.index_select(0, best)[0],
         "best_idx": best[0],
         "best_mse": mses.index_select(0, best)[0],
@@ -120,12 +143,14 @@ def draw_resize_scale(seed: int) -> float:
 
 def random_resize(x: torch.Tensor, scale: float = 243.0 / 256.0) -> Tuple[torch.Tensor, float]:
     """Bicubic (Keys a = -0.5) antialiased resize of an NCHW batch down by
-    ``scale`` and back up to its size."""
-    h, w = x.shape[2], x.shape[3]
-    down = F.interpolate(x, size=(int(h * scale), int(w * scale)), mode="bicubic",
+    ``scale`` and back up to its size; under a row shard, of the whole
+    images, returning this rank's rows."""
+    whole = shard.shared_rows(x)
+    h, w = whole.shape[2], whole.shape[3]
+    down = F.interpolate(whole, size=(int(h * scale), int(w * scale)), mode="bicubic",
                          align_corners=False, antialias=True)
     up = F.interpolate(down, size=(h, w), mode="bicubic", align_corners=False, antialias=True)
-    return up, scale
+    return shard.own_rows(up), scale
 
 
 def make_defend_fn(apply_fn: Callable, method: str = "ensemble") -> Callable:

@@ -15,6 +15,11 @@ contiguous block of the image's rows, equal in size on every rank of
   that wrap between neighbouring blocks (``roll_rows``), and a layer
   whose every output reads every row (nlaic's keys and values) gathers
   them (``shared_rows``); ``row_offset`` places a block in the image;
+* a step that needs the whole image at once (a resize, the
+  self-ensemble's rotations, ``-p``'s reflect padding) gathers it
+  (``shared_rows``, or ``gather_rows`` outside autograd), works on the
+  whole image on every rank and keeps this rank's rows of the result
+  (``own_rows``);
 * the training forward's noise is drawn for the global tensor and this
   rank keeps its block (``local_draw``), so that a sharded run draws what
   the one-process run on the whole tensor draws;
@@ -45,6 +50,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .bounds import lower_bound
+
+#: A row shard's block holds a multiple of this many image rows, so that it
+#: starts on an even row at each of a codec's six stride-2 stages.
+ROW_MULTIPLE = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +154,6 @@ def all_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _AllSum.apply(t, axis)
 
 
-def all_mean(t: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """The mean of every element of ``t`` over every rank of ``axis``, each
-    rank holding an equal part (differentiable)."""
-    return all_sum(t.sum(), axis) / (t.numel() * axis.size)
-
-
 def row_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the row shards (``t`` itself when unsharded)."""
     rows = row_axis()
@@ -235,6 +238,20 @@ def shared_rows(t: torch.Tensor) -> torch.Tensor:
     when unsharded)."""
     rows = row_axis()
     return t if rows is None else _SharedRows.apply(t, rows)
+
+
+def own_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the rows (dim 2) of a whole NCHW tensor that
+    every rank holds, the inverse of ``gather_rows`` (differentiable: a
+    slice; ``t`` itself when unsharded)."""
+    rows = row_axis()
+    if rows is None:
+        return t
+    total = t.shape[2]
+    if total % rows.size:
+        raise ValueError(f"{total} rows do not split into {rows.size} equal row shards")
+    h = total // rows.size
+    return t.narrow(2, rows.index * h, h)
 
 
 def row_offset(h: int) -> int:

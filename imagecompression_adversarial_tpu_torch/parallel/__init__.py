@@ -1,9 +1,10 @@
 """Parallelism layer (port of ``imagecompression_adversarial_tpu/parallel``):
 one process per rank over ``torch.distributed`` (``launch.run_spmd``),
 device meshes, the dp corpus attack, overlap tiles and exact row
-sharding.  The dp and dp x sp training steps are
-``train/step.py::train_step(..., mesh=)`` and
-``attacks/rd.py::make_adv_example_fn(..., mesh=)``."""
+sharding (the attack with any metric, in-loop defense but the latent
+clip, ``-p`` or ``split_eval``).  The dp and dp x sp training steps,
+``recompress`` included, are ``train/step.py::train_step(..., mesh=)``,
+and their inner attack ``attacks/rd.py::make_adv_example_fn(..., mesh=)``."""
 
 from .batch_attack import make_sharded_attack_fn
 from .launch import choose_backend, collective_report, run_spmd

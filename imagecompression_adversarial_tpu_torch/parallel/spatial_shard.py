@@ -41,6 +41,18 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
   gather against GiBs of codec activations, where a halo rule for its
   11-row windows at five scales would also need its pools and per-scale
   means made global;
+* the in-loop defenses (``defenses/self_ensemble.py``): the bit-depth
+  reduction is pointwise; the resize gathers the 3-channel image
+  (``shard.shared_rows``), resizes the whole image and keeps this rank's
+  rows (``shard.own_rows``); the self-ensemble gathers it, runs the codec
+  on each rank's row block of each of the 8 dihedral variants, gathers
+  the 8 reconstructions and picks the winner on the whole image, keeping
+  this rank's rows of it.  At 4096x3072 a gather is 151 MB a rank, the
+  ensemble's nine 1.36 GB;
+* ``-p`` pads the whole image (a gather with no gradient), each rank runs
+  the clean forward on its rows of the padded image, and the cropped
+  reconstruction is gathered and split again into the unpadded blocks;
+  ``bpp_ori`` sums the ranks' rates over the unpadded ``H x W``;
 * the attack's noise, Adam state and activations stay row-sharded: ``im_``
   comes back as each rank's rows;
 * a ``split_eval`` config checkpoints the loop by stage on each rank's
@@ -48,9 +60,13 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
 
 The result equals the one-process run up to the order of float sums.
 ``H`` must divide by ``sp x 64``, so that each block starts on an even
-row at every stride-2 stage.  Layers with no halo rule raise, naming the
-layer (the ``debug`` fixture's stride-1 transposed conv); so do in-loop
-defenses and padding.  Nothing falls back to an unsharded run.
+row at every stride-2 stage; with ``-p`` so must the padded height ``H +
+2p``, and with the ensemble ``W``, the rotated variants' height.  GSPMD's
+uneven shards take any of them; here they raise, naming the size (and
+the nearest ``p`` that fits).  Layers with no halo rule raise, naming the
+layer (the ``debug`` fixture's stride-1 transposed conv).  The latent
+clip (``defend_in_loop='clip'``) raises as JAX's does: this attack takes
+no ``latent_transform``.  Nothing falls back to an unsharded run.
 """
 
 from __future__ import annotations
@@ -66,8 +82,6 @@ from ..entropy.factorized import EntropyBottleneck
 from ..models import codecs, fic, hific, invcompress, layers, nlaic, tic
 from ..ops import shard
 from .mesh import axis_sharding, local_part, mesh_device
-
-ROW_MULTIPLE = 64
 
 #: Module types whose forward is exact on a block of rows: convs (halo'd),
 #: pointwise layers, and containers that only compose them.
@@ -105,9 +119,29 @@ def check_row_shardable(model: nn.Module) -> None:
 
 
 def _check_height(h: int, n_sp: int) -> None:
-    if h % (n_sp * ROW_MULTIPLE):
-        raise ValueError(f"H={h} must divide by sp*{ROW_MULTIPLE}={n_sp * ROW_MULTIPLE} "
-                         "(pad-to-64 upstream, then pick sp)")
+    if h % (n_sp * shard.ROW_MULTIPLE):
+        raise ValueError(f"H={h} must divide by sp*{shard.ROW_MULTIPLE}="
+                         f"{n_sp * shard.ROW_MULTIPLE} (pad-to-64 upstream, then pick sp)")
+
+
+def _check_padded_height(h: int, p: int, n_sp: int) -> None:
+    """``-p``'s clean forward runs on ``H + 2p`` rows, split like ``H``'s
+    (``H`` already a multiple of ``sp x 64``, so a ``p`` fits where it is
+    a multiple of ``sp x 32``)."""
+    m = n_sp * shard.ROW_MULTIPLE
+    if (h + 2 * p) % m:
+        step = m // 2
+        fit = max(step, int(p / step + 0.5) * step)
+        raise ValueError(f"-p {p} pads H={h} to {h + 2 * p} rows, which must divide by "
+                         f"sp*{shard.ROW_MULTIPLE}={m}; the nearest p that fits is {fit}")
+
+
+def _check_ensemble_width(w: int, n_sp: int) -> None:
+    """The self-ensemble's 4 rotated variants have ``W`` rows, split like
+    ``H``."""
+    if w % (n_sp * shard.ROW_MULTIPLE):
+        raise ValueError(f"the self-ensemble's rotated variants have W={w} rows, which must "
+                         f"divide by sp*{shard.ROW_MULTIPLE}={n_sp * shard.ROW_MULTIPLE}")
 
 
 def make_spatial_forward(model, mesh, axis: str = "sp") -> Callable[[torch.Tensor], Dict]:
@@ -138,10 +172,9 @@ def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
     (``(1, 3, H, W)``); the scalars are the whole image's, ``im_`` and the
     other images this rank's rows.  The initial noise, where the config
     draws one, is drawn for the whole image and split.  Any attack metric;
-    a ``split_eval`` config runs the split attack.  Runs in every rank.
+    a ``split_eval`` config runs the split attack; any in-loop defense but
+    the latent clip, and ``-p``.  Runs in every rank.
     """
-    if cfg.defend_in_loop or cfg.pad:
-        raise ValueError("in-loop defenses and -p padding have no row-sharded form")
     check_row_shardable(model)
     single = make_attack_fn(model, cfg)
     rows = shard.mesh_axis(mesh, axis)
@@ -150,6 +183,10 @@ def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
 
     def attack(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict:
         _check_height(x.shape[2], rows.size)
+        if cfg.pad:
+            _check_padded_height(x.shape[2], cfg.pad, rows.size)
+        if cfg.defend_in_loop == "ensemble":
+            _check_ensemble_width(x.shape[3], rows.size)
         x = torch.as_tensor(x)
         noise = init_noise(tuple(x.shape), single.cfg, generator, device)
         mine = local_part(mesh, x, placements).to(device)

@@ -141,22 +141,37 @@ def train_step(
     With a ``mesh``, ``batch`` is this rank's block of the global batch
     (its rows too, where the mesh has ``sp``), ``generator`` is seeded
     alike on every rank (each draws the global batch's noise and keeps its
-    block), and the logs are the global batch's on every rank."""
+    block), and the logs are the global batch's on every rank.
+
+    ``recompress``'s norm is the global batch's, as JAX's is however its
+    batch is sharded: ``g_a(x_hat)`` runs under the shard (its convs fetch
+    their halos), each rank sums its squares, and the sum over the rows and
+    the batch (``shard.all_sum``, whose backward is the identity) goes
+    under the ``sqrt``, so that each rank's gradient of the norm ``R`` is
+    its part of ``dR``.  ``reduce_gradients_`` sums those parts over the
+    rows and the dp ranks, then divides by ``dp``, as the RD loss (a mean
+    of the dp blocks' means) needs; so each rank differentiates ``0.01 x
+    dp x R``, and the step's gradient is that of JAX's ``loss + 0.01 x
+    R``.  The logs keep ``0.01 x R``."""
     model = state.model
     main = state.opt.param_groups[0]["params"]
     aux = state.aux_opt.param_groups[0]["params"]
     where = mesh_shard(mesh) if mesh is not None else None
-    if where is not None and recompress:
-        raise ValueError("recompress has no data-parallel form: its norm is not a mean")
 
     with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
         result = model(batch, quant_mode="noise", generator=generator)
         out = rate_distortion_loss(result, batch, lmbda, metric)
-    if recompress:
-        f1 = model.g_a(result["x_hat"])
-        out["recompress_loss"] = torch.sqrt(torch.sum((result["y"] - f1) ** 2))
-        out["loss"] = out["loss"] + 0.01 * out["recompress_loss"]
-    grads = _grads(out["loss"], main)
+        objective = out["loss"]
+        if recompress:
+            f1 = model.g_a(result["x_hat"])
+            squares = torch.sum((result["y"] - f1) ** 2)
+            if where is not None:
+                squares = shard.row_sum(shard.all_sum(squares, where.batch))
+            out["recompress_loss"] = torch.sqrt(squares)
+            out["loss"] = out["loss"] + 0.01 * out["recompress_loss"]
+            scale = 1 if where is None else where.batch.size
+            objective = objective + 0.01 * scale * out["recompress_loss"]
+    grads = _grads(objective, main)
     if where is not None:
         reduce_gradients_(grads, where)
     clip_by_global_norm_(grads)

@@ -105,7 +105,7 @@ DP_SCENARIOS = ["mesh_and_batch", "tiles_identity", "tiles_codec", "corpus_attac
                 "train_context", "train_adv", "adv_branches", "sp2_split_attack",
                 "sp2_cheng_forward", "sp2_cheng_attack"]
 SP_SCENARIOS = ["sp_forward", "sp_attack", "sp_attack_select", "sp_attack_msssim",
-                "sp_unaligned", "train_dpsp", "adv_rejects_sp"]
+                "sp_unaligned", "train_dpsp", "adv_sp_rejects_debug"]
 
 
 def _noise_tables(shapes, seed):
@@ -266,7 +266,8 @@ def _jax_training(jm, jp, batches, mesh, batch_spec, adv=False):
     return grads, logs, jax.tree_util.tree_map(np.asarray, state.params)
 
 
-def _check_training(ranks, arch, grads, logs, params):
+def _check_training(ranks, arch, grads, logs, params,
+                    keys=("loss", "bpp_loss", "distortion", "aux_loss")):
     want_g = {} if grads is None else params_from_jax(jax.tree_util.tree_map(np.asarray, grads), arch)
     want_p = params_from_jax(params, arch)
     for rank, got in enumerate(ranks):
@@ -275,7 +276,7 @@ def _check_training(ranks, arch, grads, logs, params):
             ok, err = _rel_close(g, want_g[name].numpy(), GRAD_REL)
             assert ok, f"rank {rank} step-1 gradient {name}: {err}"
         for i, (a, b) in enumerate(zip(got["logs"], logs)):
-            for k in ("loss", "bpp_loss", "distortion", "aux_loss"):
+            for k in keys:
                 rtol = LOSS_RTOL if i == 0 else TRAJ_LOSS_RTOL
                 np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=UNIT_ATOL if i == 0 else 0,
                                            err_msg=f"rank {rank} step {i + 1} {k}")
@@ -450,8 +451,11 @@ def test_row_sharded_cheng2020_gmm_forward_matches_jax(worlds):
 
 
 def test_adv_example_rejects_a_row_sharded_mesh(worlds):
-    for got in worlds.ranks("adv_rejects_sp"):
-        assert got["raised"] is not None and "not over sp" in got["raised"]
+    """The inner attack takes a dp x sp mesh since slice 10 e
+    (``tests/test_torch_parallel_defenses.py``), but not for a codec with
+    a layer that has no halo rule: it raises when it is built."""
+    for got in worlds.ranks("adv_sp_rejects_debug"):
+        assert got["raised"] is not None and "no halo rule for DebugCodec" in got["raised"]
 
 
 def test_row_sharding_rejects_unaligned_height(worlds):
@@ -474,8 +478,14 @@ def test_row_sharding_takes_the_cheng2020_family(arch):
 
 
 def test_row_sharded_attack_rejects_in_loop_defenses():
-    with pytest.raises(ValueError, match="no row-sharded form"):
-        make_spatial_attack_fn(None, RDAttackConfig(defend_in_loop="bitdepth"), None)
+    """The in-loop defenses run row-sharded since slice 10 c
+    (``tests/test_torch_parallel_defenses.py``) but the latent clip, which
+    needs a ``latent_transform`` that the row-sharded attack does not take:
+    it raises when it is built, as JAX's ``make_spatial_attack_fn`` does
+    (``imagecompression_adversarial_tpu/attacks/rd.py:67-71``)."""
+    with pytest.raises(ValueError, match="defend_in_loop='clip' needs a latent_transform"):
+        make_spatial_attack_fn(init_model("hyper", 1), RDAttackConfig(defend_in_loop="clip"),
+                               None)
 
 
 # -- mesh, shard_batch, tiles ---------------------------------------------------

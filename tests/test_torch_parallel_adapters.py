@@ -57,11 +57,8 @@ Bounds, each with its source:
   atol 1e-12 in float64.
 """
 
-import concurrent.futures
 import copy
 import functools
-import pickle
-import time
 
 import flax.serialization
 import jax
@@ -81,7 +78,6 @@ from imagecompression_adversarial_tpu_torch.models import invcompress, tic
 from imagecompression_adversarial_tpu_torch.models.layers import Deconv, depth_to_space
 from imagecompression_adversarial_tpu_torch.models.nlaic import NonLocalBlock
 from imagecompression_adversarial_tpu_torch.ops import shard
-from imagecompression_adversarial_tpu_torch.parallel import run_spmd
 
 import torch_spmd_cases as cases
 from torch_parity import (  # noqa: F401  (one_torch_thread: a fixture)
@@ -127,50 +123,10 @@ def _inputs():
     }
 
 
-class Worlds:
-    """The 2-rank and the 4-rank world, run in background threads while
-    the tests compute the JAX side; the ranks write each scenario's
-    results as it finishes, and a test waits for those it reads."""
-
-    def __init__(self, tmp):
-        self.inputs = _inputs()
-        path = str(tmp / "inputs.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(self.inputs, f)
-        self._dirs = {n: tmp / f"world{n}" for n in (2, 4)}
-        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
-        self._worlds = {}
-        for n, scenarios in ((2, SCENARIOS_2), (4, SCENARIOS_4)):
-            self._dirs[n].mkdir()
-            self._worlds[n] = self._pool.submit(run_spmd, cases.run_world, n, "gloo", "cpu",
-                                                (path, scenarios, str(self._dirs[n])),
-                                                WORLD_TIMEOUT_S)
-
-    def ranks(self, scenario, size=2):
-        """Each rank's result of ``scenario`` in the world of ``size``
-        ranks, once every rank has written it; a world that failed
-        raises its ranks' tracebacks here."""
-        paths = [self._dirs[size] / f"{scenario}.{r}.pkl" for r in range(size)]
-        world = self._worlds[size]
-        while not all(p.is_file() for p in paths):
-            if world.done():
-                world.result()  # raises where a rank failed
-                if not all(p.is_file() for p in paths):
-                    raise RuntimeError(f"the world of {size} ranks did not run {scenario}")
-            time.sleep(0.1)
-        out = []
-        for p in paths:
-            with open(p, "rb") as f:
-                out.append(pickle.load(f))
-        return out
-
-    def close(self):
-        self._pool.shutdown(wait=True, cancel_futures=True)
-
-
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    w = Worlds(tmp_path_factory.mktemp("spmd_adapters"))
+    w = cases.StreamedWorlds(_inputs(), tmp_path_factory.mktemp("spmd_adapters"),
+                             {2: SCENARIOS_2, 4: SCENARIOS_4}, WORLD_TIMEOUT_S)
     yield w
     w.close()
 

@@ -1,4 +1,4 @@
-"""The ranks' side of ``tests/test_torch_parallel.py``: each function runs
+"""The ranks' side of ``tests/test_torch_parallel*.py``: each function runs
 in every rank of a ``run_spmd`` world on the CPU (gloo), imports only
 torch, numpy and the port, and returns numpy arrays.
 
@@ -9,13 +9,17 @@ training noise tables) come from the test process in one pickle, so that
 both sides see the same arrays; the noise tables replace
 ``ops.quant.uniform_noise`` in the ranks as ``torch_parity.same_noise``
 does in the test process, keyed by the global shape the ranks draw for.
+``StreamedWorlds`` runs worlds of several sizes beside a test module and
+hands it each scenario's results as the ranks finish it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import os
 import pickle
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -79,6 +83,22 @@ ADAPTER_ATTACK = dict(steps=3, two_phase_impl="select")
 # alone and 4 on the two together
 BRANCH_STEPS = 10
 BRANCH_THRESHOLD = 2e-4
+# slice 10 c-e on hyper q1 (tests/test_torch_parallel_defenses.py): the
+# row-sharded attack through each in-loop defense and with -p, 3 `select`
+# steps (the codec on every step) on ``sp_x``; -p REJECTED_PAD pads its 256
+# rows to 320, which sp = 2 cannot split into blocks of 64k rows; the inner
+# attack on dp x sp = 2 x 2 at DPSP_ADV_THRESHOLD takes both phases in
+# BRANCH_STEPS steps
+DEFENSE_ATTACK = dict(steps=3, two_phase_impl="select")
+DEFENSE_CASES = {
+    "ensemble_batch": dict(DEFENSE_ATTACK, defend_in_loop="ensemble", ensemble_impl="batch"),
+    "ensemble_scan": dict(DEFENSE_ATTACK, defend_in_loop="ensemble", ensemble_impl="scan"),
+    "bitdepth": dict(DEFENSE_ATTACK, defend_in_loop="bitdepth"),
+    "resize": dict(DEFENSE_ATTACK, defend_in_loop="resize"),
+    "pad": dict(DEFENSE_ATTACK, pad=64),
+}
+REJECTED_PAD = 32
+DPSP_ADV_THRESHOLD = 2e-4
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:
@@ -137,11 +157,12 @@ def corpus_attack(inputs):
     return {k: out[k] for k in ("vi", "mse_in", "bpp_ori", "bpp", "im_")}
 
 
-def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: bool = False):
-    """Step 1's reduced gradients (not with ``adv``: they are the RD
-    case's), then one step a batch (with ``adv``, on the adversarial example
-    of the batch), under the noise tables ``noise``: the logs of each step
-    and the final parameters, from this rank."""
+def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: bool = False,
+           recompress: bool = False):
+    """Step 1's reduced gradients (not with ``adv`` or ``recompress``: they
+    are the RD case's), then one step a batch (with ``adv``, on the
+    adversarial example of the batch), under the noise tables ``noise``:
+    the logs of each step and the final parameters, from this rank."""
     _use_noise(inputs["noise"][noise])
     model = replicate(mesh, _model(inputs, arch, trainable=True))
     where = mesh_shard(mesh)
@@ -152,7 +173,7 @@ def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: 
             memory_format=torch.channels_last)
 
     grads = None
-    if not adv:
+    if not (adv or recompress):
         names, params = zip(*[(n, p) for n, p in model.named_parameters()
                               if n != "entropy_bottleneck.quantiles"])
         with shard.sharded(where.batch, where.rows):
@@ -171,7 +192,8 @@ def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: 
         x = local(b)
         if adv:
             x = adv_fn(x, ADV_THRESHOLD)
-        out = train_step(state, x, torch.Generator(), LR, lmbda, "mse", mesh=mesh)
+        out = train_step(state, x, torch.Generator(), LR, lmbda, "mse", recompress=recompress,
+                         mesh=mesh)
         logs.append({k: float(v) for k, v in out.items()})
     return {"grads": grads, "logs": logs,
             "params": {k: v.detach().numpy() for k, v in model.state_dict().items()}}
@@ -221,12 +243,14 @@ def sp_forward(inputs):
             "loglik": {k: float(torch.log(v).double().sum()) for k, v in out["likelihoods"].items()}}
 
 
-def _sp_attack(inputs, arch: str = "hyper", image: str = "sp_x", **cfg):
+def _sp_attack(inputs, arch: str = "hyper", image: str = "sp_x",
+               dtype: torch.dtype = torch.float32, **cfg):
     """The row-sharded attack of ``arch`` on the image ``image``, over every
-    rank of the world, with ``RDAttackConfig(**cfg)``."""
+    rank of the world, with ``RDAttackConfig(**cfg)``, in ``dtype``."""
     mesh = make_mesh(axis_names=("sp",), device_type="cpu")
-    model = replicate(mesh, _model(inputs, arch))
-    res = make_spatial_attack_fn(model, RDAttackConfig(**cfg), mesh)(nchw(inputs[image]))
+    model = replicate(mesh, in_dtype(_model(inputs, arch), dtype))
+    res = make_spatial_attack_fn(model, RDAttackConfig(**cfg), mesh)(
+        nchw(inputs[image]).to(dtype))
     x_rows = local_part(mesh, nchw(inputs[image]), row_sharding(mesh))
     return {**{k: float(res[k]) for k in ("vi", "mse_in", "bpp_ori", "bpp", "vi_msim")},
             "im_": nhwc(res["im_"]), "rows": tuple(res["im_"].shape),
@@ -404,23 +428,124 @@ def train_dpsp(inputs):
     return _train(inputs, mesh, "hyper", inputs["dpsp_batches"], "dpsp")
 
 
-def adv_rejects_sp(inputs):
-    """``make_adv_example_fn`` on a dp x sp mesh: the error it raises."""
-    mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+def _raised(fn) -> dict:
     try:
-        make_adv_example_fn(_model(inputs, "hyper"), RDAttackConfig(steps=ADV_STEPS), mesh)
+        fn()
     except ValueError as e:
         return {"raised": str(e)}
     return {"raised": None}
 
 
+def adv_sp_rejects_debug(inputs):
+    """``make_adv_example_fn`` of the ``debug`` fixture on a dp x sp mesh:
+    the error it raises (no halo rule)."""
+    mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+    return _raised(lambda: make_adv_example_fn(init_model("debug", 1),
+                                               RDAttackConfig(steps=ADV_STEPS), mesh))
+
+
+# -- slice 10 c-e: in-loop defenses, -p and recompression on a mesh, the
+# --adv inner attack on dp x sp (tests/test_torch_parallel_defenses.py) ----
+
+
+def sp_defense(inputs, name: str):
+    """``DEFENSE_CASES[name]``'s row-sharded attack over every rank."""
+    return _sp_attack(inputs, **DEFENSE_CASES[name])
+
+
+def sp_resize_f64(inputs):
+    return _sp_attack(inputs, dtype=torch.float64, **DEFENSE_CASES["resize"])
+
+
+def sp_pad_rejects(inputs):
+    """``-p`` REJECTED_PAD on ``sp_x`` over every rank: the error raised."""
+    return _raised(lambda: _sp_attack(inputs, **DEFENSE_ATTACK, pad=REJECTED_PAD))
+
+
+def sp_ensemble_rejects(inputs):
+    """The ensemble on ``sp_x`` (128 wide) over every rank: the error."""
+    return _raised(lambda: _sp_attack(inputs, **DEFENSE_CASES["ensemble_batch"]))
+
+
+def adv_dpsp(inputs):
+    """The inner attack on a dp x sp = 2 x 2 mesh, on this rank's block of
+    ``dpsp_batches[0]``: this rank's rows of the adversarial example and
+    the steps it took in the output phase (``g_a`` calls less the clean
+    forward's)."""
+    mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+    model = replicate(mesh, _model(inputs, "hyper"))
+    x = local_part(mesh, nchw(inputs["dpsp_batches"][0]), batch_row_sharding(mesh))
+    calls = []
+    hook = model.g_a.register_forward_hook(lambda *_: calls.append(1))
+    im = make_adv_example_fn(model, RDAttackConfig(steps=BRANCH_STEPS), mesh)(x, DPSP_ADV_THRESHOLD)
+    hook.remove()
+    return {"im": nhwc(im), "output_steps": len(calls) - 1}
+
+
+def train_recompress(inputs):
+    """Recompression training on dp = 2 (this world's size) or dp x sp =
+    2 x 2 (a world of 4), on ``dpsp_batches``."""
+    if dist.get_world_size() == 2:
+        mesh = make_mesh(device_type="cpu")
+    else:
+        mesh = make_mesh(4, ("dp", "sp"), device_type="cpu", shape=(2, 2))
+    return _train(inputs, mesh, "hyper", inputs["dpsp_batches"], "dpsp", recompress=True)
+
+
 SCENARIOS = {f.__name__: f for f in (
     mesh_and_batch, tiles_identity, tiles_codec, corpus_attack, train_rd, train_context,
     train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_attack_msssim,
-    sp_unaligned, train_dpsp, adv_rejects_sp, sp2_split_attack, sp2_cheng_forward,
-    sp2_cheng_attack, sp2_nlaic_split, roll_rows_case, shared_rows_case)}
+    sp_unaligned, train_dpsp, adv_sp_rejects_debug, sp2_split_attack, sp2_cheng_forward,
+    sp2_cheng_attack, sp2_nlaic_split, roll_rows_case, shared_rows_case, sp_resize_f64,
+    sp_pad_rejects, sp_ensemble_rejects, adv_dpsp, train_recompress)}
 SCENARIOS.update({f"sp2_{arch}": (lambda inputs, arch=arch: sp2_adapter(inputs, arch))
                   for arch in ADAPTERS})
+SCENARIOS.update({f"sp_{name}": (lambda inputs, name=name: sp_defense(inputs, name))
+                  for name in DEFENSE_CASES})
+
+
+class StreamedWorlds:
+    """Worlds of several sizes, run in background threads of the test
+    process while its tests compute the JAX side; the ranks write each
+    scenario's results as it finishes (``run_world``'s ``stream_dir``), and
+    a test waits for those it reads."""
+
+    def __init__(self, inputs: dict, tmp: Path, scenarios: Dict[int, List[str]],
+                 timeout: float):
+        from imagecompression_adversarial_tpu_torch.parallel import run_spmd
+
+        self.inputs = inputs
+        path = str(tmp / "inputs.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(inputs, f)
+        self._dirs = {n: tmp / f"world{n}" for n in scenarios}
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(scenarios))
+        self._worlds = {}
+        for n, names in scenarios.items():
+            self._dirs[n].mkdir()
+            self._worlds[n] = self._pool.submit(run_spmd, run_world, n, "gloo", "cpu",
+                                                (path, names, str(self._dirs[n])), timeout)
+
+    def ranks(self, scenario: str, size: int = 2) -> list:
+        """Each rank's result of ``scenario`` in the world of ``size``
+        ranks, once every rank has written it; a world that failed
+        raises its ranks' tracebacks here."""
+        paths = [self._dirs[size] / f"{scenario}.{r}.pkl" for r in range(size)]
+        world = self._worlds[size]
+        while not all(p.is_file() for p in paths):
+            if world.done():
+                world.result()  # raises where a rank failed
+                if not all(p.is_file() for p in paths):
+                    raise RuntimeError(f"the world of {size} ranks did not run {scenario}")
+            time.sleep(0.1)
+        out = []
+        for p in paths:
+            with open(p, "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def run_world(inputs_path: str, scenarios: List[str],
@@ -454,6 +579,4 @@ def failing_rank():
 
 def stalled_rank():
     """Every rank sleeps past the caller's timeout."""
-    import time
-
     time.sleep(600)
