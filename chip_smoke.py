@@ -6,21 +6,25 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 
 1. requires CUDA and prints the card's name and power limit, and the
    libzstd that the orbax reader (phase 20) loads;
-2. builds the GDN kernel with nvcc (``kernels/_build.py``) and prints what
-   ``ptxas -v`` reports of it: registers, shared memory, spills (any spill
-   fails the phase); builds the host rANS coder with g++;
-3. holds the kernel against its plain PyTorch version for GDN and IGDN at
-   the shapes of the hyper q=1 attack at 768x512 (and C=192), forward (the
-   kernel) and dx (the shared plain backward, a check of the autograd
-   wiring), and times the kernel, the plain version and ``torch.addmm`` beside
-   the card's bound, and prints the launch the kernel picks (rows per tile,
-   blocks an SM, grid); the training path's largest call (131,072 rows)
-   and the 6,144- and 24,576-row calls are also timed over 500 launches and
-   with L2 flushed before each launch; the megapixel calls (786,432,
-   3,145,728 and 12,582,912 rows; the last forward only) too;
+2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
+   nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
+   them: registers, shared memory, spills (any spill fails the phase);
+   builds the host rANS coder with g++;
+3. holds the forward kernel against ``gdn_forward_reference`` and the
+   backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
+   every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
+   training, the ranks of phase 18, the megapixel calls): the forward; dx,
+   and dnorm with it, with dgamma and dbeta through the same cuBLAS and
+   torch calls (dx alone above DX_MAX_ROWS); it times each kernel, its
+   plain version and the cuBLAS products (``torch.addmm`` and dnorm @
+   gamma) beside the card's bound, and prints the launch each kernel picks
+   (rows per tile, blocks an SM, grid); the training path's largest call
+   (131,072 rows) and the 6,144- and 24,576-row calls are also timed over
+   500 launches and with L2 flushed before each launch (the forward);
 4. runs the attack CLI's ``run`` path (hyper q=1, the committed demo
    weights, a 768x512 image made with numpy, 1001 steps,
-   ``-two_phase select``) and counts the kernel's launches in it;
+   ``-two_phase select``) and counts both kernels' launches in it: the
+   backward kernel's must equal the GDN backwards that reached its wrapper;
 5. runs a 20-step attack at 256x256 (hyper q=1, demo weights) with the
    kernel and with the plain version and compares the final noise and vi;
 6. writes a 256x256 PNG with the port's writer into a temporary directory,
@@ -28,7 +32,7 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    three debug PNGs back with the port's reader and removes the directory;
 7. runs the CLI's ``run`` path on the paper's full model, cheng2020-gmm q=3
    (N=128, the committed demo weights), at 768x512 for 1001 steps with
-   ``-two_phase select``, and counts the kernel's launches in it;
+   ``-two_phase select``, and counts both kernels' launches in it;
 8. for factorized, context and debug at q=1 (seeded weights) and for
    cheng2020-attn and cheng2020 on the cheng2020-gmm demo's trained
    transforms, runs a 20-step attack at 256x256 as phase 5 does, at phase
@@ -184,8 +188,10 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     4096x3072, single-program, then split, held to each other at
     ANCHOR_NOISE_ATOL and ANCHOR_VI_ATOL; (e) ``cli.attack_rd --split_eval`` (`cond`, MP_CLI_STEPS
     steps) on a 4096x3072 PNG; (f) the 4096x3072 split attack with the
-    kernel and with the plain GDN at NOISE_ATOL and VI_ATOL.  A (C, rows)
-    of its runs that phase 3 did not hold is held here;
+    kernel and with the plain GDN at NOISE_ATOL and VI_ATOL; (g) (a)'s two
+    attacks again (MP_PLAIN_BWD_STEPS steps) with the forward kernel and the
+    plain backward, whose peaks it prints beside (a)'s.  A (C, rows) of its
+    runs that phase 3 did not hold is held here;
 20. resumes the JAX trainer's committed orbax tree (slice 11): (a) reads
     its step 2000 with the port's reader (OCDBT, zarr v2, libzstd through
     ctypes), printing the seconds and bytes read, and holds every leaf's
@@ -209,7 +215,8 @@ heuristics, whose peaks it compares); the coder sets it itself.
 Every phase prints one line with the elapsed seconds; any failure raises
 and the script exits nonzero.  Phase 18's ranks are processes of their
 own, which the phase waits for and stops.  It prints a ``{"coder":
-[...]}`` line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+[...]}`` line, a ``{"kernels": [...]}`` line (``gdn_fwd`` and ``gdn_bwd``)
+and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
@@ -337,13 +344,21 @@ GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216
               (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440),
               (192, 49152), (192, 12288), (192, 3072), (128, 71680), (128, 17920),
               (128, 4480))
-# dx is checked up to this many rows; the larger calls (2.1 GB a tensor
-# and more) hold their forward alone, so that the input, its gradient, both
-# routes' outputs and dx and the backward's temporaries need not fit at
-# once, and take HUGE_LAUNCHES a timing (13 ms and more a launch)
+# the backward is checked in both modes (dx; dx and dnorm, with dgamma and
+# dbeta) up to this many rows; the larger calls (4,111,360 rows and up, 2.1
+# GB a tensor and more) check dx alone: x, g, the kernel's dx and the plain
+# backward's four temporaries and dx fit on the card at every row count of
+# GDN_SHAPES (8.4 GB a tensor at 16,445,440 rows, 59 GB in all), the plain
+# backward's dnorm and its dgamma's x^2 beside them not at the largest.  The
+# calls above BWD_TIMED_MAX_ROWS take HUGE_LAUNCHES a backward timing, and
+# above DX_MAX_ROWS a forward timing too (13 ms and more a launch)
 DX_MAX_ROWS = 4_000_000
+BWD_TIMED_MAX_ROWS = 1_100_000
 TIMED_LAUNCHES = 50
 HUGE_LAUNCHES = 10
+# kernel vs plain outputs are compared in blocks of this many rows, so that
+# a megapixel call's comparison needs no tensor-sized temporaries
+COMPARE_ROWS = 1 << 20
 # also timed over 500 launches and with a 64 MB write before each launch,
 # which evicts x and out from the 50 MB L2 as the path's other kernels do:
 # the calls small enough to stay in L2 between back-to-back launches, and
@@ -386,9 +401,10 @@ TRAIN_FAR_SHARE = 1e-4
 PROFILE_WARMUP = 3
 KERNEL_CATEGORIES = (
     ("GDN forward (the kernel)", ("gdn_fwd_kernel",)),
+    ("GDN backward (the kernel)", ("gdn_bwd_kernel",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn",
                               "fft")),
-    ("SGEMM (cuBLAS: GDN backward, entropy model)", ("gemm", "gemv", "cublas")),
+    ("SGEMM (cuBLAS: GDN dgamma, entropy model)", ("gemm", "gemv", "cublas")),
     ("elementwise, reductions, copies", ("elementwise", "reduce", "copy", "vectorized", "fill",
                                          "cat", "index", "scatter", "gather", "softplus", "erf",
                                          "multi_tensor", "foreach")),
@@ -558,11 +574,16 @@ PAR_F64_ATOL = 1e-9
 MP_SIZE = (3072, 4096)
 MP_STEPS = 21
 MP_LARGE = (7040, 9344)
-MP_LARGE_STEPS = 5
+# the peak is set in the first step
+MP_LARGE_STEPS = 3
 MP_SHRINK = 0.9
 MP_GMM_STEPS = 11
 MP_CLI_STEPS = 101
 MP_KVP_STEPS = 11
+# (g) the single-program and split attacks again with the plain GDN
+# backward, for their peaks beside (a)'s with the backward kernel (a peak
+# is set within the first step)
+MP_PLAIN_BWD_STEPS = 3
 MP_FAR_SHARE = 1e-3
 # phase 20: the resume of the JAX trainer's committed orbax tree (slice 11).
 # (a) The port's reader on ORBAX_STEP: every leaf's path, shape and dtype
@@ -666,12 +687,14 @@ def time_ms_flushed(fn, flush, n: int = TIMED_LAUNCHES) -> float:
 
 
 def phase_kernel_vs_plain(gdn):
-    """Phase 3: forward and dx of kernel and plain version; timings.
+    """Phase 3: the forward and backward kernels against their plain
+    versions on the same inputs, at every (C, rows) of GDN_SHAPES; timings.
 
-    The forward is the kernel's test.  ``GDNFunction.backward`` is the same
-    plain torch for both routes and reads only the saved inputs, so the dx
-    check tests the autograd wiring around the kernel, not the kernel; its
-    error is reported apart and kept out of ``max_abs_err``.
+    The forward kernel is held to ``gdn_forward_reference`` and the backward
+    kernel to ``gdn_backward_reference`` (dx, and dnorm with it; dgamma and
+    dbeta through the same cuBLAS and torch calls from each route's dnorm),
+    each called directly, so that each check tests one kernel; the autograd
+    wiring around them is phase 4's count and the card tests'.
     """
     import torch
 
@@ -683,10 +706,56 @@ def phase_kernel_vs_plain(gdn):
     return records
 
 
+def held(k, p, label: str) -> dict:
+    """``k`` (kernel) against ``p`` (plain), in blocks of COMPARE_ROWS rows:
+    raises where an element of ``k`` is not finite or is past GDN_ATOL +
+    GDN_RTOL |p|; returns the largest |k - p|, the share of elements equal
+    and the share more than 1e-6 apart."""
+    import torch
+
+    worst, equal, far = 0.0, 0, 0
+    for a, b in zip(k.split(COMPARE_ROWS), p.split(COMPARE_ROWS)):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"{label}: not finite")
+        d = (a - b).abs()
+        bad = int((d > GDN_ATOL + GDN_RTOL * b.abs()).sum())
+        if bad:
+            raise RuntimeError(f"{label}: differs at {bad} elements, max |diff| "
+                               f"{d.max().item():.3e}")
+        worst = max(worst, d.max().item())
+        equal += int((a == b).sum())
+        far += int((d > 1e-6).sum())
+    return {"max_abs": worst, "equal_share": equal / k.numel(), "past_1e-6_share": far / k.numel()}
+
+
+def held_params(k, p, label: str) -> float:
+    """dgamma or dbeta of the kernel's dnorm against the plain's: the
+    largest |k - p| over the tensor's largest |p| (phase 20c's measure),
+    held to GDN_ATOL + GDN_RTOL of it (sums over all rows, so held by the
+    tensor's scale, not elementwise)."""
+    scale = p.abs().max().item()
+    worst = (k - p).abs().max().item()
+    if worst > GDN_ATOL + GDN_RTOL * scale:
+        raise RuntimeError(f"{label}: {worst:.3e} apart (scale {scale:.3e})")
+    return worst / scale
+
+
+def gdn_bwd_bound(rows: int, c: int, inverse: bool, dnorm: bool):
+    """(bound ms, 'bytes' or 'operations') of the backward kernel: x and g
+    read once, dx (and dnorm) written once, gamma and beta; both products
+    (4C a row-channel) and the elementwise steps (x^2, + beta, the root,
+    dnorm's 3 or 5, m x, x 2, g s, +)."""
+    nbytes = 4 * ((4 if dnorm else 3) * rows * c + c * c + c)
+    flops = rows * c * (4 * c + (10 if inverse else 12))
+    byte_ms, op_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOP_PER_S
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
 def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
     """Phase 3's check and timings at one (C, rows), GDN and IGDN: the
-    forward of kernel and plain version on the same inputs, dx up to
-    DX_MAX_ROWS rows."""
+    forward kernel and the backward kernel against their plain versions on
+    the same inputs; the backward in both modes up to DX_MAX_ROWS rows, dx
+    alone above."""
     import torch
 
     x = 2.0 * torch.randn(rows, c, device="cuda", generator=gen)
@@ -694,44 +763,33 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
         c, c, device="cuda", generator=gen
     )
     beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
-    with_dx = rows <= DX_MAX_ROWS
-    g = torch.randn(rows, c, device="cuda", generator=gen) if with_dx else None
+    g = torch.randn(rows, c, device="cuda", generator=gen)
+    both_modes = rows <= DX_MAX_ROWS
     records = []
     for inverse in (False, True):
         torch.cuda.synchronize()
+        label = f"gdn C={c} rows={rows} inverse={inverse}"
         layout = gdn.kernel_layout(rows, c, inverse)
-        outs = []
-        for use_kernel in (True, False):
-            if with_dx:
-                xg = x.clone().requires_grad_(True)
-                out = gdn.GDNFunction.apply(xg, gamma, beta, inverse, use_kernel)
-                (dx,) = torch.autograd.grad(out, xg, g)
-                outs.append((out.detach(), dx))
-                del xg, out, dx
-            else:
-                fwd = gdn.gdn_forward if use_kernel else gdn.gdn_forward_reference
-                outs.append((fwd(x, gamma, beta, inverse), None))
+        bwd_layout = gdn.kernel_layout(rows, c, inverse, backward=True)
+        fwd = held(gdn.gdn_forward(x, gamma, beta, inverse),
+                   gdn.gdn_forward_reference(x, gamma, beta, inverse), f"{label}: forward")
+        bwd = {"mode": "dx, dnorm" if both_modes else "dx"}
+        kdx, kdn = gdn.gdn_backward(x, gamma, beta, g, inverse, True, both_modes)
+        pdx, pdn = gdn.gdn_backward_reference(x, gamma, beta, g, inverse, True, both_modes)
+        bwd["dx"] = held(kdx, pdx, f"{label}: backward dx")
+        del kdx, pdx
+        if both_modes:
+            bwd["dnorm"] = held(kdn, pdn, f"{label}: backward dnorm")
+            for what, k, p in zip(("dgamma", "dbeta"), gdn.param_grads(x, kdn, True, True),
+                                  gdn.param_grads(x, pdn, True, True)):
+                bwd[f"{what}_rel"] = held_params(k, p, f"{label}: backward {what}")
+        del kdn, pdn
         torch.cuda.synchronize()
-        errs = {"dx": None}
-        checks = [(outs[0][0], outs[1][0], "forward")]
-        if with_dx:
-            checks.append((outs[0][1], outs[1][1], "dx"))
-        for k, p, what in checks:
-            if not torch.isfinite(k).all():
-                raise RuntimeError(f"gdn C={c} rows={rows} inverse={inverse}: non-finite {what}")
-            bad = (k - p).abs() > GDN_ATOL + GDN_RTOL * p.abs()
-            if bad.any():
-                raise RuntimeError(
-                    f"gdn C={c} rows={rows} inverse={inverse}: {what} differs at "
-                    f"{int(bad.sum())} elements, max |diff| {(k - p).abs().max().item():.3e}"
-                )
-            errs[what] = (k - p).abs().max().item()
-        del outs, checks
 
         def kernel():
             gdn.gdn_forward(x, gamma, beta, inverse)
 
-        n = TIMED_LAUNCHES if with_dx else HUGE_LAUNCHES
+        n = TIMED_LAUNCHES if rows <= DX_MAX_ROWS else HUGE_LAUNCHES
         ms = time_ms(kernel, n)
         plain_ms = time_ms(lambda: gdn.gdn_forward_reference(x, gamma, beta, inverse), n)
         library_ms = time_ms(lambda: torch.addmm(beta, x * x, gamma.T), n)
@@ -739,14 +797,30 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
         flops = rows * c * (2 * c + 4)
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * flops / FP32_FLOP_PER_S
+
+        n = TIMED_LAUNCHES if rows <= BWD_TIMED_MAX_ROWS else HUGE_LAUNCHES
+        bwd["ms"] = time_ms(lambda: gdn.gdn_backward(x, gamma, beta, g, inverse, True, False), n)
+        bwd["plain_ms"] = time_ms(
+            lambda: gdn.gdn_backward_reference(x, gamma, beta, g, inverse, True, False), n)
+        if both_modes:
+            bwd["dnorm_ms"] = time_ms(
+                lambda: gdn.gdn_backward(x, gamma, beta, g, inverse, True, True), n)
+            bwd["plain_dnorm_ms"] = time_ms(
+                lambda: gdn.gdn_backward_reference(x, gamma, beta, g, inverse, True, True), n)
+            bwd["dnorm_bound_ms"] = gdn_bwd_bound(rows, c, inverse, True)[0]
+        bwd["addmm_ms"] = library_ms
+        # g stands in for dnorm: the same shape and layout, the same product
+        bwd["dnorm_gamma_ms"] = time_ms(lambda: g @ gamma, n)
+        bwd["bound_ms"], bwd["bound_by"] = gdn_bwd_bound(rows, c, inverse, False)
+        bwd["max_abs_err"] = max(bwd["dx"]["max_abs"], bwd.get("dnorm", {}).get("max_abs", 0.0))
+        bwd["layout"] = bwd_layout
         rec = {
-            "C": c, "rows": rows, "inverse": inverse, "max_abs_err": errs["forward"],
-            "dx_max_abs_err": errs["dx"],
+            "C": c, "rows": rows, "inverse": inverse, "max_abs_err": fwd["max_abs"],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "tf32_bound_ms": max(byte_ms, 1e3 * flops / TF32_FLOP_PER_S),
-            "layout": layout,
+            "layout": layout, "backward": bwd,
         }
         more = ""
         if rows in L2_FLUSHED_ROWS:
@@ -761,14 +835,29 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
             more = (f" (x{LONG_LAUNCHES} {rec['ms_500']:.4f}, L2 flushed "
                     f"{rec['ms_l2_flushed']:.4f}, host enqueue {rec['host_ms']:.4f})")
         records.append(rec)
-        dx_err = "not checked" if errs["dx"] is None else f"{errs['dx']:.3e}"
+        kind = "IGDN" if inverse else "GDN "
         log(
-            f"phase {phase} {'IGDN' if inverse else 'GDN '} C={c} rows={rows}: max_abs_err "
-            f"{errs['forward']:.3e} (dx {dx_err})  kernel {ms:.4f} ms{more}  plain "
+            f"phase {phase} {kind} C={c} rows={rows}: max_abs_err "
+            f"{fwd['max_abs']:.3e}  kernel {ms:.4f} ms{more}  plain "
             f"{plain_ms:.4f} ms  addmm {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}; TF32 tensor-core bound {rec['tf32_bound_ms']:.4f} ms)  "
             f"launch: {layout['tile']}-row tiles, {layout['blocks_per_sm']} blocks/SM, "
             f"grid {layout['grid']}, {layout['smem_bytes']} B shared"
+        )
+        dx = bwd["dx"]
+        both = (f", dnorm {bwd['dnorm']['max_abs']:.3e} (equal {bwd['dnorm']['equal_share']:.6f}), "
+                f"dgamma {bwd['dgamma_rel']:.3e} and dbeta {bwd['dbeta_rel']:.3e} of their "
+                f"largest; kernel dx+dnorm {bwd['dnorm_ms']:.4f} ms, plain "
+                f"{bwd['plain_dnorm_ms']:.4f} ms, bound {bwd['dnorm_bound_ms']:.4f} ms"
+                if both_modes else " (dx alone at this size)")
+        log(
+            f"phase {phase} {kind} C={c} rows={rows} backward: dx max_abs_err "
+            f"{dx['max_abs']:.3e} (equal {dx['equal_share']:.6f}, past 1e-6 "
+            f"{dx['past_1e-6_share']:.2e}){both}; kernel dx {bwd['ms']:.4f} ms, plain "
+            f"{bwd['plain_ms']:.4f} ms, cuBLAS addmm {library_ms:.4f} + dnorm@gamma "
+            f"{bwd['dnorm_gamma_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); "
+            f"launch: {bwd_layout['tile']}-row tiles, {bwd_layout['blocks_per_sm']} blocks/SM, "
+            f"grid {bwd_layout['grid']}, {bwd_layout['smem_bytes']} B shared"
         )
     return records
 
@@ -785,20 +874,35 @@ def phase_main_path(gdn):
         "-steps", str(steps), "-two_phase", "select", "-device", "cuda",
     ])
     im = synthetic_image(512, 768, seed=0)
+    backwards = collections.Counter()
+    wrapper = gdn.gdn_backward
+
+    def counted(*args):
+        backwards["calls"] += 1
+        return wrapper(*args)
+
     gdn.reset_launch_counts()
-    avg = run(cfg, images=[("synthetic-768x512", im, 512, 768)])
-    launches = gdn.launch_counts["gdn_fwd"]
+    gdn.gdn_backward = counted
+    try:
+        avg = run(cfg, images=[("synthetic-768x512", im, 512, 768)])
+    finally:
+        gdn.gdn_backward = wrapper
+    launches, launches_bwd = gdn.launch_counts["gdn_fwd"], gdn.launch_counts["gdn_bwd"]
     for key in ("vi", "bpp_ori", "bpp"):
         if not math.isfinite(avg[key]):
             raise RuntimeError(f"main path: {key} is not finite ({avg[key]})")
-    if launches == 0:
-        raise RuntimeError("main path ran without launching the GDN kernel")
+    if launches == 0 or launches_bwd == 0:
+        raise RuntimeError(f"main path launched gdn_fwd {launches} and gdn_bwd {launches_bwd} times")
+    if launches_bwd != backwards["calls"]:
+        raise RuntimeError(f"main path: {backwards['calls']} GDN backwards, gdn_bwd launched "
+                           f"{launches_bwd} times")
     log(
         f"phase 4 main path: {steps / avg['t']:.2f} steps/s (incl. clean forward and eval), "
         f"vi {avg['vi']:.4f}, bpp_ori {avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, "
-        f"gdn_fwd launches {launches} ({launches / steps:.3f} per step)"
+        f"gdn_fwd launches {launches} ({launches / steps:.3f} per step), gdn_bwd launches "
+        f"{launches_bwd} ({launches_bwd / steps:.3f} per step; {backwards['calls']} GDN backwards)"
     )
-    return launches
+    return launches, launches_bwd
 
 
 def has_gdn(codec) -> bool:
@@ -932,19 +1036,20 @@ def phase_slice2_path(gdn):
     torch.cuda.reset_peak_memory_stats()
     gdn.reset_launch_counts()
     avg = run(cfg, images=[("synthetic-768x512", im, 512, 768)])
-    launches = gdn.launch_counts["gdn_fwd"]
+    launches, launches_bwd = gdn.launch_counts["gdn_fwd"], gdn.launch_counts["gdn_bwd"]
     for key in ("vi", "bpp_ori", "bpp"):
         if not math.isfinite(avg[key]):
             raise RuntimeError(f"phase 7: {key} is not finite ({avg[key]})")
-    if launches == 0:
-        raise RuntimeError("phase 7 ran without launching the GDN kernel")
+    if launches == 0 or launches_bwd == 0:
+        raise RuntimeError(f"phase 7 launched gdn_fwd {launches} and gdn_bwd {launches_bwd} times")
     log(
         f"phase 7 cheng2020-gmm q3 768x512: {steps / avg['t']:.2f} steps/s (incl. clean forward "
         f"and eval, {avg['t']:.2f} s), vi {avg['vi']:.4f}, bpp_ori {avg['bpp_ori']:.4f}, "
         f"bpp {avg['bpp']:.4f}, gdn_fwd launches {launches} ({launches / steps:.3f} per step), "
+        f"gdn_bwd launches {launches_bwd}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    return launches
+    return launches, launches_bwd
 
 
 def phase_families_kernel_vs_plain(gdn):
@@ -1318,9 +1423,10 @@ def cudnn_deterministic(on: bool = True):
 
 
 def kernel_and_plain(gdn, codec, fn):
-    """``fn()`` with the kernel, then with the plain GDN, cuDNN set
-    deterministic: ``[(result, launches), (result, launches)]``; the kernel
-    run must launch the kernel and the plain run must not."""
+    """``fn()`` with the kernels, then with the plain GDN (forward and
+    backward), cuDNN set deterministic: ``[(result, launches), (result,
+    launches)]`` (the forward kernel's); the kernel run must launch the
+    forward kernel and the plain run neither kernel."""
     import torch
 
     out = []
@@ -1332,10 +1438,12 @@ def kernel_and_plain(gdn, codec, fn):
                 res = fn()
                 torch.cuda.synchronize()
                 out.append((res, gdn.launch_counts["gdn_fwd"]))
+            plain_bwd = gdn.launch_counts["gdn_bwd"]
         finally:
             use_gdn_kernel(codec, True)
-    if out[0][1] == 0 or out[1][1] != 0:
-        raise RuntimeError(f"launch counts: kernel run {out[0][1]}, plain run {out[1][1]}")
+    if out[0][1] == 0 or out[1][1] != 0 or plain_bwd != 0:
+        raise RuntimeError(f"launch counts: kernel run {out[0][1]}, plain run {out[1][1]} "
+                           f"(gdn_bwd {plain_bwd})")
     return out
 
 
@@ -1579,27 +1687,33 @@ def attack_trained(gdn, step_dir: str, state):
 
 def phase_training(gdn):
     """Phase 12a and 12b: RD training and --adv finetuning through
-    ``cli.train`` at full width, with a resume, in a temporary directory."""
+    ``cli.train`` at full width, with a resume, in a temporary directory.
+    Returns the records and the forward and backward kernels' launches."""
     from imagecompression_adversarial_tpu_torch.config import Config
     from imagecompression_adversarial_tpu_torch.runtime import load_model
     from imagecompression_adversarial_tpu_torch.train import CheckpointManager, create_train_state
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cwd = os.getcwd()
-    launches, records = {}, {}
+    launches, launches_bwd, records = {}, {}, {}
     try:
         os.chdir(tmp)
         s, n, peak, _ = train_cli(gdn, ["-max_steps", str(TRAIN_RD_STEPS)])
+        nb = gdn.launch_counts["gdn_bwd"]
+        if nb == 0:
+            raise RuntimeError("phase 12a ran without launching the GDN backward kernel")
         t = s["timing"]
         rec = {"steps": s["steps"], "steps_per_s": t["steady_steps"] / t["steady_s"],
-               "first_step_s": t["first_step_s"], "gdn_launches": n,
+               "first_step_s": t["first_step_s"], "gdn_launches": n, "gdn_bwd_launches": nb,
                "launches_per_step": n / s["steps"], "peak_gib": peak,
                "first": s["first"], "last": s["last"], "eval_loss": s["best_loss"]}
         records["12a"] = rec
         launches[f"12a RD training x{TRAIN_RD_STEPS}"] = n
+        launches_bwd[f"12a RD training x{TRAIN_RD_STEPS}"] = nb
         log(f"phase 12a RD training hyper q1, 8 x 256x256: {rec['steps_per_s']:.2f} steps/s "
             f"(steps 2-{s['steps']}; the first took {t['first_step_s']:.2f} s), gdn_fwd launches {n} "
-            f"({rec['launches_per_step']:.2f} a step, the final eval's forward included), peak "
+            f"({rec['launches_per_step']:.2f} a step, the final eval's forward included), gdn_bwd "
+            f"launches {nb} ({nb / s['steps']:.2f} a step), peak "
             f"memory {peak:.2f} GiB; loss {s['first']['loss']:.4f} -> {s['last']['loss']:.4f}, bpp "
             f"{s['first']['bpp_loss']:.4f} -> {s['last']['bpp_loss']:.4f}, distortion "
             f"{s['first']['distortion']:.6f} -> {s['last']['distortion']:.6f}, aux "
@@ -1618,7 +1732,8 @@ def phase_training(gdn):
                "attack_steps_per_s": t["attack_steps"] / t["attack_s"],
                "attack_steps": t["attack_steps"], "eval_vi_step10": curve[0]["eval_loss"],
                "lr": curve[0]["lr"], "best_eval_vi": s["best_loss"], "eval_s": t["eval_s"],
-               "gdn_launches": n, "peak_gib": peak, "first": s["first"], "last": s["last"]}
+               "gdn_launches": n, "gdn_bwd_launches": gdn.launch_counts["gdn_bwd"],
+               "peak_gib": peak, "first": s["first"], "last": s["last"]}
         if not math.isfinite(rec["eval_vi_step10"]):
             raise RuntimeError(f"phase 12b: eval vi {rec['eval_vi_step10']}")
 
@@ -1631,11 +1746,13 @@ def phase_training(gdn):
             raise RuntimeError(f"phase 12b: step {fresh.step} restored, exactly: {exact}")
         records["12b"] = rec
         launches[f"12b --adv training x{TRAIN_ADV_STEPS}"] = n
+        launches_bwd[f"12b --adv training x{TRAIN_ADV_STEPS}"] = rec["gdn_bwd_launches"]
         log(f"phase 12b --adv training, 8 x 256x256, -steps 101: {rec['steps_per_s']:.3f} train "
             f"steps/s (steps 2-{s['steps']}, evals excluded), inner attack "
             f"{rec['attack_steps_per_s']:.2f} steps/s ({t['attack_steps']} steps), eval vi at step "
             f"10 {rec['eval_vi_step10']:.4f} dB (lr {rec['lr']:g}), best {s['best_loss']:.4f}, "
-            f"gdn_fwd launches {n}, peak memory {peak:.2f} GiB; checkpoint of step 12 restores "
+            f"gdn_fwd launches {n}, gdn_bwd launches {rec['gdn_bwd_launches']}, peak memory "
+            f"{peak:.2f} GiB; checkpoint of step 12 restores "
             f"params and both optimizer states exactly (extra {extra})")
 
         s, n, _, out = train_cli(gdn, adv + ["-max_steps", str(TRAIN_RESUME_STEPS)])
@@ -1655,7 +1772,7 @@ def phase_training(gdn):
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
-    return records, launches
+    return records, launches, launches_bwd
 
 
 def train_kernel_vs_plain(gdn):
@@ -2317,34 +2434,54 @@ def par_rank_setup():
 
 
 def measured(fn):
-    """``fn()`` with the launch count set to 0 just before it and read just
+    """``fn()`` with the launch counts set to 0 just before it and read just
     after, the peak memory reset before it, and its synced seconds:
-    ``(result, {"s", "peak_gib", "launches", "gdn_shapes"})``, the last the
-    (C, rows) of every GDN call that reached the kernel's wrapper."""
+    ``(result, {"s", "peak_gib", "launches", "bwd_launches",
+    "gdn_shapes"})``, the last the (C, rows) of every GDN call that reached
+    the forward or the backward kernel's wrapper."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.kernels import gdn
 
     shapes = set()
-    wrapper = gdn.gdn_forward
+    forward, backward = gdn.gdn_forward, gdn.gdn_backward
 
-    def recorded(x, gamma, beta, inverse):
+    def recorded_forward(x, *args):
         shapes.add((int(x.shape[1]), int(x.shape[0])))
-        return wrapper(x, gamma, beta, inverse)
+        return forward(x, *args)
+
+    def recorded_backward(x, *args):
+        shapes.add((int(x.shape[1]), int(x.shape[0])))
+        return backward(x, *args)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gdn.reset_launch_counts()
-    gdn.gdn_forward = recorded
+    gdn.gdn_forward, gdn.gdn_backward = recorded_forward, recorded_backward
     try:
         t = time.time()
         res = fn()
         torch.cuda.synchronize()
         seconds = time.time() - t
     finally:
-        gdn.gdn_forward = wrapper
+        gdn.gdn_forward, gdn.gdn_backward = forward, backward
     return res, {"s": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                 "launches": gdn.launch_counts["gdn_fwd"], "gdn_shapes": sorted(shapes)}
+                 "launches": gdn.launch_counts["gdn_fwd"],
+                 "bwd_launches": gdn.launch_counts["gdn_bwd"], "gdn_shapes": sorted(shapes)}
+
+
+@contextlib.contextmanager
+def plain_gdn_backward():
+    """The GDN's forward kernel with the plain backward (``GDNFunction``'s
+    backward calls ``gdn_backward_reference`` in place of the kernel)."""
+    from imagecompression_adversarial_tpu_torch.kernels import gdn
+
+    wrapper = gdn.gdn_backward
+    gdn.gdn_backward = gdn.gdn_backward_reference
+    try:
+        yield
+    finally:
+        gdn.gdn_backward = wrapper
 
 
 def par_batches(steps: int):
@@ -3246,12 +3383,13 @@ def mp_run(label: str, attack, x, steps: int, runs: list) -> tuple:
     vals = {k: float(res[k]) for k in ("vi", "bpp_ori", "bpp")}
     rec = {"size": [x.shape[3], x.shape[2]], "steps": steps, "s": m["s"],
            "steps_per_s": steps / m["s"], "peak_gib": m["peak_gib"],
-           "allocated_before_gib": before, "launches": m["launches"], **vals}
+           "allocated_before_gib": before, "launches": m["launches"],
+           "bwd_launches": m["bwd_launches"], **vals}
     log(f"phase {label} {x.shape[3]}x{x.shape[2]}: {steps} steps in {m['s']:.2f} s "
         f"({rec['steps_per_s']:.3f} steps/s, the clean forward and the evaluation included), "
         f"peak {m['peak_gib']:.3f} GiB ({before:.3f} GiB allocated before it), vi "
-        f"{vals['vi']:.4f}, bpp_ori {vals['bpp_ori']:.4f}, bpp {vals['bpp']:.4f}, GDN launches "
-        f"{m['launches']}")
+        f"{vals['vi']:.4f}, bpp_ori {vals['bpp_ori']:.4f}, bpp {vals['bpp']:.4f}, gdn_fwd "
+        f"launches {m['launches']}, gdn_bwd launches {m['bwd_launches']}")
     if not all(math.isfinite(v) for v in vals.values()) or m["launches"] == 0:
         raise RuntimeError(f"phase {label}: non-finite result or no GDN launch")
     return res, rec
@@ -3279,9 +3417,9 @@ def free_card() -> None:
 
 def phase_megapixel(gdn):
     """Phase 19: attacks on images of 12.6 MP and more on one card, the
-    large-image path (``split_eval``); returns the records, the GDN
-    launches of each run and phase-3 records of any row count phase 3 did
-    not hold."""
+    large-image path (``split_eval``); returns the records, the forward
+    kernel's launches of each run, the backward kernel's of 19a's and
+    phase-3 records of any row count phase 3 did not hold."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.cli.attack_rd import main as cli_main
@@ -3325,6 +3463,29 @@ def phase_megapixel(gdn):
             f"after both were freed")
         records["19b split again"] = rec_again
         launches["19b split 4096x3072 again"] = rec_again["launches"]
+        launches_bwd = {"19a single-program 4096x3072": rec["bwd_launches"],
+                        "19a split 4096x3072": rec_split["bwd_launches"]}
+
+        # (g) the same attacks with the plain backward: the peak memory the
+        # backward kernel leaves against the plain chain's temporaries
+        peaks = {"single": {"kernel": rec["peak_gib"]}, "split": {"kernel": rec_split["peak_gib"]}}
+        with plain_gdn_backward():
+            for kind, split in (("single", False), ("split", True)):
+                free_card()
+                res, plain = mp_run(f"19g hyper q1 {kind}, plain GDN backward",
+                                    mp_attack(codec, MP_PLAIN_BWD_STEPS, split), x,
+                                    MP_PLAIN_BWD_STEPS, runs)
+                del res
+                if plain["bwd_launches"] != 0:
+                    raise RuntimeError("phase 19g: the plain backward launched the kernel")
+                peaks[kind]["plain"] = plain["peak_gib"]
+        free_card()
+        records["19g peaks, kernel and plain backward"] = peaks
+        log(f"phase 19g peak GiB with the backward kernel / the plain backward: single-program "
+            f"{peaks['single']['kernel']:.3f} / {peaks['single']['plain']:.3f}, split "
+            f"{peaks['split']['kernel']:.3f} / {peaks['split']['plain']:.3f} (split over "
+            f"single-program {peaks['split']['kernel'] / peaks['single']['kernel']:.3f} / "
+            f"{peaks['split']['plain'] / peaks['single']['plain']:.3f})")
 
         # (c) the split attack above what one program could hold; the
         # allocator maps its blocks into growing segments, or the blocks
@@ -3430,7 +3591,7 @@ def phase_megapixel(gdn):
         + (f", and here: {[(r['C'], r['rows']) for r in shape_records[::2]]}" if shape_records
            else ""))
     log(f"phase 19 done in {time.time() - t0:.1f} s")
-    return records, launches, shape_records
+    return records, launches, launches_bwd, shape_records
 
 
 def phase_orbax_resume(gdn):
@@ -3595,15 +3756,15 @@ def main() -> int:
         f"({'cached' if cached else 'g++'}) -> {_build.rans_library_path().name}")
 
     records = phase_kernel_vs_plain(gdn)
-    launches = phase_main_path(gdn)
+    launches, launches_bwd = phase_main_path(gdn)
     phase_attack_kernel_vs_plain(gdn)
     phase_cli_png()
-    launches_gmm = phase_slice2_path(gdn)
+    launches_gmm, launches_gmm_bwd = phase_slice2_path(gdn)
     launches_families = phase_families_kernel_vs_plain(gdn)
     launches_coder = phase_coder(gdn)
     launches_slice4 = phase_slice4_path(gdn)
     launches_engines = phase_engines_kernel_vs_plain(gdn)
-    train_records, launches_train = phase_training(gdn)
+    train_records, launches_train, launches_train_bwd = phase_training(gdn)
     train_records["12c"] = phase_train_kernel_vs_plain(gdn)
     print(json.dumps({"phase12": train_records}), flush=True)
     adapter_records, launches_adapters = phase_adapters(gdn)
@@ -3620,7 +3781,7 @@ def main() -> int:
     launches_slice7.update(launches_analysis)
     parallel_records, launches_parallel = phase_parallel(gdn)
     print(json.dumps({"phase18": parallel_records}, default=float), flush=True)
-    mp_records, launches_mp, mp_shapes = phase_megapixel(gdn)
+    mp_records, launches_mp, launches_mp_bwd, mp_shapes = phase_megapixel(gdn)
     print(json.dumps({"phase19": mp_records}, default=float), flush=True)
     records += mp_shapes
     orbax_records, launches_orbax = phase_orbax_resume(gdn)
@@ -3655,7 +3816,33 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "tf32_bound_ms": head["tf32_bound_ms"],
         "shape": {"rows": head["rows"], "C": head["C"], "inverse": head["inverse"]},
-        "per_shape": records,
+        "per_shape": [{k: v for k, v in r.items() if k != "backward"} for r in records],
+    }, {
+        "name": "gdn_bwd",
+        "route": "cuda",
+        "source": "imagecompression_adversarial_tpu_torch/csrc/gdn.cu",
+        "replaces": "scripts/pallas_gdn.py:125",
+        "launches": launches_bwd,
+        "launches_by_phase": {
+            "4 hyper q1 768x512": launches_bwd,
+            "7 cheng2020-gmm q3 768x512": launches_gmm_bwd,
+            **launches_train_bwd,
+            **launches_mp_bwd,
+        },
+        "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
+        "ms": head["backward"]["ms"],
+        "plain_ms": head["backward"]["plain_ms"],
+        "bound_ms": head["backward"]["bound_ms"],
+        "bound_by": head["backward"]["bound_by"],
+        # no one PyTorch call computes the backward; its two cuBLAS products
+        # are timed beside it
+        "library_ms": None,
+        "cublas_ms": {"addmm": head["backward"]["addmm_ms"],
+                      "dnorm_gamma": head["backward"]["dnorm_gamma_ms"]},
+        "shape": {"rows": head["rows"], "C": head["C"], "inverse": head["inverse"],
+                  "mode": "dx"},
+        "per_shape": [{"C": r["C"], "rows": r["rows"], "inverse": r["inverse"], **r["backward"]}
+                      for r in records],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

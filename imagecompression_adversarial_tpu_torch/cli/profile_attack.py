@@ -5,9 +5,10 @@
 
 Runs the main path's attack (hyper q1, 768x512, ``-two_phase select``,
 50 steps) on a numpy-made image once to warm up, then times whole attacks
-with the GDN kernel and with its plain version in turns (kernel, plain,
-plain, kernel), then profiles one attack with ``torch.profiler`` and prints
-device time by kernel.  The device's idle share is printed twice: measured
+on three GDN routes in turns (each route's runs placed symmetrically): both
+kernels; the forward kernel with the plain backward (the route before the
+backward kernel); the plain GDN.  Then it profiles one attack with both
+kernels with ``torch.profiler`` and prints device time by kernel.  The device's idle share is printed twice: measured
 in the profiled window (which the profiler's own host cost inflates), and
 estimated from the profiled run's busy time over the wall time of the
 unprofiled kernel runs.  Needs a CUDA device.
@@ -23,6 +24,7 @@ import torch
 from ..attacks import RDAttackConfig, make_attack_fn
 from ..config import Config, apply_precision
 from ..io.image import synthetic_image, to_tensor
+from ..kernels import gdn
 from ..models.layers import GDN
 from ..runtime import load_model
 
@@ -30,6 +32,7 @@ QUALITY = 1
 HEIGHT, WIDTH = 512, 768
 STEPS = 50
 TOP = 25
+ROUTES = ("kernels", "plain backward", "plain")
 
 
 def _set_gdn(model, use_kernel: bool) -> None:
@@ -56,20 +59,27 @@ def main(argv=None) -> None:
     x = to_tensor(synthetic_image(HEIGHT, WIDTH, seed=0), "cuda")
     attack = make_attack_fn(model, RDAttackConfig(steps=STEPS, two_phase_impl="select"))
 
-    def timed(use_kernel: bool) -> float:
-        _set_gdn(model, use_kernel)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        attack(x)["vi"].item()
-        return time.perf_counter() - t0
+    def timed(route: str) -> float:
+        _set_gdn(model, route != "plain")
+        backward = gdn.gdn_backward
+        if route == "plain backward":  # GDNFunction.backward looks it up per call
+            gdn.gdn_backward = gdn.gdn_backward_reference
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            attack(x)["vi"].item()
+            return time.perf_counter() - t0
+        finally:
+            gdn.gdn_backward = backward
 
-    timed(True)  # warm-up: cuDNN plans, the kernel build
-    rates = {True: [], False: []}
-    for use_kernel in (True, False, False, True):
-        rates[use_kernel].append(STEPS / timed(use_kernel))
-    for use_kernel, rs in rates.items():
-        print(f"attack {WIDTH}x{HEIGHT} x{STEPS} steps, GDN "
-              f"{'kernel' if use_kernel else 'plain '}: steps/s {rs[0]:.2f} {rs[1]:.2f}", flush=True)
+    for route in ROUTES:  # warm-up: cuDNN plans, the kernel build
+        timed(route)
+    rates = {route: [] for route in ROUTES}
+    for route in ROUTES + ROUTES[::-1]:
+        rates[route].append(STEPS / timed(route))
+    for route, rs in rates.items():
+        print(f"attack {WIDTH}x{HEIGHT} x{STEPS} steps, GDN {route}: steps/s "
+              f"{rs[0]:.2f} {rs[1]:.2f}", flush=True)
 
     _set_gdn(model, True)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -84,7 +94,7 @@ def main(argv=None) -> None:
     ]
     events.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events)
-    unprofiled_us = 1e6 * STEPS / min(rates[True])
+    unprofiled_us = 1e6 * STEPS / min(rates["kernels"])
     print(f"profiled attack: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
           f"idle share of this window {1.0 - busy / wall_us:.3f}", flush=True)
     print(f"estimated idle share unprofiled: {1.0 - busy / unprofiled_us:.3f} (this busy time over "

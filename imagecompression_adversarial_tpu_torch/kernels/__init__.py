@@ -2,6 +2,8 @@
 
 from .gdn import (
     GDNFunction,
+    gdn_backward,
+    gdn_backward_reference,
     gdn_forward,
     gdn_forward_reference,
     launch_counts,
@@ -10,6 +12,8 @@ from .gdn import (
 
 __all__ = [
     "GDNFunction",
+    "gdn_backward",
+    "gdn_backward_reference",
     "gdn_forward",
     "gdn_forward_reference",
     "launch_counts",

@@ -6,11 +6,11 @@ under a name keyed by a hash of its sources and flags, so an edited source
 or flag builds anew and an unchanged one is reused.  One file lock
 serialises concurrent builds of both.
 
-* ``libicat_kernels-<hash>.so``: the CUDA kernels, by ``nvcc``.  Plain
-  ``nvcc`` on a source with a C interface takes seconds; nothing here
-  includes PyTorch's headers.  What nvcc prints, ``ptxas``'s registers,
-  shared memory and spills of each kernel included (``-Xptxas -v``), is kept
-  beside the library (``build_log``).
+* ``libicat_kernels-<hash>.so``: the CUDA kernels (the GDN forward and
+  backward), by ``nvcc``.  Plain ``nvcc`` on a source with a C interface
+  takes seconds; nothing here includes PyTorch's headers.  What nvcc
+  prints, ``ptxas``'s registers, shared memory and spills of each kernel
+  included (``-Xptxas -v``), is kept beside the library (``build_log``).
 * ``libicat_rans-<hash>.so``: the host rANS coder (``csrc/rans.cc``), by
   ``g++``, so that the real coder runs where there is no CUDA toolkit.
 """
@@ -138,6 +138,9 @@ def declare_gdn(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.icat_gdn_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.icat_gdn_fwd.restype = i32
-    lib.icat_gdn_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
-    lib.icat_gdn_layout.restype = i32
+    lib.icat_gdn_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.icat_gdn_bwd.restype = i32
+    for layout in (lib.icat_gdn_layout, lib.icat_gdn_bwd_layout):
+        layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        layout.restype = i32
     return lib

@@ -1,17 +1,20 @@
-"""How the GDN kernel forms its channel product, and what each way costs in
-accuracy and time on the card.
+"""How the GDN kernels form their channel products, and what each way
+costs in accuracy and time on the card.
 
 Usage (needs an NVIDIA GPU and nvcc)::
 
     python -m imagecompression_adversarial_tpu_torch.kernels.gdn_accuracy \
-        [--out FILE]
+        [--what forward|product2|both] [--out FILE]
 
-``csrc/gdn.cu`` is built in variants that differ only in a warp's k step
-of 8 channels: the committed one (fp32 FMA) and v4's tensor-core step
-(3xTF32, the previous version) with the products of ``TF32_PRODUCTS``; the rest of the
-kernel is the committed source.  For each variant, on the
-weights of the JAX trainer's committed orbax step 2000 (hyper q4) and 8
-synthetic 256x256 crops (``chip_smoke.py`` phase 20c's inputs):
+``csrc/gdn.cu`` is built in variants that differ only in one loop; the
+rest is the committed source.  Everything runs on the weights of the JAX
+trainer's committed orbax step 2000 (hyper q4) and 8 synthetic 256x256
+crops (``chip_smoke.py`` phase 20c's inputs).
+
+``forward``: product 1, the norm's k step of 8 channels, which the forward
+and backward kernels share (``norm_sums``): the committed one (fp32 FMA)
+and v4's tensor-core step (3xTF32, the previous version) with the products
+of ``TF32_PRODUCTS``.  For each:
 
 * forward: every GDN/IGDN call of one noise-quantized forward, the signed
   mean of the output's relative error against a float64 product, per call
@@ -25,8 +28,17 @@ synthetic 256x256 crops (``chip_smoke.py`` phase 20c's inputs):
 * time: CUDA events, the median of 20 launches at 131,072 rows and C=128
   (that forward's largest call) and at 98,304 rows and C=192.
 
-The plain float32 GDN (cuBLAS, TF32 off) is measured beside them.  Prints
-one JSON object, and writes it to ``--out`` where given.
+The plain float32 GDN (cuBLAS, TF32 off) is measured beside them.
+
+``product2``: the backward's dnorm @ gamma (``grad_sums``), whose order in
+cuBLAS's SGEMM the backward kernel must take to give the plain backward's
+dx bit for bit: the committed step (one fp32 FMA chain over o ascending)
+and ``PRODUCT2_PRODUCTS``.  For each, on every GDN call of the RD loss's
+backward with its real output gradient: the share of dx elements equal to
+the plain backward's, the largest gap and the share past 1e-6, the largest
+dnorm gap (``backward_error``); and the dx-only time at 98,304 rows, C=128.
+
+Prints one JSON object, and writes it to ``--out`` where given.
 """
 
 from __future__ import annotations
@@ -77,70 +89,134 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 # parts, then PRODUCTS' products into acc[j], the lane's four sums of the
 # tile (D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]).
 TF32_STEP = """\
-      const float* gr = gs + (8 * first + g) * l.ld;
-      const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
-                          xr[8 * l.ld + k0 + t + 4]};
-      uint32_t a_hi[4], a_lo[4];
+    const float* gr = gs + (8 * first + g) * l.ld;
+    const float a[4] = {xr[k0 + t], xr[8 * l.ld + k0 + t], xr[k0 + t + 4],
+                        xr[8 * l.ld + k0 + t + 4]};
+    uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
+    for (int q = 0; q < 4; ++q) split_tf32(a[q] * a[q], a_hi[q], a_lo[q]);
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const float* b = gr + 8 * j * l.ld + k0 + t;
-        uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-        split_tf32(b[0], b0_hi, b0_lo);
-        split_tf32(b[4], b1_hi, b1_lo);
+    for (int j = 0; j < kJ; ++j) {
+      const float* b = gr + 8 * j * l.ld + k0 + t;
+      uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+      split_tf32(b[0], b0_hi, b0_lo);
+      split_tf32(b[4], b1_hi, b1_lo);
 {products}
-      }"""
+    }"""
 TF32_PRODUCTS = {
     # every product accumulated in acc by the tensor core (v4)
     "3xTF32, one accumulator": """\
-        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
-        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
-        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
+      mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+      mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+      mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
     # the same with the lo*lo term kept
     "4xTF32, one accumulator": """\
-        mma_tf32(acc[j], a_lo, b0_lo, b1_lo);
-        mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
-        mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
-        mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
+      mma_tf32(acc[j], a_lo, b0_lo, b1_lo);
+      mma_tf32(acc[j], a_lo, b0_hi, b1_hi);
+      mma_tf32(acc[j], a_hi, b0_lo, b1_lo);
+      mma_tf32(acc[j], a_hi, b0_hi, b1_hi);""",
     # the k step's products summed from zero by the tensor core and added
     # to acc by an fp32 add (rounded to nearest)
     "3xTF32, k step apart": """\
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(part, a_lo, b0_hi, b1_hi);
-        mma_tf32(part, a_hi, b0_lo, b1_lo);
-        mma_tf32(part, a_hi, b0_hi, b1_hi);
-        for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_tf32(part, a_lo, b0_hi, b1_hi);
+      mma_tf32(part, a_hi, b0_lo, b1_lo);
+      mma_tf32(part, a_hi, b0_hi, b1_hi);
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
     "4xTF32, k step apart": """\
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(part, a_lo, b0_lo, b1_lo);
-        mma_tf32(part, a_lo, b0_hi, b1_hi);
-        mma_tf32(part, a_hi, b0_lo, b1_lo);
-        mma_tf32(part, a_hi, b0_hi, b1_hi);
-        for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_tf32(part, a_lo, b0_lo, b1_lo);
+      mma_tf32(part, a_lo, b0_hi, b1_hi);
+      mma_tf32(part, a_hi, b0_lo, b1_lo);
+      mma_tf32(part, a_hi, b0_hi, b1_hi);
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[q];""",
 }
 #: The variant csrc/gdn.cu holds (v5): fp32 FMA in cuBLAS's order.
 COMMITTED = "fp32 FMA"
-# The body of the kernel's loop over k steps of 8 channels, and the kernel's
-# first line, in the committed source.
+# The body of the loop over k steps of 8 channels of product 1 (the norm,
+# ``norm_sums``, which the forward and backward kernels share), and the
+# first line of that function, in the committed source.
 STEP_BODY = re.compile(
-    r"(    for \(int k0 = 0; k0 < l\.Cp; k0 \+= 8\) \{\n)(.*?)(\n    \}\n\n    const int n0)",
-    re.S)
-KERNEL_START = "template <bool kInverse, int kJ>\n"
+    r"(  for \(int k0 = 0; k0 < l\.Cp; k0 \+= 8\) \{\n)(.*?)(\n  \}\n\}\n)", re.S)
+KERNEL_START = "template <int kJ>\n__device__ __forceinline__ void norm_sums("
 PLAIN = "plain float32 (cuBLAS)"
 
+# Product 2 of the backward, dnorm @ gamma (``grad_sums``): the body of its
+# loop over steps of 8 reduction channels o, in the committed source, and the
+# variants the probe builds in its place.  The committed one is one fp32
+# FMA chain over o = 0 .. C-1 from zero; the others are orders an SGEMM
+# might take instead.
+PRODUCT2_BODY = re.compile(
+    r"(  for \(int o0 = 0; o0 < l\.Cp; o0 \+= 8\) \{\n)(.*?)(\n  \}\n\}\n)", re.S)
+PRODUCT2_STEP = """\
+    float d0[8], d1[8];
+    load8(dr + o0, d0);
+    load8(dr + 8 * l.ld + o0, d1);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float* gc = gs + o0 * l.ld + 8 * (first + j) + 2 * t;
+{products}
+    }"""
+PRODUCT2_PRODUCTS = {
+    # each product rounded, then added
+    "fp32 multiply, then add": """\
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
+        acc[j][0] = __fadd_rn(acc[j][0], __fmul_rn(d0[kk], c.x));
+        acc[j][1] = __fadd_rn(acc[j][1], __fmul_rn(d0[kk], c.y));
+        acc[j][2] = __fadd_rn(acc[j][2], __fmul_rn(d1[kk], c.x));
+        acc[j][3] = __fadd_rn(acc[j][3], __fmul_rn(d1[kk], c.y));
+      }""",
+    # each step of 8 summed from zero by FMA, then added to the sum
+    "fp32 FMA, each step of 8 apart": """\
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
+        part[0] = fmaf(d0[kk], c.x, part[0]);
+        part[1] = fmaf(d0[kk], c.y, part[1]);
+        part[2] = fmaf(d1[kk], c.x, part[2]);
+        part[3] = fmaf(d1[kk], c.y, part[3]);
+      }
+      for (int q = 0; q < 4; ++q) acc[j][q] = __fadd_rn(acc[j][q], part[q]);""",
+    # the chain over each step of 8 from its last channel
+    "fp32 FMA, each step of 8 backwards": """\
+#pragma unroll
+      for (int kk = 7; kk >= 0; --kk) {
+        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
+        acc[j][0] = fmaf(d0[kk], c.x, acc[j][0]);
+        acc[j][1] = fmaf(d0[kk], c.y, acc[j][1]);
+        acc[j][2] = fmaf(d1[kk], c.x, acc[j][2]);
+        acc[j][3] = fmaf(d1[kk], c.y, acc[j][3]);
+      }""",
+}
+#: The product-2 variant csrc/gdn.cu holds.
+COMMITTED_PRODUCT2 = "fp32 FMA chain, o ascending"
 
-def step_body(source: str) -> str:
-    """The committed kernel's k step."""
-    found = STEP_BODY.findall(source)
-    if len(found) != 1 or source.count(KERNEL_START) != 1:
-        raise ValueError(f"csrc/gdn.cu: {len(found)} k-step loops found, expected one")
+
+def _one_body(pattern: re.Pattern, source: str, what: str) -> str:
+    found = pattern.findall(source)
+    if len(found) != 1:
+        raise ValueError(f"csrc/gdn.cu: {len(found)} {what} loops found, expected one")
     return found[0][1]
 
 
+def step_body(source: str) -> str:
+    """The committed kernels' k step of product 1."""
+    if source.count(KERNEL_START) != 1:
+        raise ValueError("csrc/gdn.cu: norm_sums not found once")
+    return _one_body(STEP_BODY, source, "k-step")
+
+
+def product2_body(source: str) -> str:
+    """The committed backward kernel's step of product 2."""
+    return _one_body(PRODUCT2_BODY, source, "product-2")
+
+
 def variants(source: str) -> dict:
-    """name -> the kernel's source with that k step: the committed one and
-    the TF32 ones (with the tensor-core helpers)."""
+    """name -> the kernels' source with that k step of product 1: the
+    committed one and the TF32 ones (with the tensor-core helpers)."""
     step_body(source)
     out = {COMMITTED: source}
     helpers = source.replace(KERNEL_START, TF32_HELPERS + KERNEL_START)
@@ -150,11 +226,23 @@ def variants(source: str) -> dict:
     return out
 
 
-def build_variants(workdir: Path) -> dict:
+def product2_variants(source: str) -> dict:
+    """name -> the kernels' source with that step of product 2: the
+    committed one and ``PRODUCT2_PRODUCTS``."""
+    product2_body(source)
+    out = {COMMITTED_PRODUCT2: source}
+    for name, products in PRODUCT2_PRODUCTS.items():
+        body = PRODUCT2_STEP.replace("{products}", products)
+        out[name] = PRODUCT2_BODY.sub(lambda m: m.group(1) + body + m.group(3), source)
+    return out
+
+
+def build_variants(workdir: Path, sources: dict) -> dict:
     """Every variant's library, nvcc run for all at once: name -> CDLL."""
     nvcc = _build.find_nvcc()
+    workdir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, text) in enumerate(variants(_build.SOURCES[0].read_text()).items()):
+    for i, (name, text) in enumerate(sources.items()):
         src = workdir / f"gdn_{i}.cu"
         src.write_text(text)
         out = workdir / f"libgdn_{i}.so"
@@ -172,7 +260,7 @@ def build_variants(workdir: Path) -> dict:
 
 @contextlib.contextmanager
 def kernel_library(lib):
-    """``gdn_forward`` launching ``lib``'s kernel."""
+    """``gdn_forward`` and ``gdn_backward`` launching ``lib``'s kernels."""
     load = _build.load_library
     _build.load_library = lambda: lib
     try:
@@ -263,24 +351,152 @@ def grad_distance(grads, ref):
                for a, b in zip(grads, ref))
 
 
-def time_ms(fwd, rows, c, gen):
+def gdn_backward_calls(codec, x):
+    """(x rows, gamma, beta, output gradient rows, inverse) of every GDN call
+    of the noise-quantized RD loss, the gradients those of its backward."""
+    from ..train import lambda_for, rate_distortion_loss
+
+    calls = []
+
+    def hook(m, args, out):
+        gamma, beta = m.resolved()
+        c = out.shape[1]
+
+        def rows(t):
+            return t.detach().permute(0, 2, 3, 1).reshape(-1, c).contiguous()
+
+        call = [rows(args[0]), gamma.detach().contiguous(), beta.detach().contiguous(), None,
+                m.inverse]
+        calls.append(call)
+        out.register_hook(lambda grad: call.__setitem__(3, rows(grad)))
+
+    handles = [m.register_forward_hook(hook) for m in gdn_layers(codec)]
+    try:
+        result = codec(x, quant_mode="noise",
+                       generator=torch.Generator(device=x.device).manual_seed(0))
+        loss = rate_distortion_loss(result, x, lambda_for("mse", 4), "mse")["loss"]
+        torch.autograd.grad(loss, [m.gamma for m in gdn_layers(codec)])
+    finally:
+        for h in handles:
+            h.remove()
+    return [tuple(c) for c in calls]
+
+
+def backward_error(calls):
+    """``gdn_backward``'s dx and dnorm on ``calls`` against the plain
+    backward's (cuBLAS): the share of dx elements bit-equal, the largest
+    |dx diff| and the share past 1e-6, and the largest |dnorm diff|.  dnorm
+    and dx share the norm's product and the elementwise steps, so a dx that
+    differs where dnorm does not differs in product 2, dnorm @ gamma."""
+    equal = far = total = 0
+    dx_max = dnorm_max = 0.0
+    for x, gamma, beta, g, inverse in calls:
+        dx, dnorm = gdn.gdn_backward(x, gamma, beta, g, inverse, True, True)
+        ref_dx, ref_dnorm = gdn.gdn_backward_reference(x, gamma, beta, g, inverse, True, True)
+        diff = (dx - ref_dx).abs()
+        equal += int((dx == ref_dx).sum())
+        far += int((diff > 1e-6).sum())
+        total += dx.numel()
+        dx_max = max(dx_max, float(diff.max()))
+        dnorm_max = max(dnorm_max, float((dnorm - ref_dnorm).abs().max()))
+    return {"dx_equal_share": equal / total, "dx_max_abs": dx_max,
+            "dx_share_past_1e-6": far / total, "dnorm_max_abs": dnorm_max}
+
+
+def time_ms(fn, rows, c, gen):
+    """Median of 20 timed calls of ``fn(x, gamma, beta, g)`` at (rows, C),
+    GDN, with phase 3's input recipe; CUDA events."""
     x = torch.randn(rows, c, device="cuda", generator=gen)
     gamma = 0.1 * torch.eye(c, device="cuda") + 0.01 * torch.rand(c, c, device="cuda",
                                                                    generator=gen)
     beta = 0.5 + torch.rand(c, device="cuda", generator=gen)
+    g = torch.randn(rows, c, device="cuda", generator=gen)
     times = []
     for _ in range(21):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fwd(x, gamma, beta, False)
+        fn(x, gamma, beta, g)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times[1:])
 
 
+def fwd_ms(fwd, rows, c, gen):
+    return time_ms(lambda x, gamma, beta, g: fwd(x, gamma, beta, False), rows, c, gen)
+
+
+def bwd_ms(bwd, rows, c, gen):
+    """dx alone, as the attack asks."""
+    return time_ms(lambda x, gamma, beta, g: bwd(x, gamma, beta, g, False, True, False),
+                   rows, c, gen)
+
+
+def forward_probe(codec, batch, gen, workdir: Path) -> dict:
+    """The product-1 k-step variants (``variants``): forward error, the
+    training gradients' distance from the plain and the float64 GDN, times."""
+    calls = gdn_calls(codec, batch)
+    wide = resumed_codec().double()
+    for m in gdn_layers(wide):
+        m.use_kernel = False
+    with float32_noise():
+        exact = gdn_grads(wide, batch.double())
+    del wide
+
+    for m in gdn_layers(codec):
+        m.use_kernel = False
+    plain = gdn_grads(codec, batch)
+    out = {"calls": [(c[0].shape[1], c[0].shape[0], c[3]) for c in calls], "variants": {}}
+    out["variants"][PLAIN] = {
+        "forward": forward_error(gdn.gdn_forward_reference, calls),
+        "grad_from_plain": 0.0, "grad_from_f64": grad_distance(plain, exact),
+        "ms_131072x128": fwd_ms(gdn.gdn_forward_reference, 131072, 128, gen),
+        "ms_98304x192": fwd_ms(gdn.gdn_forward_reference, 98304, 192, gen)}
+    for m in gdn_layers(codec):
+        m.use_kernel = True
+    libs = build_variants(workdir, variants(_build.SOURCES[0].read_text()))
+    for name, lib in libs.items():
+        with kernel_library(lib):
+            gdn.reset_launch_counts()
+            grads = gdn_grads(codec, batch)
+            if gdn.launch_counts["gdn_fwd"] == 0:
+                raise RuntimeError(f"{name}: the kernel was not launched")
+            out["variants"][name] = {
+                "forward": forward_error(gdn.gdn_forward, calls),
+                "grad_from_plain": grad_distance(grads, plain),
+                "grad_from_f64": grad_distance(grads, exact),
+                "ms_131072x128": fwd_ms(gdn.gdn_forward, 131072, 128, gen),
+                "ms_98304x192": fwd_ms(gdn.gdn_forward, 98304, 192, gen)}
+        print(name, json.dumps(out["variants"][name]), flush=True)
+    return out
+
+
+def product2_probe(codec, batch, gen, workdir: Path) -> dict:
+    """The product-2 variants (``product2_variants``) on every GDN call's
+    backward of the RD loss: dx and dnorm against the plain backward's
+    (``backward_error``), and the dx-only time at the attack's largest call
+    (98,304 rows, C=128)."""
+    calls = gdn_backward_calls(codec, batch)
+    out = {"calls": [(c[0].shape[1], c[0].shape[0], c[4]) for c in calls], "variants": {},
+           "plain_ms_98304x128": bwd_ms(gdn.gdn_backward_reference, 98304, 128, gen)}
+    libs = build_variants(workdir, product2_variants(_build.SOURCES[0].read_text()))
+    for name, lib in libs.items():
+        with kernel_library(lib):
+            gdn.reset_launch_counts()
+            rec = backward_error(calls)
+            if gdn.launch_counts["gdn_bwd"] != len(calls):
+                raise RuntimeError(f"{name}: {gdn.launch_counts['gdn_bwd']} launches, "
+                                   f"{len(calls)} calls")
+            rec["ms_98304x128"] = bwd_ms(gdn.gdn_backward, 98304, 128, gen)
+        out["variants"][name] = rec
+        print(name, json.dumps(rec), flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--what", choices=("forward", "product2", "both"), default="both",
+                        help="product 1's k-step variants, product 2's, or both")
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -295,43 +511,13 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     codec = resumed_codec()
     batch = to_tensor(next(synthetic_batches(8, 256, seed=0)), "cuda")
-    calls = gdn_calls(codec, batch)
-
-    wide = resumed_codec().double()
-    for m in gdn_layers(wide):
-        m.use_kernel = False
-    with float32_noise():
-        exact = gdn_grads(wide, batch.double())
-    del wide
-
-    for m in gdn_layers(codec):
-        m.use_kernel = False
-    plain = gdn_grads(codec, batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {"card": smi, "torch": torch.__version__, "step": str(STEP.relative_to(ROOT)),
-              "calls": [(c[0].shape[1], c[0].shape[0], c[3]) for c in calls], "variants": {}}
-    result["variants"][PLAIN] = {
-        "forward": forward_error(gdn.gdn_forward_reference, calls),
-        "grad_from_plain": 0.0, "grad_from_f64": grad_distance(plain, exact),
-        "ms_131072x128": time_ms(gdn.gdn_forward_reference, 131072, 128, gen),
-        "ms_98304x192": time_ms(gdn.gdn_forward_reference, 98304, 192, gen)}
-    for m in gdn_layers(codec):
-        m.use_kernel = True
+    result = {"card": smi, "torch": torch.__version__, "step": str(STEP.relative_to(ROOT))}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(Path(tmp))
-        for name, lib in libs.items():
-            with kernel_library(lib):
-                gdn.reset_launch_counts()
-                grads = gdn_grads(codec, batch)
-                if gdn.launch_counts["gdn_fwd"] == 0:
-                    raise RuntimeError(f"{name}: the kernel was not launched")
-                result["variants"][name] = {
-                    "forward": forward_error(gdn.gdn_forward, calls),
-                    "grad_from_plain": grad_distance(grads, plain),
-                    "grad_from_f64": grad_distance(grads, exact),
-                    "ms_131072x128": time_ms(gdn.gdn_forward, 131072, 128, gen),
-                    "ms_98304x192": time_ms(gdn.gdn_forward, 98304, 192, gen)}
-            print(name, json.dumps(result["variants"][name]), flush=True)
+        if args.what in ("forward", "both"):
+            result.update(forward_probe(codec, batch, gen, Path(tmp) / "forward"))
+        if args.what in ("product2", "both"):
+            result["product2"] = product2_probe(codec, batch, gen, Path(tmp) / "product2")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

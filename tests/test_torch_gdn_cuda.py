@@ -1,10 +1,12 @@
-"""The GDN/IGDN CUDA kernel vs its plain PyTorch version, on the card.
+"""The GDN/IGDN CUDA kernels (forward and backward) vs their plain PyTorch
+versions, on the card.
 
 Run where there is an NVIDIA GPU and nvcc (no JAX needed):
 ``python -m pytest tests/test_torch_gdn_cuda.py -m cuda -q``.  Elsewhere
 every test skips.  Tolerance rtol 1e-5, atol 1e-6: the plain version is an
-fp32 product (TF32 off); the kernel's is an fp32 FMA chain in the same
-order, and rsqrtf/sqrtf are within 2 ulp.
+fp32 product (TF32 off); the kernels' are fp32 FMA chains in the same
+order, and rsqrtf/sqrtf are within 2 ulp.  The backward's dx and dnorm aim
+at the plain backward's bits; the bound is the forward's.
 """
 
 import pytest
@@ -81,12 +83,62 @@ def test_kernel_takes_unaligned_rows(cuda, c, inverse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("c, rows", [(128, 98304), (128, 6144), (192, 6144), (3, 100), (128, 0)])
-def test_kernel_layout_covers_the_rows(cuda, c, rows):
-    lay = gdn.kernel_layout(rows, c, False)
+def test_kernel_layout_covers_the_rows(cuda, c, rows, backward):
+    lay = gdn.kernel_layout(rows, c, False, backward)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tiles = -(-rows // lay["tile"])
     assert lay["tile"] in (16, 32, 64) and lay["blocks_per_sm"] >= 1
     assert lay["grid"] == min(tiles, sms * lay["blocks_per_sm"])
     assert 0 < lay["smem_bytes"] * lay["blocks_per_sm"] <= (
         torch.cuda.get_device_properties(0).shared_memory_per_multiprocessor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dx", "dnorm", "both"])
+@pytest.mark.parametrize("inverse", [False, True])
+# widest first, as above; rows not a multiple of any tile height, 0 rows,
+# C 1 and 3 (padded to 16), and an x whose data_ptr is one float past a
+# 16-byte boundary (offset 1: the kernel must take 4-byte copies)
+@pytest.mark.parametrize("c, rows, offset", [
+    (192, 6144, 0), (128, 6144, 0), (128, 33, 0), (1, 100, 0), (3, 100, 0), (130, 70, 0),
+    (191, 50, 0), (16, 4099, 0), (144, 1000, 0), (128, 24613, 0), (192, 64, 0), (128, 0, 0),
+    (128, 1000, 1), (192, 1000, 1),
+])
+def test_backward_kernel_matches_plain(cuda, c, rows, offset, inverse, mode):
+    base, gamma, beta = _inputs(c, rows + 1, cuda)
+    x = base.reshape(-1)[offset:rows * c + offset].view(rows, c)
+    g = torch.randn(rows + 1, c, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    g = g.reshape(-1)[offset:rows * c + offset].view(rows, c)
+    need_dx, need_dnorm = mode in ("dx", "both"), mode in ("dnorm", "both")
+    before = gdn.launch_counts["gdn_bwd"]
+    dx, dnorm = gdn.gdn_backward(x, gamma, beta, g, inverse, need_dx, need_dnorm)
+    torch.cuda.synchronize()
+    assert gdn.launch_counts["gdn_bwd"] == before + (rows > 0)
+    ref_dx, ref_dnorm = gdn.gdn_backward_reference(x, gamma, beta, g, inverse, True, True)
+    assert (dx is None) != need_dx and (dnorm is None) != need_dnorm
+    for got, ref in ((dx, ref_dx), (dnorm, ref_dnorm)):
+        if got is not None:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_function_backward_launches_the_kernel_once(cuda, use_kernel):
+    """GDNFunction's backward on the card: one backward launch (and one
+    forward launch) with the kernel, none with use_kernel=False; dgamma and
+    dbeta from the kernel's dnorm match the plain backward's."""
+    x, gamma, beta = _inputs(128, 2048, cuda)
+    g = torch.randn_like(x)
+    grads = []
+    for kernel in (use_kernel, False):
+        ts = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+        gdn.reset_launch_counts()
+        out = gdn.GDNFunction.apply(*ts, False, kernel)
+        grads.append(torch.autograd.grad(out, ts, g))
+        torch.cuda.synchronize()
+        n = 1 if kernel else 0
+        assert gdn.launch_counts["gdn_fwd"] == n and gdn.launch_counts["gdn_bwd"] == n
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
