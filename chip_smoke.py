@@ -18,13 +18,16 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    torch calls (dx alone above DX_MAX_ROWS); it times each kernel, its
    plain version and the cuBLAS products (``torch.addmm`` and dnorm @
    gamma) beside the card's bound, and prints the launch each kernel picks
-   (rows per tile, blocks an SM, grid); the training path's largest call
+   (rows per tile, blocks an SM, grid; the backward's warps a group and a
+   block, stages and lane tile too); the training path's largest call
    (131,072 rows) and the 6,144- and 24,576-row calls are also timed over
    500 launches and with L2 flushed before each launch (the forward);
 4. runs the attack CLI's ``run`` path (hyper q=1, the committed demo
    weights, a 768x512 image made with numpy, 1001 steps,
    ``-two_phase select``) and counts both kernels' launches in it: the
    backward kernel's must equal the GDN backwards that reached its wrapper;
+   prints the rate beside the previous backward kernel's (PREVIOUS_BWD, as
+   phases 12a, 19a and 19g do);
 5. runs a 20-step attack at 256x256 (hyper q=1, demo weights) with the
    kernel and with the plain version and compares the final noise and vi;
 6. writes a 256x256 PNG with the port's writer into a temporary directory,
@@ -353,6 +356,13 @@ GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216
 # calls above BWD_TIMED_MAX_ROWS take HUGE_LAUNCHES a backward timing, and
 # above DX_MAX_ROWS a forward timing too (13 ms and more a launch)
 DX_MAX_ROWS = 4_000_000
+# the previous backward kernel's numbers (one 8-warp block an SM at C=192,
+# tiles copied after the epilogue, gamma read by float2 column pairs in
+# dnorm @ gamma), from this script on an NVIDIA H100 80GB HBM3 at 700 W;
+# printed beside this run's
+PREVIOUS_BWD = {"4 steps/s": 82.14, "12a steps/s": 20.33,
+                "19a peak GiB": {"single": 13.243, "split": 9.411},
+                "19g peak GiB": {"single": 15.821, "split": 13.348}}
 BWD_TIMED_MAX_ROWS = 1_100_000
 TIMED_LAUNCHES = 50
 HUGE_LAUNCHES = 10
@@ -856,8 +866,11 @@ def gdn_shape_records(gdn, c: int, rows: int, gen, flush_buf, phase: str = "3"):
             f"{dx['past_1e-6_share']:.2e}){both}; kernel dx {bwd['ms']:.4f} ms, plain "
             f"{bwd['plain_ms']:.4f} ms, cuBLAS addmm {library_ms:.4f} + dnorm@gamma "
             f"{bwd['dnorm_gamma_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); "
-            f"launch: {bwd_layout['tile']}-row tiles, {bwd_layout['blocks_per_sm']} blocks/SM, "
-            f"grid {bwd_layout['grid']}, {bwd_layout['smem_bytes']} B shared"
+            f"launch: {bwd_layout['tile']}-row tiles a group of {bwd_layout['group_warps']} warps, "
+            f"{bwd_layout['stages']} stages, lane tile {bwd_layout['lane_rows']}x"
+            f"{bwd_layout['lane_channels']}, {bwd_layout['warps']} warps a block, "
+            f"{bwd_layout['blocks_per_sm']} blocks/SM, grid {bwd_layout['grid']}, "
+            f"{bwd_layout['smem_bytes']} B shared"
         )
     return records
 
@@ -900,7 +913,8 @@ def phase_main_path(gdn):
         f"phase 4 main path: {steps / avg['t']:.2f} steps/s (incl. clean forward and eval), "
         f"vi {avg['vi']:.4f}, bpp_ori {avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, "
         f"gdn_fwd launches {launches} ({launches / steps:.3f} per step), gdn_bwd launches "
-        f"{launches_bwd} ({launches_bwd / steps:.3f} per step; {backwards['calls']} GDN backwards)"
+        f"{launches_bwd} ({launches_bwd / steps:.3f} per step; {backwards['calls']} GDN backwards); "
+        f"the previous backward kernel's rate {PREVIOUS_BWD['4 steps/s']:.2f} steps/s"
     )
     return launches, launches_bwd
 
@@ -1717,7 +1731,8 @@ def phase_training(gdn):
             f"memory {peak:.2f} GiB; loss {s['first']['loss']:.4f} -> {s['last']['loss']:.4f}, bpp "
             f"{s['first']['bpp_loss']:.4f} -> {s['last']['bpp_loss']:.4f}, distortion "
             f"{s['first']['distortion']:.6f} -> {s['last']['distortion']:.6f}, aux "
-            f"{s['first']['aux_loss']:.2f} -> {s['last']['aux_loss']:.2f}")
+            f"{s['first']['aux_loss']:.2f} -> {s['last']['aux_loss']:.2f}; the previous backward "
+            f"kernel's rate {PREVIOUS_BWD['12a steps/s']:.2f} steps/s")
 
         adv = list(TRAIN_ADV_FLAGS)
         s, n, peak, _ = train_cli(gdn, adv + ["-max_steps", str(TRAIN_ADV_STEPS)])
@@ -3485,7 +3500,10 @@ def phase_megapixel(gdn):
             f"{peaks['single']['kernel']:.3f} / {peaks['single']['plain']:.3f}, split "
             f"{peaks['split']['kernel']:.3f} / {peaks['split']['plain']:.3f} (split over "
             f"single-program {peaks['split']['kernel'] / peaks['single']['kernel']:.3f} / "
-            f"{peaks['split']['plain'] / peaks['single']['plain']:.3f})")
+            f"{peaks['split']['plain'] / peaks['single']['plain']:.3f}); the previous backward "
+            f"kernel's run: " + ", ".join(
+                f"{kind} {PREVIOUS_BWD['19a peak GiB'][kind]:.3f} / "
+                f"{PREVIOUS_BWD['19g peak GiB'][kind]:.3f}" for kind in ("single", "split")))
 
         # (c) the split attack above what one program could hold; the
         # allocator maps its blocks into growing segments, or the blocks

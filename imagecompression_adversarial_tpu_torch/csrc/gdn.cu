@@ -43,21 +43,18 @@
 // kernels/gdn_accuracy.py), and every elementwise step of the plain
 // backward as its own rounded operation in the plain backward's order
 // (__fmul_rn, __fadd_rn, __fdiv_rn: nvcc contracts none of them into an
-// FMA), so that dx and dnorm are the plain backward's bit for bit.
+// FMA), so that dx and dnorm are the plain backward's bit for bit.  That
+// rules out the tensor cores for both: the design works on the FMA pipe.
 //
-// Design: 8 warps a block.  Each block copies gamma once into shared memory
-// (row-major (o, i), row stride Cp + 4 floats, zero-padded; it serves as the
-// col-major B = gamma^T of the product), then walks tiles of 16, 32 or 64
-// rows of x in a grid-stride loop; the tile height is chosen per call so that
-// small calls still spread over the SMs.
+// Forward design: 8 warps a block.  Each block copies gamma once into shared
+// memory (row-major (o, i), row stride Cp + 4 floats, zero-padded; it serves
+// as the col-major B = gamma^T of the product), then walks tiles of 16, 32
+// or 64 rows of x in a grid-stride loop; the tile height is chosen per call
+// so that small calls still spread over the SMs.
 // - Copies are cp.async, every thread's copies in flight at once: a
 //   load-then-store loop waits out one memory latency per element.  The x
 //   tile is single-buffered: the next tile's copy starts after this tile's
 //   epilogue, and the other resident blocks of the SM compute meanwhile.
-//   The hyper attack's calls all take 16-row tiles: three blocks an SM at
-//   C=128 (a second tile buffer would cost one), one at C=192.  There a
-//   double buffer saved about 4% of the device time of a call that the
-//   host's launch cost already exceeds (PERF.md), so it was left out.
 // - Each warp owns 16 rows and kJ (a template parameter: 2, 4, 6 or 8)
 //   8-column output tiles; a lane holds rows g and g + 8 and channels 2t and
 //   2t + 1 of each tile (g = lane / 4, t = lane % 4; v4's m16n8k8
@@ -72,21 +69,57 @@
 //   rsqrt/sqrt, multiply by x from the shared tile, write out (four lanes
 //   write a 32-byte run of a row).  x is read from device memory once and
 //   out written once; x^2 and norm stay on chip.
-// - The backward copies the x and g tiles, runs the forward's product into
-//   the same accumulator layout and turns each sum into s (kept in those
-//   registers) and dnorm, which it writes into a shared dnorm tile (and to
-//   device memory where asked).  After a barrier, product 2 reads the
-//   dnorm tile by rows, as product 1 reads x, and gamma by column pairs
-//   (one float2 a lane and k, 1 shared load to 4 FMAs), into accumulators
-//   laid out as product 1's, so dx's epilogue finds s, x and g at its
-//   own positions.  Its warps own kJ 8-column tiles (1 to 6) and gamma is
-//   padded only to the columns they cover, Gp (Gp = Cp at C = 128 and
-//   192), in both directions: at C=192 gamma's 150.5 KB and the x, g and
-//   dnorm tiles take 188.9 KB of shared memory at 16 rows and 226.6 KB at
-//   32.  Nothing but dx (and dnorm) reaches device memory.
-// Its times beside v4's and the bound are in PERF.md.
-// icat_gdn_layout and icat_gdn_bwd_layout report the tile height, blocks an
-// SM and grid a call picks.
+//
+// Backward design: one block an SM, its warps in groups that share one copy
+// of gamma in shared memory and otherwise run apart.
+// - Shapes.  C is padded to Cp = 32 kNC (kNC warps a group, a template
+//   parameter, 1 to 6).  A lane owns 4 rows by 4 consecutive channels: lane
+//   = 8a + b holds rows a + 4 rr (rr < 4) and channels c0 .. c0 + 3, c0 =
+//   32 w + 4 b for warp w of its group; a group owns tiles of 16 rows by Cp.
+//   The same positions serve both products and both epilogues, so x, s
+//   and g s stay in the lane's registers from the tile's arrival to dx.
+//   C=128: 4 groups of 4 warps, 16 warps an SM in 169,472 B of shared
+//   memory.  C=192: gamma takes 150.5 KB, 2 groups of 6 warps, 12 warps an
+//   SM in 226,560 B.  Registers: at most 128 (16 warps), which every
+//   kernel uses; a value more held through product 1 spills.  Lanes of 2
+//   rows would fit more warps but make 1.5x the shared loads a FMA.
+// - Copies ahead.  Each group walks its own tiles (tile t goes to slot t mod
+//   (grid x groups), slots interleaved over the blocks so that small calls
+//   spread over the SMs) through a ring of two stages of x tiles and one
+//   dnorm tile (rows padded to ld = Cp + 4 floats).  A lane copies its own
+//   elements of x with cp.async (16 bytes, or 4 where rows are not 16-byte
+//   aligned; zero-filled past the rows and C); once they land it reads them
+//   into registers and writes x^2 in place.  One barrier of the group's
+//   warps (bar.sync, not the block's) then makes x^2 whole and frees the
+//   other stage and the dnorm tile: the lane starts copying its own g
+//   into the dnorm tile (g is read by its lane alone, in epilogue 1, which
+//   writes dnorm over it) and the next tile's x into the other stage; both
+//   land while product 1 runs, and epilogue 1 waits for the first only
+//   (cp.async.wait_group 1).
+// - Product 1, x^2 @ gamma^T (bwd_norm_sums): per step of 4 k a lane makes
+//   4 float4 loads of x^2 and 4 of gamma's rows and does 64 FMAs.  A
+//   warp's x^2 load reads 4 distinct rows (one wavefront), its gamma load 8
+//   distinct rows: gamma's row o sits at shared row bwd_row(o), which
+//   spreads them over the 8 bank quads (one wavefront).  8 wavefronts to 64
+//   FMA instructions: 8 FMAs a wavefront (as the forward's).
+// - Epilogue 1: + beta, the root, dnorm (to device memory where asked, and
+//   to the dnorm tile at the lane's own positions) and g s (kept in the
+//   registers that held g).  A second group barrier makes the tile whole.
+// - Product 2, dnorm @ gamma (bwd_grad_sums): per step of 8 o a lane makes
+//   8 float4 loads of dnorm (4 distinct rows) and 8 of gamma (row o, the
+//   lane's 4 channels: 8 distinct consecutive 16-byte chunks) and does
+//   128 FMAs: 16 wavefronts to 128 FMA instructions, 8 FMAs a wavefront.
+//   dx = g s + (m x) 2 from registers, stored as float4s.
+// - Nothing but dx (and dnorm) reaches device memory; two group barriers
+//   a tile and no block-wide one after gamma's copy.
+// Measured on an H100 SXM at 700 W (chip_smoke.py phase 3): dx at 98,304
+// rows 0.191 ms at C=128, 0.51 of its 0.0984 ms operation bound, and
+// 0.416 ms at C=192, 0.53 of 0.220 ms.  Each product's loop is 512 FFMAs,
+// 64 shared loads and 7-21 other instructions a 32-channel step
+// (kernels/gdn_accuracy.py --what loops); the rest of a tile (copies,
+// barriers, epilogues) and stalls take what the FFMAs leave.  The times
+// beside the cuBLAS products are in PERF.md.
+// icat_gdn_layout and icat_gdn_bwd_layout report the launch a call picks.
 // C may be any value up to kMaxC; rows whose byte offset or base pointer is
 // not 16-byte aligned take 4-byte copies and stores.
 
@@ -104,18 +137,13 @@ constexpr int kNumTileHeights = 3;
 // a tile height that would give a warp more is not used for that C, so the
 // kernel fits 128 registers (two blocks an SM) without spilling
 constexpr int kMaxTilesPerWarp = 4;
-// 8-column output tiles a backward warp owns at most (two sets of 4
-// accumulator registers each: s and dnorm @ gamma); 6 covers C=192 in 32-row
-// tiles and C=128 in 16- and 32-row ones (64-row tiles only up to C=96)
-constexpr int kMaxBwdTilesPerWarp = 6;
 
 struct Layout {
-  int Cp;         // C rounded up to a multiple of 16 (backward: Gp)
+  int Cp;         // C rounded up to a multiple of 16
   int ld;         // row stride of gamma and the tiles in shared memory, Cp + 4
   int tile;       // rows per tile
   int groups;     // 16-row groups per tile
-  int per_warp;   // output tiles per warp: 16-column (forward), 8-column
-                  // (backward, the kernel's kJ)
+  int per_warp;   // 16-column output tiles per warp
   int Gp;         // output channels the warps cover, >= Cp: gamma's rows
   size_t smem;    // bytes of dynamic shared memory
 };
@@ -134,22 +162,43 @@ Layout layout(int C, int tile) {
   return l;
 }
 
-// The backward's: C padded to Gp, the columns the warps' 8-column tiles
-// cover, which is both products' reduction length (the padding is zeros)
-Layout layout_bwd(int C, int tile) {
-  Layout l;
-  l.tile = tile;
-  l.groups = tile / 16;
-  const int col_groups = kWarps / l.groups;
-  const int tiles8 = (C + 15) / 16 * 2;
-  l.per_warp = (tiles8 + col_groups - 1) / col_groups;
-  l.Gp = 8 * col_groups * l.per_warp;
-  l.Cp = l.Gp;
-  l.ld = l.Gp + 4;
-  // gamma [Gp][ld]; x, g and dnorm [tile][ld]; beta [Gp]
-  l.smem = sizeof(float) * ((size_t)l.Gp * l.ld + 3 * (size_t)tile * l.ld + l.Gp);
-  return l;
+// The backward's block: groups of kNC warps (C padded to 32 kNC); a lane
+// kBwdLaneRows rows by 4 channels, a group's tile kBwdTileRows rows by Cp.
+constexpr int kBwdLaneRows = 4;
+constexpr int kBwdTileRows = 4 * kBwdLaneRows;
+constexpr int kBwdStages = 2;             // x tiles a group holds
+constexpr int kBwdMaxNC = kMaxC / 32;
+constexpr int kBwdMaxWarps = 16;          // 128 registers a thread
+constexpr int kBwdMaxGroups = 8;          // named barriers 1 .. 8
+constexpr int kBwdSmemBudget = 232448;    // 227 KB, a block's most on sm_90
+
+// floats a row of gamma and of the tiles takes in shared memory
+__host__ __device__ constexpr int bwd_ld(int nc) { return 32 * nc + 4; }
+// bytes of gamma [Cp][ld] and beta [Cp]
+__host__ __device__ constexpr int bwd_gamma_bytes(int nc) {
+  return 4 * 32 * nc * (bwd_ld(nc) + 1);
 }
+// bytes of a group's tiles: kBwdStages x tiles and a dnorm tile, each
+// [kBwdTileRows][ld]
+__host__ __device__ constexpr int bwd_group_bytes(int nc) {
+  return 4 * (kBwdStages + 1) * kBwdTileRows * bwd_ld(nc);
+}
+// groups a block: at most kBwdMaxWarps warps, kBwdMaxGroups groups, and
+// what shared memory holds beside gamma (two groups at C=192)
+__host__ __device__ constexpr int bwd_groups(int nc) {
+  const int fit = (kBwdSmemBudget - bwd_gamma_bytes(nc)) / bwd_group_bytes(nc);
+  const int g = kBwdMaxWarps / nc < kBwdMaxGroups ? kBwdMaxWarps / nc : kBwdMaxGroups;
+  return g < fit ? g : fit;
+}
+__host__ __device__ constexpr int bwd_threads(int nc) { return 32 * nc * bwd_groups(nc); }
+__host__ __device__ constexpr int bwd_smem_bytes(int nc) {
+  return bwd_gamma_bytes(nc) + bwd_groups(nc) * bwd_group_bytes(nc);
+}
+// the shared-memory row of gamma's row o in the backward: bits 0-1 of o
+// flipped by bits 3-4, so that the 8 rows c0 + q (b = 0 .. 7) that a warp's
+// lanes read at one load of product 1 fall in 8 distinct bank quads (with a
+// row stride of ld = 4 mod 32 floats, rows 4b alone would fall in 2)
+__host__ __device__ constexpr int bwd_row(int o) { return o ^ ((o >> 3) & 3); }
 
 __device__ __forceinline__ float gdn_out(float x, float norm, bool inverse) {
   return inverse ? x * sqrtf(norm) : x * rsqrtf(norm);
@@ -161,9 +210,10 @@ __device__ __forceinline__ float dnorm_of(float g, float x, float s, bool invers
   return inverse ? __fdiv_rn(gx, s) : __fmul_rn(gx, __fmul_rn(__fmul_rn(s, s), s));
 }
 
-// dx = g * s + (m * x) * 2, m = (dnorm @ gamma)[n, i], each step rounded
-__device__ __forceinline__ float dx_of(float g, float s, float m, float x) {
-  return __fadd_rn(__fmul_rn(g, s), __fmul_rn(__fmul_rn(m, x), 2.0f));
+// dx = g * s + (m * x) * 2, m = (dnorm @ gamma)[n, i], each step rounded;
+// gs = g * s, rounded
+__device__ __forceinline__ float dx_of(float gs, float m, float x) {
+  return __fadd_rn(gs, __fmul_rn(__fmul_rn(m, x), 2.0f));
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -176,6 +226,20 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
+}
+
+// cp.async of 16 (4) bytes that reads src where ok and zero-fills dst
+// where not (it then reads nothing; src must still be an address)
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 // Starts copying rows [0, n) of the row-major (., C) array at src into
@@ -208,6 +272,25 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src, int n,
   }
 }
 
+// Starts copying floats c .. c + 3 of a row of C floats (src points at
+// float c; ok: the row exists) to dst, zero-filling the floats past C and a
+// row that does not exist; base is an address of the same array, which the
+// zero-filling copies are given.  vec: as copy_rows'.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* base, bool ok, int c,
+                                      int C, bool vec) {
+  if (vec) {
+    const bool in = ok && c < C;
+    cp_async16_zfill(dst, in ? src : base, in);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = ok && c + j < C;
+      cp_async4_zfill(dst + j, in ? src + j : base, in);
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -217,12 +300,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// waits until all of this thread's committed copy groups but the last have
+// landed
+__device__ __forceinline__ void cp_async_wait_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// barrier `id` of the `threads` threads (whole warps) that take part
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // v[0..7] = p[0..7]; p 16-byte aligned
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// v[0..3] = p[0..3]; p 16-byte aligned
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// p[0..3] = v[0..3]; p 16-byte aligned
+__device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // out[n][o] = a and out[n][o + 1] = b, within rows and C (vec: C is even,
@@ -239,10 +344,22 @@ __device__ __forceinline__ void store2(float* out, int n, int o, int rows,
   }
 }
 
-// Product 1, x^2 @ gamma^T, for the lane's rows (xr and xr + 8 ld) and the
-// output channels o = 8 (first + j) + 2t and o + 1 of its kJ tiles: acc[j]
-// = (row g, o), (g, o + 1), (g + 8, o), (g + 8, o + 1), each one fp32 FMA
-// chain over k = 0 .. Cp-1 from zero
+// out[row0 + r][c .. c + 3] = v, within rows and C (vec: C is a multiple of
+// 4, so c < C covers c + 3; eight lanes write a 128-byte run of a row)
+__device__ __forceinline__ void store4(float* out, int row0, int r, int rows,
+                                       int c, int C, bool vec,
+                                       const float (&v)[4]) {
+  if (r >= rows - row0) return;
+  float* p = out + ((size_t)row0 + r) * C + c;
+  if (vec) {
+    if (c < C) put4(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < C) p[j] = v[j];
+  }
+}
+
 template <int kJ>
 __device__ __forceinline__ void norm_sums(const float* xr, const float* gs,
                                           const Layout& l, int first, int g,
@@ -277,31 +394,69 @@ __device__ __forceinline__ void norm_sums(const float* xr, const float* gs,
   }
 }
 
-// Product 2, dnorm @ gamma, for the lane's rows (dr and dr + 8 ld) and the
-// input channels i = 8 (first + j) + 2t and i + 1, in product 1's layout:
-// each one fp32 FMA chain over o = 0 .. Cp-1 from zero
-template <int kJ>
-__device__ __forceinline__ void grad_sums(const float* dr, const float* gs,
-                                          const Layout& l, int first, int t,
-                                          float (&acc)[kJ][4]) {
+// Product 1 of the backward, x^2 @ gamma^T, for the lane's rows a + 4 rr
+// (rr < kR) of the x^2 tile xt and its channels c0 + q (q < 4): acc[rr][q],
+// each one fp32 FMA chain over k = 0 .. Cp-1 from zero
+template <int kNC>
+__device__ __forceinline__ void bwd_norm_sums(const float* xt, const float* gs,
+                                              int a, int c0,
+                                              float (&acc)[kBwdLaneRows][4]) {
+  constexpr int kCp = 32 * kNC, kLd = kCp + 4, kR = kBwdLaneRows;
+  const float* xr = xt + a * kLd;
+  const float* gr[4];  // gamma's rows for channels c0 + q
 #pragma unroll
-  for (int j = 0; j < kJ; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  for (int o0 = 0; o0 < l.Cp; o0 += 8) {
-    float d0[8], d1[8];  // dnorm of rows g and g + 8, channels o0 .. o0 + 7
-    load8(dr + o0, d0);
-    load8(dr + 8 * l.ld + o0, d1);
+  for (int q = 0; q < 4; ++q) gr[q] = gs + bwd_row(c0 + q) * kLd;
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      // gamma[o0 + kk][i .. i + 1], a column pair
-      const float* gc = gs + o0 * l.ld + 8 * (first + j) + 2 * t;
+  for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[rr][q] = 0.0f;
+#pragma unroll 8
+  for (int k0 = 0; k0 < kCp; k0 += 4) {
+    float xv[kR][4], gv[4][4];  // x^2 and gamma, channels k0 .. k0 + 3
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) load4(xr + 4 * rr * kLd + k0, xv[rr]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load4(gr[q] + k0, gv[q]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[rr][q] = fmaf(xv[rr][kk], gv[q][kk], acc[rr][q]);
+  }
+}
+
+// Product 2 of the backward, dnorm @ gamma, for the lane's rows a + 4 rr of
+// the dnorm tile dt and its channels i = c0 + q: m[rr][q], each one fp32
+// FMA chain over o = 0 .. Cp-1 from zero, in steps of 8 o (j-th of a 32)
+template <int kNC>
+__device__ __forceinline__ void bwd_grad_sums(const float* dt, const float* gs,
+                                              int a, int c0,
+                                              float (&m)[kBwdLaneRows][4]) {
+  constexpr int kCp = 32 * kNC, kLd = kCp + 4, kR = kBwdLaneRows;
+  const float* dr = dt + a * kLd;
+  const float* gc = gs + c0;  // gamma[o][c0 .. c0 + 3] at row bwd_row(o)
+#pragma unroll
+  for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[rr][q] = 0.0f;
+#pragma unroll 1
+  for (int o1 = 0; o1 < kCp; o1 += 32) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o0 = o1 + 8 * j;  // bwd_row(o0 + kk) = o0 + (kk ^ j)
+      float d[kR][8];  // dnorm of the lane's rows, channels o0 .. o0 + 7
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) load8(dr + 4 * rr * kLd + o0, d[rr]);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
-        acc[j][0] = fmaf(d0[kk], c.x, acc[j][0]);
-        acc[j][1] = fmaf(d0[kk], c.y, acc[j][1]);
-        acc[j][2] = fmaf(d1[kk], c.x, acc[j][2]);
-        acc[j][3] = fmaf(d1[kk], c.y, acc[j][3]);
+        float c[4];
+        load4(gc + (o0 + (kk ^ j)) * kLd, c);
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) m[rr][q] = fmaf(d[rr][kk], c[q], m[rr][q]);
       }
     }
   }
@@ -372,89 +527,111 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // dx (where dx is not null) and dnorm (where dnorm is not null) of the
 // rows of x, for the output gradient gy; inverse is a block-uniform branch
 // (as a template parameter it would double the build's kernels)
-template <int kJ>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kNC>
+__global__ void __launch_bounds__(bwd_threads(kNC), 1)
 gdn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ gy,
                float* __restrict__ dx, float* __restrict__ dnorm, int rows,
-               int C, Layout l, bool vec, bool inverse) {
+               int C, bool vec, bool inverse) {
+  constexpr int kCp = 32 * kNC, kLd = kCp + 4, kR = kBwdLaneRows;
+  constexpr int kGroups = bwd_groups(kNC);
+  constexpr int kTile = kBwdTileRows * kLd;  // floats of a tile
   extern __shared__ __align__(16) float smem[];
-  float* gs = smem;                    // [Gp][ld]: gamma, zero-padded
-  float* xs = gs + l.Gp * l.ld;        // [tile][ld]: x tile
-  float* ys = xs + l.tile * l.ld;      // [tile][ld]: gy tile
-  float* ds = ys + l.tile * l.ld;      // [tile][ld]: dnorm tile
-  float* bs = ds + l.tile * l.ld;      // [Gp]: beta
+  float* gs = smem;                   // [Cp][ld]: gamma, row o at bwd_row(o)
+  float* bs = gs + kCp * kLd;         // [Cp]: beta, 1 past C
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int group = warp / kNC;
+  const int a = lane / 8, b = lane % 8;
+  const int c0 = 32 * (warp % kNC) + 4 * b;  // the lane's channels c0 .. c0 + 3
+  // the group's tiles: kBwdStages of x (x^2 once squared), then dnorm
+  float* stages = bs + kCp + group * ((kBwdStages + 1) * kTile);
+  float* dt = stages + kBwdStages * kTile;
 
-  for (int i = threadIdx.x; i < l.Gp; i += kThreads)
+  for (int k = threadIdx.x; k < kCp * (kCp / 4); k += blockDim.x) {
+    const int o = k / (kCp / 4), c = 4 * (k % (kCp / 4));
+    copy4(gs + bwd_row(o) * kLd + c, gamma + (size_t)o * C + c, gamma, o < C,
+          c, C, vec);
+  }
+  for (int i = threadIdx.x; i < kCp; i += blockDim.x)
     bs[i] = i < C ? beta[i] : 1.0f;
 
-  const int group = warp % l.groups;
-  const int first = kJ * (warp / l.groups);  // first 8-column tile
-  const int ntiles = (rows + l.tile - 1) / l.tile;
-  // the x and gy tiles into shared memory, rows past the end zero-filled
-  // (their dnorm is then 0 and adds nothing to product 2)
-  auto copy_tile = [&](int tile) {
-    const int row0 = tile * l.tile;
-    const int n = min(l.tile, rows - row0);
-    copy_rows(xs, x + (size_t)row0 * C, n, l.tile, C, l, vec);
-    copy_rows(ys, gy + (size_t)row0 * C, n, l.tile, C, l, vec);
+  const int ntiles = (rows + kBwdTileRows - 1) / kBwdTileRows;
+  const int nslots = gridDim.x * kGroups;
+  // a lane copies, and alone reads back, its own elements of the tile of
+  // src (x or g) at row0 into dst
+  auto copy_tile = [&](float* dst, const float* src, int row0) {
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      const int r = a + 4 * rr;
+      copy4(dst + r * kLd + c0, src + ((size_t)row0 + r) * C + c0, src,
+            r < rows - row0, c0, C, vec);
+    }
   };
 
-  copy_rows(gs, gamma, C, l.Gp, C, l, vec);
-  copy_tile(blockIdx.x);
+  int tile = group * gridDim.x + blockIdx.x;
+  if (tile < ntiles) copy_tile(stages, x, tile * kBwdTileRows);
   cp_async_commit();
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    cp_async_wait_all();
-    __syncthreads();
-    const int r = 16 * group + g;  // the lane's rows r and r + 8 of the tile
-    const int n0 = tile * l.tile + r;
-    const float* xr = xs + r * l.ld;
-    const float* yr = ys + r * l.ld;
-    float* dr = ds + r * l.ld;
+  cp_async_wait_all();
+  __syncthreads();  // gamma and beta are whole
+  for (int stage = 0; tile < ntiles; tile += nslots, stage ^= 1) {
+    cp_async_wait_all();  // the lane's elements of this x tile
+    float* xt = stages + stage * kTile;
+    const int row0 = tile * kBwdTileRows;
+    float xv[kR][4];  // x at the lane's positions
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      float* p = xt + (a + 4 * rr) * kLd + c0;
+      load4(p, xv[rr]);
+      float sq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sq[q] = __fmul_rn(xv[rr][q], xv[rr][q]);
+      put4(p, sq);
+    }
+    // x^2 is whole, and every warp of the group is done with the other
+    // stage and the dnorm tile
+    group_sync(1 + group, 32 * kNC);
+    // g into the dnorm tile at the lane's own positions, which only this
+    // lane reads (in epilogue 1, which writes dnorm over them); then the
+    // next x tile; both land while product 1 runs
+    copy_tile(dt, gy, row0);
+    cp_async_commit();
+    if (tile + nslots < ntiles)
+      copy_tile(stages + (stage ^ 1) * kTile, x, (tile + nslots) * kBwdTileRows);
+    cp_async_commit();
 
-    float s[kJ][4];  // product 1's sums, then s
-    norm_sums<kJ>(xr, gs, l, first, g, t, s);
+    float s[kR][4];  // product 1's sums
+    bwd_norm_sums<kNC>(xt, gs, a, c0, s);
+    float bv[4];
+    load4(bs + c0, bv);
+    cp_async_wait_but_last();  // g; the next x tile may be in flight
+    float gv[kR][4];  // g, then g s
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int o = 8 * (first + j) + 2 * t;  // channels o and o + 1
+    for (int rr = 0; rr < kR; ++rr) {
+      const int r = a + 4 * rr;
+      load4(dt + r * kLd + c0, gv[rr]);
+      float dn[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float dn[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int e = 8 * h * l.ld + o + q;
-          const float norm = __fadd_rn(s[j][2 * h + q], bs[o + q]);
-          s[j][2 * h + q] = inverse ? __fsqrt_rn(norm) : rsqrtf(norm);
-          dn[q] = dnorm_of(yr[e], xr[e], s[j][2 * h + q], inverse);
-          dr[e] = dn[q];
-        }
-        if (dnorm != nullptr)
-          store2(dnorm, n0 + 8 * h, o, rows, C, vec, dn[0], dn[1]);
+      for (int q = 0; q < 4; ++q) {
+        const float norm = __fadd_rn(s[rr][q], bv[q]);
+        const float root = inverse ? __fsqrt_rn(norm) : rsqrtf(norm);
+        dn[q] = dnorm_of(gv[rr][q], xv[rr][q], root, inverse);
+        gv[rr][q] = __fmul_rn(gv[rr][q], root);
       }
+      if (dx != nullptr) put4(dt + r * kLd + c0, dn);
+      if (dnorm != nullptr) store4(dnorm, row0, r, rows, c0, C, vec, dn);
     }
     if (dx != nullptr) {
-      __syncthreads();  // the dnorm tile is whole
-      float m[kJ][4];
-      grad_sums<kJ>(dr, gs, l, first, t, m);
+      group_sync(1 + group, 32 * kNC);  // the dnorm tile is whole
+      float m[kR][4];
+      bwd_grad_sums<kNC>(dt, gs, a, c0, m);
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int i = 8 * (first + j) + 2 * t;  // channels i and i + 1
+      for (int rr = 0; rr < kR; ++rr) {
+        float v[4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 8 * h * l.ld + i;
-          store2(dx, n0 + 8 * h, i, rows, C, vec,
-                 dx_of(yr[e], s[j][2 * h], m[j][2 * h], xr[e]),
-                 dx_of(yr[e + 1], s[j][2 * h + 1], m[j][2 * h + 1], xr[e + 1]));
-        }
+        for (int q = 0; q < 4; ++q) v[q] = dx_of(gv[rr][q], m[rr][q], xv[rr][q]);
+        store4(dx, row0, a + 4 * rr, rows, c0, C, vec, v);
       }
-    }
-    __syncthreads();  // every warp is done with the tiles
-    if (tile + gridDim.x < ntiles) {
-      copy_tile(tile + gridDim.x);
-      cp_async_commit();
     }
   }
 }
@@ -462,8 +639,7 @@ gdn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 using Kernel = void (*)(const float*, const float*, const float*, float*, int,
                        int, Layout, bool);
 using BwdKernel = void (*)(const float*, const float*, const float*,
-                           const float*, float*, float*, int, int, Layout,
-                           bool, bool);
+                           const float*, float*, float*, int, int, bool, bool);
 
 // the forward kernel for (inverse, 16-column tiles per warp)
 Kernel kernel_for(bool inverse, int per_warp) {
@@ -475,22 +651,12 @@ Kernel kernel_for(bool inverse, int per_warp) {
   return kernels[inverse][per_warp - 1];
 }
 
-// the backward kernel for 8-column tiles per warp
-BwdKernel bwd_kernel_for(int per_warp) {
-  static const BwdKernel kernels[kMaxBwdTilesPerWarp] = {
+// the backward kernel for nc warps a group
+BwdKernel bwd_kernel_for(int nc) {
+  static const BwdKernel kernels[kBwdMaxNC] = {
       gdn_bwd_kernel<1>, gdn_bwd_kernel<2>, gdn_bwd_kernel<3>,
       gdn_bwd_kernel<4>, gdn_bwd_kernel<5>, gdn_bwd_kernel<6>};
-  return kernels[per_warp - 1];
-}
-
-// (layout, kernel) of the forward (backward false) or the backward
-Layout layout_for(bool backward, int C, int tile) {
-  return backward ? layout_bwd(C, tile) : layout(C, tile);
-}
-
-const void* kernel_ptr(bool backward, bool inverse, int per_warp) {
-  return backward ? reinterpret_cast<const void*>(bwd_kernel_for(per_warp))
-                  : reinterpret_cast<const void*>(kernel_for(inverse, per_warp));
+  return kernels[nc - 1];
 }
 
 constexpr int kMaxDevices = 16;
@@ -500,22 +666,15 @@ struct Occupancy {
   int per_sm;  // resident blocks an SM; -1: the block does not fit
 };
 
-// The occupancy for (direction, device, inverse, C, tile height), filled on
-// first use: the attribute and occupancy queries cost host time on every
-// launch otherwise.  Concurrent first uses write the same value.
-Occupancy g_occupancy[2][kMaxDevices][2][kMaxC + 1][kNumTileHeights];
-
-cudaError_t occupancy(bool backward, bool inverse, int C, int t,
-                      Occupancy* out) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  Occupancy& cached = g_occupancy[backward][device][inverse][C][t];
+// Fills `cached` on first use for `kernel` at (threads, smem): the
+// attribute and occupancy queries cost host time on every launch
+// otherwise.  Concurrent first uses write the same value.
+cudaError_t occupancy_of(const void* kernel, int threads, size_t smem,
+                         Occupancy& cached, Occupancy* out) {
   if (cached.per_sm == 0) {
-    const Layout l = layout_for(backward, C, kTileHeights[t]);
-    const void* kernel = kernel_ptr(backward, inverse, l.per_warp);
-    int limit = 0, sms = 0, per_sm = 0;
+    int device = 0, limit = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
     // the limit is per function, so it is set to the most a block may have:
     // a smaller value set for one C would refuse a later launch at another
     if ((err = cudaDeviceGetAttribute(
@@ -529,14 +688,32 @@ cudaError_t occupancy(bool backward, bool inverse, int C, int t,
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       device)) != cudaSuccess)
       return err;
-    if (l.smem <= (size_t)limit &&
+    if (smem <= (size_t)limit &&
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, l.smem)) != cudaSuccess)
+             &per_sm, kernel, threads, smem)) != cudaSuccess)
       return err;
     cached = Occupancy{sms, per_sm < 1 ? -1 : per_sm};
   }
   *out = cached;
   return cudaSuccess;
+}
+
+cudaError_t current_device(int* device) {
+  const cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  return *device < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
+// The forward's occupancy for (device, inverse, C, tile height)
+Occupancy g_occupancy[kMaxDevices][2][kMaxC + 1][kNumTileHeights];
+
+cudaError_t occupancy(bool inverse, int C, int t, Occupancy* out) {
+  int device = 0;
+  const cudaError_t err = current_device(&device);
+  if (err != cudaSuccess) return err;
+  const Layout l = layout(C, kTileHeights[t]);
+  return occupancy_of(reinterpret_cast<const void*>(kernel_for(inverse, l.per_warp)),
+                      kThreads, l.smem, g_occupancy[device][inverse][C][t], out);
 }
 
 struct Choice {
@@ -547,13 +724,13 @@ struct Choice {
 
 // The tile height whose busiest block walks the fewest rows; on a tie the
 // taller tile, which loads each x fragment for more output columns.
-cudaError_t choose(bool backward, int rows, int C, bool inverse, Choice* best) {
+cudaError_t choose(int rows, int C, bool inverse, Choice* best) {
   long long best_rows = -1;
   for (int t = 0; t < kNumTileHeights; ++t) {
-    const Layout l = layout_for(backward, C, kTileHeights[t]);
-    if (l.per_warp > (backward ? kMaxBwdTilesPerWarp : kMaxTilesPerWarp)) continue;
+    const Layout l = layout(C, kTileHeights[t]);
+    if (l.per_warp > kMaxTilesPerWarp) continue;
     Occupancy o;
-    const cudaError_t err = occupancy(backward, inverse, C, t, &o);
+    const cudaError_t err = occupancy(inverse, C, t, &o);
     if (err != cudaSuccess) return err;
     if (o.per_sm < 1) continue;
     const long long cap = (long long)o.sms * o.per_sm;
@@ -567,6 +744,35 @@ cudaError_t choose(bool backward, int rows, int C, bool inverse, Choice* best) {
   return best_rows < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
+// The backward's launch for (rows, C)
+struct BwdChoice {
+  int nc;      // warps a group, C padded to 32 nc
+  int per_sm;  // resident blocks an SM
+  int grid;    // blocks launched: the tiles, at most the resident blocks
+};
+
+// The backward's occupancy for (device, nc)
+Occupancy g_bwd_occupancy[kMaxDevices][kBwdMaxNC];
+
+// Tile t goes to slot t mod (grid x groups), slot group x grid + block: a
+// call with fewer tiles than slots spreads them one a block before it gives
+// a block a second.
+cudaError_t choose_bwd(int rows, int C, BwdChoice* c) {
+  int device = 0;
+  cudaError_t err = current_device(&device);
+  if (err != cudaSuccess) return err;
+  const int nc = (C + 31) / 32;
+  Occupancy o;
+  err = occupancy_of(reinterpret_cast<const void*>(bwd_kernel_for(nc)), bwd_threads(nc),
+                     bwd_smem_bytes(nc), g_bwd_occupancy[device][nc - 1], &o);
+  if (err != cudaSuccess) return err;
+  if (o.per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long ntiles = ((long long)rows + kBwdTileRows - 1) / kBwdTileRows;
+  const long long cap = (long long)o.sms * o.per_sm;
+  *c = BwdChoice{nc, o.per_sm, (int)(ntiles < cap ? ntiles : cap)};
+  return cudaSuccess;
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -575,7 +781,7 @@ cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* out, int rows, int C, bool inverse,
                    cudaStream_t stream) {
   Choice c;
-  const cudaError_t err = choose(false, rows, C, inverse, &c);
+  const cudaError_t err = choose(rows, C, inverse, &c);
   if (err != cudaSuccess) return err;
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(gamma) && aligned16(out);
   kernel_for(inverse, c.l.per_warp)<<<c.grid, kThreads, c.l.smem, stream>>>(
@@ -586,28 +792,14 @@ cudaError_t launch(const float* x, const float* gamma, const float* beta,
 cudaError_t launch_bwd(const float* x, const float* gamma, const float* beta,
                        const float* gy, float* dx, float* dnorm, int rows,
                        int C, bool inverse, cudaStream_t stream) {
-  Choice c;
-  const cudaError_t err = choose(true, rows, C, inverse, &c);
+  BwdChoice c;
+  const cudaError_t err = choose_bwd(rows, C, &c);
   if (err != cudaSuccess) return err;
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(gamma) &&
                    aligned16(gy) && aligned16(dx) && aligned16(dnorm);
-  bwd_kernel_for(c.l.per_warp)<<<c.grid, kThreads, c.l.smem, stream>>>(
-      x, gamma, beta, gy, dx, dnorm, rows, C, c.l, vec, inverse);
+  bwd_kernel_for(c.nc)<<<c.grid, bwd_threads(c.nc), bwd_smem_bytes(c.nc), stream>>>(
+      x, gamma, beta, gy, dx, dnorm, rows, C, vec, inverse);
   return cudaGetLastError();
-}
-
-// out[0] rows per tile, out[1] resident blocks an SM, out[2] blocks
-// launched (0 for no rows), out[3] bytes of dynamic shared memory a block
-int report_layout(bool backward, int rows, int C, int inverse, int* out) {
-  if (C < 1 || C > kMaxC || rows < 0) return (int)cudaErrorInvalidValue;
-  Choice c;
-  const cudaError_t err = choose(backward, rows, C, inverse != 0, &c);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = c.l.tile;
-  out[1] = c.per_sm;
-  out[2] = c.grid;
-  out[3] = (int)c.l.smem;
-  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -635,12 +827,38 @@ extern "C" int icat_gdn_bwd(const float* x, const float* gamma,
 }
 
 // The launch icat_gdn_fwd makes for (rows, C, inverse) on the current
-// device (report_layout's out).
+// device: out[0] rows per tile, out[1] resident blocks an SM, out[2] blocks
+// launched (0 for no rows), out[3] bytes of dynamic shared memory a block.
 extern "C" int icat_gdn_layout(int rows, int C, int inverse, int* out) {
-  return report_layout(false, rows, C, inverse, out);
+  if (C < 1 || C > kMaxC || rows < 0) return (int)cudaErrorInvalidValue;
+  Choice c;
+  const cudaError_t err = choose(rows, C, inverse != 0, &c);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = c.l.tile;
+  out[1] = c.per_sm;
+  out[2] = c.grid;
+  out[3] = (int)c.l.smem;
+  return (int)cudaSuccess;
 }
 
-// The launch icat_gdn_bwd makes.
+// The launch icat_gdn_bwd makes (it does not depend on inverse): out[0..3]
+// as icat_gdn_layout's (rows per tile: a group's), out[4] warps a block,
+// out[5] warps a group, out[6] stages of x tiles a group, out[7] and out[8]
+// the rows and channels a lane holds.
 extern "C" int icat_gdn_bwd_layout(int rows, int C, int inverse, int* out) {
-  return report_layout(true, rows, C, inverse, out);
+  (void)inverse;
+  if (C < 1 || C > kMaxC || rows < 0) return (int)cudaErrorInvalidValue;
+  BwdChoice c;
+  const cudaError_t err = choose_bwd(rows, C, &c);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kBwdTileRows;
+  out[1] = c.per_sm;
+  out[2] = c.grid;
+  out[3] = bwd_smem_bytes(c.nc);
+  out[4] = bwd_threads(c.nc) / 32;
+  out[5] = c.nc;
+  out[6] = kBwdStages;
+  out[7] = kBwdLaneRows;
+  out[8] = 4;
+  return (int)cudaSuccess;
 }

@@ -202,18 +202,23 @@ def param_grads(x: torch.Tensor, dnorm: torch.Tensor, need_dgamma: bool, need_db
 def kernel_layout(rows: int, c: int, inverse: bool, backward: bool = False) -> dict:
     """The launch the forward (or the backward) kernel makes for ``(rows,
     C)`` on the current CUDA device: rows per tile, resident blocks an SM,
-    blocks launched and bytes of shared memory a block."""
+    blocks launched and bytes of shared memory a block; for the backward
+    also warps a block and a group, stages of x and g tiles a group, and the
+    rows and channels a lane holds (a group's tile is ``tile`` rows)."""
     import ctypes
 
     from ._build import load_library
 
-    out = (ctypes.c_int * 4)()
+    keys = ("tile", "blocks_per_sm", "grid", "smem_bytes")
+    if backward:
+        keys += ("warps", "group_warps", "stages", "lane_rows", "lane_channels")
+    out = (ctypes.c_int * len(keys))()
     lib = load_library()
     entry = lib.icat_gdn_bwd_layout if backward else lib.icat_gdn_layout
     rc = entry(rows, c, int(inverse), out)
     if rc != 0:
         raise RuntimeError(f"{entry.__name__} failed with CUDA error {rc}")
-    return dict(zip(("tile", "blocks_per_sm", "grid", "smem_bytes"), out))
+    return dict(zip(keys, out))
 
 
 class GDNFunction(torch.autograd.Function):

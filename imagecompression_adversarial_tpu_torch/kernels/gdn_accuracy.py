@@ -4,17 +4,18 @@ costs in accuracy and time on the card.
 Usage (needs an NVIDIA GPU and nvcc)::
 
     python -m imagecompression_adversarial_tpu_torch.kernels.gdn_accuracy \
-        [--what forward|product2|both] [--out FILE]
+        [--what forward|product2|both|loops] [--out FILE]
 
 ``csrc/gdn.cu`` is built in variants that differ only in one loop; the
 rest is the committed source.  Everything runs on the weights of the JAX
 trainer's committed orbax step 2000 (hyper q4) and 8 synthetic 256x256
 crops (``chip_smoke.py`` phase 20c's inputs).
 
-``forward``: product 1, the norm's k step of 8 channels, which the forward
-and backward kernels share (``norm_sums``): the committed one (fp32 FMA)
-and v4's tensor-core step (3xTF32, the previous version) with the products
-of ``TF32_PRODUCTS``.  For each:
+``forward``: the forward kernel's product 1, the norm's k step of 8
+channels (``norm_sums``; the backward kernel has its own, ``bwd_norm_sums``,
+in the same order): the committed one (fp32 FMA) and v4's tensor-core step
+(3xTF32, the previous version) with the products of ``TF32_PRODUCTS``.  For
+each:
 
 * forward: every GDN/IGDN call of one noise-quantized forward, the signed
   mean of the output's relative error against a float64 product, per call
@@ -30,13 +31,21 @@ of ``TF32_PRODUCTS``.  For each:
 
 The plain float32 GDN (cuBLAS, TF32 off) is measured beside them.
 
-``product2``: the backward's dnorm @ gamma (``grad_sums``), whose order in
+``product2``: the backward's dnorm @ gamma (``bwd_grad_sums``), whose order in
 cuBLAS's SGEMM the backward kernel must take to give the plain backward's
 dx bit for bit: the committed step (one fp32 FMA chain over o ascending)
 and ``PRODUCT2_PRODUCTS``.  For each, on every GDN call of the RD loss's
 backward with its real output gradient: the share of dx elements equal to
 the plain backward's, the largest gap and the share past 1e-6, the largest
 dnorm gap (``backward_error``); and the dx-only time at 98,304 rows, C=128.
+
+``loops``: the backward kernel's instructions, from ``cuobjdump -sass`` of the
+committed build: for each kernel (1 to 6 warps a group) the instructions
+of each loop by opcode (FFMA, LDS, the rest) and of the whole function;
+beside them the dx-only time at 98,304 rows, C=128 and C=192, the SM clock
+after it, and the time the busiest SM sub-partition needs at that clock to
+dispatch the products' FFMAs alone (one warp instruction a clock) and the product
+loops whole.
 
 Prints one JSON object, and writes it to ``--out`` where given.
 """
@@ -133,62 +142,67 @@ TF32_PRODUCTS = {
 }
 #: The variant csrc/gdn.cu holds (v5): fp32 FMA in cuBLAS's order.
 COMMITTED = "fp32 FMA"
-# The body of the loop over k steps of 8 channels of product 1 (the norm,
-# ``norm_sums``, which the forward and backward kernels share), and the
-# first line of that function, in the committed source.
+# The body of the loop over k steps of 8 channels of the forward's product 1
+# (the norm, ``norm_sums``), and the first line of that function, in the
+# committed source.
 STEP_BODY = re.compile(
     r"(  for \(int k0 = 0; k0 < l\.Cp; k0 \+= 8\) \{\n)(.*?)(\n  \}\n\}\n)", re.S)
 KERNEL_START = "template <int kJ>\n__device__ __forceinline__ void norm_sums("
 PLAIN = "plain float32 (cuBLAS)"
 
-# Product 2 of the backward, dnorm @ gamma (``grad_sums``): the body of its
-# loop over steps of 8 reduction channels o, in the committed source, and the
-# variants the probe builds in its place.  The committed one is one fp32
-# FMA chain over o = 0 .. C-1 from zero; the others are orders an SGEMM
-# might take instead.
+# Product 2 of the backward, dnorm @ gamma (``bwd_grad_sums``): the body of
+# its loop over steps of 8 reduction channels o (the j-th step of 8 of each
+# 32), in the committed source, and the variants the probe builds in its
+# place.  The committed one is one fp32 FMA chain over o = 0 .. C-1 from
+# zero; the others are orders an SGEMM might take instead.
 PRODUCT2_BODY = re.compile(
-    r"(  for \(int o0 = 0; o0 < l\.Cp; o0 \+= 8\) \{\n)(.*?)(\n  \}\n\}\n)", re.S)
+    r"(  for \(int o1 = 0; o1 < kCp; o1 \+= 32\) \{\n#pragma unroll\n"
+    r"    for \(int j = 0; j < 4; \+\+j\) \{\n)(.*?)(\n    \}\n  \}\n\}\n)", re.S)
 PRODUCT2_STEP = """\
-    float d0[8], d1[8];
-    load8(dr + o0, d0);
-    load8(dr + 8 * l.ld + o0, d1);
+      const int o0 = o1 + 8 * j;  // bwd_row(o0 + kk) = o0 + (kk ^ j)
+      float d[kR][8];  // dnorm of the lane's rows, channels o0 .. o0 + 7
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const float* gc = gs + o0 * l.ld + 8 * (first + j) + 2 * t;
-{products}
-    }"""
+      for (int rr = 0; rr < kR; ++rr) load8(dr + 4 * rr * kLd + o0, d[rr]);
+{products}"""
 PRODUCT2_PRODUCTS = {
     # each product rounded, then added
     "fp32 multiply, then add": """\
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
-        acc[j][0] = __fadd_rn(acc[j][0], __fmul_rn(d0[kk], c.x));
-        acc[j][1] = __fadd_rn(acc[j][1], __fmul_rn(d0[kk], c.y));
-        acc[j][2] = __fadd_rn(acc[j][2], __fmul_rn(d1[kk], c.x));
-        acc[j][3] = __fadd_rn(acc[j][3], __fmul_rn(d1[kk], c.y));
+        float c[4];
+        load4(gc + (o0 + (kk ^ j)) * kLd, c);
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            m[rr][q] = __fadd_rn(m[rr][q], __fmul_rn(d[rr][kk], c[q]));
       }""",
     # each step of 8 summed from zero by FMA, then added to the sum
     "fp32 FMA, each step of 8 apart": """\
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float part[kR][4] = {};
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
-        part[0] = fmaf(d0[kk], c.x, part[0]);
-        part[1] = fmaf(d0[kk], c.y, part[1]);
-        part[2] = fmaf(d1[kk], c.x, part[2]);
-        part[3] = fmaf(d1[kk], c.y, part[3]);
+        float c[4];
+        load4(gc + (o0 + (kk ^ j)) * kLd, c);
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[rr][q] = fmaf(d[rr][kk], c[q], part[rr][q]);
       }
-      for (int q = 0; q < 4; ++q) acc[j][q] = __fadd_rn(acc[j][q], part[q]);""",
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) m[rr][q] = __fadd_rn(m[rr][q], part[rr][q]);""",
     # the chain over each step of 8 from its last channel
     "fp32 FMA, each step of 8 backwards": """\
 #pragma unroll
       for (int kk = 7; kk >= 0; --kk) {
-        const float2 c = *reinterpret_cast<const float2*>(gc + kk * l.ld);
-        acc[j][0] = fmaf(d0[kk], c.x, acc[j][0]);
-        acc[j][1] = fmaf(d0[kk], c.y, acc[j][1]);
-        acc[j][2] = fmaf(d1[kk], c.x, acc[j][2]);
-        acc[j][3] = fmaf(d1[kk], c.y, acc[j][3]);
+        float c[4];
+        load4(gc + (o0 + (kk ^ j)) * kLd, c);
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) m[rr][q] = fmaf(d[rr][kk], c[q], m[rr][q]);
       }""",
 }
 #: The product-2 variant csrc/gdn.cu holds.
@@ -493,10 +507,87 @@ def product2_probe(codec, batch, gen, workdir: Path) -> dict:
     return out
 
 
+def sass_functions(sass: str) -> dict:
+    """cuobjdump's SASS by function: name -> [(address, opcode, operands)]
+    (the opcode without its modifiers)."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = chunk.split("\n", 1)
+        out[name.strip()] = [
+            (int(a, 16), op.split(".")[0], args) for a, op, args in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    return out
+
+
+def instruction_mix(ops) -> dict:
+    """{"n", "FFMA", "LDS", "other"} of the opcodes ``ops``."""
+    ops = list(ops)
+    mix = {"n": len(ops), "FFMA": ops.count("FFMA"), "LDS": ops.count("LDS")}
+    mix["other"] = mix["n"] - mix["FFMA"] - mix["LDS"]
+    return mix
+
+
+def loop_mixes(instrs) -> list:
+    """The instruction mix of each loop of one function (from a branch's
+    target to a branch back to it), in the order of their branches."""
+    loops = []
+    for addr, op, args in instrs:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            start = int(target.group(1), 16)
+            loops.append({"from": start, "to": addr, **instruction_mix(
+                o for a, o, _ in instrs if start <= a <= addr)})
+    return loops
+
+
+def loops_probe(gen) -> dict:
+    """The backward kernels' loops and whole functions from ``cuobjdump
+    -sass`` of the committed build; dx-only times at 98,304 rows and the
+    dispatch times of the busiest SM sub-partition at the SM clock read after
+    them."""
+    lib = _build.build()
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    functions = sass_functions(subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                                              capture_output=True, text=True, check=True).stdout)
+    out = {"kernels": {}}
+    for nc in range(1, 7):
+        (instrs,) = [i for n, i in functions.items() if f"gdn_bwd_kernelILi{nc}EE" in n]
+        out["kernels"][nc] = {"function": instruction_mix(op for _, op, _ in instrs),
+                              "loops": loop_mixes(instrs)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in (128, 192):
+        ms = bwd_ms(gdn.gdn_backward, 98304, c, gen)
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+        lay = gdn.kernel_layout(98304, c, False, backward=True)
+        # tiles on the busiest group, and the product loops of one tile: both
+        # products of a tile are C / 32 passes of their loop (a 32-channel
+        # step each), a warp's FFMAs 2 x 16 x C x 4 x C / 32 / 32 lanes a tile
+        slots = lay["grid"] * lay["warps"] // lay["group_warps"]
+        tiles = -(-(98304 // lay["tile"]) // slots)
+        # the innermost loops that hold FFMAs: the two products'
+        loops = out["kernels"][c // 32]["loops"]
+        products = [lp for lp in loops if lp["FFMA"] and not any(
+            o is not lp and lp["from"] <= o["from"] and o["to"] <= lp["to"] for o in loops)]
+        loop_instrs = sum(lp["n"] for lp in products) * c // 32
+        ffma = 2 * lay["tile"] * c * c // 32 // lay["group_warps"]
+        # a sub-partition (4 an SM) dispatches one warp instruction a clock
+        per_smsp = lay["warps"] * lay["blocks_per_sm"] / 4
+        out[f"dx_98304x{c}"] = {
+            "ms": ms, "sm_clock_mhz": mhz, "layout": lay, "tiles_busiest_group": tiles,
+            "ffma_dispatch_ms": tiles * ffma * per_smsp / (mhz * 1e3),
+            "product_loops_dispatch_ms": tiles * loop_instrs * per_smsp / (mhz * 1e3),
+        }
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--what", choices=("forward", "product2", "both"), default="both",
-                        help="product 1's k-step variants, product 2's, or both")
+    parser.add_argument("--what", choices=("forward", "product2", "both", "loops"),
+                        default="both",
+                        help="product 1's k-step variants, product 2's, both, or what the "
+                             "backward kernel's loop instructions")
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -518,6 +609,8 @@ def main() -> int:
             result.update(forward_probe(codec, batch, gen, Path(tmp) / "forward"))
         if args.what in ("product2", "both"):
             result["product2"] = product2_probe(codec, batch, gen, Path(tmp) / "product2")
+        if args.what == "loops":
+            result["loops"] = loops_probe(gen)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -13,6 +13,7 @@ runs only on the card: ``test_torch_gdn_cuda.py``.
 
 import ctypes
 import functools
+import importlib.util
 import itertools
 import os
 import sys
@@ -225,3 +226,48 @@ def test_backward_entry_points_take_pointers_as_void_p():
     assert lib.icat_gdn_bwd.argtypes == [ptr] * 6 + [i32] * 3 + [ptr]
     assert lib.icat_gdn_bwd.restype is i32
     assert lib.icat_gdn_bwd_layout.argtypes == lib.icat_gdn_layout.argtypes
+
+
+def _module(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_card_tests_hold_the_main_paths_shapes_exactly():
+    """``tests/test_torch_gdn_cuda.py`` asserts the backward kernel equal to
+    the plain backward at its EXACT_SHAPES: ``chip_smoke.py``'s GDN_SHAPES
+    (the main paths' GDN calls) under 1,000,000 rows, in its order."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    smoke = _module(os.path.join(root, "chip_smoke.py"), "_chip_smoke_shapes")
+    cuda_tests = _module(os.path.join(root, "tests", "test_torch_gdn_cuda.py"),
+                         "_gdn_cuda_shapes")
+    assert cuda_tests.EXACT_SHAPES == tuple(
+        (c, rows) for c, rows in smoke.GDN_SHAPES if rows < 1_000_000)
+
+
+SASS = """
+\t\tFunction : _ZN4main14gdn_bwd_kernelILi4EEEvPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;          /* 0x00000a0000017a02 */
+        /*0010*/                   LDS.128 R4, [R2] ;               /* 0x0000000002047984 */
+        /*0020*/                   FFMA R8, R4, R5, R8 ;            /* 0x0000000504087223 */
+        /*0030*/                   FFMA R9, R4, R6, R9 ;            /* 0x0000000604097223 */
+        /*0040*/               @P0 BRA 0x10 ;                       /* 0x0000000000000947 */
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING R3, 0x80 ;  /* 0x000200030000751d */
+        /*0060*/              @!P1 BRA 0x0 ;                        /* 0x0000000000000947 */
+        /*0070*/                   EXIT ;                           /* 0x000000000000794d */
+"""
+
+
+def test_loops_probe_reads_the_kernels_loops():
+    """``gdn_accuracy --what loops`` counts each loop's instructions (a
+    branch back to a lower address) by opcode in cuobjdump's SASS, inner and
+    outer loops alike; predicated branches and opcode modifiers included."""
+    (name, instrs), = gdn_accuracy.sass_functions(SASS).items()
+    assert "gdn_bwd_kernelILi4EE" in name and len(instrs) == 8
+    assert gdn_accuracy.instruction_mix(op for _, op, _ in instrs) == {
+        "n": 8, "FFMA": 2, "LDS": 1, "other": 5}
+    inner, outer = gdn_accuracy.loop_mixes(instrs)
+    assert inner == {"from": 0x10, "to": 0x40, "n": 4, "FFMA": 2, "LDS": 1, "other": 1}
+    assert (outer["from"], outer["to"], outer["n"], outer["FFMA"]) == (0, 0x60, 7, 2)
