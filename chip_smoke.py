@@ -9,7 +9,7 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
-   builds the host rANS coder with g++;
+   builds the host rANS coder and the host JPEG decoder with g++;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
    every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
@@ -171,7 +171,10 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     kernel run; in the four ranks of (d), one dp x sp = 2 x 2 step with
     ``recompress`` on the ``--adv`` inner attack's example (PAR_ADV_STEPS
     steps), held to one process in float32 (phase 12c's bounds) and in
-    float64 (PAR_F64_ATOL).  It prints each
+    float64 (PAR_F64_ATOL); (g) phase 21e's runs on uneven row blocks: in
+    the two ranks of (c), ``-p PAR_UNEVEN_PAD``, and in the four ranks of
+    (d), the self-ensemble on sp=4 at PAR_UNEVEN_SIZE (phase 21 holds
+    them).  It prints each
     world's backend and each rank's card, rate, peak memory and GDN
     launches (added to the ``kernels`` line), and the sp=2 attacks' peaks
     beside the unsharded ones.  Each rank records
@@ -208,7 +211,26 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     2000, 2001 and ``best_loss``, step 2000's files unchanged; it prints the
     step's time, the inner attack's rate, GDN launches and peak memory;
     (c) takes one resumed ``train_step`` with the kernel and with the plain
-    GDN, held at phase 12c's bounds with the restored lr.
+    GDN, held at phase 12c's bounds with the restored lr;
+21. JPEG and BMP inputs, uneven row shards and ``-precision bfloat16``
+    (slice 15): (a) prints phase 2's build of the JPEG decoder, and decodes
+    a textured JPEG_SIZE file coded at JPEG_QUALITY (the port's encoder
+    writes Pillow's bytes) with the host C++ decoder and with its numpy
+    plain version, which must agree bit for bit, each timed; (b) runs
+    ``cli.attack_rd -s x.jpg`` (hyper q1 demo weights, JPEG_ATTACK_STEPS
+    steps, cuDNN deterministic), printing its GDN launches, beside the same
+    attack on a PNG of the decoded pixels: noise within NOISE_ATOL and vi
+    within VI_ATOL; (c) ``cli.train -data`` on a folder of JPEG_TRAIN_FILES
+    JPEGs of JPEG_TRAIN_SIZE for JPEG_TRAIN_STEPS steps beside the same
+    pixels as PNGs, printing each run's steps/s and the host's decode time
+    a batch of each folder, whose batches must be equal; (d)
+    PRECISION_STEPS-step hyper attacks through the CLI with ``-precision
+    bfloat16`` (TF32 on) and ``highest`` in turns (PRECISIONS), printing
+    the rate and vi of each; (e) holds phase 18's uneven row-sharded runs to one process at
+    18f's bounds: ``-p PAR_UNEVEN_PAD`` at 768x512 on sp=2 (576 padded rows:
+    320 and 256) in 18c's two ranks, and the self-ensemble at
+    PAR_UNEVEN_SIZE on sp=4 (the rotated variants' 576 rows: 192, 192, 192
+    and 0) in 18d's four ranks.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -223,7 +245,7 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19 and 20.  It reads five demo checkpoints: hyper q1,
+rendezvous), 19, 20 and 21.  It reads five demo checkpoints: hyper q1,
 cheng2020-gmm q3, and nlaic, tic and fic q3; and step 2000 of the orbax
 tree ``ckpts/adv/hyper-0.013-mse-0.0001-300``.
 """
@@ -339,14 +361,21 @@ RESIZE_ATOL = 1e-5
 # (C=192) on half a 768x512 image a rank: 49,152, 12,288 and 3,072 rows;
 # then phase 18f's -p 64 clean forward, a rank's half of the 896x640
 # padded image: 71,680, 17,920 and 4,480 rows (its ensemble's batches of 4
-# variant blocks make 196,608, 49,152 and 12,288, held above)
+# variant blocks make 196,608, 49,152 and 12,288, held above); then phase
+# 21e's uneven blocks: -p 32's clean forward on sp=2, 320 and 256 rows of
+# the 832x576 padded image (66,560, 16,640, 4,160; 53,248, 13,312, 3,328),
+# and the ensemble on sp=4 at 576x512, 128 rows a rank: the batch of 4
+# flipped blocks (73,728, 18,432, 4,608) and the clean forward (18,432,
+# 4,608, 1,152; the rotated blocks of 192 rows make 98,304, held above)
 GDN_SHAPES = ((128, 98304), (128, 24576), (128, 6144), (192, 6144), (128, 393216),
               (128, 131072), (128, 32768), (128, 8192), (192, 98304), (192, 24576),
               (128, 196608), (128, 49152), (128, 12288), (128, 3072), (128, 65536),
               (128, 16384), (128, 4096), (128, 2048), (128, 786432), (128, 3145728),
               (128, 12582912), (128, 1027840), (128, 4111360), (128, 16445440),
               (192, 49152), (192, 12288), (192, 3072), (128, 71680), (128, 17920),
-              (128, 4480))
+              (128, 4480), (128, 66560), (128, 16640), (128, 4160), (128, 53248),
+              (128, 13312), (128, 3328), (128, 73728), (128, 18432), (128, 4608),
+              (128, 1152))
 # the backward is checked in both modes (dx; dx and dnorm, with dgamma and
 # dbeta) up to this many rows; the larger calls (4,111,360 rows and up, 2.1
 # GB a tensor and more) check dx alone: x, g, the kernel's dx and the plain
@@ -582,14 +611,18 @@ PAR_F64_ATOL = 1e-9
 # (`cond`); (f) the MP_SIZE split attack with the kernel and with the plain
 # GDN at phase 5's bounds
 MP_SIZE = (3072, 4096)
-MP_STEPS = 21
+# MP_STEPS, MP_GMM_STEPS, MP_LARGE_STEPS and MP_KVP_STEPS were 21, 11, 3
+# and 11 up to PR 20, and are 11, 6, 2 and 6 since phase 21 was added, to
+# keep the run within its time (the split and single-program attacks were
+# equal at 21 and 11 steps, and a peak is set in the first step)
+MP_STEPS = 11
 MP_LARGE = (7040, 9344)
 # the peak is set in the first step
-MP_LARGE_STEPS = 3
+MP_LARGE_STEPS = 2
 MP_SHRINK = 0.9
-MP_GMM_STEPS = 11
+MP_GMM_STEPS = 6
 MP_CLI_STEPS = 101
-MP_KVP_STEPS = 11
+MP_KVP_STEPS = 6
 # (g) the single-program and split attacks again with the plain GDN
 # backward, for their peaks beside (a)'s with the backward kernel (a peak
 # is set within the first step)
@@ -621,6 +654,43 @@ ORBAX_FINGERPRINT = {
     "nu": [24872.635254693283, 4409598.030982538],
     "count": [4000.0, 8000000.0],
 }
+
+
+# phase 21 (slice 15): (a) a textured JPEG_SIZE (H, W) image coded at
+# JPEG_QUALITY, the C decoder timed best of JPEG_DECODE_RUNS; (b) the
+# attack CLI on it (JPEG_ATTACK_STEPS steps); (c) training on JPEG_TRAIN_FILES
+# JPEGs of JPEG_TRAIN_SIZE, Vimeo-90k's frame size (the reference trains on
+# Vimeo-90k crops), JPEG_TRAIN_STEPS steps of cli.train's batches of 8
+# 256x256 crops, and JPEG_DECODE_BATCHES batches timed on the host alone;
+# (d) PRECISION_STEPS-step attacks at PRECISIONS, in turns; (e) phase 18's
+# uneven runs: -p PAR_UNEVEN_PAD at 768x512 on sp=2 (PAR_DEFENSE_STEPS
+# `select` steps) and the ensemble (`batch`) at PAR_UNEVEN_SIZE on sp=4
+JPEG_SIZE = (512, 768)
+JPEG_QUALITY = 90
+JPEG_DECODE_RUNS = 5
+JPEG_ATTACK_STEPS = 101
+JPEG_TRAIN_SIZE = (256, 448)
+JPEG_TRAIN_FILES = 16
+JPEG_TRAIN_STEPS = 20
+JPEG_DECODE_BATCHES = 2
+PRECISION_STEPS = 101
+PRECISIONS = ("highest", "bfloat16", "bfloat16", "highest")  # in turns
+PAR_UNEVEN_PAD = 32
+PAR_UNEVEN_SIZE = (512, 576)
+
+
+def textured_rgb(h: int, w: int, seed: int):
+    """(h, w, 3) uint8 pixels made with numpy from ``seed``: the synthetic
+    image with fine stripes and noise, so that a JPEG of it carries the
+    many AC coefficients of a photo's texture."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image
+
+    rng = np.random.RandomState(seed)
+    img = synthetic_image(h, w, seed=seed)[0] + 0.25 * (rng.rand(h, w, 3) - 0.5)
+    img += 0.1 * np.sin(np.arange(w) / 1.7 + seed)[None, :, None]
+    return (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
 
 
 def orbax_fingerprint(tree) -> dict:
@@ -2452,8 +2522,8 @@ def measured(fn):
     """``fn()`` with the launch counts set to 0 just before it and read just
     after, the peak memory reset before it, and its synced seconds:
     ``(result, {"s", "peak_gib", "launches", "bwd_launches",
-    "gdn_shapes"})``, the last the (C, rows) of every GDN call that reached
-    the forward or the backward kernel's wrapper."""
+    "gdn_shapes"})``, the last the (C, rows) of every GDN call with rows
+    that reached the forward or the backward kernel's wrapper."""
     import torch
 
     from imagecompression_adversarial_tpu_torch.kernels import gdn
@@ -2462,11 +2532,13 @@ def measured(fn):
     forward, backward = gdn.gdn_forward, gdn.gdn_backward
 
     def recorded_forward(x, *args):
-        shapes.add((int(x.shape[1]), int(x.shape[0])))
+        if x.shape[0]:  # an empty row block (uneven shards) launches nothing
+            shapes.add((int(x.shape[1]), int(x.shape[0])))
         return forward(x, *args)
 
     def recorded_backward(x, *args):
-        shapes.add((int(x.shape[1]), int(x.shape[0])))
+        if x.shape[0]:
+            shapes.add((int(x.shape[1]), int(x.shape[0])))
         return backward(x, *args)
 
     torch.cuda.synchronize()
@@ -2521,8 +2593,8 @@ def par_step1_grads(codec, batch, mesh=None):
 
     codec.requires_grad_(True)
     main, _ = parameter_groups(codec)
-    where = mesh_shard(mesh) if mesh is not None else None
-    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
+    where = mesh_shard(mesh, batch) if mesh is not None else None
+    with shard.within(where) if where else contextlib.nullcontext():
         result = codec(batch, quant_mode="noise",
                        generator=torch.Generator(device="cuda").manual_seed(0))
         loss = rate_distortion_loss(result, batch, lambda_for("mse", 1), "mse")["loss"]
@@ -2646,7 +2718,7 @@ def par_world_nccl():
 def par_world_two():
     """Phases 18a and 18c, in each of two ranks: the collective probe, the
     dp=2 corpus attack, the sp=2 forward and attack, dp=2 RD and --adv
-    training."""
+    training; phase 21e's -p run on uneven row blocks."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2685,6 +2757,7 @@ def par_world_two():
                         "steps_per_s": PAR_SP_STEPS / m["s"], **m}
     out.update(par_sp_slice9(codec, sp, x))
     out.update(par_sp_defenses(codec, sp, x))
+    out["sp_pad_uneven"] = par_sp_uneven(codec, sp, x, "pad")
     out.update(par_sp_adapters(sp, x))
     for label, adv in (("train_rd", False), ("train_adv", True)):
         codec.load_state_dict(initial)
@@ -2812,6 +2885,26 @@ def par_sp_defenses(codec, sp, x):
     out["sp_resize_plain"] = run("resize")
     use_gdn_kernel(codec, True)
     return out
+
+
+def par_uneven_cfg(kind: str):
+    from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig
+
+    extra = dict(pad=PAR_UNEVEN_PAD) if kind == "pad" else PAR_DEFENSES["ensemble"]
+    return RDAttackConfig(steps=PAR_DEFENSE_STEPS, two_phase_impl="select", **extra)
+
+
+def par_sp_uneven(codec, sp, x, kind: str) -> dict:
+    """Phase 21e's run in each rank of ``sp``: the attack of
+    ``par_uneven_cfg(kind)`` on ``x``, whose padded image (``pad``) or
+    rotated variants (``ensemble``) split into uneven row blocks, timed on
+    its first run."""
+    from imagecompression_adversarial_tpu_torch.parallel import make_spatial_attack_fn
+
+    fn = make_spatial_attack_fn(codec, par_uneven_cfg(kind), sp)
+    res, m = measured(lambda: fn(x))
+    return {"im_": res["im_"].cpu().numpy(), "vi": float(res["vi"]),
+            "bpp_ori": float(res["bpp_ori"]), "steps_per_s": PAR_DEFENSE_STEPS / m["s"], **m}
 
 
 def par_hold_defenses(codec, two, records, launches) -> None:
@@ -3102,10 +3195,11 @@ def par_world_four():
     """Phases 18d and 18f, in each of four ranks: one dp x sp = 2 x 2 RD
     step, and step 1's gradients again in float64; one step with
     ``recompress`` on the --adv inner attack's example, in float32 and in
-    float64."""
+    float64; phase 21e's ensemble on sp=4, uneven row blocks."""
     import torch
     import torch.distributed as dist
 
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
     from imagecompression_adversarial_tpu_torch.parallel import (
         batch_row_sharding, local_part, make_mesh, replicate,
     )
@@ -3130,6 +3224,10 @@ def par_world_four():
         out[key] = {"x_adv": x_adv, "logs": logs,
                     "params": params if dist.get_rank() == 0 else None,
                     "fingerprint": par_fingerprint(params), "step_s": seconds, **m}
+    sp = make_mesh(axis_names=("sp",))
+    codec = replicate(sp, par_rank_setup())
+    x = to_tensor(synthetic_image(*PAR_UNEVEN_SIZE, seed=0), "cuda")
+    out["sp_ensemble_uneven"] = par_sp_uneven(codec, sp, x, "ensemble")
     return out
 
 
@@ -3246,8 +3344,9 @@ def par_hold_adv_recompress(four, records) -> None:
 
 def phase_parallel(gdn):
     """Phase 18: the parallel layer in spawned ranks, each run held to its
-    one-process counterpart; returns the records and the ranks' GDN
-    launches."""
+    one-process counterpart; returns the records, the ranks' GDN launches
+    and phase 21e's uneven runs (``{"pad": ranks, "ensemble": ranks}``),
+    which phase 21 holds."""
     import numpy as np
     import torch
 
@@ -3372,11 +3471,14 @@ def phase_parallel(gdn):
                                           "sp_msssim", "sp_split",
                                           *(f"sp_{name}" for name in PAR_DEFENSES))]
     runs += [m[k] for r in two for m in (r[f"sp_{f}"] for f in ADAPTERS) for k in m]
+    uneven = {"pad": [r["sp_pad_uneven"] for r in two],
+              "ensemble": [r["sp_ensemble_uneven"] for r in four]}
+    runs += uneven["pad"] + uneven["ensemble"]
     par_check_shapes(runs)
     log(f"phase 18 GDN (C, rows) of the ranks, each held to the plain GDN in phase 3: "
         f"{sorted({tuple(p) for m in runs for p in m['gdn_shapes']})}")
     log(f"phase 18 done in {time.time() - t0:.1f} s")
-    return records, launches
+    return records, launches, uneven
 
 
 def mp_attack(codec, steps: int, split: bool):
@@ -3730,6 +3832,236 @@ def phase_orbax_resume(gdn):
     return records, launches
 
 
+def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
+    """Phase 21: the JPEG decoder, a JPEG through the attack CLI and a JPEG
+    folder through cli.train, -precision bfloat16 beside highest, and phase
+    18's uneven row-sharded runs held to one process.  Returns the records
+    and the forward and backward kernels' launches."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.cli import attack_rd as attack_cli
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+    from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
+    from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
+
+    records, launches, launches_bwd = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inputs_")
+    cwd = os.getcwd()
+    try:
+        # 21a: the two decoders on one textured file
+        h, w = JPEG_SIZE
+        data = jpeg.encode(textured_rgb(h, w, seed=5), JPEG_QUALITY)
+        t = time.perf_counter()
+        plain = jpeg.decode(data)
+        plain_s = time.perf_counter() - t
+        native_s = []
+        for _ in range(JPEG_DECODE_RUNS):
+            t = time.perf_counter()
+            native = jpeg.decode_native(data)
+            native_s.append(time.perf_counter() - t)
+        equal = bool(np.array_equal(native, plain))
+        host = host_cpu()
+        records["21a"] = {"build": jpeg_build, "bytes": len(data), "equal": equal,
+                          "numpy_s": plain_s, "c_s": min(native_s), "c_runs_s": native_s,
+                          "host": host}
+        log(f"phase 21a JPEG decoder: built in phase 2 ({jpeg_build['s']:.2f} s, "
+            f"{jpeg_build['how']}); on the host ({host}), a textured {w}x{h} "
+            f"q{JPEG_QUALITY} file of {len(data)} bytes: "
+            f"C decoder {min(native_s) * 1e3:.2f} ms (best of {JPEG_DECODE_RUNS}: "
+            f"{[round(v * 1e3, 2) for v in native_s]}), numpy plain version {plain_s * 1e3:.1f} "
+            f"ms ({plain_s / min(native_s):.1f}x), pixels equal: {equal}")
+        if not equal:
+            raise RuntimeError("phase 21a: the C and numpy JPEG decoders differ")
+
+        # 21b: the attack CLI on the JPEG and on a PNG of its pixels
+        src, png = os.path.join(tmp, "textured.jpg"), os.path.join(tmp, "textured.png")
+        with open(src, "wb") as f:
+            f.write(data)
+        write_image(native[None].astype(np.float32) / 255.0, png)
+        if not (np.array_equal(read_pixels(src), native) and np.array_equal(read_pixels(png),
+                                                                              native)):
+            raise RuntimeError("phase 21b: the readers do not give the decoded pixels")
+        os.chdir(tmp)
+        kept = []
+        to_host = attack_cli.to_host
+
+        def keep(res):
+            kept.append(to_host(res))
+            return kept[-1]
+
+        def attack(path, steps, *extra):
+            cfg = parse_config(["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT,
+                                "-s", path, "-steps", str(steps), "-two_phase", "select",
+                                "-device", "cuda", *extra])
+            kept.clear()
+            avg, m = measured(lambda: attack_cli.run(cfg))
+            if not all(math.isfinite(avg[k]) for k in ("vi", "bpp_ori", "bpp")) or \
+                    not m["launches"] or not m["bwd_launches"]:
+                raise RuntimeError(f"phase 21 attack on {path} {extra}: non-finite result or "
+                                   f"no GDN launch ({m['launches']}, {m['bwd_launches']})")
+            return avg, m, kept[0]["im_"]
+
+        attack_cli.to_host = keep
+        try:
+            with cudnn_deterministic():
+                runs = {kind: attack(path, JPEG_ATTACK_STEPS) for kind, path in
+                        (("jpeg", src), ("png", png))}
+            (aj, mj, ij), (ap, mp_, ip) = runs["jpeg"], runs["png"]
+            noise = float(np.abs(ij - ip).max())
+            dvi = abs(aj["vi"] - ap["vi"])
+            records["21b"] = {"steps_per_s": JPEG_ATTACK_STEPS / aj["t"],
+                              "png_steps_per_s": JPEG_ATTACK_STEPS / ap["t"], "vi": aj["vi"],
+                              "png_vi": ap["vi"], "noise_max_abs": noise,
+                              "launches": mj["launches"], "bwd_launches": mj["bwd_launches"]}
+            launches["21b attack_rd -s x.jpg"] = mj["launches"]
+            launches_bwd["21b attack_rd -s x.jpg"] = mj["bwd_launches"]
+            log(f"phase 21b cli.attack_rd -s textured.jpg, hyper q1, {JPEG_ATTACK_STEPS} steps "
+                f"(cuDNN deterministic): {JPEG_ATTACK_STEPS / aj['t']:.2f} steps/s, vi "
+                f"{aj['vi']:.6f}, bpp_ori {aj['bpp_ori']:.4f}, bpp {aj['bpp']:.4f}, gdn_fwd "
+                f"launches {mj['launches']}, gdn_bwd launches {mj['bwd_launches']}; on a PNG of "
+                f"its pixels {JPEG_ATTACK_STEPS / ap['t']:.2f} steps/s, vi {ap['vi']:.6f}: noise "
+                f"max |diff| {noise:.3e} (tol {NOISE_ATOL}), vi diff {dvi:.3e} (tol {VI_ATOL})")
+            if noise > NOISE_ATOL or dvi > VI_ATOL:
+                raise RuntimeError("phase 21b: the JPEG and PNG attacks differ")
+
+            # 21d: -precision bfloat16 (TF32) beside highest, cuDNN's defaults
+            for turn, precision in enumerate(PRECISIONS):
+                avg, m, _ = attack(png, PRECISION_STEPS, "-precision", precision)
+                tf32 = torch.backends.cudnn.allow_tf32
+                records[f"21d {turn} {precision}"] = {
+                    "steps_per_s": PRECISION_STEPS / avg["t"], "vi": avg["vi"],
+                    "bpp_ori": avg["bpp_ori"], "bpp": avg["bpp"], "tf32": tf32,
+                    "launches": m["launches"]}
+                launches[f"21d {turn} -precision {precision}"] = m["launches"]
+                launches_bwd[f"21d {turn} -precision {precision}"] = m["bwd_launches"]
+                log(f"phase 21d hyper q1 {w}x{h}, {PRECISION_STEPS} steps, -precision "
+                    f"{precision} (TF32 {'on' if tf32 else 'off'}): "
+                    f"{PRECISION_STEPS / avg['t']:.2f} steps/s, vi {avg['vi']:.6f}, bpp_ori "
+                    f"{avg['bpp_ori']:.4f}, bpp {avg['bpp']:.4f}, gdn_fwd launches "
+                    f"{m['launches']}")
+                if tf32 != (precision == "bfloat16"):
+                    raise RuntimeError(f"phase 21d: -precision {precision} left TF32 {tf32}")
+        finally:
+            attack_cli.to_host = to_host
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+        # 21c: training on a JPEG folder beside the same pixels as PNGs
+        folders = {kind: os.path.join(tmp, f"train_{kind}") for kind in ("jpeg", "png")}
+        for folder in folders.values():
+            os.makedirs(folder)
+        th, tw = JPEG_TRAIN_SIZE
+        for i in range(JPEG_TRAIN_FILES):
+            coded = jpeg.encode(textured_rgb(th, tw, seed=100 + i), JPEG_QUALITY)
+            with open(os.path.join(folders["jpeg"], f"{i:03d}.jpg"), "wb") as f:
+                f.write(coded)
+            write_image(jpeg.decode_native(coded)[None].astype(np.float32) / 255.0,
+                        os.path.join(folders["png"], f"{i:03d}.png"))
+        decoded, per_batch = {}, {}
+        for kind, folder in folders.items():
+            it = image_folder_batches(folder, 8, 256, seed=0)
+            t = time.perf_counter()
+            decoded[kind] = [next(it) for _ in range(JPEG_DECODE_BATCHES)]
+            per_batch[kind] = (time.perf_counter() - t) / JPEG_DECODE_BATCHES
+            it.close()
+        same = all(np.array_equal(a, b) for a, b in zip(decoded["jpeg"], decoded["png"]))
+        if not same:
+            raise RuntimeError("phase 21c: the JPEG folder's batches differ from the PNG one's")
+        for kind, folder in folders.items():
+            work = os.path.join(tmp, f"work_{kind}")
+            os.makedirs(work)
+            os.chdir(work)
+            s, n, peak, _ = train_cli(gdn, ["-data", folder, "-max_steps", str(JPEG_TRAIN_STEPS)])
+            t = s["timing"]
+            records[f"21c {kind}"] = {
+                "steps_per_s": t["steady_steps"] / t["steady_s"], "first_step_s":
+                t["first_step_s"], "decode_s_per_batch": per_batch[kind], "launches": n,
+                "bwd_launches": gdn.launch_counts["gdn_bwd"], "peak_gib": peak,
+                "last_loss": s["last"]["loss"]}
+            launches[f"21c cli.train -data {kind} x{JPEG_TRAIN_STEPS}"] = n
+            launches_bwd[f"21c cli.train -data {kind} x{JPEG_TRAIN_STEPS}"] = \
+                gdn.launch_counts["gdn_bwd"]
+        rj, rp = records["21c jpeg"], records["21c png"]
+        log(f"phase 21c cli.train -data, hyper q1, {JPEG_TRAIN_FILES} files of {tw}x{th}, "
+            f"batches of 8 256x256 crops, {JPEG_TRAIN_STEPS} steps: JPEG folder "
+            f"{rj['steps_per_s']:.2f} steps/s (steps 2-{JPEG_TRAIN_STEPS}), PNG folder "
+            f"{rp['steps_per_s']:.2f}; the host's decode of a batch alone (8 threads, "
+            f"{JPEG_DECODE_BATCHES} batches): JPEG {per_batch['jpeg'] * 1e3:.1f} ms, PNG "
+            f"{per_batch['png'] * 1e3:.1f} ms, batches equal: {same}; last loss "
+            f"{rj['last_loss']:.6f} / {rp['last_loss']:.6f}, gdn_fwd launches "
+            f"{rj['launches']} / {rp['launches']}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    records.update(hold_uneven(uneven, launches))
+    return records, launches, launches_bwd
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``, else the platform's name for
+    the machine) and its logical CPUs."""
+    import platform
+
+    model = platform.processor() or platform.machine() or "unknown CPU"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.lower().startswith("model name")), model)
+    return f"{model}, {os.cpu_count()} logical CPUs"
+
+
+def hold_uneven(uneven: dict, launches: dict) -> dict:
+    """Phase 21e: phase 18's uneven row-sharded runs (``par_sp_uneven``)
+    held to one process, cuDNN deterministic as the ranks ran, at 18f's
+    bounds."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks.rd import make_attack_fn
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.ops.shard import row_blocks
+
+    codec = load_codec("hyper", 1, CKPT)
+    records, failed = {}, []
+    for kind, (h, w), n in (("pad", (512, 768), 2), ("ensemble", PAR_UNEVEN_SIZE, 4)):
+        a = uneven[kind]
+        x = to_tensor(synthetic_image(h, w, seed=0), "cuda")
+        with cudnn_deterministic():
+            ref, m_ref = measured(lambda: make_attack_fn(codec, par_uneven_cfg(kind))(x))
+        got = torch.from_numpy(np.concatenate([r["im_"] for r in a], axis=2)).cuda()
+        diff = (got - ref["im_"]).abs()
+        far = float((diff > NOISE_ATOL).float().mean())
+        dvi = max(abs(r["vi"] - float(ref["vi"])) for r in a)
+        dbpp = max(abs(r["bpp_ori"] / float(ref["bpp_ori"]) - 1.0) for r in a)
+        blocks = row_blocks(h + 2 * PAR_UNEVEN_PAD, n) if kind == "pad" else row_blocks(w, n)
+        label = (f"-p {PAR_UNEVEN_PAD} at {w}x{h} on sp={n}, padded rows {blocks}"
+                 if kind == "pad" else f"ensemble at {w}x{h} on sp={n}, rotated rows {blocks}")
+        log(f"phase 21e {PAR_DEFENSE_STEPS}-step select attack, {label}: noise max |diff| "
+            f"{float(diff.max()):.3e}, share > {NOISE_ATOL} {far:.2e} (tol "
+            f"{PAR_DEFENSE_FAR_SHARE}), vi {a[0]['vi']:.6f} / {float(ref['vi']):.6f} (tol "
+            f"{VI_ATOL}), bpp_ori rel {dbpp:.2e} (tol {PAR_BPP_RTOL}); per rank steps/s "
+            f"{[round(r['steps_per_s'], 3) for r in a]}, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in a]} against {m_ref['peak_gib']:.3f} in one "
+            f"process, GDN launches {[r['launches'] for r in a]} against {m_ref['launches']}; "
+            f"one process {PAR_DEFENSE_STEPS / m_ref['s']:.3f} steps/s")
+        if far > PAR_DEFENSE_FAR_SHARE or dvi > VI_ATOL or dbpp > PAR_BPP_RTOL or \
+                not math.isfinite(a[0]["vi"]) or not all(r["launches"] for r in a):
+            failed.append(label)
+        records[f"21e {kind}"] = {
+            "blocks": blocks, "noise_max_abs": float(diff.max()), "far_share": far,
+            "vi_abs": dvi, "bpp_ori_rel": dbpp, "steps_per_s": [r["steps_per_s"] for r in a],
+            "peak_gib": [r["peak_gib"] for r in a], "launches": [r["launches"] for r in a],
+            "one_process_steps_per_s": PAR_DEFENSE_STEPS / m_ref["s"],
+            "one_process_peak_gib": m_ref["peak_gib"]}
+        for r, out in enumerate(a):
+            launches[f"21e {kind} sp={n} rank {r}"] = out["launches"]
+    if failed:
+        raise RuntimeError(f"phase 21e: differs from one process: {failed}")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3772,6 +4104,13 @@ def main() -> int:
     _build.build_rans()
     log(f"phase 2 build of the rANS coder: {time.time() - t:.2f} s "
         f"({'cached' if cached else 'g++'}) -> {_build.rans_library_path().name}")
+    t = time.time()
+    cached = _build.jpeg_library_path().is_file()
+    _build.build_jpeg()
+    jpeg_build = {"s": time.time() - t, "how": "cached" if cached else "g++",
+                  "library": _build.jpeg_library_path().name}
+    log(f"phase 2 build of the JPEG decoder: {jpeg_build['s']:.2f} s ({jpeg_build['how']}) -> "
+        f"{jpeg_build['library']}")
 
     records = phase_kernel_vs_plain(gdn)
     launches, launches_bwd = phase_main_path(gdn)
@@ -3797,13 +4136,15 @@ def main() -> int:
     analysis_records, launches_analysis = phase_analysis_clis(gdn)
     print(json.dumps({"phase17": analysis_records}), flush=True)
     launches_slice7.update(launches_analysis)
-    parallel_records, launches_parallel = phase_parallel(gdn)
+    parallel_records, launches_parallel, uneven = phase_parallel(gdn)
     print(json.dumps({"phase18": parallel_records}, default=float), flush=True)
     mp_records, launches_mp, launches_mp_bwd, mp_shapes = phase_megapixel(gdn)
     print(json.dumps({"phase19": mp_records}, default=float), flush=True)
     records += mp_shapes
     orbax_records, launches_orbax = phase_orbax_resume(gdn)
     print(json.dumps({"phase20": orbax_records}, default=float), flush=True)
+    input_records, launches_inputs, launches_inputs_bwd = phase_inputs(gdn, jpeg_build, uneven)
+    print(json.dumps({"phase21": input_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -3825,6 +4166,7 @@ def main() -> int:
             **launches_parallel,
             **launches_mp,
             **launches_orbax,
+            **launches_inputs,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -3846,6 +4188,7 @@ def main() -> int:
             "7 cheng2020-gmm q3 768x512": launches_gmm_bwd,
             **launches_train_bwd,
             **launches_mp_bwd,
+            **launches_inputs_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

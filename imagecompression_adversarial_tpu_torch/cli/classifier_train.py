@@ -4,17 +4,18 @@
     python -m imagecompression_adversarial_tpu_torch.cli.classifier_train \\
         -steps 1001 [-s root/] [-ckpt out.msgpack] [-device cpu]
 
-``-s`` names an image folder laid out as ``root/<label>/*.png``; without
+``-s`` names an image folder laid out as ``root/<label>/<image>``; without
 one, a synthetic labeled stream (label-dependent stripes, numpy, equal to
 the JAX package's) keeps the pipeline runnable.  The parameters go to
 ``-ckpt`` (default ``./ckpts/classifier.msgpack``) as a flax msgpack,
 which ``attack_cv --cls_ckpt`` reads.
 
 The JAX package reads the folder through PIL (``convert("RGB")`` and a
-BICUBIC resize to 28x28).  This port has no PIL: it lists ``.png`` files
-only, decodes them with its own reader, and resizes with
-``pillow_bicubic_resize``, Pillow's two-pass fixed-point resampling in
-numpy, which gives Pillow's bytes.
+BICUBIC resize to 28x28).  This port has no PIL: it lists the same files,
+decodes them with its own readers (``io/image.py::read_pixels``: PNG, JPEG
+by the host C++ decoder, BMP; what they do not read raises, naming it),
+and resizes with ``pillow_bicubic_resize``, Pillow's two-pass fixed-point
+resampling in numpy, which gives Pillow's bytes.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Iterator, Tuple
 import numpy as np
 
 from ..config import apply_precision, parse_config
-from ..io.image import _decode_png
+from ..io.image import read_pixels
 from ..io.weights import flax_params, write_msgpack
 from ..models.classifier import train_classifier
 from ..runtime import resolve_device
@@ -91,16 +92,6 @@ def pillow_bicubic_resize(img: np.ndarray, hw: int) -> np.ndarray:
     return img
 
 
-def _read_rgb(path: str) -> np.ndarray:
-    """uint8 (H, W, 3) pixels of a PNG: gray repeated, alpha dropped, as
-    ``convert("RGB")`` gives them."""
-    with open(path, "rb") as f:
-        img = _decode_png(f.read())
-    if img.shape[-1] in (1, 2):
-        img = np.repeat(img[..., :1], 3, axis=-1)
-    return img[..., :3]
-
-
 def _image_folder_labeled(root: str, batch_size: int, hw: int = 28,
                           seed=0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
@@ -108,17 +99,13 @@ def _image_folder_labeled(root: str, batch_size: int, hw: int = 28,
     for li, c in enumerate(classes):
         for f in os.listdir(os.path.join(root, c)):
             files.append((os.path.join(root, c, f), li))
-    others = [p for p, _ in files if not p.lower().endswith(".png")]
-    if others:
-        raise ValueError(f"{len(others)} files under {root} are not .png (this port decodes "
-                         f"PNG only: convert them), e.g. {others[0]}")
     rng = np.random.default_rng(seed)
     while True:
         idx = rng.choice(len(files), batch_size)
         xs, ys = [], []
         for i in idx:
             path, label = files[i]
-            xs.append(pillow_bicubic_resize(_read_rgb(path), hw).astype(np.float32) / 255.0)
+            xs.append(pillow_bicubic_resize(read_pixels(path), hw).astype(np.float32) / 255.0)
             ys.append(label)
         yield np.stack(xs), np.asarray(ys, np.int32)
 

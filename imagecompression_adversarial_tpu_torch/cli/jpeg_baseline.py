@@ -3,10 +3,11 @@
 
     python -m imagecompression_adversarial_tpu_torch.cli.jpeg_baseline 'kodim*.png' -q 50
 
-Codes each PNG with the port's numpy baseline JPEG coder (``io/jpeg.py``:
-the bytes Pillow's libjpeg writes at that quality, no PIL needed) and
-prints its real bpp, the decoded image's PSNR and MS-SSIM (computed on the
-GPU) and the ``AVG:`` line.
+Codes each image (PNG, JPEG or BMP) with the port's numpy baseline JPEG
+encoder (``io/jpeg.py``: the bytes Pillow's libjpeg writes at that
+quality, no PIL needed), decodes the bytes with its host C++ decoder (the
+pixels Pillow's libjpeg decodes) and prints the real bpp, the decoded
+image's PSNR and MS-SSIM (computed on the GPU) and the ``AVG:`` line.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def run(args) -> dict:
     for f in files:
         rgb = read_pixels(f)
         data = jpeg.encode(rgb, args.quality)
-        dec = jpeg.decode(data)
+        dec = jpeg.decode_native(data)
         m = compare_pair(rgb[None].astype(np.float32) / 255.0,
                          dec[None].astype(np.float32) / 255.0, device)
         bpp = len(data) * 8.0 / (rgb.shape[0] * rgb.shape[1])

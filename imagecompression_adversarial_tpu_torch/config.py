@@ -12,7 +12,7 @@ from typing import List, Optional
 @dataclasses.dataclass
 class Config:
     device: str = "cuda"
-    precision: str = "highest"  # 'highest'/'float32' turn TF32 off
+    precision: str = "highest"  # 'highest'/'float32' turn TF32 off, the rest on
     trace: Optional[str] = None  # cli.train: torch.profiler trace of one step
     lr_train: float = 1e-4
     lamb: Optional[float] = None
@@ -66,7 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", type=str, default=d.device,
                    help="torch device: cuda (default) or cpu")
     p.add_argument("-precision", type=str, default=d.precision,
-                   help="highest|float32 (no TF32) or default|tf32")
+                   help="highest|float32: fp32 matmuls and convs (no TF32); "
+                        "default|tf32|bfloat16: TF32 for cuBLAS and cuDNN, the card's "
+                        "reduced-precision pass (JAX's bfloat16 and default are one bf16 "
+                        "pass on a TPU; TF32 keeps 10 stored mantissa bits, bf16 7)")
     p.add_argument("-trace", dest="trace", type=str, default=d.trace,
                    help="directory for a torch.profiler chrome trace: cli.train of one "
                         "steady step, cli.attack_rd of the last image's attack run again")
@@ -168,13 +171,20 @@ def parse_config(argv=None) -> Config:
     return Config(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(Config)})
 
 
+#: -precision values: whether each turns TF32 on.  JAX maps 'bfloat16' and
+#: 'default' to one bf16 pass on the TPU's MXU, its reduced precision; the
+#: card's counterpart is TF32, so both select it, as 'tf32' does.
+PRECISIONS = {"highest": False, "float32": False, "default": True, "tf32": True,
+              "bfloat16": True}
+
+
 def apply_precision(cfg: Config) -> None:
     """'highest'/'float32' turn TF32 off for matmuls and cuDNN convs;
-    'default'/'tf32' turn it on."""
-    if cfg.precision not in ("highest", "float32", "default", "tf32"):
+    'default', 'tf32' and 'bfloat16' turn it on."""
+    if cfg.precision not in PRECISIONS:
         raise ValueError(f"unknown precision {cfg.precision!r}")
     import torch
 
-    tf32 = cfg.precision in ("default", "tf32")
+    tf32 = PRECISIONS[cfg.precision]
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32

@@ -105,6 +105,6 @@ class EntropyBottleneck(nn.Module):
             self.medians.reshape(1, c, 1, 1) if quant_mode in ("dequantize", "ste") else None
         )
         z_hat = quantize(z, quant_mode, means=means, generator=generator)
-        flat = z_hat.transpose(0, 1).reshape(c, 1, -1)
+        flat = z_hat.transpose(0, 1).reshape(c, 1, b * h * w)
         lik = lower_bound(self.likelihood(flat), _LIKELIHOOD_BOUND)
         return z_hat, lik.reshape(c, b, h, w).transpose(0, 1)

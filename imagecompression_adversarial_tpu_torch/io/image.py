@@ -2,10 +2,19 @@
 ``imagecompression_adversarial_tpu/io/image.py``).
 
 Arrays are (1, H_pad, W_pad, 3) float32 numpy in [0, 1], as in the JAX
-package; ``to_tensor`` makes the port's NCHW channels_last tensor.  PNGs are
-read and written with numpy and ``zlib`` alone (no PIL): the reader takes
-8-bit, non-interlaced gray, RGB and RGBA files with any of the five scanline
-filters, the writer emits 8-bit RGB.
+package; ``to_tensor`` makes the port's NCHW channels_last tensor.  No PIL:
+``read_pixels`` tells the format by the file's first bytes and decodes
+
+* PNG with numpy and ``zlib``: 8-bit, non-interlaced gray, RGB and RGBA
+  files with any of the five scanline filters;
+* JPEG with the host C++ baseline decoder (``io/jpeg.py::decode_native``,
+  ``csrc/jpeg.cc``): gray, and YCbCr at 4:4:4, 4:2:2 or 4:2:0, the pixels
+  Pillow's libjpeg gives;
+* BMP (``BI_RGB``, 24- and 32-bit, bottom-up and top-down) with numpy.
+
+What Pillow reads and these readers do not (a palette PNG or BMP, a
+progressive JPEG, WebP, ...) raises ``UnsupportedImageError``, naming it; a
+broken file raises ``ValueError``.  The writer emits 8-bit RGB PNGs.
 """
 
 from __future__ import annotations
@@ -17,6 +26,9 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
+
+from .errors import UnsupportedImageError
+from .jpeg import decode_native
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel, by PNG colour type, for the types the reader takes
@@ -97,13 +109,13 @@ def _decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG file has no IHDR chunk")
     w, h, depth, colour, compression, filter_method, interlace = header
     if colour in _COLOUR_TYPE_NAMES:
-        raise ValueError(f"{_COLOUR_TYPE_NAMES[colour]} PNGs are not supported")
+        raise UnsupportedImageError(f"{_COLOUR_TYPE_NAMES[colour]} PNGs are not supported")
     if colour not in _CHANNELS:
         raise ValueError(f"PNG colour type {colour} is not valid")
     if depth != 8:
-        raise ValueError(f"{depth}-bit PNGs are not supported (8-bit only)")
+        raise UnsupportedImageError(f"{depth}-bit PNGs are not supported (8-bit only)")
     if interlace:
-        raise ValueError("interlaced PNGs are not supported")
+        raise UnsupportedImageError("interlaced PNGs are not supported")
     if compression or filter_method:
         raise ValueError("PNG compression or filter method is not 0")
     bpp = _CHANNELS[colour]
@@ -131,19 +143,78 @@ def _encode_png(rgb: np.ndarray) -> bytes:
     )
 
 
+# BMP compression codes (biCompression) the reader names when it refuses them
+_BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "bitfields", 4: "JPEG-in-BMP", 5: "PNG-in-BMP",
+                    6: "alpha bitfields"}
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of a ``BI_RGB`` BMP of 24 or 32 bits a pixel
+    (the fourth byte ignored, as Pillow reads it), bottom-up or top-down."""
+    if len(data) < 26:
+        raise ValueError("BMP file is truncated")
+    offset, header = struct.unpack("<II", data[10:18])
+    if header == 12:  # BITMAPCOREHEADER
+        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
+        compression = 0
+    elif header in (40, 52, 56, 64, 108, 124) and len(data) >= 34:
+        w, h, _, bits, compression = struct.unpack("<iiHHI", data[18:34])
+    else:
+        raise ValueError(f"BMP header of {header} bytes is not valid")
+    if bits <= 8:
+        raise UnsupportedImageError(f"palette ({bits}-bit) BMPs are not supported "
+                                    "(24- and 32-bit only)")
+    if compression:
+        name = _BMP_COMPRESSION.get(compression, f"compression {compression}")
+        raise UnsupportedImageError(f"{name} BMPs are not supported (BI_RGB only)")
+    if bits not in (24, 32):
+        raise UnsupportedImageError(f"{bits}-bit BMPs are not supported (24- and 32-bit only)")
+    top_down, h = h < 0, abs(h)
+    if w <= 0 or h == 0:
+        raise ValueError(f"BMP size {w}x{h} is not valid")
+    bpp = bits // 8
+    stride = (w * bpp + 3) & ~3
+    if offset + stride * h > len(data):
+        raise ValueError("BMP pixel data is truncated")
+    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    bgr = rows[:, :w * bpp].reshape(h, w, bpp)[..., 2::-1]
+    return np.ascontiguousarray(bgr if top_down else bgr[::-1])
+
+
+def _refuse(data: bytes) -> None:
+    """Raise naming the format of an image file no reader here decodes."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise UnsupportedImageError("WebP images are not supported (PNG, JPEG and BMP only)")
+    for magic, name in ((b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")):
+        if data.startswith(magic):
+            raise UnsupportedImageError(f"{name} images are not supported (PNG, JPEG and BMP "
+                                        "only)")
+    raise ValueError(f"not a PNG, JPEG or BMP file (it starts with {data[:8]!r})")
+
+
 def read_pixels(path: str) -> np.ndarray:
-    """A PNG's (H, W, 3) uint8 RGB pixels: gray is repeated into RGB, RGBA
-    loses its alpha."""
+    """An image file's (H, W, 3) uint8 RGB pixels, told apart by its first
+    bytes (PNG, JPEG or BMP): gray is repeated into RGB, RGBA loses its
+    alpha."""
     with open(path, "rb") as f:
-        img = _decode_png(f.read())
+        data = f.read()
+    if data[:8] == _PNG_SIGNATURE:
+        img = _decode_png(data)
+    elif data[:2] == b"\xff\xd8":
+        img = decode_native(data)
+    elif data[:2] == b"BM":
+        img = _decode_bmp(data)
+    else:
+        _refuse(data)
     if img.shape[-1] == 1:
         img = np.tile(img, (1, 1, 3))
     return img[..., :3]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
-    ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha."""
+    """Load a PNG, JPEG or BMP as (1, H_pad, W_pad, 3) float32 in [0, 1];
+    returns ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its
+    alpha."""
     img = read_pixels(path).astype(np.float32) / 255.0
     h, w, _ = img.shape
     return pad_to_multiple(img, padding)[None, ...], h, w

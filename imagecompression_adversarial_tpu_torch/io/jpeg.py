@@ -17,24 +17,38 @@ Encoder (``encode``):
   interleaved scan, no restart markers.  The file is SOI, JFIF APP0, two
   DQT, SOF0, four DHT, SOS, the scan and EOI.
 
-Decoder (``decode``): baseline streams of that form (8-bit, Huffman,
-YCbCr with 2x2 luma and 1x1 chroma sampling); the integer inverse DCT
-``jidctint`` with its range-limit table, fancy (triangle) upsampling
-``h2v2_fancy_upsample`` with the edge rows and columns repeated, and
-fixed-point YCbCr -> RGB (``jdcolor.c``).
+Decoders: ``parse`` reads the markers of a baseline (or 8-bit extended
+sequential) Huffman stream of one interleaved scan: gray, or YCbCr with 1x1
+chroma and 1x1 (4:4:4), 2x1 (4:2:2) or 2x2 (4:2:0) luma sampling, DRI
+restart intervals; it raises ``UnsupportedImageError``, naming the kind,
+on progressive, arithmetic-coded, lossless, hierarchical, 12-bit,
+CMYK/YCCK and RGB-coded (Adobe transform 0) streams, other sampling
+factors and streams of several scans.  ``decode_native`` decodes the rest
+with the host C++ decoder (``csrc/jpeg.cc``, built with g++ on first use):
+the Huffman scan with its DC predictors and RSTn markers, dequantization,
+the integer inverse DCT ``jidctint`` with its range-limit table, fancy
+(triangle) upsampling (``h2v1``, ``h2v2``; box where a plane is 2 or fewer
+samples wide) with the edge rows and columns repeated, and fixed-point
+YCbCr -> RGB (``jdcolor.c``): Pillow's pixels, bit for bit.  ``decode`` is
+its plain numpy version, the same pixels, whose Huffman decoder walks the
+symbols in a Python loop, many times slower (``chip_smoke.py`` phase 21a
+times both).
 
 The DCT, quantization, colour and Huffman-encoding steps are vectorized
-over all blocks; the Huffman decoder walks the symbols in a Python loop
-(from a fifth of a second at q 50 to a second at q 100 for a 768x512
-image).
+over all blocks.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .errors import UnsupportedImageError
 
 # jpeg_natural_order: zigzag index -> row-major index in the 8x8 block
 ZIGZAG = np.array(sorted(range(64), key=lambda i: (i // 8 + i % 8,
@@ -376,13 +390,26 @@ def idct(coefs: np.ndarray) -> np.ndarray:
     return _IDCT_LIMIT[rows & 1023]
 
 
+def h2v1_fancy_upsample(plane: np.ndarray) -> np.ndarray:
+    """Double a plane across by the triangle filter of libjpeg's
+    ``h2v1_fancy_upsample`` (3/4 of the nearer sample, 1/4 of the further,
+    biases 1 and 2), the edge columns repeated; ``h2v1_upsample`` (box)
+    where the plane is 2 or fewer columns wide."""
+    if plane.shape[1] <= 2:
+        return plane.repeat(2, axis=1)
+    s = np.pad(plane.astype(np.int64), ((0, 0), (1, 1)), mode="edge")
+    left = (3 * s[:, 1:-1] + s[:, :-2] + 1) >> 2
+    right = (3 * s[:, 1:-1] + s[:, 2:] + 2) >> 2
+    return np.stack([left, right], axis=2).reshape(plane.shape[0], -1)
+
+
 def h2v2_fancy_upsample(plane: np.ndarray) -> np.ndarray:
     """Double a plane in both directions by the triangle filter of
     libjpeg's ``h2v2_fancy_upsample``, the edge rows and columns repeated;
     ``h2v2_upsample`` (box) where the plane is 2 or fewer columns wide."""
     if plane.shape[1] <= 2:
         return plane.repeat(2, axis=0).repeat(2, axis=1)
-    p = np.pad(plane, ((1, 1), (0, 0)), mode="edge")
+    p = np.pad(plane.astype(np.int64), ((1, 1), (0, 0)), mode="edge")
     near = p[1:-1]
     sums = np.stack([3 * near + p[:-2], 3 * near + p[2:]], axis=1)  # (h, 2, w): above, below
     sums = sums.reshape(-1, plane.shape[1])
@@ -403,6 +430,233 @@ def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+# frame markers other than SOF0/SOF1 (8-bit Huffman sequential), by what
+# they code
+_FRAME_KINDS = {
+    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical sequential",
+    0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
+    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical sequential",
+    0xCE: "arithmetic-coded hierarchical progressive",
+    0xCF: "arithmetic-coded hierarchical lossless",
+}
+# the luma sampling factors (h, v) read with 1x1 chroma
+_SAMPLINGS = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0"}
+
+
+@dataclasses.dataclass
+class Frame:
+    """What the decoders need of a baseline stream: per component its
+    sampling factors (h, v), its quantization table (64, natural order) and
+    its scan's DC and AC Huffman tables ((counts by length 1..16,
+    symbols)); the restart interval in MCUs (0: none) and the scan's
+    entropy-coded bytes, RSTn markers included; whether a marker (EOI)
+    ends the scan, or the file does."""
+
+    height: int
+    width: int
+    sampling: List[Tuple[int, int]]
+    quant: List[np.ndarray]
+    dc: List[Tuple[Tuple[int, ...], bytes]]
+    ac: List[Tuple[Tuple[int, ...], bytes]]
+    restart: int
+    coded: bytes
+    ended: bool
+
+
+def _check_colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> None:
+    """Raise where libjpeg would take three components as RGB, not YCbCr
+    (``default_decompress_parms``)."""
+    if jfif:
+        return
+    if adobe is not None:
+        if adobe == 0:
+            raise UnsupportedImageError("Adobe RGB-coded JPEGs (APP14 transform 0) are not "
+                                        "supported (YCbCr only)")
+        return
+    if ids == [82, 71, 66]:
+        raise UnsupportedImageError("RGB-coded JPEGs (component ids R, G, B) are not "
+                                    "supported (YCbCr only)")
+
+
+def _corrupt_scan(what: str) -> UnsupportedImageError:
+    """The error for a fault inside a scan that a marker ends: libjpeg
+    decodes such a scan with a warning (zeros past a bad code, a resync at
+    a lost RSTn), and Pillow gives its pixels."""
+    return UnsupportedImageError(f"corrupt JPEG scan ({what}): libjpeg decodes it with a "
+                                 "warning, this reader does not")
+
+
+# scan faults where the bytes ran out: with no marker after the scan, libjpeg
+# on Pillow's suspending source waits for bytes that never come, and Pillow
+# raises that the file is truncated
+_RAN_OUT = ("ends early", "no RST marker where a restart interval ends")
+
+
+def _scan_fault(f: "Frame", what: str) -> ValueError:
+    """The error for a fault in ``f``'s scan: a plain ``ValueError`` where
+    the file was cut inside the scan, as Pillow raises, else
+    ``_corrupt_scan``."""
+    if not f.ended and what in _RAN_OUT:
+        return ValueError(f"JPEG stream is truncated: its scan {what}")
+    return _corrupt_scan(what)
+
+
+def _check_ended(f: "Frame") -> None:
+    """Raise on a scan that decodes whole with no marker after it: Pillow
+    reads such a file or calls it truncated as libjpeg's input buffer
+    falls, so this reader takes neither course."""
+    if not f.ended:
+        raise UnsupportedImageError("JPEGs with no marker (EOI) after their scan are not "
+                                    "supported: Pillow reads them or calls them truncated, as "
+                                    "libjpeg's input buffer falls")
+
+
+def _check_restarts(coded: bytes, n: int) -> None:
+    """Raise unless the scan's first ``n`` RSTn markers are there and
+    numbered 0, 1, ..., 7, 0, ... as the restart intervals need."""
+    raw = np.frombuffer(coded, np.uint8)
+    at = np.nonzero((raw[:-1] == 0xFF) & (raw[1:] >= 0xD0) & (raw[1:] <= 0xD7))[0]
+    if at.size < n:
+        raise _corrupt_scan(f"{at.size} RST markers where its restart intervals need {n}")
+    got = raw[at[:n] + 1] - 0xD0
+    bad = np.nonzero(got != np.arange(n) % 8)[0]
+    if bad.size:
+        raise _corrupt_scan(f"RST{got[bad[0]]} where RST{bad[0] % 8} belongs")
+
+
+def _scan_end(data: bytes, pos: int) -> int:
+    """The offset of the marker that ends the scan starting at ``pos``: the
+    first 0xFF followed by neither 0x00 (a stuffed byte), 0xFF (fill) nor
+    RST0-7 (which stay inside the scan)."""
+    raw = np.frombuffer(data, np.uint8)[pos:]
+    nxt = raw[1:]
+    hits = np.nonzero((raw[:-1] == 0xFF) & (nxt != 0) & (nxt != 0xFF)
+                      & ((nxt < 0xD0) | (nxt > 0xD7)))[0]
+    return pos + int(hits[0]) if hits.size else len(data)
+
+
+def parse(data: bytes) -> Frame:
+    """The frame, tables and scan of a baseline (or 8-bit extended
+    sequential) Huffman JPEG of one interleaved scan: gray, or YCbCr at
+    4:4:4, 4:2:2 or 4:2:0.  Raises ``UnsupportedImageError`` naming any
+    other kind (progressive, arithmetic, lossless, hierarchical, 12-bit,
+    CMYK/YCCK, RGB-coded, other sampling factors, several scans) or a
+    corrupt scan that a marker ends (RSTn markers missing or misnumbered),
+    and ``ValueError`` on a broken stream.  Extraneous bytes before a
+    marker are skipped, as Pillow and libjpeg skip them.  The decoders
+    raise ``_scan_fault``'s errors on a fault inside the scan, and
+    ``_check_ended``'s on a scan no marker ends."""
+    if data[:3] != b"\xff\xd8\xff":
+        raise ValueError("not a JPEG stream (no SOI marker and marker after it)")
+    qt: Dict[int, np.ndarray] = {}
+    huff: Dict[Tuple[int, int], Tuple[Tuple[int, ...], bytes]] = {}
+    frame, restart, jfif, adobe = None, 0, False, None
+    pos = 2
+    while True:
+        if pos + 2 > len(data):
+            raise ValueError("JPEG stream ends before its scan")
+        if data[pos] != 0xFF:  # extraneous bytes before a marker: skipped
+            pos += 1
+            continue
+        code = data[pos + 1]
+        if code in (0x00, 0xFF):  # an escaped 0xFF (skipped) or a fill byte
+            pos += 2 if code == 0x00 else 1
+            continue
+        if code < 0xC0:
+            raise ValueError(f"JPEG stream: no marker at byte {pos} (0xFF{code:02X})")
+        if code == 0xD9:
+            raise ValueError("JPEG stream ends before its scan")
+        if 0xD0 <= code <= 0xD8:  # markers without a body
+            pos += 2
+            continue
+        if pos + 4 > len(data):
+            raise ValueError("JPEG stream ends before its scan")
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        body = data[pos + 4:pos + 2 + length]
+        if len(body) != length - 2:
+            raise ValueError(f"JPEG marker 0x{code:02X} is truncated")
+        pos += 2 + length
+        if code == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif code == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif code == 0xDB:
+            i = 0
+            while i < len(body):
+                wide, tid = body[i] >> 4, body[i] & 15
+                n = 128 if wide else 64
+                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if wide else np.uint8)
+                if vals.size != 64:
+                    raise ValueError("JPEG quantization table is truncated")
+                nat = np.zeros(64, np.int64)
+                nat[ZIGZAG] = vals
+                qt[tid] = nat
+                i += 1 + n
+        elif code == 0xC4:
+            i = 0
+            while i < len(body):
+                counts = tuple(body[i + 1:i + 17])
+                n = sum(counts)
+                if len(counts) != 16 or n > 256 or i + 17 + n > len(body):
+                    raise ValueError("JPEG Huffman table is malformed")
+                huff[(body[i] >> 4, body[i] & 15)] = (counts, bytes(body[i + 17:i + 17 + n]))
+                i += 17 + n
+        elif code == 0xDD:
+            (restart,) = struct.unpack(">H", body[:2])
+        elif code in _FRAME_KINDS:
+            raise UnsupportedImageError(f"{_FRAME_KINDS[code]} JPEGs are not supported: frame "
+                                        f"type 0x{code:02X} is not baseline")
+        elif code in (0xC0, 0xC1):
+            precision, h, w, ncomp = struct.unpack(">BHHB", body[:6])
+            comps = [tuple(body[6 + 3 * k:9 + 3 * k]) for k in range(ncomp)]
+            if precision != 8:
+                raise UnsupportedImageError(f"{precision}-bit JPEGs are not supported (8-bit only)")
+            if ncomp == 4:
+                raise UnsupportedImageError("CMYK/YCCK (Adobe 4-component) JPEGs are not supported")
+            if ncomp not in (1, 3) or len(comps[-1]) != 3:
+                raise UnsupportedImageError(f"{ncomp}-component JPEGs are not supported")
+            if h == 0 or w == 0:
+                raise UnsupportedImageError("JPEGs whose height comes after the scan (DNL) are "
+                                            "not supported")
+            sampling = [(c[1] >> 4, c[1] & 15) for c in comps]
+            if ncomp == 1:
+                sampling = [(1, 1)]  # one component: one block an MCU
+            elif sampling[0] not in _SAMPLINGS or sampling[1:] != [(1, 1), (1, 1)]:
+                raise UnsupportedImageError(
+                    f"JPEG sampling factors {['%dx%d' % s for s in sampling]} are not supported "
+                    f"({', '.join(_SAMPLINGS.values())} only)")
+            frame = (h, w, [c[0] for c in comps], sampling, [c[2] for c in comps])
+        elif code == 0xDA:
+            break
+    if frame is None:
+        raise ValueError("JPEG stream has no SOF0 frame before its scan")
+    h, w, ids, sampling, qsel = frame
+    if len(ids) == 3:
+        _check_colour(ids, jfif, adobe)
+    n_in_scan = body[0]
+    if n_in_scan != len(ids):
+        raise UnsupportedImageError("JPEGs of more than one scan are not supported (this scan "
+                                    f"codes {n_in_scan} of {len(ids)} components)")
+    sel = {body[1 + 2 * k]: body[2 + 2 * k] for k in range(n_in_scan)}
+    if [body[1 + 2 * k] for k in range(n_in_scan)] != ids:
+        raise ValueError("JPEG scan codes its components in another order than the frame's")
+    end = _scan_end(data, pos)
+    ended = end < len(data)
+    if ended and data[end + 1] != 0xD9 and b"\xff\xda" in data[end:]:
+        raise UnsupportedImageError("JPEGs of more than one scan are not supported")
+    if restart and ended:
+        hmax, vmax = (max(s[i] for s in sampling) for i in (0, 1))
+        n_mcus = -(-w // (8 * hmax)) * -(-h // (8 * vmax))
+        _check_restarts(data[pos:end], -(-n_mcus // restart) - 1)
+    try:
+        return Frame(h, w, sampling, [qt[q] for q in qsel],
+                     [huff[(0, sel[i] >> 4)] for i in ids], [huff[(1, sel[i] & 15)] for i in ids],
+                     restart, data[pos:end], ended)
+    except KeyError as e:
+        raise ValueError(f"JPEG scan uses a table the stream does not define: {e}") from None
+
+
 def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
     """(symbol, code length) of every 16-bit window whose leading bits are
     a code of the table (length 0: no code)."""
@@ -414,147 +668,184 @@ def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
     return sym.tolist(), length.tolist()
 
 
-def _segments(data: bytes):
-    """(marker, body) of each marker segment up to SOS, then (0xDA, SOS
-    body, entropy-coded bytes)."""
-    if data[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG stream (no SOI marker)")
-    pos = 2
-    while pos + 4 <= len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"JPEG stream: no marker at byte {pos}")
-        code = data[pos + 1]
-        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
-        body = data[pos + 4:pos + 2 + length]
-        pos += 2 + length
-        if code == 0xDA:  # the scan runs to the next marker (0xFF not followed by 0 or 0xFF)
-            raw = np.frombuffer(data, np.uint8)[pos:]
-            hits = np.nonzero((raw[:-1] == 0xFF) & (raw[1:] != 0) & (raw[1:] != 0xFF))[0]
-            yield code, body, data[pos:pos + int(hits[0]) if hits.size else len(data)]
-            return
-        yield code, body, None
-    raise ValueError("JPEG stream ends before its scan")
+def _upsample(plane: np.ndarray, fx: int, fy: int) -> np.ndarray:
+    """A chroma plane at the luma's sampling: none, h2v1 or h2v2."""
+    if fx == 1:
+        return plane
+    return h2v1_fancy_upsample(plane) if fy == 1 else h2v2_fancy_upsample(plane)
 
 
 def decode(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a baseline YCbCr 4:2:0 JPEG stream, as
-    libjpeg decodes it with its defaults (islow IDCT, fancy upsampling)."""
-    qt, huff, frame, scan = {}, {}, None, None
-    for code, body, coded in _segments(data):
-        if code == 0xDB:
-            for i in range(0, len(body), 65):
-                if body[i] >> 4:
-                    raise ValueError("16-bit quantization tables are not supported")
-                qt[body[i] & 15] = np.array(list(body[i + 1:i + 65]), np.int64)
-        elif code == 0xC4:
-            i = 0
-            while i < len(body):
-                counts = tuple(body[i + 1:i + 17])
-                n = sum(counts)
-                huff[(body[i] >> 4, body[i] & 15)] = _decode_tables(counts, body[i + 17:i + 17 + n])
-                i += 17 + n
-        elif code == 0xC0:
-            precision, h, w, ncomp = struct.unpack(">BHHB", body[:6])
-            comps = [tuple(body[6 + 3 * k:9 + 3 * k]) for k in range(ncomp)]
-            if precision != 8 or [c[1] for c in comps] != [0x22, 0x11, 0x11]:
-                raise ValueError("only 8-bit YCbCr 4:2:0 JPEGs are supported")
-            frame = (h, w, [c[2] for c in comps])
-        elif code in (0xC1, 0xC2, 0xC3) or 0xC5 <= code <= 0xCF and code not in (0xC8, 0xCC):
-            raise ValueError(f"JPEG frame type 0x{code:02X} is not baseline")
-        elif code == 0xDD and struct.unpack(">H", body[:2])[0]:
-            raise ValueError("restart intervals are not supported")
-        elif code == 0xDA:
-            sel = [body[2 + 2 * k] for k in range(body[0])]
-            scan = (sel, coded)
-    if frame is None or scan is None:
-        raise ValueError("JPEG stream has no SOF0 frame or no scan")
-    h, w, qsel = frame
-    tables, coded = scan
-    mr, mc = -(-h // 16), -(-w // 16)
-    coef = _decode_scan(coded, mr * mc, [(t >> 4, t & 15) for t in tables], huff)
-    coef = coef.reshape(mr, mc, 6, 64)
+    """(H, W, 3) uint8 RGB pixels of a baseline YCbCr JPEG (4:4:4, 4:2:2 or
+    4:2:0), (H, W, 1) of a gray one, as libjpeg decodes them with its
+    defaults (islow IDCT, fancy upsampling): the plain numpy version of
+    ``decode_native`` (a Python loop over the Huffman symbols, many times
+    slower)."""
+    f = parse(data)
+    hmax = max(s[0] for s in f.sampling)
+    vmax = max(s[1] for s in f.sampling)
+    mcux, mcuy = -(-f.width // (8 * hmax)), -(-f.height // (8 * vmax))
     planes = []
-    for comp, sl in ((0, slice(0, 4)), (1, slice(4, 5)), (2, slice(5, 6))):
-        zz = coef[:, :, sl] * qt[qsel[comp]][None, None, None, :]
+    for k, zz in enumerate(_decode_scan(f, mcux, mcuy)):
+        hs, vs = f.sampling[k]
         nat = np.zeros_like(zz)
-        nat[..., ZIGZAG] = zz
-        samples = idct(nat.reshape(*nat.shape[:3], 8, 8))
-        if comp == 0:  # the MCU's 2x2 luma blocks
-            samples = samples.reshape(mr, mc, 2, 2, 8, 8).transpose(0, 2, 4, 1, 3, 5)
-            planes.append(samples.reshape(16 * mr, 16 * mc)[:h, :w])
-        else:
-            half = samples.reshape(mr, mc, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
-            half = half[:-(-h // 2), :-(-w // 2)]
-            planes.append(h2v2_fancy_upsample(half)[:h, :w])
+        nat[..., ZIGZAG] = zz * f.quant[k][ZIGZAG]
+        samples = idct(nat.reshape(*nat.shape[:2], 8, 8))
+        plane = samples.transpose(0, 2, 1, 3).reshape(8 * zz.shape[0], 8 * zz.shape[1])
+        plane = plane[:-(-f.height * vs // vmax), :-(-f.width * hs // hmax)]
+        planes.append(_upsample(plane, hmax // hs, vmax // vs)[:f.height, :f.width])
+    _check_ended(f)
+    if len(planes) == 1:
+        return planes[0][..., None].astype(np.uint8)
     return ycbcr_to_rgb(np.stack(planes, -1))
 
 
-def _decode_scan(coded: bytes, n_mcus: int, tables, huff) -> np.ndarray:
-    """Zigzag coefficients (n_mcus * 6, 64) of the 4:2:0 scan: 4 luma
-    blocks, Cb and Cr per MCU, each with its (DC, AC) table pair."""
+def _restart_intervals(coded: bytes) -> List[bytes]:
+    """The entropy-coded bytes between RSTn markers (fill bytes dropped)."""
     raw = np.frombuffer(coded, np.uint8)
-    keep = np.ones(raw.size, bool)
-    keep[1:] &= ~((raw[:-1] == 0xFF) & (raw[1:] == 0))  # byte stuffing
-    bits = np.unpackbits(raw[keep]).astype(np.int64)
-    bits = np.concatenate([bits, np.ones(32, np.int64)])
-    nbits = bits.size - 16
-    window = np.zeros(nbits, np.int64)
-    for k in range(16):
-        window = (window << 1) | bits[k:k + nbits]
-    win = window.tolist()
-    plan = [0, 0, 0, 0, 1, 2]
-    dc_tabs = [huff[(0, tables[c][0])] for c in range(3)]
-    ac_tabs = [huff[(1, tables[c][1])] for c in range(3)]
-    pred = [0, 0, 0]
+    at = np.nonzero((raw[:-1] == 0xFF) & (raw[1:] >= 0xD0) & (raw[1:] <= 0xD7))[0]
+    bounds = [0, *(int(i) + 2 for i in at)]
+    ends = [*(int(i) for i in at), len(coded)]
+    return [coded[a:b].rstrip(b"\xff") for a, b in zip(bounds, ends)]
+
+
+# the most bits one block's codes take: 64 codes of 16 bits, each with 11
+# magnitude bits
+_BLOCK_BITS = 64 * 27
+
+
+def _decode_scan(f: Frame, mcux: int, mcuy: int) -> List[np.ndarray]:
+    """Zigzag coefficients of every block of each component, (blocks down,
+    blocks across, 64): per MCU (raster order) each component's hs x vs
+    blocks in raster order, each with its component's (DC, AC) tables; the
+    DC predictors start at 0 in each restart interval."""
+    n_mcus = mcux * mcuy
+    per_interval = f.restart or n_mcus
+    intervals = _restart_intervals(f.coded)
+    if len(intervals) < -(-n_mcus // per_interval):
+        raise _scan_fault(f, "no RST marker where a restart interval ends")
+    dc_tabs = [_decode_tables(*t) for t in f.dc]
+    ac_tabs = [_decode_tables(*t) for t in f.ac]
+    shapes = [(mcuy * vs, mcux * hs) for hs, vs in f.sampling]
+    offsets = np.cumsum([0] + [64 * a * b for a, b in shapes]).tolist()
+    plan = [(k, v, u) for k, (hs, vs) in enumerate(f.sampling)
+            for v in range(vs) for u in range(hs)]
     where: List[int] = []
     value: List[int] = []
-    p = 0
-    blk = 0
-    for _ in range(n_mcus):
-        for c in plan:
-            dsym, dlen = dc_tabs[c]
-            v = win[p]
-            s = dsym[v]
-            if not dlen[v]:
-                raise ValueError("JPEG scan: bad DC code")
-            p += dlen[v]
-            diff = 0
-            if s:
-                diff = win[p] >> (16 - s)
-                p += s
-                if diff < 1 << (s - 1):
-                    diff -= (1 << s) - 1
-            pred[c] += diff
-            base = blk * 64
-            where.append(base)
-            value.append(pred[c])
-            asym, alen = ac_tabs[c]
-            k = 1
-            while k < 64:
-                v = win[p]
-                rs = asym[v]
-                if not alen[v]:
-                    raise ValueError("JPEG scan: bad AC code")
-                p += alen[v]
-                r, s = rs >> 4, rs & 15
+    for first in range(0, n_mcus, per_interval):
+        raw = np.frombuffer(intervals[first // per_interval], np.uint8)
+        keep = np.ones(raw.size, bool)
+        keep[1:] &= ~((raw[:-1] == 0xFF) & (raw[1:] == 0))  # byte stuffing
+        bits = np.unpackbits(raw[keep]).astype(np.int64)
+        nbits = bits.size
+        # zeros past a marker, for as far as one block's codes may reach
+        bits = np.concatenate([bits, np.zeros(_BLOCK_BITS + 16, np.int64)])
+        window = np.zeros(nbits + _BLOCK_BITS, np.int64)
+        for i in range(16):
+            window = (window << 1) | bits[i:i + nbits + _BLOCK_BITS]
+        win = window.tolist()
+        pred = [0] * len(f.sampling)
+        p = 0
+        for m in range(first, min(first + per_interval, n_mcus)):
+            my, mx = divmod(m, mcux)
+            for k, v, u in plan:
+                hs, vs = f.sampling[k]
+                base = offsets[k] + 64 * ((my * vs + v) * shapes[k][1] + mx * hs + u)
+                dsym, dlen = dc_tabs[k]
+                w = win[p]
+                s = dsym[w]
+                if not dlen[w]:
+                    raise _scan_fault(f, "bad DC code")
+                p += dlen[w]
+                diff = 0
                 if s:
-                    k += r
-                    e = win[p] >> (16 - s)
+                    diff = win[p] >> (16 - s)
                     p += s
-                    if e < 1 << (s - 1):
-                        e -= (1 << s) - 1
-                    if k > 63:
-                        raise ValueError("JPEG scan: coefficient past the block")
-                    where.append(base + k)
-                    value.append(e)
-                    k += 1
-                elif r == 15:
-                    k += 16
-                else:
-                    break
-            blk += 1
-            if p > nbits:
-                raise ValueError("JPEG scan ends early")
-    out = np.zeros(blk * 64, np.int64)
+                    if diff < 1 << (s - 1):
+                        diff -= (1 << s) - 1
+                pred[k] += diff
+                where.append(base)
+                value.append(pred[k])
+                asym, alen = ac_tabs[k]
+                i = 1
+                while i < 64:
+                    w = win[p]
+                    rs = asym[w]
+                    if not alen[w]:
+                        raise _scan_fault(f, "bad AC code")
+                    p += alen[w]
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        i += r
+                        e = win[p] >> (16 - s)
+                        p += s
+                        if e < 1 << (s - 1):
+                            e -= (1 << s) - 1
+                        if i > 63:
+                            raise _scan_fault(f, "coefficient past the block")
+                        where.append(base + i)
+                        value.append(e)
+                        i += 1
+                    elif r == 15:
+                        i += 16
+                    else:
+                        break
+                if p > nbits:
+                    raise _scan_fault(f, "ends early")
+    out = np.zeros(offsets[-1], np.int64)
     out[np.array(where, np.int64)] = np.array(value, np.int64)
-    return out.reshape(blk, 64)
+    return [out[a:b].reshape(*shape, 64) for a, b, shape in zip(offsets, offsets[1:], shapes)]
+
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _native() -> ctypes.CDLL:
+    from ..kernels._build import build_jpeg
+
+    lib = ctypes.CDLL(str(build_jpeg()))
+    lib.icat_jpeg_decode.restype = ctypes.c_int
+    lib.icat_jpeg_decode.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P, _I32P, _I32P,
+        _U8P, _U8P, _U8P, _U8P, ctypes.c_int, _U8P, ctypes.c_char_p, ctypes.c_int]
+    return lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def decode_native(data: bytes) -> np.ndarray:
+    """``decode`` by the host C++ decoder (``csrc/jpeg.cc``, built with g++
+    on first use): the same pixels, bit for bit.  Raises what ``parse``
+    raises, ``UnsupportedImageError`` on a corrupt scan, and
+    ``RuntimeError`` where the decoder cannot be built."""
+    f = parse(data)
+    n = len(f.sampling)
+    tables = {}
+    for name, src in (("dc", f.dc), ("ac", f.ac)):
+        counts, symbols = np.zeros((n, 16), np.uint8), np.zeros((n, 256), np.uint8)
+        for k, (c, s) in enumerate(src):
+            counts[k] = c
+            symbols[k, :len(s)] = np.frombuffer(s, np.uint8)
+        tables[name] = (counts, symbols)
+    hs = np.array([s[0] for s in f.sampling], np.int32)
+    vs = np.array([s[1] for s in f.sampling], np.int32)
+    quant = np.ascontiguousarray(np.stack(f.quant), np.int32)
+    coded = np.frombuffer(f.coded, np.uint8)
+    out = np.empty((f.height, f.width, 3 if n == 3 else 1), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    rc = _native().icat_jpeg_decode(
+        _ptr(coded, ctypes.c_uint8), coded.size, f.width, f.height, n,
+        _ptr(hs, ctypes.c_int32), _ptr(vs, ctypes.c_int32), _ptr(quant, ctypes.c_int32),
+        *(_ptr(a, ctypes.c_uint8) for a in (*tables["dc"], *tables["ac"])), f.restart,
+        _ptr(out, ctypes.c_uint8), err, len(err))
+    if rc:
+        msg = err.value.decode()
+        if msg.startswith("JPEG scan"):
+            raise _scan_fault(f, msg.removeprefix("JPEG scan").lstrip(": "))
+        raise ValueError(msg)
+    _check_ended(f)
+    return out

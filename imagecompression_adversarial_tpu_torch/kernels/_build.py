@@ -1,7 +1,7 @@
 """Build the port's native sources into C-ABI shared libraries and load
 them with ``ctypes``.
 
-Two libraries, each built on first use into ``_build/`` beside the package
+Three libraries, each built on first use into ``_build/`` beside the package
 under a name keyed by a hash of its sources and flags, so an edited source
 or flag builds anew and an unchanged one is reused.  One file lock
 serialises concurrent builds of both.
@@ -12,7 +12,10 @@ serialises concurrent builds of both.
   prints, ``ptxas``'s registers, shared memory and spills of each kernel
   included (``-Xptxas -v``), is kept beside the library (``build_log``).
 * ``libicat_rans-<hash>.so``: the host rANS coder (``csrc/rans.cc``), by
-  ``g++``, so that the real coder runs where there is no CUDA toolkit.
+  ``g++``, so that the real coder runs where there is no CUDA toolkit;
+* ``libicat_jpeg-<hash>.so``: the host baseline JPEG decoder
+  (``csrc/jpeg.cc``), by ``g++``, which every image reader of the port
+  takes for JPEG files.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 RANS_SOURCE = CSRC_DIR / "rans.cc"
+JPEG_SOURCE = CSRC_DIR / "jpeg.cc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
@@ -78,6 +82,11 @@ def rans_library_path() -> Path:
     return _keyed_path("libicat_rans", GXX_FLAGS, (RANS_SOURCE,))
 
 
+def jpeg_library_path() -> Path:
+    """``_build/libicat_jpeg-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_jpeg", GXX_FLAGS, (JPEG_SOURCE,))
+
+
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
     """nvcc's output from the build of the library for ``sources``."""
     return library_path(sources).with_suffix(".log").read_text()
@@ -115,16 +124,27 @@ def build(sources: Sequence[Path] = SOURCES) -> Path:
     return _compile(out, lambda tmp: nvcc_command(nvcc, sources, tmp))
 
 
-def build_rans() -> Path:
-    """Compile ``csrc/rans.cc`` with g++ unless the keyed library already
-    exists; return its path."""
-    out = rans_library_path()
+def _build_host(out: Path, source: Path, what: str) -> Path:
+    """Compile the host C++ ``source`` with g++ into ``out`` unless it
+    already exists; return ``out``."""
     if out.is_file():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH; the rANS coder is built with it")
-    return _compile(out, lambda tmp: [gxx, *GXX_FLAGS, "-o", str(tmp), str(RANS_SOURCE)])
+        raise RuntimeError(f"g++ not found on PATH; {what} is built with it")
+    return _compile(out, lambda tmp: [gxx, *GXX_FLAGS, "-o", str(tmp), str(source)])
+
+
+def build_rans() -> Path:
+    """Compile ``csrc/rans.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(rans_library_path(), RANS_SOURCE, "the rANS coder")
+
+
+def build_jpeg() -> Path:
+    """Compile ``csrc/jpeg.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(jpeg_library_path(), JPEG_SOURCE, "the JPEG decoder")
 
 
 @functools.lru_cache(maxsize=None)

@@ -137,10 +137,12 @@ def gdn_forward(
         return gdn_forward_reference(x, gamma, beta, inverse)
     if x.device.type != "cuda":
         raise ValueError(f"gdn_forward runs on cuda or cpu, not {x.device}")
+    out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
     from ._build import load_library
 
     lib = load_library()
-    out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.icat_gdn_fwd(

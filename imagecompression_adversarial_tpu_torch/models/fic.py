@@ -62,7 +62,7 @@ class Context4(nn.Module):
     def forward(self, y_hat: torch.Tensor, hyper_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         h, w = y_hat.shape[2:]
-        masks = phase_masks(h, w, y_hat.device, shard.row_offset(h)).to(y_hat.dtype)
+        masks = phase_masks(h, w, y_hat.device, shard.row_offset(y_hat)).to(y_hat.dtype)
         scales = torch.zeros_like(y_hat)
         means = torch.zeros_like(y_hat)
         visible = torch.zeros_like(masks[0])

@@ -179,7 +179,7 @@ class GDN(nn.Module):
         gamma, beta = self.resolved()
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         out = GDNFunction.apply(
-            nhwc.reshape(-1, c), gamma.contiguous(), beta.contiguous(),
+            nhwc.reshape(n * h * w, c), gamma.contiguous(), beta.contiguous(),
             self.inverse, self.use_kernel,
         )
         return out.view(n, h, w, c).permute(0, 3, 1, 2)

@@ -3,13 +3,17 @@ make the codec's layers and reductions exact over the parts.
 
 The parallel layer (``parallel/``) runs one process per rank.  Under
 ``sharded(rows=axis)`` every NCHW activation on the rank holds one
-contiguous block of the image's rows, equal in size on every rank of
-``axis``:
+contiguous block of the image's rows (``row_blocks``: equal blocks where
+the rows divide by the ranks x ROW_MULTIPLE; otherwise every rank but the
+last a multiple of ROW_MULTIPLE, the last the rest, which may be none, so
+that every interior block boundary still lies on a multiple of
+ROW_MULTIPLE):
 
 * ``Conv`` (and ``MaskedConv``) fetch the rows their kernel reaches across
   the block's edges from the neighbouring ranks (``conv2d_rows``); zero
   rows stand in only at the image's global top and bottom, as the
-  convolution's padding does;
+  convolution's padding does; a rank whose block is empty joins the
+  exchange and yields an empty block;
 * reductions over the rows become global (``mean``, ``row_sum``);
 * a cyclic roll of the rows (tic's shifted windows) exchanges the rows
   that wrap between neighbouring blocks (``roll_rows``), and a layer
@@ -19,7 +23,12 @@ contiguous block of the image's rows, equal in size on every rank of
   self-ensemble's rotations, ``-p``'s reflect padding) gathers it
   (``shared_rows``, or ``gather_rows`` outside autograd), works on the
   whole image on every rank and keeps this rank's rows of the result
-  (``own_rows``);
+  (``own_rows``, which splits by ``row_blocks``: the padded height of
+  ``-p`` and the rotated variants' ``W`` need not divide by the ranks x
+  ROW_MULTIPLE); the gathers take blocks of any heights (each padded to the
+  tallest, gathered and trimmed), which a gather of the heights gives
+  unless the run's caller declared its row blocks even (``sharded(...,
+  even_rows=True)``: every height is this rank's);
 * the training forward's noise is drawn for the global tensor and this
   rank keeps its block (``local_draw``), so that a sharded run draws what
   the one-process run on the whole tensor draws;
@@ -43,7 +52,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,9 +60,18 @@ import torch.nn.functional as F
 
 from .bounds import lower_bound
 
-#: A row shard's block holds a multiple of this many image rows, so that it
-#: starts on an even row at each of a codec's six stride-2 stages.
+#: A row shard's block starts on a multiple of this many image rows, so that
+#: it starts on an even row at each of a codec's six stride-2 stages.
 ROW_MULTIPLE = 64
+
+
+def row_blocks(total: int, n: int) -> List[int]:
+    """The rows each of ``n`` row shards holds of ``total``: every shard but
+    the last ``ceil(total / (n x ROW_MULTIPLE)) x ROW_MULTIPLE``, the last
+    the rest (0 where none is left).  Equal blocks where ``total`` divides
+    by ``n x ROW_MULTIPLE``; 128 rows on 4 shards are 64, 64, 0 and 0."""
+    block = -(-total // (n * ROW_MULTIPLE)) * ROW_MULTIPLE
+    return [max(0, min(block, total - i * block)) for i in range(n)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +87,13 @@ class Axis:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """``batch``: the axis the global batch is split over (blocks of equal
-    size, in rank order); ``rows``: the axis the rows are split over."""
+    size, in rank order); ``rows``: the axis the rows are split over;
+    ``even_rows``: every row-split tensor of the run holds blocks of one
+    height on every rank, so that ``block_heights`` needs no gather."""
 
     batch: Optional[Axis] = None
     rows: Optional[Axis] = None
+    even_rows: bool = False
 
 
 _CURRENT: contextvars.ContextVar[Optional[Shard]] = contextvars.ContextVar(
@@ -86,9 +107,14 @@ def row_axis() -> Optional[Axis]:
 
 
 @contextlib.contextmanager
-def sharded(batch: Optional[Axis] = None, rows: Optional[Axis] = None) -> Iterator[Shard]:
-    """Run the enclosed code as this rank's part of a sharded run."""
-    with within(Shard(batch, rows)) as s:
+def sharded(batch: Optional[Axis] = None, rows: Optional[Axis] = None,
+            even_rows: bool = False) -> Iterator[Shard]:
+    """Run the enclosed code as this rank's part of a sharded run.  Pass
+    ``even_rows`` where the caller knows that every row total the run
+    splits (the input's, and any that ``own_rows`` splits) divides by the
+    ranks x ROW_MULTIPLE: the blocks' heights are then this rank's on every
+    rank, with no gather."""
+    with within(Shard(batch, rows, even_rows)) as s:
         yield s
 
 
@@ -133,6 +159,30 @@ def all_gather(slot: torch.Tensor, group, size: int) -> torch.Tensor:
 def gather(slot: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``all_gather`` over ``axis``."""
     return all_gather(slot, axis.group, axis.size)
+
+
+def block_heights(h: int, axis: Axis, like: torch.Tensor) -> List[int]:
+    """The row count of every rank's block along ``axis``, from each rank's
+    own ``h``: ``h`` on every rank under an ``even_rows`` shard, else one
+    gather of a tensor of ``like``'s dtype and device."""
+    s = _CURRENT.get()
+    if s is not None and s.even_rows:
+        return [h] * axis.size
+    return [int(v) for v in gather(like.new_full((1,), h), axis).flatten().tolist()]
+
+
+def gather_blocks(t: torch.Tensor, axis: Axis) -> Tuple[torch.Tensor, List[int]]:
+    """The whole NCHW tensor from every rank's block of rows, the blocks of
+    any heights (each padded to the tallest, gathered, trimmed), and the
+    heights (not differentiable)."""
+    heights = block_heights(t.shape[2], axis, t)
+    tallest = max(heights)
+    if t.shape[2] < tallest:
+        t = F.pad(t, (0, 0, 0, tallest - t.shape[2]))
+    slots = gather(t.contiguous(), axis)
+    if min(heights) == tallest:
+        return torch.cat(slots.unbind(0), dim=2), heights
+    return torch.cat([slots[i, :, :, :hh] for i, hh in enumerate(heights)], dim=2), heights
 
 
 class _AllSum(torch.autograd.Function):
@@ -197,12 +247,13 @@ class _AllRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, axis):
-        ctx.index, ctx.h = axis.index, t.shape[2]
-        return torch.cat(gather(t.contiguous(), axis).unbind(0), dim=2)
+        whole, heights = gather_blocks(t, axis)
+        ctx.start, ctx.h = sum(heights[:axis.index]), t.shape[2]
+        return whole
 
     @staticmethod
     def backward(ctx, g):
-        return g[:, :, ctx.index * ctx.h:(ctx.index + 1) * ctx.h], None
+        return g[:, :, ctx.start:ctx.start + ctx.h], None
 
 
 def all_rows(t: torch.Tensor) -> torch.Tensor:
@@ -222,14 +273,14 @@ class _SharedRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, axis):
-        ctx.axis, ctx.h = axis, t.shape[2]
-        return torch.cat(gather(t.contiguous(), axis).unbind(0), dim=2)
+        whole, heights = gather_blocks(t, axis)
+        ctx.axis, ctx.start, ctx.h = axis, sum(heights[:axis.index]), t.shape[2]
+        return whole
 
     @staticmethod
     def backward(ctx, g):
-        i, h = ctx.axis.index, ctx.h
         g = all_reduce_(g.contiguous().clone(), ctx.axis)
-        return g[:, :, i * h:(i + 1) * h].contiguous(), None
+        return g[:, :, ctx.start:ctx.start + ctx.h].contiguous(), None
 
 
 def shared_rows(t: torch.Tensor) -> torch.Tensor:
@@ -241,24 +292,28 @@ def shared_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def own_rows(t: torch.Tensor) -> torch.Tensor:
-    """This rank's block of the rows (dim 2) of a whole NCHW tensor that
-    every rank holds, the inverse of ``gather_rows`` (differentiable: a
-    slice; ``t`` itself when unsharded)."""
-    rows = row_axis()
+    """This rank's block (``row_blocks``) of the rows (dim 2) of a whole
+    NCHW tensor that every rank holds, the inverse of ``gather_rows``
+    (differentiable: a slice; ``t`` itself when unsharded)."""
+    s = _CURRENT.get()
+    rows = None if s is None else s.rows
     if rows is None:
         return t
-    total = t.shape[2]
-    if total % rows.size:
-        raise ValueError(f"{total} rows do not split into {rows.size} equal row shards")
-    h = total // rows.size
-    return t.narrow(2, rows.index * h, h)
+    blocks = row_blocks(t.shape[2], rows.size)
+    if s.even_rows and min(blocks) != max(blocks):
+        raise ValueError(f"{t.shape[2]} rows split {blocks} over the ranks, under a shard "
+                         "whose row blocks were to be even")
+    return t.narrow(2, sum(blocks[:rows.index]), blocks[rows.index])
 
 
-def row_offset(h: int) -> int:
-    """The global index of the first row of this rank's block of ``h``
-    rows (0 when unsharded)."""
+def row_offset(t: torch.Tensor) -> int:
+    """The global index of the first row of this rank's block ``t`` (NCHW;
+    0 when unsharded).  Every rank of the row axis calls it
+    (``block_heights``)."""
     rows = row_axis()
-    return 0 if rows is None else rows.index * h
+    if rows is None:
+        return 0
+    return sum(block_heights(t.shape[2], rows, t)[:rows.index])
 
 
 class _RollRows(torch.autograd.Function):
@@ -311,10 +366,10 @@ def local_draw(y: torch.Tensor, draw: Callable[[torch.Tensor], torch.Tensor]) ->
         return draw(y)
     n, c, h, w = y.shape
     nb = 1 if s.batch is None else s.batch.size
-    nr = 1 if s.rows is None else s.rows.size
     b0 = 0 if s.batch is None else s.batch.index * n
-    r0 = 0 if s.rows is None else s.rows.index * h
-    full = draw(y.new_empty(()).expand(n * nb, c, h * nr, w))
+    heights = [h] if s.rows is None else block_heights(h, s.rows, y)
+    r0 = 0 if s.rows is None else sum(heights[:s.rows.index])
+    full = draw(y.new_empty(()).expand(n * nb, c, sum(heights), w))
     return full[b0:b0 + n, :, r0:r0 + h]
 
 
@@ -329,8 +384,13 @@ class _Halo(torch.autograd.Function):
         ctx.top, ctx.bottom, ctx.axis = top, bottom, axis
         h = x.shape[2]
         # slot: the rows the rank below needs (my last `top`), then the rows
-        # the rank above needs (my first `bottom`)
-        slots = gather(torch.cat([x[:, :, h - top:], x[:, :, :bottom]], dim=2), axis)
+        # the rank above needs (my first `bottom`); zeros from an empty
+        # block, which stand in for the image's bottom edge above it
+        if h:
+            slot = torch.cat([x[:, :, h - top:], x[:, :, :bottom]], dim=2)
+        else:
+            slot = x.new_zeros((*x.shape[:2], top + bottom, x.shape[3]))
+        slots = gather(slot, axis)
         i, n = axis.index, axis.size
         above = slots[i - 1, :, :, :top] if i > 0 else x.new_zeros((*x.shape[:2], top, x.shape[3]))
         below = (slots[i + 1, :, :, top:] if i < n - 1
@@ -346,9 +406,9 @@ class _Halo(torch.autograd.Function):
         slots = gather(torch.cat([g[:, :, :top], g[:, :, top + h:]], dim=2).contiguous(), axis)
         dx = g[:, :, top:top + h].clone()
         i, n = axis.index, axis.size
-        if i < n - 1 and top:
+        if i < n - 1 and top and h:
             dx[:, :, h - top:] += slots[i + 1, :, :, :top]
-        if i > 0 and bottom:
+        if i > 0 and bottom and h:
             dx[:, :, :bottom] += slots[i - 1, :, :, top:]
         return dx, None, None, None
 
@@ -368,6 +428,8 @@ def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     kh, sh, ph = weight.shape[2], stride[0], padding[0]
     top, bottom = halo_rows(kh, sh, ph)
     h = x.shape[2]
+    if h == 0:
+        return _empty_conv(x, weight, stride, padding, top, bottom, axis)
     if h % sh:
         raise ValueError(f"{layer}: {h} rows a shard do not divide by the stride {sh}; "
                          "the image height must divide by (shards x 64)")
@@ -377,6 +439,18 @@ def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     if top or bottom:
         x = _Halo.apply(x, top, bottom, axis)
     return F.conv2d(x, weight, bias, stride, (0, padding[1]))
+
+
+def _empty_conv(x: torch.Tensor, weight: torch.Tensor, stride: Tuple[int, int],
+                padding: Tuple[int, int], top: int, bottom: int, axis: Axis) -> torch.Tensor:
+    """The conv's output block of a rank that holds no rows: it joins the
+    halo exchange (and, in the backward, its return), and yields no rows,
+    tied to ``x`` and ``weight`` by a zero so that its backward runs."""
+    if top or bottom:
+        x = _Halo.apply(x, top, bottom, axis)
+    w_out = (x.shape[3] + 2 * padding[1] - weight.shape[3]) // stride[1] + 1
+    tie = x.sum() * 0.0 + weight.sum() * 0.0
+    return x.new_zeros((x.shape[0], weight.shape[0], 0, w_out)) + tie
 
 
 def mesh_axis(mesh, name: str) -> Axis:

@@ -89,12 +89,20 @@ def replicated(mesh: DeviceMesh) -> Placements:
 
 def local_part(mesh: DeviceMesh, t, placements: Placements):
     """This rank's block of the global array or tensor ``t`` under
-    ``placements`` (each split must be even)."""
+    ``placements``: the rows (dim 2 of NCHW) split by
+    ``ops/shard.py::row_blocks`` (even where they divide by the ranks x 64,
+    else every rank but the last a multiple of 64 rows), any other
+    dimension evenly."""
     index = [slice(None)] * t.ndim
     for i, p in enumerate(placements):
         if isinstance(p, Shard):
             size, rank = mesh.size(i), mesh.get_local_rank(i)
             n = t.shape[p.dim]
+            if p.dim == 2:
+                blocks = shard.row_blocks(n, size)
+                start = sum(blocks[:rank])
+                index[p.dim] = slice(start, start + blocks[rank])
+                continue
             if n % size:
                 raise ValueError(f"dim {p.dim} of size {n} does not split evenly over "
                                  f"{size} ranks of axis {mesh.mesh_dim_names[i]!r}")

@@ -52,21 +52,27 @@ the whole codec on its block of rows under ``ops/shard.py``'s row shard:
 * ``-p`` pads the whole image (a gather with no gradient), each rank runs
   the clean forward on its rows of the padded image, and the cropped
   reconstruction is gathered and split again into the unpadded blocks;
-  ``bpp_ori`` sums the ranks' rates over the unpadded ``H x W``;
+  ``bpp_ori`` sums the ranks' rates over the unpadded ``H x W``.  The
+  padded height ``H + 2p``, like the ensemble's rotated height ``W``, is
+  split by ``ops/shard.py::row_blocks``: where it does not divide by ``sp
+  x 64`` every rank but the last takes ``ceil(rows / (sp x 64)) x 64``
+  rows and the last the rest, none at all at ``W = 128, sp = 4`` (64, 64,
+  0, 0): such a rank runs the codec on an empty block and joins every
+  halo exchange and gather, and the gathers take blocks of any height;
 * the attack's noise, Adam state and activations stay row-sharded: ``im_``
   comes back as each rank's rows;
 * a ``split_eval`` config checkpoints the loop by stage on each rank's
   rows: the recompute fetches its halos and gathers again.
 
 The result equals the one-process run up to the order of float sums.
-``H`` must divide by ``sp x 64``, so that each block starts on an even
-row at every stride-2 stage; with ``-p`` so must the padded height ``H +
-2p``, and with the ensemble ``W``, the rotated variants' height.  GSPMD's
-uneven shards take any of them; here they raise, naming the size (and
-the nearest ``p`` that fits).  Layers with no halo rule raise, naming the
-layer (the ``debug`` fixture's stride-1 transposed conv).  The latent
-clip (``defend_in_loop='clip'``) raises as JAX's does: this attack takes
-no ``latent_transform``.  Nothing falls back to an unsharded run.
+``H`` must divide by ``sp x 64``, as JAX asserts, so that each block
+starts on an even row at every stride-2 stage; the padded height ``H +
+2p`` and the ensemble's ``W`` must divide by 64, as the codec needs on one
+process too (else every rank raises, naming the size, before the first
+collective).  Layers with no halo rule raise, naming the layer (the
+``debug`` fixture's stride-1 transposed conv).  The latent clip
+(``defend_in_loop='clip'``) raises as JAX's does: this attack takes no
+``latent_transform``.  Nothing falls back to an unsharded run.
 """
 
 from __future__ import annotations
@@ -124,24 +130,12 @@ def _check_height(h: int, n_sp: int) -> None:
                          f"{n_sp * shard.ROW_MULTIPLE} (pad-to-64 upstream, then pick sp)")
 
 
-def _check_padded_height(h: int, p: int, n_sp: int) -> None:
-    """``-p``'s clean forward runs on ``H + 2p`` rows, split like ``H``'s
-    (``H`` already a multiple of ``sp x 64``, so a ``p`` fits where it is
-    a multiple of ``sp x 32``)."""
-    m = n_sp * shard.ROW_MULTIPLE
-    if (h + 2 * p) % m:
-        step = m // 2
-        fit = max(step, int(p / step + 0.5) * step)
-        raise ValueError(f"-p {p} pads H={h} to {h + 2 * p} rows, which must divide by "
-                         f"sp*{shard.ROW_MULTIPLE}={m}; the nearest p that fits is {fit}")
-
-
-def _check_ensemble_width(w: int, n_sp: int) -> None:
-    """The self-ensemble's 4 rotated variants have ``W`` rows, split like
-    ``H``."""
-    if w % (n_sp * shard.ROW_MULTIPLE):
-        raise ValueError(f"the self-ensemble's rotated variants have W={w} rows, which must "
-                         f"divide by sp*{shard.ROW_MULTIPLE}={n_sp * shard.ROW_MULTIPLE}")
+def _check_aligned(rows: int, what: str) -> None:
+    """The codec runs on ``rows`` rows split by ``row_blocks``: a multiple
+    of 64, which one process needs too, keeps every block on whole rows at
+    each stride-2 stage (checked on every rank before any collective)."""
+    if rows % shard.ROW_MULTIPLE:
+        raise ValueError(f"{what} gives {rows} rows, which must divide by {shard.ROW_MULTIPLE}")
 
 
 def make_spatial_forward(model, mesh, axis: str = "sp") -> Callable[[torch.Tensor], Dict]:
@@ -158,7 +152,7 @@ def make_spatial_forward(model, mesh, axis: str = "sp") -> Callable[[torch.Tenso
     def forward(x: torch.Tensor) -> Dict:
         _check_height(x.shape[2], rows.size)
         mine = local_part(mesh, torch.as_tensor(x), placements).to(device)
-        with shard.sharded(rows=rows):
+        with shard.sharded(rows=rows, even_rows=True):
             return model(mine.contiguous(memory_format=torch.channels_last),
                          quant_mode="dequantize")
 
@@ -183,15 +177,19 @@ def make_spatial_attack_fn(model, cfg: RDAttackConfig, mesh,
 
     def attack(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict:
         _check_height(x.shape[2], rows.size)
+        totals = [x.shape[2]]
         if cfg.pad:
-            _check_padded_height(x.shape[2], cfg.pad, rows.size)
+            _check_aligned(x.shape[2] + 2 * cfg.pad, f"-p {cfg.pad} on H={x.shape[2]}")
+            totals.append(x.shape[2] + 2 * cfg.pad)
         if cfg.defend_in_loop == "ensemble":
-            _check_ensemble_width(x.shape[3], rows.size)
+            _check_aligned(x.shape[3], "the self-ensemble's rotated variants (W)")
+            totals.append(x.shape[3])
         x = torch.as_tensor(x)
         noise = init_noise(tuple(x.shape), single.cfg, generator, device)
         mine = local_part(mesh, x, placements).to(device)
         noise = local_part(mesh, noise, placements)
-        with shard.sharded(rows=rows):
+        even = all(t % (rows.size * shard.ROW_MULTIPLE) == 0 for t in totals)
+        with shard.sharded(rows=rows, even_rows=even):
             return single.run(mine, noise)
 
     return attack

@@ -2,15 +2,18 @@
 (port of ``imagecompression_adversarial_tpu/train/data.py``).
 
 All of it is numpy, with the JAX package's seeds and draw order, so each
-stream equals JAX's element for element: recursive folder listing, a
-permutation an epoch, one ``default_rng`` a file for its crop (drawn before
-the file is read, so an unreadable file shifts no other crop), drop-last.
-Files are read through the port's own PNG reader (``io/image.py``, no
-PIL), so only ``.png`` files are listed: a JPEG/BMP/WebP folder must be
-converted to PNG first (the JAX package also lists those, through PIL).  A
-listed file the reader cannot decode (a palette PNG, a broken file) or
-smaller than the crop is skipped, as the JAX loader skips a file PIL cannot
-open; an epoch that yields no batch raises, naming what was skipped.
+stream equals JAX's element for element: recursive folder listing of the
+same five extensions (``.png .jpg .jpeg .bmp .webp``), a permutation an
+epoch, one ``default_rng`` a file for its crop (drawn before the file is
+read, so an unreadable file shifts no other crop), drop-last.  Files are
+read through the port's own readers (``io/image.py``, no PIL: PNG, JPEG by
+the host C++ decoder, BMP), which give Pillow's pixels.  A broken file or
+one smaller than the crop is skipped, as the JAX loader skips a file PIL
+cannot open; an epoch that yields no batch raises, naming what was
+skipped.  A file that PIL reads and the port does not (WebP, a progressive
+JPEG, a palette PNG, a JPEG scan libjpeg decodes with a warning, ...)
+raises, naming the file: JAX's stream holds it, so skipping it would shift
+every later crop.
 
 Without a data folder, ``synthetic_batches`` gives a deterministic
 structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
@@ -30,30 +33,31 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from ..io.errors import UnsupportedImageError
 from ..io.image import read_image
 
-# what the port reads, and what the JAX package also lists (through PIL)
-_EXTS = (".png",)
-_OTHER_EXTS = (".jpg", ".jpeg", ".bmp", ".webp")
+# the extensions the JAX package lists
+_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
 
-def _listing(root: str, exts) -> List[str]:
+def list_image_files(root: str) -> List[str]:
+    """The image files under ``root``, recursively, sorted, as the JAX
+    package lists them."""
     out = []
-    for ext in exts:
+    for ext in _EXTS:
         out.extend(glob.glob(os.path.join(root, "**", f"*{ext}"), recursive=True))
     return sorted(out)
 
 
-def list_image_files(root: str) -> List[str]:
-    """The PNG files under ``root``, recursively, sorted: the images this
-    port can decode."""
-    return _listing(root, _EXTS)
-
-
 def _load_crop(path: str, crop: int, rng: np.random.Generator):
-    """(crop, None), or (None, why the file was skipped)."""
+    """(crop, None), or (None, why the file was skipped).  Raises on a
+    file that PIL reads and the port does not."""
     try:
         img, h, w = read_image(path, padding=1)
+    except UnsupportedImageError as e:
+        raise UnsupportedImageError(
+            f"{path}: {e}; the JAX loader reads it through PIL, so skipping it would shift "
+            "the stream: convert it to PNG") from None
     except (OSError, ValueError, zlib.error, struct.error) as e:
         return None, f"unreadable ({type(e).__name__})"
     if w < crop or h < crop:
@@ -72,14 +76,12 @@ def image_folder_batches(
     epochs: Optional[int] = None,
 ) -> Iterator[np.ndarray]:
     """Yield (B, crop, crop, 3) float32 batches forever (or for ``epochs``).
-    Raises ``FileNotFoundError`` when ``root`` holds no PNG, and
-    ``ValueError`` after an epoch that yields no batch."""
+    Raises ``FileNotFoundError`` when ``root`` holds no image,
+    ``UnsupportedImageError`` on a file PIL reads and the port does not,
+    and ``ValueError`` after an epoch that yields no batch."""
     files = list_image_files(root)
     if not files:
-        others = _listing(root, _OTHER_EXTS)
-        why = (f"; {len(others)} {'/'.join(_OTHER_EXTS)} files there are not read (this port "
-               "decodes PNG only: convert them)" if others else "")
-        raise FileNotFoundError(f"no .png images under {root}{why}")
+        raise FileNotFoundError(f"no {'/'.join(_EXTS)} images under {root}")
     rng = np.random.default_rng(seed)
 
     def one_epoch():
@@ -104,8 +106,9 @@ def image_folder_batches(
                     batch = []
         if not yielded:
             reasons = ", ".join(f"{n} {why}" for why, n in sorted(skipped.items()))
+            kinds = "/".join(sorted({os.path.splitext(f)[1][1:].upper() for f in files}))
             raise ValueError(
-                f"an epoch over the {len(files)} PNG files under {root} gave no batch of "
+                f"an epoch over the {len(files)} {kinds} files under {root} gave no batch of "
                 f"{batch_size}: {sum(skipped.values())} skipped ({reasons or 'none'})")
 
     e = 0
@@ -136,10 +139,8 @@ def synthetic_batches(batch_size: int, crop: int = 256, seed: int = 0) -> Iterat
 
 def make_batches(root: Optional[str], batch_size: int, crop: int = 256,
                  seed: int = 0) -> Iterator[np.ndarray]:
-    """Image-folder stream if the directory holds images, else synthetic; a
-    folder of images this port cannot decode raises (at the first batch)
-    rather than falling back."""
-    if root and os.path.isdir(root) and (list_image_files(root) or _listing(root, _OTHER_EXTS)):
+    """Image-folder stream if the directory holds images, else synthetic."""
+    if root and os.path.isdir(root) and list_image_files(root):
         return image_folder_batches(root, batch_size, crop, seed)
     return synthetic_batches(batch_size, crop, seed)
 

@@ -100,12 +100,15 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-def mesh_shard(mesh) -> shard.Shard:
-    """The shard a mesh's rank holds: the batch split over ``dp``, and the
-    rows over ``sp`` where the mesh has that axis."""
+def mesh_shard(mesh, batch: torch.Tensor) -> shard.Shard:
+    """The shard a mesh's rank holds of ``batch``: the batch split over
+    ``dp``, and the rows over ``sp`` where the mesh has that axis (even
+    where every rank's block of ``batch`` has one height: one gather of the
+    heights a step, where each noise draw would gather them again)."""
     names = mesh.mesh_dim_names or ()
-    return shard.Shard(shard.mesh_axis(mesh, "dp"),
-                       shard.mesh_axis(mesh, "sp") if "sp" in names else None)
+    rows = shard.mesh_axis(mesh, "sp") if "sp" in names else None
+    even = rows is None or len(set(shard.block_heights(batch.shape[2], rows, batch))) == 1
+    return shard.Shard(shard.mesh_axis(mesh, "dp"), rows, even)
 
 
 def reduce_gradients_(grads: List[torch.Tensor], where: shard.Shard,
@@ -156,9 +159,9 @@ def train_step(
     model = state.model
     main = state.opt.param_groups[0]["params"]
     aux = state.aux_opt.param_groups[0]["params"]
-    where = mesh_shard(mesh) if mesh is not None else None
+    where = mesh_shard(mesh, batch) if mesh is not None else None
 
-    with shard.sharded(where.batch, where.rows) if where else contextlib.nullcontext():
+    with shard.within(where) if where else contextlib.nullcontext():
         result = model(batch, quant_mode="noise", generator=generator)
         out = rate_distortion_loss(result, batch, lmbda, metric)
         objective = out["loss"]

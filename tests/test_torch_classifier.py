@@ -152,9 +152,11 @@ def test_folder_reader_equals_jax(tmp_path):
         (x, y), (jx, jy) = next(ours), next(theirs)
         np.testing.assert_array_equal(x, np.asarray(jx))
         np.testing.assert_array_equal(y, np.asarray(jy))
-    (tmp_path / "cat" / "x.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(ValueError, match="not .png"):
-        next(classifier_train._image_folder_labeled(str(tmp_path), 4))
+    # a file PIL reads and the port does not raises, naming its format
+    (tmp_path / "webp" / "cat").mkdir(parents=True)
+    Image.fromarray(gray, "L").save(tmp_path / "webp" / "cat" / "x.webp")
+    with pytest.raises(ValueError, match="WebP images are not supported"):
+        next(classifier_train._image_folder_labeled(str(tmp_path / "webp"), 4))
 
 
 def test_classifier_msgpack_crosses_packages(tmp_path, capsys):

@@ -35,7 +35,8 @@ EXACT_SHAPES = (
     (128, 32768), (128, 8192), (192, 98304), (192, 24576), (128, 196608), (128, 49152),
     (128, 12288), (128, 3072), (128, 65536), (128, 16384), (128, 4096), (128, 2048),
     (128, 786432), (192, 49152), (192, 12288), (192, 3072), (128, 71680), (128, 17920),
-    (128, 4480),
+    (128, 4480), (128, 66560), (128, 16640), (128, 4160), (128, 53248), (128, 13312),
+    (128, 3328), (128, 73728), (128, 18432), (128, 4608), (128, 1152),
 )
 
 

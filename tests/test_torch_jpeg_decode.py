@@ -1,0 +1,220 @@
+"""The port's baseline JPEG decoders against Pillow (libjpeg-turbo) on the
+CPU: the host C++ decoder (``csrc/jpeg.cc``, ``io/jpeg.py::decode_native``,
+built with g++), its plain numpy version (``io/jpeg.py::decode``) and
+``PIL.Image.open`` give equal pixels (``np.array_equal``) on files Pillow
+writes: qualities 10, 50, 90 and 100; YCbCr at 4:4:4, 4:2:2 and 4:2:0 and
+gray; restart intervals (``restart_marker_blocks``,
+``restart_marker_rows``); sizes that are not multiples of 8 or 16, down to
+1x1.  What neither decoder reads raises ``UnsupportedImageError`` naming
+it: progressive, arithmetic-coded, lossless, 12-bit, CMYK, Adobe
+RGB-coded and other sampling factors (all but progressive and CMYK made by
+patching a baseline file's markers), and a corrupt scan that Pillow
+decodes with libjpeg's warning (a bad Huffman code, a lost or misnumbered
+RSTn, a scan cut short before EOI).  Extraneous bytes before a marker are
+skipped, giving Pillow's pixels.  A broken stream, or one cut inside its
+scan (Pillow calls it truncated), raises a plain ``ValueError``; a whole
+scan with no EOI after it raises naming it, as Pillow reads it or not by
+libjpeg's buffering; a decoder that cannot be built raises, and nothing
+falls back to the numpy loop.
+"""
+
+import io
+import struct
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from imagecompression_adversarial_tpu_torch.io import jpeg
+from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
+from imagecompression_adversarial_tpu_torch.io.image import read_pixels
+from imagecompression_adversarial_tpu_torch.kernels import _build
+
+SAMPLINGS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "gray": None}
+SIZES = [(37, 53), (64, 64), (9, 3), (1, 1), (17, 2)]
+
+
+def _image(h, w, seed):
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 100 * np.sin(xx / 7.0 + seed), 128 + 90 * np.cos(yy / 5.0),
+                    128 + 60 * np.sin((xx + yy) / 9.0)], -1) + rng.rand(h, w, 3) * 60
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _pillow(rgb, kind="4:2:0", **kwargs):
+    """Pillow's bytes of ``rgb`` (its first channel for ``gray``) and its
+    decode of them, (H, W, channels)."""
+    buf = io.BytesIO()
+    if kind == "gray":
+        Image.fromarray(rgb[..., 0], "L").save(buf, format="JPEG", **kwargs)
+    else:
+        Image.fromarray(rgb).save(buf, format="JPEG", subsampling=SAMPLINGS[kind], **kwargs)
+    data = buf.getvalue()
+    want = np.asarray(Image.open(io.BytesIO(data)))
+    return data, want.reshape(*want.shape[:2], -1)
+
+
+def _all_equal(data, want):
+    np.testing.assert_array_equal(jpeg.decode_native(data), want)
+    np.testing.assert_array_equal(jpeg.decode(data), want)
+
+
+@pytest.mark.parametrize("kind", list(SAMPLINGS))
+@pytest.mark.parametrize("quality", [10, 50, 90, 100])
+def test_both_decoders_give_pillows_pixels(quality, kind):
+    for i, (h, w) in enumerate(SIZES):
+        data, want = _pillow(_image(h, w, seed=quality + i), kind, quality=quality)
+        _all_equal(data, want)
+
+
+@pytest.mark.parametrize("kind", list(SAMPLINGS))
+@pytest.mark.parametrize("restart", [{"restart_marker_blocks": 1},
+                                     {"restart_marker_blocks": 3},
+                                     {"restart_marker_rows": 1}])
+def test_restart_intervals(kind, restart):
+    data, want = _pillow(_image(45, 70, seed=7), kind, quality=80, **restart)
+    assert b"\xff\xdd" in data and b"\xff\xd0" in data
+    _all_equal(data, want)
+
+
+def _segment(data: bytes, code: int) -> int:
+    """The offset of the first marker segment ``0xFF code``."""
+    pos = 2
+    while data[pos + 1] != code:
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    return pos
+
+
+def _patched(data: bytes, code: int, offset: int, value: int) -> bytes:
+    """``data`` with the byte ``offset`` into the body of marker ``code``
+    set to ``value``."""
+    out = bytearray(data)
+    out[_segment(data, code) + 4 + offset] = value
+    return bytes(out)
+
+
+def _variants():
+    rgb = _image(32, 32, seed=1)
+    base, _ = _pillow(rgb, quality=75)
+    progressive, _ = _pillow(rgb, quality=75, progressive=True)
+    cmyk = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(cmyk, format="JPEG")
+    app0 = _segment(base, 0xE0)
+    length = struct.unpack(">H", base[app0 + 2:app0 + 4])[0]
+    adobe = (base[:app0] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+             + base[app0 + 2 + length:])
+    sof = bytearray(base)
+    sof[_segment(base, 0xC0) + 1] = 0xC9
+    lossless = bytearray(base)
+    lossless[_segment(base, 0xC0) + 1] = 0xC3
+    return {
+        "progressive": (progressive, "progressive JPEGs"),
+        "arithmetic": (bytes(sof), "arithmetic-coded sequential JPEGs"),
+        "lossless": (bytes(lossless), "lossless JPEGs"),
+        "12-bit": (_patched(base, 0xC0, 0, 12), "12-bit JPEGs"),
+        "cmyk": (cmyk.getvalue(), "CMYK/YCCK"),
+        "adobe-rgb": (adobe, "Adobe RGB-coded"),
+        "4:4:0": (_patched(base, 0xC0, 7, 0x12), r"sampling factors \['1x2', '1x1', '1x1'\]"),
+    }
+
+
+@pytest.mark.parametrize("kind", list(_variants()))
+def test_what_neither_decoder_reads_raises_naming_it(kind):
+    data, match = _variants()[kind]
+    for decode in (jpeg.decode, jpeg.decode_native):
+        with pytest.raises(UnsupportedImageError, match=match):
+            decode(data)
+
+
+def _junk(data: bytes, junk: bytes) -> bytes:
+    """``data`` with ``junk`` between its APP0 and its first DQT."""
+    at = _segment(data, 0xDB)
+    return data[:at] + junk + data[at:]
+
+
+@pytest.mark.parametrize("junk", [b"\x00\x12junk", b"\xff\x00\x33", b"\xff\xff\xff", b"\x07"])
+def test_extraneous_bytes_before_a_marker_are_skipped(junk):
+    """libjpeg's ``next_marker`` and Pillow's header parser skip bytes that
+    are not 0xFF, escaped 0xFF 0x00 pairs and fill 0xFFs."""
+    data, _ = _pillow(_image(37, 53, seed=5), quality=90)
+    data = _junk(data, junk)
+    _all_equal(data, np.asarray(Image.open(io.BytesIO(data))))
+
+
+def _scan_start(data: bytes) -> int:
+    at = _segment(data, 0xDA)
+    return at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+
+
+def _corrupt_scans():
+    base, _ = _pillow(_image(48, 72, seed=6), quality=90)
+    rst, _ = _pillow(_image(48, 72, seed=6), quality=90, restart_marker_blocks=2)
+    s0, r3 = _scan_start(base), rst.index(b"\xff\xd3")
+    return {
+        # 48 one bits: a code starts among them, and no code is all ones
+        "bad code": (base[:s0 + 40] + b"\xff\x00" * 3 + base[s0 + 46:], "bad AC code"),
+        "lost RST": (rst[:r3] + rst[r3 + 2:], "6 RST markers where its restart intervals need 7"),
+        "misnumbered RST": (rst[:r3] + b"\xff\xd5" + rst[r3 + 2:], "RST5 where RST3 belongs"),
+        "cut before EOI": (base[:len(base) // 2] + b"\xff\xd9", "ends early"),
+    }
+
+
+@pytest.mark.parametrize("kind", list(_corrupt_scans()))
+def test_a_corrupt_scan_pillow_reads_raises_naming_it(kind):
+    """Pillow decodes these (libjpeg warns, fills zeros or resyncs), so
+    JAX's reader keeps them: neither decoder gives other pixels, and the
+    error is not the plain ``ValueError`` a folder reader skips."""
+    data, match = _corrupt_scans()[kind]
+    assert np.asarray(Image.open(io.BytesIO(data)).convert("RGB")).shape == (48, 72, 3)
+    for decode in (jpeg.decode, jpeg.decode_native):
+        with pytest.raises(UnsupportedImageError, match=f"corrupt JPEG scan .*{match}"):
+            decode(data)
+
+
+def test_a_file_cut_inside_its_scan_raises_a_value_error():
+    """The scan runs out of bytes with no marker after it: libjpeg waits for
+    more and Pillow raises ``OSError``, so JAX's folder reader skips the
+    file, and the port's may."""
+    data, _ = _pillow(_image(48, 72, seed=6), quality=90)
+    rst, _ = _pillow(_image(48, 72, seed=6), quality=90, restart_marker_blocks=2)
+    for cut in (data[:len(data) // 2], rst[:rst.index(b"\xff\xd3") - 1]):
+        with pytest.raises(OSError, match="truncated"):
+            Image.open(io.BytesIO(cut)).convert("RGB")
+        for decode in (jpeg.decode, jpeg.decode_native):
+            with pytest.raises(ValueError, match="truncated") as e:
+                decode(cut)
+            assert not isinstance(e.value, UnsupportedImageError)
+
+
+@pytest.mark.parametrize("h, w", [(48, 72), (41, 47)])
+def test_a_whole_scan_with_no_marker_after_it_raises_naming_it(h, w):
+    """EOI cut off: Pillow calls the first file truncated and reads the
+    second, as libjpeg's input buffer falls, so the port raises on both."""
+    data, _ = _pillow(_image(h, w, seed=6), quality=90)
+    for decode in (jpeg.decode, jpeg.decode_native):
+        with pytest.raises(UnsupportedImageError, match=r"no marker \(EOI\) after their scan"):
+            decode(data[:-2])
+
+
+def test_a_broken_stream_raises_a_value_error():
+    data, _ = _pillow(_image(64, 64, seed=2), quality=90)
+    for broken in (data[:len(data) // 2], data[:2], b"\xff\xd8\xff\xd9"):
+        for decode in (jpeg.decode, jpeg.decode_native):
+            with pytest.raises(ValueError) as e:
+                decode(broken)
+            assert not isinstance(e.value, UnsupportedImageError)
+
+
+def test_a_failed_build_raises_and_nothing_falls_back(tmp_path, monkeypatch):
+    data, _ = _pillow(_image(16, 16, seed=4), quality=90)
+    path = tmp_path / "x.jpg"
+    path.write_bytes(data)
+    monkeypatch.setattr(_build, "jpeg_library_path", lambda: tmp_path / "libicat_jpeg-x.so")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    jpeg._native.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found.*the JPEG decoder"):
+            read_pixels(str(path))
+    finally:
+        jpeg._native.cache_clear()

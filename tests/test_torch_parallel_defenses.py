@@ -1,8 +1,9 @@
 """Slice 10 c-e of the port's row sharding against the JAX package on the
 CPU: the row-sharded attack through the in-loop defenses (the
 self-ensemble, ``batch`` and ``scan``; the bit-depth reduction; the
-resize) and with ``-p`` reflect padding; recompression training on a dp
-and a dp x sp mesh; and the ``--adv`` inner attack on a dp x sp mesh.
+resize) and with ``-p`` reflect padding, on even and uneven row blocks;
+recompression training on a dp and a dp x sp mesh; and the ``--adv``
+inner attack on a dp x sp mesh.
 
 The ranks run in a 2-rank and a 4-rank gloo world spawned once for the
 module (their side is ``tests/torch_spmd_cases.py``), in background
@@ -30,6 +31,13 @@ Bounds, each with its source:
 * the resize in float64, sharded against one process: every scalar
   rtol 1e-9, ``im_`` atol 1e-9 (``tests/test_torch_parallel_adapters.py``'s
   exactness check);
+* uneven row shards: ``-p 32`` pads the 256 rows to 320, split 192 and 128
+  at sp=2 and 128, 128, 64 and 0 at sp=4, and the ensemble's rotated
+  variants have the 128 columns as rows, 64, 64, 0 and 0 at sp=4: each
+  against JAX's run on an sp-device mesh (GSPMD splits the same rows
+  unevenly) and one process at the attacks' float32 bounds above and, at
+  sp=2 for ``-p`` and sp=4 for the ensemble, in float64 against one
+  process at the resize's;
 * the inner attack (10 steps, both phases): every rank takes the output
   phase in the steps the one-process run takes it; the adversarial batch
   within 1e-4 of JAX's unsharded run on the global batch and of the
@@ -43,6 +51,7 @@ Bounds, each with its source:
 
 import copy
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +66,7 @@ from imagecompression_adversarial_tpu.parallel import spatial_shard as j_spatial
 from imagecompression_adversarial_tpu.train import step as j_step
 from imagecompression_adversarial_tpu_torch.attacks import RDAttackConfig, make_attack_fn
 from imagecompression_adversarial_tpu_torch.attacks.rd import make_adv_example_fn
+from imagecompression_adversarial_tpu_torch.ops import shard
 from imagecompression_adversarial_tpu_torch.train import lambda_for
 
 import torch_spmd_cases as cases
@@ -67,13 +77,15 @@ from torch_parity import IM_ATOL, hyper_models, nchw, nhwc, one_torch_thread  # 
 
 SCENARIOS = {
     2: ["sp_bitdepth", "sp_resize", "sp_pad", "sp_ensemble_batch", "sp_ensemble_scan",
-        "sp_pad_rejects", "train_recompress", "sp_resize_f64"],
-    4: ["sp_bitdepth", "sp_resize", "sp_ensemble_rejects", "adv_dpsp", "train_recompress"],
+        "sp_pad_uneven", "sp_pad_uneven_f64", "train_recompress", "sp_resize_f64"],
+    4: ["sp_bitdepth", "sp_resize", "sp_ensemble_batch", "sp_ensemble_batch_f64",
+        "sp_pad_uneven", "adv_dpsp", "train_recompress"],
 }
 # im_ against JAX, by case (the docstring); against one process: IM_ATOL
 WIDE_IM_ATOL = 5e-5
 JAX_IM_ATOL = {"ensemble_batch": WIDE_IM_ATOL, "ensemble_scan": WIDE_IM_ATOL,
-               "resize": WIDE_IM_ATOL, "bitdepth": 2e-4, "pad": IM_ATOL[False]}
+               "resize": WIDE_IM_ATOL, "bitdepth": 2e-4, "pad": IM_ATOL[False],
+               "pad_uneven": IM_ATOL[False]}
 F64_TOL = 1e-9
 ADV_ATOL = 1e-4
 SCALARS = ("vi", "mse_in", "bpp_ori", "bpp", "vi_msim")
@@ -105,13 +117,13 @@ def _rows(ranks, key="im_"):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_attack(name):
+def _jax_attack(name, sp=2):
     """JAX's row-sharded attack of ``DEFENSE_CASES[name]`` on ``sp_x``,
-    on a 2-device mesh, as numpy."""
+    on an ``sp``-device mesh, as numpy."""
     jm, jp, _ = hyper_models()
     x = _inputs()["sp_x"]
     attack = j_spatial_shard.make_spatial_attack_fn(
-        jm, JRDAttackConfig(**cases.DEFENSE_CASES[name]), Mesh(_devices(2), ("sp",)))
+        jm, JRDAttackConfig(**cases.DEFENSE_CASES[name]), Mesh(_devices(sp), ("sp",)))
     return {k: np.asarray(v) for k, v in attack(jp, x).items() if k in SCALARS + ("im_",)}
 
 
@@ -165,18 +177,84 @@ def test_row_sharded_resize_equals_one_process_in_float64(worlds):
     np.testing.assert_allclose(_rows(ranks), nhwc(one["im_"]), rtol=0, atol=F64_TOL)
 
 
+@functools.lru_cache(maxsize=None)
+def _one_process_f64(name):
+    model = cases.in_dtype(copy.deepcopy(hyper_models()[2]), torch.float64)
+    res = _one_process(model, name, _inputs()["sp_x"], torch.float64)
+    return {k: res[k].item() for k in SCALARS} | {"im_": nhwc(res["im_"])}
+
+
+def _check_one_process(ranks, name, sp, dtype):
+    """Every rank's scalars and the ranks' rows of ``im_`` against the
+    one-process run, at the float32 or float64 bounds of the docstring;
+    in float32 also against JAX's run of the case on an sp-device mesh,
+    where GSPMD splits the same rows unevenly, at the bounds of
+    ``test_row_sharded_defense_attack_matches_jax``."""
+    one = _one_process_f32(name) if dtype == "f32" else _one_process_f64(name)
+    want = _jax_attack(name, sp) if dtype == "f32" else None
+    rtol, atol, im_atol = (1e-4, 1e-6, IM_ATOL[False]) if dtype == "f32" else (F64_TOL,) * 3
+    for got in ranks:
+        assert got["rows"] == got["x_rows"] == (1, 3, 256 // sp, 128)
+        for k in SCALARS:
+            np.testing.assert_allclose(got[k], one[k], rtol=rtol, atol=atol,
+                                       err_msg=f"{k} vs one process")
+            if want is not None:
+                np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-4, atol=1e-6,
+                                           err_msg=f"{k} vs JAX")
+    im_ = _rows(ranks)
+    np.testing.assert_allclose(im_, one["im_"], rtol=0, atol=im_atol)
+    if want is not None:
+        np.testing.assert_allclose(im_, want["im_"], rtol=0, atol=JAX_IM_ATOL[name])
+    assert np.abs(im_ - _inputs()["sp_x"]).max() > 1e-3  # the attack moved the input
+
+
 def test_row_sharded_pad_rejects_an_unsplittable_padded_height(worlds):
-    for got in worlds.ranks("sp_pad_rejects", 2):
-        assert got["raised"] is not None
-        assert "pads H=256 to 320 rows" in got["raised"]
-        assert "the nearest p that fits is 64" in got["raised"]
+    """``-p 32`` once raised at sp=2 (320 padded rows do not divide by
+    128); now the padded image splits 192 and 128, and the run equals JAX's
+    on 2 devices and one process in float32, and one process in float64."""
+    _check_one_process(worlds.ranks("sp_pad_uneven", 2), "pad_uneven", 2, "f32")
+    _check_one_process(worlds.ranks("sp_pad_uneven_f64", 2), "pad_uneven", 2, "f64")
 
 
 def test_row_sharded_ensemble_rejects_a_narrow_image(worlds):
-    """At sp=4 the rotated variants' 128 rows make blocks of 32."""
-    for got in worlds.ranks("sp_ensemble_rejects", 4):
-        assert got["raised"] is not None and "W=128" in got["raised"]
-        assert "sp*64=256" in got["raised"]
+    """The ensemble at sp=4 once raised (the rotated variants' 128 rows
+    make blocks of 32); now they split 64, 64, 0 and 0, two ranks run the
+    codec on empty blocks, and the run equals JAX's on 4 devices and one
+    process in float32, and one process in float64."""
+    _check_one_process(worlds.ranks("sp_ensemble_batch", 4), "ensemble_batch", 4, "f32")
+    _check_one_process(worlds.ranks("sp_ensemble_batch_f64", 4), "ensemble_batch", 4, "f64")
+
+
+def test_row_sharded_uneven_pad_with_an_empty_rank(worlds):
+    """``-p 32`` at sp=4: the padded 320 rows split 128, 128, 64 and 0;
+    held to JAX's run on 4 devices and to one process."""
+    _check_one_process(worlds.ranks("sp_pad_uneven", 4), "pad_uneven", 4, "f32")
+
+
+@pytest.mark.parametrize("total, n, blocks", [
+    (256, 2, [128, 128]), (320, 2, [192, 128]), (320, 4, [128, 128, 64, 0]),
+    (128, 4, [64, 64, 0, 0]), (768, 4, [192, 192, 192, 192]), (640, 4, [192, 192, 192, 64]),
+])
+def test_row_blocks_keep_every_interior_boundary_on_64_rows(total, n, blocks):
+    assert shard.row_blocks(total, n) == blocks
+
+
+def test_even_row_blocks_take_their_heights_without_a_gather():
+    """Under ``sharded(..., even_rows=True)`` every block's height is this
+    rank's (the axis has no process group, so a gather would raise), and
+    ``own_rows`` raises where it would split a total unevenly."""
+    axis = shard.Axis(None, 1, 2)
+    y = torch.zeros(2, 3, 64, 8)
+    with shard.sharded(rows=axis, even_rows=True):
+        assert shard.block_heights(64, axis, y) == [64, 64]
+        assert shard.row_offset(y) == 64
+        drawn = shard.local_draw(y, lambda full: torch.arange(full.numel()).view(full.shape))
+        np.testing.assert_array_equal(drawn.numpy(),
+                                      np.arange(2 * 3 * 128 * 8).reshape(2, 3, 128, 8)[:, :, 64:])
+        whole = torch.arange(256.0).view(1, 1, 256, 1)
+        np.testing.assert_array_equal(shard.own_rows(whole).flatten().numpy(), np.arange(128, 256))
+        with pytest.raises(ValueError, match=re.escape("320 rows split [192, 128]")):
+            shard.own_rows(torch.zeros(1, 1, 320, 1))
 
 
 def test_dp_sp_adv_example_matches_jax(worlds):

@@ -4,9 +4,11 @@
   ``load_checkpoint`` (its ``checkpoint.pt``, its step directory, its
   ``best_loss`` directory) with the trained parameters exactly, and
   ``cli.attack_rd -ckpt`` attacks it;
-* training data: a folder of JPEGs (written here with PIL; the port reads
-  PNG only) raises instead of repeating empty epochs, naming the files it
-  does not read, and so does a folder whose PNGs yield no batch;
+* training data: a folder holding a WebP or a progressive JPEG (written
+  here with PIL, which reads them; the port does not) raises, naming the
+  file, instead of skipping it (JAX's stream holds it) or repeating empty
+  epochs, and a folder whose images yield no batch raises, naming what it
+  skipped;
 * the CLI: ``attack_rd -trace DIR`` writes a chrome trace and prints the
   ``[trace]`` line; ``--eval``, ``-r``, ``--fintune`` and ``-compile_cache``
   parse as on the JAX CLI and change nothing; ``-m fic`` without restarts
@@ -88,20 +90,26 @@ def test_attack_rd_attacks_a_trained_codec(trained, tmp_path, monkeypatch, capsy
 
 
 def test_a_jpeg_folder_raises_instead_of_spinning(tmp_path, monkeypatch):
-    jpegs = tmp_path / "jpegs"
-    jpegs.mkdir()
-    Image.fromarray((np.random.RandomState(0).rand(300, 300, 3) * 255).astype(np.uint8)).save(
-        jpegs / "a.jpg")
-    assert data.list_image_files(str(jpegs)) == []
-    with pytest.raises(FileNotFoundError, match=r"1 \.jpg/\.jpeg/\.bmp/\.webp files .* PNG only"):
-        next(data.image_folder_batches(str(jpegs), 1, crop=256, epochs=None))
-    with pytest.raises(FileNotFoundError, match="PNG only"):
-        next(data.make_batches(str(jpegs), 1, 256))
+    """The stream lists JAX's five extensions and reads baseline JPEGs; a
+    WebP or progressive JPEG file, which PIL reads, raises naming it."""
+    rgb = (np.random.RandomState(0).rand(300, 300, 3) * 255).astype(np.uint8)
+    for kind, name, kwargs in (("webp", "a.webp", {}), ("progressive", "b.jpg",
+                                                        {"progressive": True})):
+        folder = tmp_path / kind
+        folder.mkdir()
+        Image.fromarray(rgb).save(folder / name, **kwargs)
+        _png(folder / "c.png", 300, 300)
+        assert data.list_image_files(str(folder)) == [str(folder / name), str(folder / "c.png")]
+        match = rf"{name}: {'WebP' if kind == 'webp' else 'progressive'} .* not supported"
+        with pytest.raises(ValueError, match=match):
+            list(data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
+        with pytest.raises(ValueError, match=match):
+            list(data.make_batches(str(folder), 1, 256))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="PNG only"):
+    with pytest.raises(ValueError, match="progressive .* not supported"):
         cli_train.main(["-device", "cpu", "-m", "hyper", "-q", "1", "-metric", "mse",
-                        "-ckpt", CKPT, "-batch_size", "1", "-max_steps", "1",
-                        "-data", str(jpegs)])
+                        "-ckpt", CKPT, "-batch_size", "2", "-max_steps", "1",
+                        "-data", str(tmp_path / "progressive")])
 
 
 def test_an_epoch_without_a_batch_raises_naming_the_skipped_files(tmp_path):

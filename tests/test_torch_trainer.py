@@ -70,7 +70,7 @@ def test_synthetic_and_dihedral_streams_equal_jax(batch, crop, seed):
 def _png_folder(root):
     """PNGs of several sizes in nested folders, one too small for the crop
     and one PNG file no reader can decode (both sides list it and skip it;
-    the port lists no other format)."""
+    tests/test_torch_image_formats.py mixes in JPEG and BMP files)."""
     rng = np.random.RandomState(0)
     sizes = [(80, 96), (64, 64), (120, 70), (40, 200), (100, 100), (66, 130), (90, 64)]
     for i, (h, w) in enumerate(sizes):

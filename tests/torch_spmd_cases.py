@@ -85,10 +85,11 @@ BRANCH_STEPS = 10
 BRANCH_THRESHOLD = 2e-4
 # slice 10 c-e on hyper q1 (tests/test_torch_parallel_defenses.py): the
 # row-sharded attack through each in-loop defense and with -p, 3 `select`
-# steps (the codec on every step) on ``sp_x``; -p REJECTED_PAD pads its 256
-# rows to 320, which sp = 2 cannot split into blocks of 64k rows; the inner
-# attack on dp x sp = 2 x 2 at DPSP_ADV_THRESHOLD takes both phases in
-# BRANCH_STEPS steps
+# steps (the codec on every step) on ``sp_x``; ``pad_uneven`` pads its 256
+# rows to 320, which sp = 2 splits into blocks of 192 and 128 rows and sp =
+# 4 into 128, 128, 64 and 0, and the ensemble's rotated variants have its
+# 128 columns as rows, 64, 64, 0 and 0 at sp = 4; the inner attack on dp x
+# sp = 2 x 2 at DPSP_ADV_THRESHOLD takes both phases in BRANCH_STEPS steps
 DEFENSE_ATTACK = dict(steps=3, two_phase_impl="select")
 DEFENSE_CASES = {
     "ensemble_batch": dict(DEFENSE_ATTACK, defend_in_loop="ensemble", ensemble_impl="batch"),
@@ -96,8 +97,8 @@ DEFENSE_CASES = {
     "bitdepth": dict(DEFENSE_ATTACK, defend_in_loop="bitdepth"),
     "resize": dict(DEFENSE_ATTACK, defend_in_loop="resize"),
     "pad": dict(DEFENSE_ATTACK, pad=64),
+    "pad_uneven": dict(DEFENSE_ATTACK, pad=32),
 }
-REJECTED_PAD = 32
 DPSP_ADV_THRESHOLD = 2e-4
 
 
@@ -165,18 +166,19 @@ def _train(inputs, mesh, arch: str, batches: List[np.ndarray], noise: str, adv: 
     the logs of each step and the final parameters, from this rank."""
     _use_noise(inputs["noise"][noise])
     model = replicate(mesh, _model(inputs, arch, trainable=True))
-    where = mesh_shard(mesh)
     lmbda = lambda_for("mse", 1)
 
     def local(b):
         return local_part(mesh, nchw(b), batch_row_sharding(mesh)).contiguous(
             memory_format=torch.channels_last)
 
+    where = mesh_shard(mesh, local(batches[0]))
+
     grads = None
     if not (adv or recompress):
         names, params = zip(*[(n, p) for n, p in model.named_parameters()
                               if n != "entropy_bottleneck.quantiles"])
-        with shard.sharded(where.batch, where.rows):
+        with shard.within(where):
             result = model(local(batches[0]), quant_mode="noise", generator=torch.Generator())
             loss = rate_distortion_loss(result, local(batches[0]), lmbda, "mse")["loss"]
         grads = [torch.zeros_like(p) if g is None else g
@@ -453,18 +455,9 @@ def sp_defense(inputs, name: str):
     return _sp_attack(inputs, **DEFENSE_CASES[name])
 
 
-def sp_resize_f64(inputs):
-    return _sp_attack(inputs, dtype=torch.float64, **DEFENSE_CASES["resize"])
-
-
-def sp_pad_rejects(inputs):
-    """``-p`` REJECTED_PAD on ``sp_x`` over every rank: the error raised."""
-    return _raised(lambda: _sp_attack(inputs, **DEFENSE_ATTACK, pad=REJECTED_PAD))
-
-
-def sp_ensemble_rejects(inputs):
-    """The ensemble on ``sp_x`` (128 wide) over every rank: the error."""
-    return _raised(lambda: _sp_attack(inputs, **DEFENSE_CASES["ensemble_batch"]))
+def sp_defense_f64(inputs, name: str):
+    """``DEFENSE_CASES[name]``'s row-sharded attack in float64."""
+    return _sp_attack(inputs, dtype=torch.float64, **DEFENSE_CASES[name])
 
 
 def adv_dpsp(inputs):
@@ -496,12 +489,14 @@ SCENARIOS = {f.__name__: f for f in (
     mesh_and_batch, tiles_identity, tiles_codec, corpus_attack, train_rd, train_context,
     train_adv, adv_branches, sp_forward, sp_attack, sp_attack_select, sp_attack_msssim,
     sp_unaligned, train_dpsp, adv_sp_rejects_debug, sp2_split_attack, sp2_cheng_forward,
-    sp2_cheng_attack, sp2_nlaic_split, roll_rows_case, shared_rows_case, sp_resize_f64,
-    sp_pad_rejects, sp_ensemble_rejects, adv_dpsp, train_recompress)}
+    sp2_cheng_attack, sp2_nlaic_split, roll_rows_case, shared_rows_case, adv_dpsp,
+    train_recompress)}
 SCENARIOS.update({f"sp2_{arch}": (lambda inputs, arch=arch: sp2_adapter(inputs, arch))
                   for arch in ADAPTERS})
 SCENARIOS.update({f"sp_{name}": (lambda inputs, name=name: sp_defense(inputs, name))
                   for name in DEFENSE_CASES})
+SCENARIOS.update({f"sp_{name}_f64": (lambda inputs, name=name: sp_defense_f64(inputs, name))
+                  for name in ("resize", "pad_uneven", "ensemble_batch")})
 
 
 class StreamedWorlds:
