@@ -9,7 +9,7 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
-   builds the host rANS coder and the host JPEG decoder with g++;
+   builds the host rANS coder and the host JPEG and PNG decoders with g++;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
    every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
@@ -230,7 +230,22 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     18f's bounds: ``-p PAR_UNEVEN_PAD`` at 768x512 on sp=2 (576 padded rows:
     320 and 256) in 18c's two ranks, and the self-ensemble at
     PAR_UNEVEN_SIZE on sp=4 (the rotated variants' 576 rows: 192, 192, 192
-    and 0) in 18d's four ranks.
+    and 0) in 18d's four ranks;
+22. progressive and CMYK JPEGs and every PNG kind (slice 16): (a) prints
+    phase 2's build of the PNG decoder, decodes every file of INPUTS_DIR
+    (``tests/data/inputs``: progressive 4:2:0 and 4:4:4, CMYK, and PNGs
+    interlaced, palette, gray+alpha, 16-bit, 1-, 2- and 4-bit, written by
+    its ``make_inputs.py``) with the host C++ decoders and their numpy plain
+    versions, which must agree bit for bit and give the sha256 of Pillow's
+    ``convert("RGB")`` pixels that ``inputs.json`` records, and times both
+    on the 768x512 progressive file and on a 448x256 RGB PNG; (b) runs
+    ``cli.attack_rd -s`` on that progressive file (hyper q1 demo weights,
+    JPEG_ATTACK_STEPS steps, cuDNN deterministic), printing its GDN
+    launches, beside the same attack on a PNG of its pixels: noise within
+    NOISE_ATOL and vi within VI_ATOL; (c) ``cli.train -data`` on a folder
+    of every file for KINDS_TRAIN_STEPS steps, printing its rate, an
+    epoch's host decode time and its launches.  Phase 21c's PNG folder is
+    read by the C++ PNG decoder since this slice.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -245,9 +260,10 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19, 20 and 21.  It reads five demo checkpoints: hyper q1,
-cheng2020-gmm q3, and nlaic, tic and fic q3; and step 2000 of the orbax
-tree ``ckpts/adv/hyper-0.013-mse-0.0001-300``.
+rendezvous), 19, 20, 21 and 22.  It reads five demo checkpoints: hyper q1,
+cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
+``ckpts/adv/hyper-0.013-mse-0.0001-300``; and the files of
+``tests/data/inputs``.
 """
 
 from __future__ import annotations
@@ -255,6 +271,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes.util
+import functools
+import hashlib
 import io
 import json
 import math
@@ -677,6 +695,17 @@ PRECISION_STEPS = 101
 PRECISIONS = ("highest", "bfloat16", "bfloat16", "highest")  # in turns
 PAR_UNEVEN_PAD = 32
 PAR_UNEVEN_SIZE = (512, 576)
+# phase 22 (slice 16): the committed files of every kind in INPUTS_DIR
+# (``make_inputs.py`` there wrote them; ``inputs.json`` holds the sha256 of
+# Pillow 12.1.0's convert("RGB") pixels of each), (a) each decoded by the
+# C++ and the numpy decoders, KINDS_TEXTURED (a 768x512 progressive q90
+# JPEG of textured_rgb) and a JPEG_TRAIN_SIZE RGB PNG of Paeth-filtered
+# rows timed (C best of JPEG_DECODE_RUNS); (b) the attack CLI on
+# KINDS_TEXTURED (JPEG_ATTACK_STEPS steps); (c) KINDS_TRAIN_STEPS steps of
+# cli.train -data on a folder of every file
+INPUTS_DIR = os.path.join(ROOT, "tests", "data", "inputs")
+KINDS_TEXTURED = "textured_progressive.jpg"
+KINDS_TRAIN_STEPS = 5
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -3832,6 +3861,35 @@ def phase_orbax_resume(gdn):
     return records, launches
 
 
+def cli_attack(phase: str, path: str, steps: int, *extra):
+    """``cli.attack_rd``'s ``run`` on ``path`` (hyper q1 demo weights,
+    ``select``, in the current directory) under ``measured``: (its AVG
+    values, the measurement, the attacked image).  Raises on a non-finite
+    result or a run that launched neither GDN kernel."""
+    from imagecompression_adversarial_tpu_torch.cli import attack_rd as attack_cli
+    from imagecompression_adversarial_tpu_torch.config import parse_config
+
+    cfg = parse_config(["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT, "-s", path,
+                        "-steps", str(steps), "-two_phase", "select", "-device", "cuda", *extra])
+    kept = []
+    to_host = attack_cli.to_host
+
+    def keep(res):
+        kept.append(to_host(res))
+        return kept[-1]
+
+    attack_cli.to_host = keep
+    try:
+        avg, m = measured(lambda: attack_cli.run(cfg))
+    finally:
+        attack_cli.to_host = to_host
+    if not all(math.isfinite(avg[k]) for k in ("vi", "bpp_ori", "bpp")) or \
+            not m["launches"] or not m["bwd_launches"]:
+        raise RuntimeError(f"phase {phase} attack on {path} {extra}: non-finite result or no "
+                           f"GDN launch ({m['launches']}, {m['bwd_launches']})")
+    return avg, m, kept[0]["im_"]
+
+
 def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
     """Phase 21: the JPEG decoder, a JPEG through the attack CLI and a JPEG
     folder through cli.train, -precision bfloat16 beside highest, and phase
@@ -3840,8 +3898,6 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
     import numpy as np
     import torch
 
-    from imagecompression_adversarial_tpu_torch.cli import attack_rd as attack_cli
-    from imagecompression_adversarial_tpu_torch.config import parse_config
     from imagecompression_adversarial_tpu_torch.io import jpeg
     from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
     from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
@@ -3884,27 +3940,8 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
                                                                               native)):
             raise RuntimeError("phase 21b: the readers do not give the decoded pixels")
         os.chdir(tmp)
-        kept = []
-        to_host = attack_cli.to_host
-
-        def keep(res):
-            kept.append(to_host(res))
-            return kept[-1]
-
-        def attack(path, steps, *extra):
-            cfg = parse_config(["-m", "hyper", "-q", "1", "-metric", "mse", "-ckpt", CKPT,
-                                "-s", path, "-steps", str(steps), "-two_phase", "select",
-                                "-device", "cuda", *extra])
-            kept.clear()
-            avg, m = measured(lambda: attack_cli.run(cfg))
-            if not all(math.isfinite(avg[k]) for k in ("vi", "bpp_ori", "bpp")) or \
-                    not m["launches"] or not m["bwd_launches"]:
-                raise RuntimeError(f"phase 21 attack on {path} {extra}: non-finite result or "
-                                   f"no GDN launch ({m['launches']}, {m['bwd_launches']})")
-            return avg, m, kept[0]["im_"]
-
-        attack_cli.to_host = keep
         try:
+            attack = functools.partial(cli_attack, "21")
             with cudnn_deterministic():
                 runs = {kind: attack(path, JPEG_ATTACK_STEPS) for kind, path in
                         (("jpeg", src), ("png", png))}
@@ -3944,7 +3981,6 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
                 if tf32 != (precision == "bfloat16"):
                     raise RuntimeError(f"phase 21d: -precision {precision} left TF32 {tf32}")
         finally:
-            attack_cli.to_host = to_host
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
@@ -3996,6 +4032,140 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     records.update(hold_uneven(uneven, launches))
+    return records, launches, launches_bwd
+
+
+def phase_kinds(gdn, png_build: dict):
+    """Phase 22: the image kinds of slice 16 (progressive and CMYK JPEGs,
+    every PNG kind): both decoders on every committed file against
+    Pillow's recorded pixels, a progressive JPEG through the attack CLI
+    beside the PNG of its pixels, and cli.train on a folder of every kind.
+    Returns the records and the forward and backward kernels' launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io import jpeg, png
+    from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
+    from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
+
+    spec = importlib.util.spec_from_file_location(
+        "make_inputs", os.path.join(INPUTS_DIR, "make_inputs.py"))
+    make_inputs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_inputs)
+    with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+        recorded = json.load(f)
+    records, launches, launches_bwd = {}, {}, {}
+
+    def best_of(fn, data):
+        times = []
+        for _ in range(JPEG_DECODE_RUNS):
+            t = time.perf_counter()
+            out = fn(data)
+            times.append(time.perf_counter() - t)
+        return out, min(times)
+
+    # 22a: every file by both decoders, each held to Pillow's hash
+    failed, plain_s = [], {}
+    for name, rec in sorted(recorded.items()):
+        path = os.path.join(INPUTS_DIR, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        native = read_pixels(path)
+        t = time.perf_counter()
+        plain = (jpeg if name.endswith(".jpg") else png).decode(data)
+        plain_s[name] = time.perf_counter() - t
+        plain = np.repeat(plain, 3, axis=2) if plain.shape[2] == 1 else plain
+        digest = hashlib.sha256(np.ascontiguousarray(native).tobytes()).hexdigest()
+        if digest != rec["sha256"] or not np.array_equal(native, plain):
+            failed.append(f"{name} ({rec['mode']}: C {'=' if digest == rec['sha256'] else '!='} "
+                          f"Pillow, numpy {'=' if np.array_equal(native, plain) else '!='} C)")
+    with open(os.path.join(INPUTS_DIR, KINDS_TEXTURED), "rb") as f:
+        textured = f.read()
+    _, textured_c = best_of(jpeg.decode_native, textured)
+    th, tw = JPEG_TRAIN_SIZE
+    png_data = make_inputs.write_png(textured_rgb(th, tw, seed=7), 8, 2)
+    png_c_out, png_c = best_of(png.decode_native, png_data)
+    t = time.perf_counter()
+    png_equal = bool(np.array_equal(png.decode(png_data), png_c_out))
+    png_numpy = time.perf_counter() - t
+    records["22a"] = {"build": png_build, "files": len(recorded), "failed": failed,
+                      "numpy_s": plain_s, "textured_c_s": textured_c,
+                      "textured_numpy_s": plain_s[KINDS_TEXTURED], "png_bytes": len(png_data),
+                      "png_c_s": png_c, "png_numpy_s": png_numpy, "png_equal": png_equal,
+                      "host": host_cpu()}
+    log(f"phase 22a PNG decoder: built in phase 2 ({png_build['s']:.2f} s, {png_build['how']}); "
+        f"{len(recorded) - len(failed)} of {len(recorded)} files of {INPUTS_DIR} decoded by the "
+        f"C++ and numpy decoders to Pillow's recorded pixels ({', '.join(sorted({r['mode'] for r in recorded.values()}))}); "
+        f"on the host ({records['22a']['host']}): the {KINDS_TEXTURED} (768x512 progressive "
+        f"q90, {len(textured)} bytes) C {textured_c * 1e3:.2f} ms (best of {JPEG_DECODE_RUNS}), "
+        f"numpy {plain_s[KINDS_TEXTURED] * 1e3:.1f} ms; a {tw}x{th} RGB PNG ({len(png_data)} "
+        f"bytes, Paeth rows) C {png_c * 1e3:.2f} ms, numpy {png_numpy * 1e3:.1f} ms "
+        f"({png_numpy / png_c:.1f}x), equal: {png_equal}")
+    if failed or not png_equal:
+        raise RuntimeError(f"phase 22a: decoders differ from Pillow's pixels or each other: "
+                           f"{failed}, PNG equal {png_equal}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kinds_")
+    cwd = os.getcwd()
+    try:
+        # 22b: the attack CLI on the progressive file and on a PNG of its pixels
+        src = os.path.join(INPUTS_DIR, KINDS_TEXTURED)
+        twin = os.path.join(tmp, "textured.png")
+        write_image(read_pixels(src)[None].astype(np.float32) / 255.0, twin)
+        os.chdir(tmp)
+        with cudnn_deterministic():
+            (aj, mj, ij), (ap, mp_, ip) = (cli_attack("22", path, JPEG_ATTACK_STEPS)
+                                           for path in (src, twin))
+        noise = float(np.abs(ij - ip).max())
+        dvi = abs(aj["vi"] - ap["vi"])
+        records["22b"] = {"steps_per_s": JPEG_ATTACK_STEPS / aj["t"],
+                          "png_steps_per_s": JPEG_ATTACK_STEPS / ap["t"], "vi": aj["vi"],
+                          "png_vi": ap["vi"], "noise_max_abs": noise,
+                          "launches": mj["launches"], "bwd_launches": mj["bwd_launches"]}
+        label = f"22b attack_rd -s {KINDS_TEXTURED}"
+        launches[label], launches_bwd[label] = mj["launches"], mj["bwd_launches"]
+        log(f"phase 22b cli.attack_rd -s {KINDS_TEXTURED}, hyper q1 768x512, {JPEG_ATTACK_STEPS} "
+            f"steps (cuDNN deterministic): {JPEG_ATTACK_STEPS / aj['t']:.2f} steps/s, vi "
+            f"{aj['vi']:.6f}, bpp_ori {aj['bpp_ori']:.4f}, bpp {aj['bpp']:.4f}, gdn_fwd launches "
+            f"{mj['launches']}, gdn_bwd launches {mj['bwd_launches']}; on a PNG of its pixels "
+            f"{JPEG_ATTACK_STEPS / ap['t']:.2f} steps/s, vi {ap['vi']:.6f}: noise max |diff| "
+            f"{noise:.3e} (tol {NOISE_ATOL}), vi diff {dvi:.3e} (tol {VI_ATOL})")
+        if noise > NOISE_ATOL or dvi > VI_ATOL:
+            raise RuntimeError("phase 22b: the progressive JPEG and PNG attacks differ")
+
+        # 22c: cli.train on a folder of every file
+        folder = os.path.join(tmp, "train_kinds")
+        os.makedirs(folder)
+        for name in recorded:
+            shutil.copy(os.path.join(INPUTS_DIR, name), folder)
+        it = image_folder_batches(folder, 8, 256, seed=0)
+        t = time.perf_counter()
+        batch = next(it)
+        decode_s = time.perf_counter() - t
+        it.close()
+        if batch.shape != (8, 256, 256, 3) or not np.isfinite(batch).all():
+            raise RuntimeError(f"phase 22c: the folder's batch is {batch.shape}")
+        work = os.path.join(tmp, "work")
+        os.makedirs(work)
+        os.chdir(work)
+        s, n, peak, _ = train_cli(gdn, ["-data", folder, "-max_steps", str(KINDS_TRAIN_STEPS)])
+        timing = s["timing"]
+        records["22c"] = {"steps_per_s": timing["steady_steps"] / timing["steady_s"],
+                          "first_step_s": timing["first_step_s"], "decode_s_per_epoch": decode_s,
+                          "launches": n, "bwd_launches": gdn.launch_counts["gdn_bwd"],
+                          "peak_gib": peak, "last_loss": s["last"]["loss"]}
+        label = f"22c cli.train -data kinds x{KINDS_TRAIN_STEPS}"
+        launches[label], launches_bwd[label] = n, gdn.launch_counts["gdn_bwd"]
+        log(f"phase 22c cli.train -data on the {len(recorded)} files of every kind (batches of 8 "
+            f"256x256 crops, one a file an epoch), {KINDS_TRAIN_STEPS} steps: "
+            f"{records['22c']['steps_per_s']:.2f} steps/s (steps 2-{KINDS_TRAIN_STEPS}), first "
+            f"step {timing['first_step_s']:.2f} s; the host's decode of an epoch's batch alone "
+            f"{decode_s * 1e3:.1f} ms; last loss {s['last']['loss']:.6f}, gdn_fwd launches {n}, "
+            f"gdn_bwd launches {gdn.launch_counts['gdn_bwd']}, peak {peak:.3f} GiB")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
     return records, launches, launches_bwd
 
 
@@ -4111,6 +4281,13 @@ def main() -> int:
                   "library": _build.jpeg_library_path().name}
     log(f"phase 2 build of the JPEG decoder: {jpeg_build['s']:.2f} s ({jpeg_build['how']}) -> "
         f"{jpeg_build['library']}")
+    t = time.time()
+    cached = _build.png_library_path().is_file()
+    _build.build_png()
+    png_build = {"s": time.time() - t, "how": "cached" if cached else "g++",
+                 "library": _build.png_library_path().name}
+    log(f"phase 2 build of the PNG decoder: {png_build['s']:.2f} s ({png_build['how']}) -> "
+        f"{png_build['library']}")
 
     records = phase_kernel_vs_plain(gdn)
     launches, launches_bwd = phase_main_path(gdn)
@@ -4145,6 +4322,8 @@ def main() -> int:
     print(json.dumps({"phase20": orbax_records}, default=float), flush=True)
     input_records, launches_inputs, launches_inputs_bwd = phase_inputs(gdn, jpeg_build, uneven)
     print(json.dumps({"phase21": input_records}, default=float), flush=True)
+    kinds_records, launches_kinds, launches_kinds_bwd = phase_kinds(gdn, png_build)
+    print(json.dumps({"phase22": kinds_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4167,6 +4346,7 @@ def main() -> int:
             **launches_mp,
             **launches_orbax,
             **launches_inputs,
+            **launches_kinds,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4189,6 +4369,7 @@ def main() -> int:
             **launches_train_bwd,
             **launches_mp_bwd,
             **launches_inputs_bwd,
+            **launches_kinds_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

@@ -3,7 +3,8 @@
 
     python -m imagecompression_adversarial_tpu_torch.cli.jpeg_baseline 'kodim*.png' -q 50
 
-Codes each image (PNG, JPEG or BMP) with the port's numpy baseline JPEG
+Codes each image (PNG, JPEG or BMP, read as Pillow's ``convert("RGB")``
+reads it: ``io/image.py::read_pixels``) with the port's numpy baseline JPEG
 encoder (``io/jpeg.py``: the bytes Pillow's libjpeg writes at that
 quality, no PIL needed), decodes the bytes with its host C++ decoder (the
 pixels Pillow's libjpeg decodes) and prints the real bpp, the decoded

@@ -1,26 +1,33 @@
-// Baseline JPEG decoder (host C++): the pixels libjpeg(-turbo) decodes with
+// Huffman JPEG decoder (host C++): the pixels libjpeg(-turbo) decodes with
 // its default settings (islow IDCT, fancy upsampling), which is what
-// Pillow's Image.open gives.
+// Pillow's Image.open gives, and for CMYK what Pillow's convert("RGB")
+// gives.
 //
-// Role: io/jpeg.py parses the markers (frame, tables, restart interval) and
-// hands this file the entropy-coded segment of the one scan and the tables
-// of each component; kernels/_build.py compiles it with g++ into
+// Role: io/jpeg.py parses the markers (frame, tables, restart intervals,
+// every scan's header) and hands this file each scan's entropy-coded
+// segment and tables; kernels/_build.py compiles it with g++ into
 // _build/libicat_jpeg-<hash>.so on first use, and io/jpeg.py loads it with
 // ctypes.  io/jpeg.py::decode is its plain numpy version and is held to it
 // bit for bit.  Decoded here, in libjpeg's order and arithmetic:
 //
-//   * the Huffman scan: one interleaved scan of 1 or 3 components, each MCU
-//     hs x vs blocks of luma and one block of each chroma component (a
-//     single component: one block an MCU, in raster order), DC predictors,
-//     and restart intervals (RSTn markers, after which the predictors reset
-//     and the bit reader starts on the next byte);
+//   * each scan into int16 coefficient planes, one per component, padded
+//     to whole MCUs: an interleaved scan MCU by MCU (each component's
+//     hs x vs blocks), a scan of one component over that component's own
+//     block grid; DC predictors, end-of-band runs and restart intervals
+//     (RSTn markers, after which both reset and the bit reader starts on
+//     the next byte).  Sequential scans as jdhuff.c (a baseline file is
+//     one interleaved scan of band 0..63); progressive ones as jdphuff.c:
+//     DC first and refine, AC first with its EOBRUN, AC refine with its
+//     correction bits and zero-run skipping;
 //   * dequantization and jidctint (13-bit fixed point, PASS1_BITS 2) with
 //     its range-limit table;
-//   * the chroma's fancy upsampling: h2v1 (4:2:2) and h2v2 (4:2:0), the
-//     triangle filters of jdsample.c with the edge samples repeated, and
-//     box upsampling where a plane is 2 or fewer samples wide (libjpeg-
-//     turbo's rule); none for 4:4:4;
-//   * jdcolor.c's fixed-point YCbCr -> RGB (16 fractional bits).
+//   * fancy upsampling: h2v1 (4:2:2) and h2v2 (4:2:0), the triangle
+//     filters of jdsample.c with the edge samples repeated, and box
+//     upsampling where a plane is 2 or fewer samples wide (libjpeg-turbo's
+//     rule); none for 4:4:4;
+//   * jdcolor.c's fixed-point YCbCr -> RGB (16 fractional bits), or for
+//     four components Pillow's CMYK: its "CMYK;I" raw mode inverts the
+//     samples and Convert.c's cmyk2rgb maps them to RGB.
 //
 // A gray image is its one component.  Exposed as a C ABI for ctypes.
 
@@ -28,6 +35,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 namespace {
@@ -119,7 +127,7 @@ struct Huffman {
     int code = 0, k = 0;
     for (int len = 1; len <= 16; ++len) {
       for (int i = 0; i < counts[len - 1]; ++i) {
-        if (code >= (1 << len)) return false;
+        if (code >= (1 << len) || k >= 256) return false;
         const int lo = code << (16 - len), n = 1 << (16 - len);
         for (int j = 0; j < n; ++j) lut[lo + j] = static_cast<uint16_t>((len << 8) | symbols[k]);
         ++code;
@@ -170,6 +178,13 @@ struct BitReader {
     skip(s);
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
   }
+  inline uint32_t get(int k) {
+    if (k == 0) return 0;
+    if (n < k) fill();
+    const uint32_t v = static_cast<uint32_t>(buf >> (64 - k));
+    skip(k);
+    return v;
+  }
   // step over the RSTn marker that must follow a restart interval
   bool restart() {
     while (p < end && p[0] == 0xFF && p + 1 < end && p[1] == 0xFF) ++p;  // fill bytes
@@ -183,12 +198,157 @@ struct BitReader {
 };
 
 struct Component {
-  int hs, vs;             // sampling factors (MCU blocks across, down)
-  int bw, bh;             // blocks across, down of its plane
-  int w, h;               // its samples across, down (downsampled size)
-  const int32_t* quant;   // natural order
-  Huffman dc, ac;
-  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8)
+  int hs, vs;                 // sampling factors (MCU blocks across, down)
+  int bw, bh;                 // blocks across, down of its MCU-padded plane
+  int gw, gh;                 // blocks across, down a scan of it alone codes
+  int w, h;                   // its samples across, down (downsampled size)
+  const int32_t* quant;       // natural order
+  std::vector<int16_t> coef;  // bh x bw blocks of 64, zigzag order
+  std::unique_ptr<uint8_t[]> plane;  // (bh * 8) x (bw * 8), every sample written
+};
+
+inline int16_t as_jcoef(int32_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+
+// libjpeg's LEFT_SHIFT: the shift of the unsigned bits
+inline int32_t left_shift(int32_t v, int n) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v) << n);
+}
+
+// What a scan's decode of one block can find wrong.
+enum Fault { kOk = 0, kBadDc, kBadAc, kPastBand, kBadRefine };
+const char* const kFaults[] = {"", "bad DC code", "bad AC code", "coefficient past the band",
+                               "bad AC refinement code"};
+
+// Reads one Huffman symbol into `sym`; false where no code of the table
+// starts the window.
+inline bool huff_decode(BitReader& b, const Huffman& t, int& sym) {
+  const uint16_t e = t.lut[b.peek16()];
+  if (!(e >> 8)) return false;
+  b.skip(e >> 8);
+  sym = e & 0xFF;
+  return true;
+}
+
+// A sequential block (jdhuff.c): zeroed, then its DC difference and AC
+// run/size codes over band 0..63.
+Fault decode_sequential(BitReader& b, const Huffman& dc, const Huffman& ac, int32_t& pred,
+                        int16_t* blk) {
+  int s;
+  if (!huff_decode(b, dc, s) || s > 15) return kBadDc;
+  std::memset(blk, 0, 64 * sizeof(int16_t));
+  pred += b.receive_extend(s);
+  blk[0] = as_jcoef(pred);
+  for (int k = 1; k < 64; ++k) {
+    if (!huff_decode(b, ac, s)) return kBadAc;
+    const int r = s >> 4;
+    s &= 15;
+    if (s) {
+      k += r;
+      const int32_t v = b.receive_extend(s);
+      if (k > 63) return kPastBand;
+      blk[k] = as_jcoef(v);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      break;
+    }
+  }
+  return kOk;
+}
+
+// A progressive DC first scan's block (decode_mcu_DC_first).
+Fault decode_dc_first(BitReader& b, const Huffman& dc, int al, int32_t& pred, int16_t* blk) {
+  int s;
+  if (!huff_decode(b, dc, s) || s > 15) return kBadDc;
+  pred += b.receive_extend(s);
+  blk[0] = as_jcoef(left_shift(pred, al));
+  return kOk;
+}
+
+// A progressive AC first scan's block (decode_mcu_AC_first): band ss..se,
+// the coefficients shifted left by al; an EOBr code starts a run of
+// 2^r + r bits blocks (this one included) with nothing more in the band.
+Fault decode_ac_first(BitReader& b, const Huffman& ac, int ss, int se, int al, int32_t& eobrun,
+                      int16_t* blk) {
+  if (eobrun > 0) {
+    --eobrun;
+    return kOk;
+  }
+  for (int k = ss; k <= se; ++k) {
+    int s;
+    if (!huff_decode(b, ac, s)) return kBadAc;
+    const int r = s >> 4;
+    s &= 15;
+    if (s) {
+      k += r;
+      const int32_t v = b.receive_extend(s);
+      if (k > se) return kPastBand;
+      blk[k] = as_jcoef(left_shift(v, al));
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      eobrun = (1 << r) - 1 + static_cast<int32_t>(b.get(r));
+      break;
+    }
+  }
+  return kOk;
+}
+
+// The correction bit of a coefficient already nonzero: where set and the
+// bit al of its magnitude is not, its magnitude grows by 2^al.
+inline void refine(BitReader& b, int16_t& c, int32_t p1, int32_t m1) {
+  if (b.get(1) && !(c & p1)) c = as_jcoef(c + (c >= 0 ? p1 : m1));
+}
+
+// A progressive AC refine scan's block (decode_mcu_AC_refine): each code
+// places one new coefficient of magnitude 2^al after r zero ones (or
+// skips 16 zeros, or starts an end-of-band run), and every nonzero
+// coefficient passed on the way takes a correction bit; in an end-of-band
+// run the rest of the band's nonzero coefficients take theirs.
+Fault decode_ac_refine(BitReader& b, const Huffman& ac, int ss, int se, int al,
+                       int32_t& eobrun, int16_t* blk) {
+  const int32_t p1 = 1 << al, m1 = -(1 << al);
+  int k = ss;
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      int s;
+      if (!huff_decode(b, ac, s)) return kBadAc;
+      int r = s >> 4;
+      s &= 15;
+      int32_t value = 0;
+      if (s) {
+        if (s != 1) return kBadRefine;
+        value = b.get(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = (1 << r) + static_cast<int32_t>(b.get(r));
+        break;
+      }
+      do {
+        if (blk[k]) {
+          refine(b, blk[k], p1, m1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (value) {
+        if (k > se) return kPastBand;
+        blk[k] = as_jcoef(value);
+      }
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= se; ++k)
+      if (blk[k]) refine(b, blk[k], p1, m1);
+    --eobrun;
+  }
+  return kOk;
+}
+
+// One scan's header as io/jpeg.py hands it over.
+struct ScanDesc {
+  int n, comp[4], ss, se, ah, al, restart;
+  int64_t offset, length;
 };
 
 void set_error(char* err, int len, const char* msg) {
@@ -222,29 +382,90 @@ void h2v2_fancy(const uint8_t* plane, int stride, int w, int h, int y, uint8_t* 
   }
 }
 
-// A chroma plane brought to the image's width and height (w x h, row major).
-void upsample(const Component& c, int hmax, int vmax, int width, int height, uint8_t* out) {
+// Row `y` of a component at the image's sampling (`width` samples): its
+// plane's own row where it is not downsampled, else that row upsampled
+// into `buf` (2 * c.w samples).
+const uint8_t* sampled_row(const Component& c, int hmax, int vmax, int width, int y,
+                           uint8_t* buf) {
   const int stride = c.bw * 8, fx = hmax / c.hs, fy = vmax / c.vs;
-  std::vector<uint8_t> row(2 * static_cast<size_t>(c.w));
-  const bool fancy = c.w > 2;
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* in = c.plane.data() + static_cast<int64_t>(y / fy) * stride;
-    uint8_t* dst = out + static_cast<int64_t>(y) * width;
-    if (fx == 1) {
-      std::memcpy(dst, in, static_cast<size_t>(width));
-      continue;
-    }
-    if (!fancy) {
-      for (int x = 0; x < width; ++x) dst[x] = in[x / 2];
-      continue;
-    }
-    if (fy == 1) {
-      h2v1_fancy(in, c.w, row.data());
-    } else {
-      h2v2_fancy(c.plane.data(), stride, c.w, c.h, y, row.data());
-    }
-    std::memcpy(dst, row.data(), static_cast<size_t>(width));
+  const uint8_t* in = c.plane.get() + static_cast<int64_t>(y / fy) * stride;
+  if (fx == 1) return in;
+  if (c.w <= 2) {
+    for (int x = 0; x < width; ++x) buf[x] = in[x / 2];
+  } else if (fy == 1) {
+    h2v1_fancy(in, c.w, buf);
+  } else {
+    h2v2_fancy(c.plane.get(), stride, c.w, c.h, y, buf);
   }
+  return buf;
+}
+
+// Decode one scan into the components' coefficient planes.  Returns kOk,
+// or the fault with the scan's bytes ending early as -1.
+int decode_scan(const ScanDesc& sd, const uint8_t* tables, const uint8_t* coded, bool progressive,
+                int mcux, int mcuy, std::vector<Component>& comps, const char** what) {
+  Huffman dc[4], ac[4];
+  for (int j = 0; j < sd.n; ++j) {
+    const uint8_t* t = tables + static_cast<int64_t>(j) * 2 * 272;
+    const bool needs_dc = sd.ss == 0 && (!progressive || sd.ah == 0), needs_ac = sd.se > 0;
+    if ((needs_dc && !dc[j].build(t, t + 16)) || (needs_ac && !ac[j].build(t + 272, t + 288))) {
+      *what = "JPEG Huffman table: more codes than its lengths hold";
+      return 1;
+    }
+  }
+  enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind = kSequential;
+  if (progressive) kind = sd.ss == 0 ? (sd.ah ? kDcRefine : kDcFirst) : (sd.ah ? kAcRefine : kAcFirst);
+  // each unit's blocks: (slot in the scan, component, row, column in the
+  // MCU); a scan of one component has one block a unit, over its own grid
+  struct Step {
+    int j, k, v, u;
+  };
+  std::vector<Step> plan;
+  for (int j = 0; j < sd.n; ++j) {
+    const Component& c = comps[sd.comp[j]];
+    for (int v = 0; v < (sd.n == 1 ? 1 : c.vs); ++v)
+      for (int u = 0; u < (sd.n == 1 ? 1 : c.hs); ++u) plan.push_back({j, sd.comp[j], v, u});
+  }
+  const Component& one = comps[sd.comp[0]];
+  const int64_t units = sd.n == 1 ? static_cast<int64_t>(one.gw) * one.gh
+                                  : static_cast<int64_t>(mcux) * mcuy;
+  BitReader bits{coded + sd.offset, coded + sd.offset + sd.length};
+  int32_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
+  for (int64_t m = 0; m < units; ++m) {
+    if (sd.restart && m && m % sd.restart == 0) {
+      if (!bits.restart()) {
+        *what = "no RST marker where a restart interval ends";
+        return 2;
+      }
+      std::fill(pred, pred + 4, 0);
+      eobrun = 0;
+    }
+    for (const Step& st : plan) {
+      Component& c = comps[st.k];
+      const int64_t by = sd.n == 1 ? m / c.gw : (m / mcux) * c.vs + st.v;
+      const int64_t bx = sd.n == 1 ? m % c.gw : (m % mcux) * c.hs + st.u;
+      int16_t* blk = c.coef.data() + (by * c.bw + bx) * 64;
+      Fault f = kOk;
+      switch (kind) {
+        case kSequential: f = decode_sequential(bits, dc[st.j], ac[st.j], pred[st.j], blk); break;
+        case kDcFirst: f = decode_dc_first(bits, dc[st.j], sd.al, pred[st.j], blk); break;
+        case kDcRefine:
+          if (bits.get(1)) blk[0] = as_jcoef(blk[0] | (1 << sd.al));
+          break;
+        case kAcFirst: f = decode_ac_first(bits, ac[st.j], sd.ss, sd.se, sd.al, eobrun, blk); break;
+        case kAcRefine: f = decode_ac_refine(bits, ac[st.j], sd.ss, sd.se, sd.al, eobrun, blk); break;
+      }
+      if (f != kOk) {
+        *what = kFaults[f];
+        return 2;
+      }
+      if (bits.used > bits.real) {
+        *what = "ends early";
+        return 2;
+      }
+    }
+  }
+  return 0;
 }
 
 inline uint8_t clamp255(int64_t v) {
@@ -255,21 +476,26 @@ inline uint8_t clamp255(int64_t v) {
 
 extern "C" {
 
-// Decode the scan `data[0:len]` (its entropy-coded bytes, RSTn markers
-// included) of a `width` x `height` baseline frame of `ncomp` (1 or 3)
-// components into `out`: height x width x 3 RGB for 3 components (YCbCr),
-// height x width for 1.  Per component k: sampling factors hs[k], vs[k] (1
-// for a single component), its 64 quantization values in natural order at
-// quant[64k], its DC and AC Huffman tables as 16 code counts at
-// dc_counts[16k] / ac_counts[16k] and up to 256 symbols at dc_symbols[256k] /
-// ac_symbols[256k].  `restart` MCUs an interval (0: none).  Returns 0, or 1
-// with a message in `err`.
-int icat_jpeg_decode(const uint8_t* data, int64_t len, int width, int height, int ncomp,
-                     const int32_t* hs, const int32_t* vs, const int32_t* quant,
-                     const uint8_t* dc_counts, const uint8_t* dc_symbols,
-                     const uint8_t* ac_counts, const uint8_t* ac_symbols, int restart,
-                     uint8_t* out, char* err, int err_len) {
-  if ((ncomp != 1 && ncomp != 3) || width <= 0 || height <= 0) {
+// Decode the `nscans` scans of a `width` x `height` frame of `ncomp` (1, 3
+// or 4) components into `out`: height x width x 3 RGB for 3 components
+// (YCbCr) and for 4 (CMYK, through Pillow's conversion), height x width
+// for 1.  Per component k: sampling factors hs[k], vs[k] (1 for a single
+// component), its 64 quantization values in natural order at quant[64k].
+// Per scan i, 12 values at scans[12i]: its component count n, their
+// indices (4 slots), ss, se, ah, al, its restart interval in units (0:
+// none), and the offset and length of its entropy-coded bytes (RSTn
+// markers included) in `coded`; at tables[2176i + 544j] the DC then the AC
+// Huffman table of its slot j, each 16 code counts and 256 symbols.
+// `progressive` selects jdphuff.c's scans over jdhuff.c's.  Returns 0; or
+// 1 with a message in `err`, and in `fault_scan` the scan whose decode
+// failed (-1 for none).
+int icat_jpeg_decode(int width, int height, int ncomp, int cmyk, int progressive,
+                     const int32_t* hs, const int32_t* vs, const int32_t* quant, int nscans,
+                     const int64_t* scans, const uint8_t* tables, const uint8_t* coded,
+                     uint8_t* out, int* fault_scan, char* err, int err_len) {
+  *fault_scan = -1;
+  if ((ncomp != 1 && ncomp != 3 && ncomp != 4) || width <= 0 || height <= 0 ||
+      (cmyk && ncomp != 4)) {
     set_error(err, err_len, "JPEG frame: bad size or component count");
     return 1;
   }
@@ -288,99 +514,80 @@ int icat_jpeg_decode(const uint8_t* data, int64_t len, int width, int height, in
     c.bh = mcuy * c.vs;
     c.w = static_cast<int>((static_cast<int64_t>(width) * c.hs + hmax - 1) / hmax);
     c.h = static_cast<int>((static_cast<int64_t>(height) * c.vs + vmax - 1) / vmax);
+    c.gw = (c.w + 7) / 8;
+    c.gh = (c.h + 7) / 8;
     c.quant = quant + 64 * k;
-    if (!c.dc.build(dc_counts + 16 * k, dc_symbols + 256 * k) ||
-        !c.ac.build(ac_counts + 16 * k, ac_symbols + 256 * k)) {
-      set_error(err, err_len, "JPEG Huffman table: more codes than its lengths hold");
+    c.coef.assign(static_cast<size_t>(c.bh) * c.bw * 64, 0);
+  }
+  for (int i = 0; i < nscans; ++i) {
+    const int64_t* s = scans + 12 * static_cast<int64_t>(i);
+    ScanDesc sd{static_cast<int>(s[0]), {0, 0, 0, 0}, static_cast<int>(s[5]),
+                static_cast<int>(s[6]), static_cast<int>(s[7]), static_cast<int>(s[8]),
+                static_cast<int>(s[9]), s[10], s[11]};
+    bool ok = sd.n >= 1 && sd.n <= 4 && sd.ss >= 0 && sd.se <= 63 && sd.ss <= sd.se &&
+              sd.al >= 0 && sd.al <= 13;
+    for (int j = 0; ok && j < sd.n; ++j) {
+      sd.comp[j] = static_cast<int>(s[1 + j]);
+      ok = sd.comp[j] >= 0 && sd.comp[j] < ncomp;
+    }
+    if (!ok) {
+      set_error(err, err_len, "JPEG scan header out of range");
       return 1;
     }
-    c.plane.assign(static_cast<size_t>(c.bh) * 8 * static_cast<size_t>(c.bw) * 8, 0);
+    const char* what = "";
+    const int rc = decode_scan(sd, tables + 2176 * static_cast<int64_t>(i), coded, progressive != 0,
+                               mcux, mcuy, comps, &what);
+    if (rc) {
+      set_error(err, err_len, what);
+      if (rc == 2) *fault_scan = i;
+      return 1;
+    }
   }
 
-  BitReader bits{data, data + len};
-  std::vector<int32_t> pred(static_cast<size_t>(ncomp), 0);
-  int32_t zz[64];
   int64_t coef[64];
-  const int64_t n_mcus = static_cast<int64_t>(mcux) * mcuy;
-  for (int64_t m = 0; m < n_mcus; ++m) {
-    if (restart && m && m % restart == 0) {
-      if (!bits.restart()) {
-        set_error(err, err_len, "JPEG scan: no RST marker where a restart interval ends");
-        return 1;
-      }
-      std::fill(pred.begin(), pred.end(), 0);
-    }
-    const int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
-    for (int k = 0; k < ncomp; ++k) {
-      Component& c = comps[k];
-      for (int v = 0; v < c.vs; ++v) {
-        for (int u = 0; u < c.hs; ++u) {
-          std::memset(zz, 0, sizeof(zz));
-          uint16_t e = c.dc.lut[bits.peek16()];
-          if (!(e >> 8)) {
-            set_error(err, err_len, "JPEG scan: bad DC code");
-            return 1;
-          }
-          bits.skip(e >> 8);
-          pred[k] += bits.receive_extend(e & 0xFF);
-          zz[0] = pred[k];
-          for (int i = 1; i < 64;) {
-            e = c.ac.lut[bits.peek16()];
-            if (!(e >> 8)) {
-              set_error(err, err_len, "JPEG scan: bad AC code");
-              return 1;
-            }
-            bits.skip(e >> 8);
-            const int r = (e & 0xFF) >> 4, s = e & 15;
-            if (s) {
-              i += r;
-              const int32_t val = bits.receive_extend(s);
-              if (i > 63) {
-                set_error(err, err_len, "JPEG scan: coefficient past the block");
-                return 1;
-              }
-              zz[i++] = val;
-            } else if (r == 15) {
-              i += 16;
-            } else {
-              break;
-            }
-          }
-          for (int i = 0; i < 64; ++i)
-            coef[kNatural[i]] = static_cast<int64_t>(zz[i]) * c.quant[kNatural[i]];
-          const int by = my * c.vs + v, bx = mx * c.hs + u, stride = c.bw * 8;
-          idct_block(coef, c.plane.data() + static_cast<int64_t>(by) * 8 * stride + bx * 8, stride);
-        }
-      }
-      if (bits.used > bits.real) {
-        set_error(err, err_len, "JPEG scan ends early");
-        return 1;
-      }
+  for (Component& c : comps) {
+    const int stride = c.bw * 8;
+    c.plane.reset(new uint8_t[static_cast<size_t>(c.bh) * 8 * static_cast<size_t>(stride)]);
+    for (int64_t b = 0; b < static_cast<int64_t>(c.bh) * c.bw; ++b) {
+      const int16_t* zz = c.coef.data() + b * 64;
+      for (int i = 0; i < 64; ++i)
+        coef[kNatural[i]] = static_cast<int64_t>(zz[i]) * c.quant[kNatural[i]];
+      const int64_t by = b / c.bw, bx = b % c.bw;
+      idct_block(coef, c.plane.get() + by * 8 * stride + bx * 8, stride);
     }
   }
 
-  const int64_t npix = static_cast<int64_t>(width) * height;
   const Component& y = comps[0];
   if (ncomp == 1) {
     for (int r = 0; r < height; ++r)
       std::memcpy(out + static_cast<int64_t>(r) * width,
-                  y.plane.data() + static_cast<int64_t>(r) * y.bw * 8, static_cast<size_t>(width));
+                  y.plane.get() + static_cast<int64_t>(r) * y.bw * 8, static_cast<size_t>(width));
     return 0;
   }
-  std::vector<uint8_t> cb(static_cast<size_t>(npix)), cr(static_cast<size_t>(npix));
-  upsample(comps[1], hmax, vmax, width, height, cb.data());
-  upsample(comps[2], hmax, vmax, width, height, cr.data());
+  std::vector<std::vector<uint8_t>> bufs(static_cast<size_t>(ncomp));
+  for (int k = 0; k < ncomp; ++k) bufs[k].resize(2 * static_cast<size_t>(comps[k].w) + width);
+  const uint8_t* row[4];
   // jdcolor.c: FIX(x) = x * 65536 + 0.5, ONE_HALF = 1 << 15
   constexpr int64_t kR = 91881, kG_cb = 22554, kG_cr = 46802, kB = 116130, kHalf = 1 << 15;
   for (int r = 0; r < height; ++r) {
-    const uint8_t* yr = y.plane.data() + static_cast<int64_t>(r) * y.bw * 8;
-    for (int x = 0; x < width; ++x) {
-      const int64_t i = static_cast<int64_t>(r) * width + x;
-      const int64_t yy = yr[x], b = cb[i] - 128, c = cr[i] - 128;
-      uint8_t* px = out + 3 * i;
-      px[0] = clamp255(yy + ((kR * c + kHalf) >> 16));
-      px[1] = clamp255(yy + ((-kG_cb * b + kHalf - kG_cr * c) >> 16));
-      px[2] = clamp255(yy + ((kB * b + kHalf) >> 16));
+    for (int k = 0; k < ncomp; ++k)
+      row[k] = sampled_row(comps[k], hmax, vmax, width, r, bufs[k].data());
+    uint8_t* px = out + static_cast<int64_t>(r) * width * 3;
+    for (int x = 0; x < width; ++x, px += 3) {
+      if (cmyk) {
+        // Pillow's "CMYK;I" unpacking (v -> 255 - v), then Convert.c's
+        // cmyk2rgb: 255 - K less MULDIV255(C, 255 - K), clipped
+        const int nk = row[3][x];  // 255 - (255 - K)
+        for (int ch = 0; ch < 3; ++ch) {
+          const int tmp = (255 - row[ch][x]) * nk + 128;
+          px[ch] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+        }
+      } else {
+        const int64_t yy = row[0][x], b = row[1][x] - 128, c = row[2][x] - 128;
+        px[0] = clamp255(yy + ((kR * c + kHalf) >> 16));
+        px[1] = clamp255(yy + ((-kG_cb * b + kHalf - kG_cr * c) >> 16));
+        px[2] = clamp255(yy + ((kB * b + kHalf) >> 16));
+      }
     }
   }
   return 0;

@@ -3,37 +3,51 @@
 
 Arrays are (1, H_pad, W_pad, 3) float32 numpy in [0, 1], as in the JAX
 package; ``to_tensor`` makes the port's NCHW channels_last tensor.  No PIL:
-``read_pixels`` tells the format by the file's first bytes and decodes
+the format is told by the file's first bytes, and
 
-* PNG with numpy and ``zlib``: 8-bit, non-interlaced gray, RGB and RGBA
-  files with any of the five scanline filters;
-* JPEG with the host C++ baseline decoder (``io/jpeg.py::decode_native``,
-  ``csrc/jpeg.cc``): gray, and YCbCr at 4:4:4, 4:2:2 or 4:2:0, the pixels
-  Pillow's libjpeg gives;
+* PNG is read by the host C++ decoder (``io/png.py``, ``csrc/png.cc``):
+  every colour type (gray, RGB, palette, gray+alpha, RGBA), bit depths 1
+  to 16, interlaced or not;
+* JPEG by the host C++ decoder (``io/jpeg.py``, ``csrc/jpeg.cc``):
+  baseline, sequential of several scans and progressive Huffman files of
+  8-bit samples; gray, YCbCr at 4:4:4, 4:2:2 or 4:2:0, and CMYK;
 * BMP (``BI_RGB``, 24- and 32-bit, bottom-up and top-down) with numpy.
 
-What Pillow reads and these readers do not (a palette PNG or BMP, a
-progressive JPEG, WebP, ...) raises ``UnsupportedImageError``, naming it; a
-broken file raises ``ValueError``.  The writer emits 8-bit RGB PNGs.
+The JAX package reads in two ways, and so does the port.  ``read_pixels``
+gives what ``Image.open(path).convert("RGB")`` gives, for every kind above;
+the training stream, the classifier's folders and ``jpeg_baseline`` read
+through it, as JAX's convert.  ``read_image``, which the CLIs read
+through, gives what JAX's ``np.asarray(Image.open(path))`` gives (gray
+tiled into RGB, alpha dropped), and so decodes only the files Pillow
+opens as ``L``, ``RGB`` or ``RGBA``, where the two agree.  On a file
+Pillow opens as ``P``, ``1``, ``LA``, ``I;16`` or ``CMYK`` it raises
+``UnsupportedImageError`` naming the kind and the mode, where JAX's CLIs
+would take palette indices, booleans, two channels, raw 16-bit values or
+inverted CMY as pixels.  What Pillow reads and no reader here decodes (a
+palette BMP, WebP, YCCK JPEGs, ...) raises ``UnsupportedImageError``,
+naming it; a broken file raises ``ValueError``.  The writer emits 8-bit
+RGB PNGs.
 """
 
 from __future__ import annotations
 
 import glob as _glob
 import struct
-import zlib
-from typing import Iterator, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from . import jpeg, png
 from .errors import UnsupportedImageError
-from .jpeg import decode_native
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# samples a pixel, by PNG colour type, for the types the reader takes
-_CHANNELS = {0: 1, 2: 3, 6: 4}
-_COLOUR_TYPE_NAMES = {3: "palette", 4: "gray+alpha"}
+# what JAX's ``np.asarray(Image.open(path))`` gives on the Pillow modes that
+# ``read_image`` refuses, and the kind of file each is
+_REFUSED_MODES = {"P": ("palette PNG", "palette indices"),
+                  "1": ("1-bit gray PNG", "booleans"),
+                  "LA": ("gray+alpha PNG", "two channels"),
+                  "I;16": ("16-bit gray PNG", "raw 16-bit values"),
+                  "CMYK": ("CMYK JPEG", "Adobe's inverted CMYK samples")}
 
 
 def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
@@ -44,103 +58,6 @@ def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
     out = np.zeros((hp, wp, c), dtype=img.dtype)
     out[:h, :w] = img
     return out
-
-
-def _png_chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
-    """(type, body) of each chunk up to IEND, with its CRC checked."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError("not a PNG file (bad signature)")
-    pos = 8
-    while pos + 12 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        end = pos + 12 + length
-        if end > len(data):
-            raise ValueError(f"PNG chunk {kind!r} is truncated")
-        body = data[pos + 8:end - 4]
-        if zlib.crc32(kind + body) != struct.unpack(">I", data[end - 4:end])[0]:
-            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
-        yield kind, body
-        if kind == b"IEND":
-            return
-        pos = end
-    raise ValueError("PNG file ends before its IEND chunk")
-
-
-def _unfilter(kinds: np.ndarray, lines: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the scanline filters (None, Sub, Up, Average, Paeth) of
-    ``lines`` (h, stride) uint8, whose filter types are ``kinds`` (h,).
-
-    A byte depends on the same byte of the pixel to its left (a), above (b)
-    and above-left (c), so the pixels are rebuilt one anti-diagonal at a
-    time: each needs only pixels of the two diagonals before it.
-    """
-    if kinds.size and kinds.max() > 4:
-        raise ValueError(f"PNG filter type {int(kinds.max())} is not one of the five")
-    h, stride = lines.shape
-    w = stride // bpp
-    filt = lines.reshape(h, w, bpp).astype(np.int32)
-    kinds = kinds.astype(np.int32)[:, None]
-    # out[y + 1, x + 1] is pixel (y, x); row 0 and column 0 are the zeros
-    # the filters read beyond the image's top and left edges
-    out = np.zeros((h + 1, w + 1, bpp), np.int32)
-    for d in range(h + w - 1):
-        y = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
-        x = d - y
-        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        k = kinds[y]
-        pred = np.select([k == 1, k == 2, k == 3, k == 4], [a, b, (a + b) >> 1, paeth], 0)
-        out[y + 1, x + 1] = (filt[y, x] + pred) & 0xFF
-    return out[1:, 1:].astype(np.uint8)
-
-
-def _decode_png(data: bytes) -> np.ndarray:
-    """(H, W, channels) uint8 pixels of a PNG; raises ``ValueError`` naming
-    what the reader does not take (palette, 16-bit, interlaced, ...)."""
-    header, idat = None, []
-    for kind, body in _png_chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG file has no IHDR chunk")
-    w, h, depth, colour, compression, filter_method, interlace = header
-    if colour in _COLOUR_TYPE_NAMES:
-        raise UnsupportedImageError(f"{_COLOUR_TYPE_NAMES[colour]} PNGs are not supported")
-    if colour not in _CHANNELS:
-        raise ValueError(f"PNG colour type {colour} is not valid")
-    if depth != 8:
-        raise UnsupportedImageError(f"{depth}-bit PNGs are not supported (8-bit only)")
-    if interlace:
-        raise UnsupportedImageError("interlaced PNGs are not supported")
-    if compression or filter_method:
-        raise ValueError("PNG compression or filter method is not 0")
-    bpp = _CHANNELS[colour]
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (1 + w * bpp):
-        raise ValueError(f"PNG image data holds {len(raw)} bytes, not {h * (1 + w * bpp)}")
-    lines = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp)
-    return _unfilter(lines[:, 0], lines[:, 1:], bpp)
-
-
-def _encode_png(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of (H, W, 3) uint8 pixels, every scanline filter 0."""
-    h, w, _ = rgb.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)
-    raw[:, 1:] = rgb.reshape(h, 3 * w)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    return (
-        _PNG_SIGNATURE
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw.tobytes()))
-        + chunk(b"IEND", b"")
-    )
 
 
 # BMP compression codes (biCompression) the reader names when it refuses them
@@ -192,30 +109,41 @@ def _refuse(data: bytes) -> None:
     raise ValueError(f"not a PNG, JPEG or BMP file (it starts with {data[:8]!r})")
 
 
-def read_pixels(path: str) -> np.ndarray:
-    """An image file's (H, W, 3) uint8 RGB pixels, told apart by its first
-    bytes (PNG, JPEG or BMP): gray is repeated into RGB, RGBA loses its
-    alpha."""
+def _decode(path: str) -> Tuple[np.ndarray, str]:
+    """An image file's (H, W, 3) uint8 pixels as Pillow's
+    ``convert("RGB")`` gives them, and the mode Pillow opens it as."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == _PNG_SIGNATURE:
-        img = _decode_png(data)
-    elif data[:2] == b"\xff\xd8":
-        img = decode_native(data)
-    elif data[:2] == b"BM":
-        img = _decode_bmp(data)
-    else:
-        _refuse(data)
-    if img.shape[-1] == 1:
-        img = np.tile(img, (1, 1, 3))
-    return img[..., :3]
+    if data[:8] == png.SIGNATURE:
+        parsed = png.parse(data)
+        return png.decode_png_native(parsed), parsed.mode
+    if data[:2] == b"\xff\xd8":
+        frame = jpeg.parse(data)
+        img = jpeg.decode_frame_native(frame)
+        return (np.repeat(img, 3, axis=2) if frame.mode == "L" else img), frame.mode
+    if data[:2] == b"BM":
+        return _decode_bmp(data), "RGB"
+    _refuse(data)
+
+
+def read_pixels(path: str) -> np.ndarray:
+    """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG or BMP), as
+    ``Image.open(path).convert("RGB")`` gives them."""
+    return _decode(path)[0]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG, JPEG or BMP as (1, H_pad, W_pad, 3) float32 in [0, 1];
-    returns ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its
-    alpha."""
-    img = read_pixels(path).astype(np.float32) / 255.0
+    """Load a PNG, JPEG or BMP that Pillow opens as ``L``, ``RGB`` or
+    ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns ``(im, H,
+    W)``.  Gray is repeated into RGB; RGBA loses its alpha.  Raises
+    ``UnsupportedImageError`` naming the mode on the other modes."""
+    pixels, mode = _decode(path)
+    if mode in _REFUSED_MODES:
+        kind, what = _REFUSED_MODES[mode]
+        raise UnsupportedImageError(
+            f"{path}: a {kind} (Pillow's mode {mode}) is read by read_pixels, not read_image: "
+            f"JAX's read_image would take its {what} as pixels (L, RGB and RGBA only)")
+    img = pixels.astype(np.float32) / 255.0
     h, w, _ = img.shape
     return pad_to_multiple(img, padding)[None, ...], h, w
 
@@ -229,7 +157,7 @@ def write_image(x: np.ndarray, path: str, H: int | None = None, W: int | None = 
         H, W = arr.shape[0], arr.shape[1]
     out = np.clip(np.round(arr * 255.0), 0, 255).astype(np.uint8)
     with open(path, "wb") as f:
-        f.write(_encode_png(np.ascontiguousarray(out[:H, :W, :])))
+        f.write(png.encode(np.ascontiguousarray(out[:H, :W, :])))
 
 
 def list_images(pattern: str) -> List[str]:

@@ -1,6 +1,7 @@
-"""Baseline JPEG in numpy, without PIL: the bytes and the decoded pixels of
-Pillow's ``Image.save(..., format="JPEG", quality=q)`` and ``Image.open``,
-which run libjpeg(-turbo) with its default settings.
+"""JPEG without PIL: the bytes of Pillow's baseline ``Image.save(...,
+format="JPEG", quality=q)`` in numpy, and the pixels of its ``Image.open``
+(and for CMYK its ``convert("RGB")``) in host C++ and numpy, as
+libjpeg(-turbo) gives them with its default settings.
 
 Encoder (``encode``):
 * quantization: the Annex K tables scaled by IJG's quality rule
@@ -17,22 +18,28 @@ Encoder (``encode``):
   interleaved scan, no restart markers.  The file is SOI, JFIF APP0, two
   DQT, SOF0, four DHT, SOS, the scan and EOI.
 
-Decoders: ``parse`` reads the markers of a baseline (or 8-bit extended
-sequential) Huffman stream of one interleaved scan: gray, or YCbCr with 1x1
-chroma and 1x1 (4:4:4), 2x1 (4:2:2) or 2x2 (4:2:0) luma sampling, DRI
-restart intervals; it raises ``UnsupportedImageError``, naming the kind,
-on progressive, arithmetic-coded, lossless, hierarchical, 12-bit,
-CMYK/YCCK and RGB-coded (Adobe transform 0) streams, other sampling
-factors and streams of several scans.  ``decode_native`` decodes the rest
+Decoders: ``parse`` reads the markers of a Huffman stream of 8-bit
+samples, baseline or extended sequential (SOF0, SOF1) of one scan or of
+several, or progressive (SOF2): gray, YCbCr with 1x1 chroma and 1x1
+(4:4:4), 2x1 (4:2:2) or 2x2 (4:2:0) luma sampling, or CMYK of the same
+samplings; each scan's components, band, successive approximation bits,
+tables and restart interval.  It raises ``UnsupportedImageError``, naming
+the kind, on arithmetic-coded, lossless, hierarchical, 12-bit, YCCK and
+RGB-coded (Adobe transform 0 on three components) streams, other sampling
+factors, and progressive files that libjpeg-turbo would smooth (a low
+coefficient left unsent or unrefined).  ``decode_native`` decodes the rest
 with the host C++ decoder (``csrc/jpeg.cc``, built with g++ on first use):
-the Huffman scan with its DC predictors and RSTn markers, dequantization,
-the integer inverse DCT ``jidctint`` with its range-limit table, fancy
-(triangle) upsampling (``h2v1``, ``h2v2``; box where a plane is 2 or fewer
-samples wide) with the edge rows and columns repeated, and fixed-point
-YCbCr -> RGB (``jdcolor.c``): Pillow's pixels, bit for bit.  ``decode`` is
-its plain numpy version, the same pixels, whose Huffman decoder walks the
-symbols in a Python loop, many times slower (``chip_smoke.py`` phase 21a
-times both).
+every scan into int16 coefficient planes (``jdhuff.c``'s sequential
+blocks, ``jdphuff.c``'s DC first and refine, AC first with its end-of-band
+runs and AC refine with its correction bits; DC predictors and RSTn
+markers), dequantization, the integer inverse DCT ``jidctint`` with its
+range-limit table, fancy (triangle) upsampling (``h2v1``, ``h2v2``; box
+where a plane is 2 or fewer samples wide) with the edge rows and columns
+repeated, and fixed-point YCbCr -> RGB (``jdcolor.c``), or for CMYK
+Pillow's inversion and ``cmyk2rgb``: Pillow's pixels, bit for bit.
+``decode`` is its plain numpy version, the same pixels, whose Huffman
+decoder walks the symbols in a Python loop, many times slower
+(``chip_smoke.py`` phases 21a and 22a time both).
 
 The DCT, quantization, colour and Huffman-encoding steps are vectorized
 over all blocks.
@@ -430,10 +437,10 @@ def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-# frame markers other than SOF0/SOF1 (8-bit Huffman sequential), by what
-# they code
+# frame markers other than SOF0/SOF1 (8-bit Huffman sequential) and SOF2
+# (8-bit Huffman progressive), by what they code
 _FRAME_KINDS = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical sequential",
+    0xC3: "lossless", 0xC5: "hierarchical sequential",
     0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
     0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical sequential",
@@ -442,26 +449,49 @@ _FRAME_KINDS = {
 }
 # the luma sampling factors (h, v) read with 1x1 chroma
 _SAMPLINGS = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0"}
+# the low zigzag coefficients whose precision libjpeg-turbo's block smoothing
+# (jdcoefct.c, SAVED_COEFS) checks after the last scan of a progressive file
+_SMOOTHED_COEFS = 10
+
+Table = Tuple[Tuple[int, ...], bytes]  # (code counts by length 1..16, symbols)
+
+
+@dataclasses.dataclass
+class Scan:
+    """One scan: its components (indices into the frame's, in frame
+    order), spectral band ``ss``..``se`` (zigzag) and successive
+    approximation bits ``ah``, ``al``; per component the DC and AC Huffman
+    tables it reads (None where it reads none); the restart interval in
+    its units (MCUs, or blocks in a scan of one component; 0: none); its
+    entropy-coded bytes, RSTn markers included; whether a marker ends it,
+    or the file does."""
+
+    comps: List[int]
+    ss: int
+    se: int
+    ah: int
+    al: int
+    dc: List[Optional[Table]]
+    ac: List[Optional[Table]]
+    restart: int
+    coded: bytes
+    ended: bool
 
 
 @dataclasses.dataclass
 class Frame:
-    """What the decoders need of a baseline stream: per component its
-    sampling factors (h, v), its quantization table (64, natural order) and
-    its scan's DC and AC Huffman tables ((counts by length 1..16,
-    symbols)); the restart interval in MCUs (0: none) and the scan's
-    entropy-coded bytes, RSTn markers included; whether a marker (EOI)
-    ends the scan, or the file does."""
+    """What the decoders need of a stream: the size; per component its
+    sampling factors (h, v) and its quantization table (64, natural order,
+    as it stood at the component's first scan); Pillow's mode (``L``,
+    ``RGB`` for YCbCr, ``CMYK``); whether it is progressive; its scans."""
 
     height: int
     width: int
     sampling: List[Tuple[int, int]]
     quant: List[np.ndarray]
-    dc: List[Tuple[Tuple[int, ...], bytes]]
-    ac: List[Tuple[Tuple[int, ...], bytes]]
-    restart: int
-    coded: bytes
-    ended: bool
+    mode: str
+    progressive: bool
+    scans: List[Scan]
 
 
 def _check_colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> None:
@@ -479,6 +509,22 @@ def _check_colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> None:
                                     "supported (YCbCr only)")
 
 
+def _mode(ids: List[int], jfif: bool, adobe: Optional[int]) -> str:
+    """Pillow's mode of a frame of these components, raising on what
+    libjpeg would take as RGB or YCCK: four components are CMYK without an
+    Adobe marker or with its transform 0 (Pillow reads them as Adobe's
+    inverted CMYK), YCCK with any other."""
+    if len(ids) == 1:
+        return "L"
+    if len(ids) == 3:
+        _check_colour(ids, jfif, adobe)
+        return "RGB"
+    if adobe not in (None, 0):
+        raise UnsupportedImageError(f"YCCK JPEGs (Adobe APP14 transform {adobe}) are not "
+                                    "supported (CMYK with transform 0 only)")
+    return "CMYK"
+
+
 def _corrupt_scan(what: str) -> UnsupportedImageError:
     """The error for a fault inside a scan that a marker ends: libjpeg
     decodes such a scan with a warning (zeros past a bad code, a resync at
@@ -493,20 +539,19 @@ def _corrupt_scan(what: str) -> UnsupportedImageError:
 _RAN_OUT = ("ends early", "no RST marker where a restart interval ends")
 
 
-def _scan_fault(f: "Frame", what: str) -> ValueError:
-    """The error for a fault in ``f``'s scan: a plain ``ValueError`` where
-    the file was cut inside the scan, as Pillow raises, else
-    ``_corrupt_scan``."""
-    if not f.ended and what in _RAN_OUT:
+def _scan_fault(scan: Scan, what: str) -> ValueError:
+    """The error for a fault in ``scan``: a plain ``ValueError`` where the
+    file was cut inside it, as Pillow raises, else ``_corrupt_scan``."""
+    if not scan.ended and what in _RAN_OUT:
         return ValueError(f"JPEG stream is truncated: its scan {what}")
     return _corrupt_scan(what)
 
 
-def _check_ended(f: "Frame") -> None:
-    """Raise on a scan that decodes whole with no marker after it: Pillow
-    reads such a file or calls it truncated as libjpeg's input buffer
-    falls, so this reader takes neither course."""
-    if not f.ended:
+def _check_ended(f: Frame) -> None:
+    """Raise on a last scan that decodes whole with no marker after it:
+    Pillow reads such a file or calls it truncated as libjpeg's input
+    buffer falls, so this reader takes neither course."""
+    if not f.scans[-1].ended:
         raise UnsupportedImageError("JPEGs with no marker (EOI) after their scan are not "
                                     "supported: Pillow reads them or calls them truncated, as "
                                     "libjpeg's input buffer falls")
@@ -536,25 +581,92 @@ def _scan_end(data: bytes, pos: int) -> int:
     return pos + int(hits[0]) if hits.size else len(data)
 
 
+def _geometry(f: Frame) -> Tuple[int, int, int, int]:
+    """(hmax, vmax, MCUs across, MCUs down) of a frame."""
+    hmax = max(s[0] for s in f.sampling)
+    vmax = max(s[1] for s in f.sampling)
+    return hmax, vmax, -(-f.width // (8 * hmax)), -(-f.height // (8 * vmax))
+
+
+def _grid(f: Frame, k: int) -> Tuple[int, int]:
+    """(blocks down, blocks across) that a scan of component ``k`` alone
+    codes: its own samples' blocks, not the MCU-padded plane's."""
+    hmax, vmax, _, _ = _geometry(f)
+    hs, vs = f.sampling[k]
+    return -(-(-(-f.height * vs // vmax)) // 8), -(-(-(-f.width * hs // hmax)) // 8)
+
+
+def _units(f: Frame, scan: Scan) -> int:
+    """The units a scan codes: its MCUs, or its one component's blocks."""
+    if len(scan.comps) == 1:
+        gh, gw = _grid(f, scan.comps[0])
+        return gh * gw
+    _, _, mcux, mcuy = _geometry(f)
+    return mcux * mcuy
+
+
+def _check_table(table: Table, dc: bool) -> Table:
+    """Raise where libjpeg's ``jpeg_make_d_derived_tbl`` refuses a table:
+    up to its longest codes, more codes of a length than the shorter ones
+    leave room for beside the all-ones code, which none may be; or a DC
+    symbol above 15."""
+    code = 0
+    longest = max((i for i, n in enumerate(table[0], start=1) if n), default=0)
+    for length, n in enumerate(table[0][:longest], start=1):
+        code += n
+        if code >= 1 << length:
+            raise ValueError("JPEG Huffman table: more codes than its lengths hold")
+        code <<= 1
+    if dc and any(s > 15 for s in table[1]):
+        raise ValueError("JPEG DC Huffman table has a symbol above 15")
+    return table
+
+
+def _scan_problem(progressive: bool, n: int, ss: int, se: int, ah: int, al: int) -> Optional[str]:
+    """What libjpeg refuses in a scan header (``jdphuff.c``'s
+    ``JERR_BAD_PROGRESSION``; a sequential scan's band and bits only warn),
+    else None."""
+    if not progressive:
+        return None
+    if (ss == 0 and se != 0) or (ss > 0 and (ss > se or se > 63 or n != 1)):
+        return f"band {ss}..{se} over {n} components"
+    if (ah and al != ah - 1) or al > 13:
+        return f"successive approximation bits {ah}, {al}"
+    return None
+
+
 def parse(data: bytes) -> Frame:
-    """The frame, tables and scan of a baseline (or 8-bit extended
-    sequential) Huffman JPEG of one interleaved scan: gray, or YCbCr at
-    4:4:4, 4:2:2 or 4:2:0.  Raises ``UnsupportedImageError`` naming any
-    other kind (progressive, arithmetic, lossless, hierarchical, 12-bit,
-    CMYK/YCCK, RGB-coded, other sampling factors, several scans) or a
-    corrupt scan that a marker ends (RSTn markers missing or misnumbered),
-    and ``ValueError`` on a broken stream.  Extraneous bytes before a
-    marker are skipped, as Pillow and libjpeg skip them.  The decoders
-    raise ``_scan_fault``'s errors on a fault inside the scan, and
-    ``_check_ended``'s on a scan no marker ends."""
+    """The frame, tables and scans of a Huffman JPEG of 8-bit samples:
+    baseline or extended sequential (SOF0, SOF1) of one scan or several,
+    or progressive (SOF2); gray, YCbCr at 4:4:4, 4:2:2 or 4:2:0, or CMYK
+    (Adobe transform 0, or no Adobe marker) of the same samplings.  Raises
+    ``UnsupportedImageError`` naming any other kind (arithmetic, lossless,
+    hierarchical, 12-bit, YCCK, RGB-coded, other sampling factors), a
+    progression libjpeg decodes with a warning, a progressive file whose
+    scans leave one of the low coefficients libjpeg-turbo's block smoothing
+    checks unsent or unrefined, a component no scan codes, or a corrupt
+    scan that a marker ends (RSTn markers missing or misnumbered); and
+    ``ValueError`` on a broken stream, or a multi-scan one that ends
+    before EOI (libjpeg reads such a file to its EOI before its first row,
+    so Pillow calls it truncated).  Extraneous bytes before a marker are
+    skipped, as Pillow and libjpeg skip them.  The decoders raise
+    ``_scan_fault``'s errors on a fault inside a scan, and
+    ``_check_ended``'s on a single scan no marker ends."""
     if data[:3] != b"\xff\xd8\xff":
         raise ValueError("not a JPEG stream (no SOI marker and marker after it)")
     qt: Dict[int, np.ndarray] = {}
-    huff: Dict[Tuple[int, int], Tuple[Tuple[int, ...], bytes]] = {}
+    huff: Dict[Tuple[int, int], Table] = {}
     frame, restart, jfif, adobe = None, 0, False, None
+    scans: List[Scan] = []
+    quant: Dict[int, np.ndarray] = {}
+    progression: List[List[int]] = []  # per component, each coefficient's Al (-1: unsent)
+    bogus = None
+    eoi = False
     pos = 2
     while True:
         if pos + 2 > len(data):
+            if scans:
+                break
             raise ValueError("JPEG stream ends before its scan")
         if data[pos] != 0xFF:  # extraneous bytes before a marker: skipped
             pos += 1
@@ -566,15 +678,22 @@ def parse(data: bytes) -> Frame:
         if code < 0xC0:
             raise ValueError(f"JPEG stream: no marker at byte {pos} (0xFF{code:02X})")
         if code == 0xD9:
-            raise ValueError("JPEG stream ends before its scan")
+            if not scans:
+                raise ValueError("JPEG stream ends before its scan")
+            eoi = True
+            break
         if 0xD0 <= code <= 0xD8:  # markers without a body
             pos += 2
             continue
         if pos + 4 > len(data):
+            if scans:
+                break
             raise ValueError("JPEG stream ends before its scan")
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         body = data[pos + 4:pos + 2 + length]
         if len(body) != length - 2:
+            if scans:
+                break
             raise ValueError(f"JPEG marker 0x{code:02X} is truncated")
         pos += 2 + length
         if code == 0xE0 and body[:5] == b"JFIF\x00":
@@ -607,14 +726,14 @@ def parse(data: bytes) -> Frame:
         elif code in _FRAME_KINDS:
             raise UnsupportedImageError(f"{_FRAME_KINDS[code]} JPEGs are not supported: frame "
                                         f"type 0x{code:02X} is not baseline")
-        elif code in (0xC0, 0xC1):
+        elif code in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise ValueError("JPEG stream has two frames")
             precision, h, w, ncomp = struct.unpack(">BHHB", body[:6])
             comps = [tuple(body[6 + 3 * k:9 + 3 * k]) for k in range(ncomp)]
             if precision != 8:
                 raise UnsupportedImageError(f"{precision}-bit JPEGs are not supported (8-bit only)")
-            if ncomp == 4:
-                raise UnsupportedImageError("CMYK/YCCK (Adobe 4-component) JPEGs are not supported")
-            if ncomp not in (1, 3) or len(comps[-1]) != 3:
+            if ncomp not in (1, 3, 4) or len(comps[-1]) != 3:
                 raise UnsupportedImageError(f"{ncomp}-component JPEGs are not supported")
             if h == 0 or w == 0:
                 raise UnsupportedImageError("JPEGs whose height comes after the scan (DNL) are "
@@ -622,39 +741,85 @@ def parse(data: bytes) -> Frame:
             sampling = [(c[1] >> 4, c[1] & 15) for c in comps]
             if ncomp == 1:
                 sampling = [(1, 1)]  # one component: one block an MCU
-            elif sampling[0] not in _SAMPLINGS or sampling[1:] != [(1, 1), (1, 1)]:
+            elif sampling[0] not in _SAMPLINGS or set(sampling[1:]) != {(1, 1)}:
                 raise UnsupportedImageError(
                     f"JPEG sampling factors {['%dx%d' % s for s in sampling]} are not supported "
                     f"({', '.join(_SAMPLINGS.values())} only)")
-            frame = (h, w, [c[0] for c in comps], sampling, [c[2] for c in comps])
+            frame = Frame(h, w, sampling, [], "", code == 0xC2, scans)
+            ids, qsel = [c[0] for c in comps], [c[2] for c in comps]
+            progression = [[-1] * 64 for _ in comps]
         elif code == 0xDA:
-            break
-    if frame is None:
-        raise ValueError("JPEG stream has no SOF0 frame before its scan")
-    h, w, ids, sampling, qsel = frame
-    if len(ids) == 3:
-        _check_colour(ids, jfif, adobe)
-    n_in_scan = body[0]
-    if n_in_scan != len(ids):
-        raise UnsupportedImageError("JPEGs of more than one scan are not supported (this scan "
-                                    f"codes {n_in_scan} of {len(ids)} components)")
-    sel = {body[1 + 2 * k]: body[2 + 2 * k] for k in range(n_in_scan)}
-    if [body[1 + 2 * k] for k in range(n_in_scan)] != ids:
-        raise ValueError("JPEG scan codes its components in another order than the frame's")
-    end = _scan_end(data, pos)
-    ended = end < len(data)
-    if ended and data[end + 1] != 0xD9 and b"\xff\xda" in data[end:]:
-        raise UnsupportedImageError("JPEGs of more than one scan are not supported")
-    if restart and ended:
-        hmax, vmax = (max(s[i] for s in sampling) for i in (0, 1))
-        n_mcus = -(-w // (8 * hmax)) * -(-h // (8 * vmax))
-        _check_restarts(data[pos:end], -(-n_mcus // restart) - 1)
-    try:
-        return Frame(h, w, sampling, [qt[q] for q in qsel],
-                     [huff[(0, sel[i] >> 4)] for i in ids], [huff[(1, sel[i] & 15)] for i in ids],
-                     restart, data[pos:end], ended)
-    except KeyError as e:
-        raise ValueError(f"JPEG scan uses a table the stream does not define: {e}") from None
+            if frame is None:
+                raise ValueError("JPEG stream has no SOF0, SOF1 or SOF2 frame before its scan")
+            if not scans:
+                frame.mode = _mode(ids, jfif, adobe)
+            n = body[0] if body else 0
+            if not 1 <= n <= len(ids) or len(body) != 4 + 2 * n:
+                raise ValueError(f"JPEG scan header of {len(body)} bytes codes {n} components")
+            sel = [(body[1 + 2 * j], body[2 + 2 * j]) for j in range(n)]
+            if any(c not in ids for c, _ in sel):
+                raise ValueError("JPEG scan codes a component the frame does not have")
+            members = [ids.index(c) for c, _ in sel]
+            if members != sorted(set(members)):
+                raise ValueError("JPEG scan codes its components in another order than the "
+                                 "frame's")
+            ss, se, ah, al = body[1 + 2 * n], body[2 + 2 * n], body[3 + 2 * n] >> 4, \
+                body[3 + 2 * n] & 15
+            problem = _scan_problem(frame.progressive, n, ss, se, ah, al)
+            if problem:
+                raise ValueError(f"JPEG progression is invalid: a scan of {problem}")
+            if not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
+                bogus = bogus or f"a sequential scan of band {ss}..{se}, bits {ah}, {al}"
+            for k in members:
+                bits = progression[k]
+                if ss > 0 and bits[0] < 0:
+                    bogus = bogus or f"AC before DC in component {k}"
+                if any(max(b, 0) != ah for b in bits[ss:se + 1]):
+                    bogus = bogus or f"bits {ah}, {al} over {ss}..{se} in component {k}"
+                bits[ss:se + 1] = [al] * (se - ss + 1)
+            try:
+                for k in members:
+                    quant.setdefault(k, qt[qsel[k]])
+                dc = [_check_table(huff[(0, t >> 4)], True)
+                      if ss == 0 and (ah == 0 or not frame.progressive) else None for _, t in sel]
+                ac = [_check_table(huff[(1, t & 15)], False)
+                      if se > 0 else None for _, t in sel]
+            except KeyError as e:
+                raise ValueError(f"JPEG scan uses a table the stream does not define: {e}") \
+                    from None
+            end = _scan_end(data, pos)
+            scan = Scan(members, ss, se, ah, al, dc, ac, restart, data[pos:end], end < len(data))
+            scans.append(scan)
+            if restart and scan.ended:
+                _check_restarts(scan.coded, -(-_units(frame, scan) // restart) - 1)
+            pos = end
+            if len(scans) == 1 and n == len(ids) and not frame.progressive:
+                # one interleaved scan: libjpeg decodes it in one pass, and a
+                # scan after it is an error once its rows are out
+                if scan.ended and data[end + 1] != 0xD9 and b"\xff\xda" in data[end:]:
+                    raise UnsupportedImageError("JPEGs of more than one scan after a scan of "
+                                                "every component are not supported")
+                break
+    buffered = len(scans) > 1 or frame.progressive or len(scans[0].comps) < len(ids)
+    if buffered and not eoi:
+        raise ValueError("JPEG stream is truncated: it ends before the EOI marker that "
+                         "libjpeg reads a multi-scan file to")
+    if bogus:
+        raise UnsupportedImageError(f"JPEG progression libjpeg decodes with a warning "
+                                    f"({bogus}) is not supported")
+    if buffered:
+        missing = sorted(set(range(len(ids))) - set(quant))
+        if missing:
+            raise UnsupportedImageError(f"JPEGs with a component no scan codes ({missing}) are "
+                                        "not supported")
+        if frame.progressive and any(b != 0 for bits in progression
+                                     for b in bits[:_SMOOTHED_COEFS]):
+            raise UnsupportedImageError(
+                "incomplete progressive JPEGs are not supported: their scans leave one of "
+                f"the first {_SMOOTHED_COEFS} coefficients unsent or unrefined, and "
+                "libjpeg-turbo smooths such blocks")
+    frame.quant = [quant[k] for k in range(len(ids))]
+    return frame
 
 
 def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
@@ -669,24 +834,37 @@ def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
 
 
 def _upsample(plane: np.ndarray, fx: int, fy: int) -> np.ndarray:
-    """A chroma plane at the luma's sampling: none, h2v1 or h2v2."""
+    """A plane at the frame's largest sampling: none, h2v1 or h2v2."""
     if fx == 1:
         return plane
     return h2v1_fancy_upsample(plane) if fy == 1 else h2v2_fancy_upsample(plane)
 
 
+def cmyk_to_rgb(samples: np.ndarray) -> np.ndarray:
+    """Pillow's RGB of a CMYK JPEG's decoded (..., 4) samples: its
+    ``CMYK;I`` raw mode inverts them (Adobe's convention), then
+    ``Convert.c``'s ``cmyk2rgb`` takes each of C, M, Y times 255 - K
+    (``MULDIV255``) from 255 - K."""
+    cmyk = 255 - samples.astype(np.int64)
+    nk = 255 - cmyk[..., 3:]
+    t = cmyk[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def decode(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB pixels of a baseline YCbCr JPEG (4:4:4, 4:2:2 or
-    4:2:0), (H, W, 1) of a gray one, as libjpeg decodes them with its
-    defaults (islow IDCT, fancy upsampling): the plain numpy version of
-    ``decode_native`` (a Python loop over the Huffman symbols, many times
-    slower)."""
-    f = parse(data)
-    hmax = max(s[0] for s in f.sampling)
-    vmax = max(s[1] for s in f.sampling)
-    mcux, mcuy = -(-f.width // (8 * hmax)), -(-f.height // (8 * vmax))
+    """(H, W, 3) uint8 RGB pixels of a YCbCr or CMYK JPEG, (H, W, 1) of a
+    gray one, as Pillow gives them from libjpeg with its defaults (islow
+    IDCT, fancy upsampling; CMYK through Pillow's conversion): the plain
+    numpy version of ``decode_native`` (a Python loop over the Huffman
+    symbols, many times slower)."""
+    return decode_frame(parse(data))
+
+
+def decode_frame(f: Frame) -> np.ndarray:
+    """``decode`` of a parsed stream."""
+    hmax, vmax, _, _ = _geometry(f)
     planes = []
-    for k, zz in enumerate(_decode_scan(f, mcux, mcuy)):
+    for k, zz in enumerate(_coefficients(f)):
         hs, vs = f.sampling[k]
         nat = np.zeros_like(zz)
         nat[..., ZIGZAG] = zz * f.quant[k][ZIGZAG]
@@ -695,8 +873,10 @@ def decode(data: bytes) -> np.ndarray:
         plane = plane[:-(-f.height * vs // vmax), :-(-f.width * hs // hmax)]
         planes.append(_upsample(plane, hmax // hs, vmax // vs)[:f.height, :f.width])
     _check_ended(f)
-    if len(planes) == 1:
+    if f.mode == "L":
         return planes[0][..., None].astype(np.uint8)
+    if f.mode == "CMYK":
+        return cmyk_to_rgb(np.stack(planes, -1))
     return ycbcr_to_rgb(np.stack(planes, -1))
 
 
@@ -714,91 +894,198 @@ def _restart_intervals(coded: bytes) -> List[bytes]:
 _BLOCK_BITS = 64 * 27
 
 
-def _decode_scan(f: Frame, mcux: int, mcuy: int) -> List[np.ndarray]:
+def _bit_windows(interval: bytes) -> Tuple[List[int], int]:
+    """The 16-bit window at each bit of a restart interval's bytes (byte
+    stuffing undone), zeros past its end for as far as one block's codes
+    may reach, and its count of bits."""
+    raw = np.frombuffer(interval, np.uint8)
+    keep = np.ones(raw.size, bool)
+    keep[1:] &= ~((raw[:-1] == 0xFF) & (raw[1:] == 0))  # byte stuffing
+    bits = np.unpackbits(raw[keep]).astype(np.int64)
+    nbits = bits.size
+    bits = np.concatenate([bits, np.zeros(_BLOCK_BITS + 16, np.int64)])
+    window = np.zeros(nbits + _BLOCK_BITS, np.int64)
+    for i in range(16):
+        window = (window << 1) | bits[i:i + nbits + _BLOCK_BITS]
+    return window.tolist(), nbits
+
+
+def _i16(v: int) -> int:
+    """``v`` stored in a JCOEF (int16), as libjpeg stores coefficients."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _coefficients(f: Frame) -> List[np.ndarray]:
     """Zigzag coefficients of every block of each component, (blocks down,
-    blocks across, 64): per MCU (raster order) each component's hs x vs
-    blocks in raster order, each with its component's (DC, AC) tables; the
-    DC predictors start at 0 in each restart interval."""
-    n_mcus = mcux * mcuy
-    per_interval = f.restart or n_mcus
-    intervals = _restart_intervals(f.coded)
-    if len(intervals) < -(-n_mcus // per_interval):
-        raise _scan_fault(f, "no RST marker where a restart interval ends")
-    dc_tabs = [_decode_tables(*t) for t in f.dc]
-    ac_tabs = [_decode_tables(*t) for t in f.ac]
+    blocks across, 64) over its MCU-padded plane, after every scan."""
+    _, _, mcux, mcuy = _geometry(f)
     shapes = [(mcuy * vs, mcux * hs) for hs, vs in f.sampling]
-    offsets = np.cumsum([0] + [64 * a * b for a, b in shapes]).tolist()
-    plan = [(k, v, u) for k, (hs, vs) in enumerate(f.sampling)
-            for v in range(vs) for u in range(hs)]
-    where: List[int] = []
-    value: List[int] = []
-    for first in range(0, n_mcus, per_interval):
-        raw = np.frombuffer(intervals[first // per_interval], np.uint8)
-        keep = np.ones(raw.size, bool)
-        keep[1:] &= ~((raw[:-1] == 0xFF) & (raw[1:] == 0))  # byte stuffing
-        bits = np.unpackbits(raw[keep]).astype(np.int64)
-        nbits = bits.size
-        # zeros past a marker, for as far as one block's codes may reach
-        bits = np.concatenate([bits, np.zeros(_BLOCK_BITS + 16, np.int64)])
-        window = np.zeros(nbits + _BLOCK_BITS, np.int64)
-        for i in range(16):
-            window = (window << 1) | bits[i:i + nbits + _BLOCK_BITS]
-        win = window.tolist()
-        pred = [0] * len(f.sampling)
-        p = 0
-        for m in range(first, min(first + per_interval, n_mcus)):
+    coefs = [[0] * (64 * a * b) for a, b in shapes]
+    for scan in f.scans:
+        _decode_scan(f, scan, coefs, shapes)
+    return [np.array(c, np.int64).reshape(*shape, 64) for c, shape in zip(coefs, shapes)]
+
+
+def _decode_scan(f: Frame, scan: Scan, coefs: List[List[int]], shapes) -> None:
+    """Decode one scan into ``coefs``, as libjpeg's ``jdhuff.c``
+    (sequential) and ``jdphuff.c`` (progressive: DC first and refine, AC
+    first with its end-of-band runs, AC refine with its correction bits)
+    do: per unit (an MCU, each of its components' hs x vs blocks in raster
+    order; or one block of the scan's one component, over that
+    component's own grid) every block; the DC predictors and the
+    end-of-band run start at 0 in each restart interval."""
+    _, _, mcux, _ = _geometry(f)
+    n_units = _units(f, scan)
+    if len(scan.comps) == 1:
+        k = scan.comps[0]
+        gw, bw = _grid(f, k)[1], shapes[k][1]
+        blocks = lambda u: ((0, k, 64 * ((u // gw) * bw + u % gw)),)  # noqa: E731
+    else:
+        plan = [(j, k, v, u) for j, k in enumerate(scan.comps)
+                for v in range(f.sampling[k][1]) for u in range(f.sampling[k][0])]
+
+        def blocks(m):
             my, mx = divmod(m, mcux)
-            for k, v, u in plan:
-                hs, vs = f.sampling[k]
-                base = offsets[k] + 64 * ((my * vs + v) * shapes[k][1] + mx * hs + u)
-                dsym, dlen = dc_tabs[k]
-                w = win[p]
-                s = dsym[w]
-                if not dlen[w]:
-                    raise _scan_fault(f, "bad DC code")
-                p += dlen[w]
-                diff = 0
-                if s:
-                    diff = win[p] >> (16 - s)
-                    p += s
-                    if diff < 1 << (s - 1):
-                        diff -= (1 << s) - 1
-                pred[k] += diff
-                where.append(base)
-                value.append(pred[k])
-                asym, alen = ac_tabs[k]
-                i = 1
-                while i < 64:
+            return [(j, k, 64 * ((my * f.sampling[k][1] + v) * shapes[k][1]
+                                 + mx * f.sampling[k][0] + u)) for j, k, v, u in plan]
+    if not f.progressive:
+        kind = "sequential"
+    elif scan.ss == 0:
+        kind = "dc refine" if scan.ah else "dc first"
+    else:
+        kind = "ac refine" if scan.ah else "ac first"
+    ss, se, al = scan.ss, scan.se, scan.al
+    p1, m1 = 1 << al, -1 << al
+    per_interval = scan.restart or n_units
+    intervals = _restart_intervals(scan.coded)
+    if len(intervals) < -(-n_units // per_interval):
+        raise _scan_fault(scan, "no RST marker where a restart interval ends")
+    dc_tabs = [_decode_tables(*t) if t else None for t in scan.dc]
+    ac_tabs = [_decode_tables(*t) if t else None for t in scan.ac]
+    for first in range(0, n_units, per_interval):
+        win, nbits = _bit_windows(intervals[first // per_interval])
+        pred = [0] * len(scan.comps)
+        eobrun = 0
+        p = 0
+        for unit in range(first, min(first + per_interval, n_units)):
+            for j, k, base in blocks(unit):
+                blk = coefs[k]
+                if kind in ("sequential", "dc first"):
+                    dsym, dlen = dc_tabs[j]
                     w = win[p]
-                    rs = asym[w]
-                    if not alen[w]:
-                        raise _scan_fault(f, "bad AC code")
-                    p += alen[w]
-                    r, s = rs >> 4, rs & 15
+                    s = dsym[w]
+                    if not dlen[w]:
+                        raise _scan_fault(scan, "bad DC code")
+                    p += dlen[w]
+                    diff = 0
                     if s:
-                        i += r
-                        e = win[p] >> (16 - s)
+                        diff = win[p] >> (16 - s)
                         p += s
-                        if e < 1 << (s - 1):
-                            e -= (1 << s) - 1
-                        if i > 63:
-                            raise _scan_fault(f, "coefficient past the block")
-                        where.append(base + i)
-                        value.append(e)
-                        i += 1
-                    elif r == 15:
-                        i += 16
+                        if diff < 1 << (s - 1):
+                            diff -= (1 << s) - 1
+                    pred[j] += diff
+                    if kind == "dc first":
+                        blk[base] = _i16(pred[j] << al)
                     else:
-                        break
+                        blk[base:base + 64] = [0] * 64
+                        blk[base] = _i16(pred[j])
+                if kind == "dc refine":
+                    if win[p] >> 15:
+                        blk[base] = _i16(blk[base] | p1)
+                    p += 1
+                elif kind in ("sequential", "ac first"):
+                    asym, alen = ac_tabs[j]
+                    last = 63 if kind == "sequential" else se
+                    i = 1 if kind == "sequential" else ss
+                    if eobrun:
+                        eobrun -= 1
+                        i = last + 1
+                    while i <= last:
+                        w = win[p]
+                        rs = asym[w]
+                        if not alen[w]:
+                            raise _scan_fault(scan, "bad AC code")
+                        p += alen[w]
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            i += r
+                            e = win[p] >> (16 - s)
+                            p += s
+                            if e < 1 << (s - 1):
+                                e -= (1 << s) - 1
+                            if i > last:
+                                raise _scan_fault(scan, "coefficient past the band")
+                            blk[base + i] = _i16(e << al)
+                            i += 1
+                        elif r == 15:
+                            i += 16
+                        else:
+                            if kind == "ac first":
+                                eobrun = (1 << r) - 1
+                                if r:
+                                    eobrun += win[p] >> (16 - r)
+                                    p += r
+                            break
+                elif kind == "ac refine":
+                    asym, alen = ac_tabs[j]
+                    i = ss
+                    if not eobrun:
+                        while i <= se:
+                            w = win[p]
+                            rs = asym[w]
+                            if not alen[w]:
+                                raise _scan_fault(scan, "bad AC code")
+                            p += alen[w]
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                if s != 1:
+                                    raise _scan_fault(scan, "bad AC refinement code")
+                                s = p1 if win[p] >> 15 else m1
+                                p += 1
+                            elif r != 15:
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += win[p] >> (16 - r)
+                                    p += r
+                                break
+                            # step over nonzero coefficients, each taking a
+                            # correction bit, and r zero ones
+                            while i <= se:
+                                c = blk[base + i]
+                                if c:
+                                    if win[p] >> 15 and not c & p1:
+                                        blk[base + i] = _i16(c + (p1 if c >= 0 else m1))
+                                    p += 1
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                i += 1
+                            if s:
+                                if i > se:
+                                    raise _scan_fault(scan, "coefficient past the band")
+                                blk[base + i] = s
+                            i += 1
+                    if eobrun:
+                        for i in range(i, se + 1):
+                            c = blk[base + i]
+                            if c:
+                                if win[p] >> 15 and not c & p1:
+                                    blk[base + i] = _i16(c + (p1 if c >= 0 else m1))
+                                p += 1
+                        eobrun -= 1
                 if p > nbits:
-                    raise _scan_fault(f, "ends early")
-    out = np.zeros(offsets[-1], np.int64)
-    out[np.array(where, np.int64)] = np.array(value, np.int64)
-    return [out[a:b].reshape(*shape, 64) for a, b, shape in zip(offsets, offsets[1:], shapes)]
+                    raise _scan_fault(scan, "ends early")
 
 
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+# per scan: components, their indices (4), ss, se, ah, al, restart, the
+# offset and length of its coded bytes
+_SCAN_FIELDS = 12
+# per scan, per component slot (4): DC then AC counts (16) and symbols (256)
+_TABLE_BYTES = 16 + 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -808,8 +1095,9 @@ def _native() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_jpeg()))
     lib.icat_jpeg_decode.restype = ctypes.c_int
     lib.icat_jpeg_decode.argtypes = [
-        _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P, _I32P, _I32P,
-        _U8P, _U8P, _U8P, _U8P, ctypes.c_int, _U8P, ctypes.c_char_p, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P, _I32P,
+        _I32P, ctypes.c_int, _I64P, _U8P, _U8P, _U8P, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_int]
     return lib
 
 
@@ -822,30 +1110,42 @@ def decode_native(data: bytes) -> np.ndarray:
     on first use): the same pixels, bit for bit.  Raises what ``parse``
     raises, ``UnsupportedImageError`` on a corrupt scan, and
     ``RuntimeError`` where the decoder cannot be built."""
-    f = parse(data)
+    return decode_frame_native(parse(data))
+
+
+def decode_frame_native(f: Frame) -> np.ndarray:
+    """``decode_native`` of a parsed stream."""
     n = len(f.sampling)
-    tables = {}
-    for name, src in (("dc", f.dc), ("ac", f.ac)):
-        counts, symbols = np.zeros((n, 16), np.uint8), np.zeros((n, 256), np.uint8)
-        for k, (c, s) in enumerate(src):
-            counts[k] = c
-            symbols[k, :len(s)] = np.frombuffer(s, np.uint8)
-        tables[name] = (counts, symbols)
+    scans = np.zeros((len(f.scans), _SCAN_FIELDS), np.int64)
+    tables = np.zeros((len(f.scans), 4, 2, _TABLE_BYTES), np.uint8)
+    offset = 0
+    for i, scan in enumerate(f.scans):
+        scans[i, :1 + len(scan.comps)] = [len(scan.comps), *scan.comps]
+        scans[i, 5:] = [scan.ss, scan.se, scan.ah, scan.al, scan.restart, offset,
+                        len(scan.coded)]
+        offset += len(scan.coded)
+        for j in range(len(scan.comps)):
+            for t, table in enumerate((scan.dc[j], scan.ac[j])):
+                if table:
+                    tables[i, j, t, :16] = table[0]
+                    tables[i, j, t, 16:16 + len(table[1])] = np.frombuffer(table[1], np.uint8)
+    coded = np.frombuffer(b"".join(scan.coded for scan in f.scans) or b"\0", np.uint8)
     hs = np.array([s[0] for s in f.sampling], np.int32)
     vs = np.array([s[1] for s in f.sampling], np.int32)
     quant = np.ascontiguousarray(np.stack(f.quant), np.int32)
-    coded = np.frombuffer(f.coded, np.uint8)
-    out = np.empty((f.height, f.width, 3 if n == 3 else 1), np.uint8)
+    out = np.empty((f.height, f.width, 1 if n == 1 else 3), np.uint8)
+    fault = ctypes.c_int(-1)
     err = ctypes.create_string_buffer(256)
     rc = _native().icat_jpeg_decode(
-        _ptr(coded, ctypes.c_uint8), coded.size, f.width, f.height, n,
+        f.width, f.height, n, int(f.mode == "CMYK"), int(f.progressive),
         _ptr(hs, ctypes.c_int32), _ptr(vs, ctypes.c_int32), _ptr(quant, ctypes.c_int32),
-        *(_ptr(a, ctypes.c_uint8) for a in (*tables["dc"], *tables["ac"])), f.restart,
-        _ptr(out, ctypes.c_uint8), err, len(err))
+        len(f.scans), _ptr(scans, ctypes.c_int64), _ptr(tables, ctypes.c_uint8),
+        _ptr(coded, ctypes.c_uint8), _ptr(out, ctypes.c_uint8), ctypes.byref(fault), err,
+        len(err))
     if rc:
         msg = err.value.decode()
-        if msg.startswith("JPEG scan"):
-            raise _scan_fault(f, msg.removeprefix("JPEG scan").lstrip(": "))
+        if fault.value >= 0:
+            raise _scan_fault(f.scans[fault.value], msg)
         raise ValueError(msg)
     _check_ended(f)
     return out

@@ -1,10 +1,10 @@
 """Build the port's native sources into C-ABI shared libraries and load
 them with ``ctypes``.
 
-Three libraries, each built on first use into ``_build/`` beside the package
+Four libraries, each built on first use into ``_build/`` beside the package
 under a name keyed by a hash of its sources and flags, so an edited source
 or flag builds anew and an unchanged one is reused.  One file lock
-serialises concurrent builds of both.
+serialises concurrent builds of all of them.
 
 * ``libicat_kernels-<hash>.so``: the CUDA kernels (the GDN forward and
   backward), by ``nvcc``.  Plain ``nvcc`` on a source with a C interface
@@ -13,9 +13,10 @@ serialises concurrent builds of both.
   included (``-Xptxas -v``), is kept beside the library (``build_log``).
 * ``libicat_rans-<hash>.so``: the host rANS coder (``csrc/rans.cc``), by
   ``g++``, so that the real coder runs where there is no CUDA toolkit;
-* ``libicat_jpeg-<hash>.so``: the host baseline JPEG decoder
-  (``csrc/jpeg.cc``), by ``g++``, which every image reader of the port
-  takes for JPEG files.
+* ``libicat_jpeg-<hash>.so``: the host JPEG decoder (``csrc/jpeg.cc``),
+  by ``g++``, which every image reader of the port takes for JPEG files;
+* ``libicat_png-<hash>.so``: the host PNG decoder (``csrc/png.cc``), by
+  ``g++``, which every image reader of the port takes for PNG files.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ NVCC_FLAGS = (
 )
 RANS_SOURCE = CSRC_DIR / "rans.cc"
 JPEG_SOURCE = CSRC_DIR / "jpeg.cc"
+PNG_SOURCE = CSRC_DIR / "png.cc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
@@ -85,6 +87,11 @@ def rans_library_path() -> Path:
 def jpeg_library_path() -> Path:
     """``_build/libicat_jpeg-<hash>.so``, keyed by source and flags."""
     return _keyed_path("libicat_jpeg", GXX_FLAGS, (JPEG_SOURCE,))
+
+
+def png_library_path() -> Path:
+    """``_build/libicat_png-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_png", GXX_FLAGS, (PNG_SOURCE,))
 
 
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
@@ -145,6 +152,12 @@ def build_jpeg() -> Path:
     """Compile ``csrc/jpeg.cc`` with g++ unless the keyed library already
     exists; return its path."""
     return _build_host(jpeg_library_path(), JPEG_SOURCE, "the JPEG decoder")
+
+
+def build_png() -> Path:
+    """Compile ``csrc/png.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(png_library_path(), PNG_SOURCE, "the PNG decoder")
 
 
 @functools.lru_cache(maxsize=None)

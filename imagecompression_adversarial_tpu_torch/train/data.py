@@ -6,14 +6,15 @@ stream equals JAX's element for element: recursive folder listing of the
 same five extensions (``.png .jpg .jpeg .bmp .webp``), a permutation an
 epoch, one ``default_rng`` a file for its crop (drawn before the file is
 read, so an unreadable file shifts no other crop), drop-last.  Files are
-read through the port's own readers (``io/image.py``, no PIL: PNG, JPEG by
-the host C++ decoder, BMP), which give Pillow's pixels.  A broken file or
-one smaller than the crop is skipped, as the JAX loader skips a file PIL
-cannot open; an epoch that yields no batch raises, naming what was
-skipped.  A file that PIL reads and the port does not (WebP, a progressive
-JPEG, a palette PNG, a JPEG scan libjpeg decodes with a warning, ...)
-raises, naming the file: JAX's stream holds it, so skipping it would shift
-every later crop.
+read through the port's own readers (``io/image.py::read_pixels``, no
+PIL: PNG and JPEG by the host C++ decoders, BMP), which give what JAX's
+``Image.open(path).convert("RGB")`` gives for every PNG kind, progressive
+and CMYK JPEGs included.  A broken file or one smaller than the crop is
+skipped, as the JAX loader skips a file PIL cannot open; an epoch that
+yields no batch raises, naming what was skipped.  A file that PIL reads
+and the port does not (WebP, a YCCK JPEG, a JPEG scan libjpeg decodes with
+a warning, ...) raises, naming the file: JAX's stream holds it, so
+skipping it would shift every later crop.
 
 Without a data folder, ``synthetic_batches`` gives a deterministic
 structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
@@ -34,7 +35,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from ..io.errors import UnsupportedImageError
-from ..io.image import read_image
+from ..io.image import read_pixels
 
 # the extensions the JAX package lists
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
@@ -53,18 +54,19 @@ def _load_crop(path: str, crop: int, rng: np.random.Generator):
     """(crop, None), or (None, why the file was skipped).  Raises on a
     file that PIL reads and the port does not."""
     try:
-        img, h, w = read_image(path, padding=1)
+        img = read_pixels(path)
     except UnsupportedImageError as e:
         raise UnsupportedImageError(
             f"{path}: {e}; the JAX loader reads it through PIL, so skipping it would shift "
             "the stream: convert it to PNG") from None
     except (OSError, ValueError, zlib.error, struct.error) as e:
         return None, f"unreadable ({type(e).__name__})"
+    h, w, _ = img.shape
     if w < crop or h < crop:
         return None, f"smaller than the {crop}x{crop} crop"
     x0 = int(rng.integers(0, w - crop + 1))
     y0 = int(rng.integers(0, h - crop + 1))
-    return img[0, y0:y0 + crop, x0:x0 + crop], None
+    return img[y0:y0 + crop, x0:x0 + crop].astype(np.float32) / 255.0, None
 
 
 def image_folder_batches(

@@ -1,6 +1,8 @@
-"""The port's PNG reader and writer (``io/image.py``), with PIL blocked.
+"""The port's PNG reader and writer (``io/image.py``, ``io/png.py``), with
+PIL blocked.
 
-The port reads and writes PNGs with numpy and ``zlib`` and needs no PIL.
+The port reads PNGs with ``zlib`` and its host C++ decoder, writes them
+with numpy and ``zlib``, and needs no PIL.
 Every call into the port here runs with ``sys.modules["PIL"] = None``, so an
 import of PIL inside it fails.  PIL, where the host has it, only makes
 reference files and decodes the port's output; where it is missing those
@@ -17,7 +19,8 @@ import pytest
 
 from imagecompression_adversarial_tpu_torch.cli import attack_rd
 from imagecompression_adversarial_tpu_torch.config import parse_config
-from imagecompression_adversarial_tpu_torch.io.image import read_image, write_image
+from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
+from imagecompression_adversarial_tpu_torch.io.image import read_image, read_pixels, write_image
 
 _COLOUR = {"gray": (0, 1, "L"), "rgb": (2, 3, "RGB"), "rgba": (6, 4, "RGBA")}
 
@@ -125,22 +128,50 @@ def test_written_png_reads_back_through_pil(pil, tmp_path, monkeypatch):
     np.testing.assert_array_equal(back[0], expect.astype(np.float32) / 255.0)
 
 
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _interlaced(img, bpp):
+    """Adam7's seven passes of (h, w, bpp) pixels, each filtered as
+    ``_filter`` filters an image."""
+    passes = (img[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7)
+    return b"".join(_filter(p.reshape(p.shape[0], -1), bpp) for p in passes if p.size)
+
+
 @pytest.mark.parametrize("feature", ["palette", "16-bit", "interlaced", "crc"])
 def test_rejects_what_it_does_not_read(pil, tmp_path, monkeypatch, feature):
+    """A palette and a 16-bit gray PNG give ``read_pixels`` PIL's
+    ``convert("RGB")``, and ``read_image`` refuses them naming PIL's mode
+    (JAX's ``read_image`` takes their palette indices or raw 16-bit values
+    as pixels); an interlaced RGB PNG reads as PIL reads it; a fault in a
+    chunk's CRC raises."""
     path = tmp_path / f"{feature}.png"
     if feature == "palette":
         pil.fromarray(_pixels(8, 8, 3, seed=4), "RGB").convert("P").save(path)
     elif feature == "16-bit":
         pil.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(path)
+    elif feature == "interlaced":
+        path.write_bytes(_png(13, 11, 2, _interlaced(_pixels(11, 13, 3, seed=4), 3), interlace=1))
     else:
-        data = bytearray(_png(2, 2, 2, bytes(14), interlace=int(feature == "interlaced")))
-        if feature == "crc":
-            data[-20] ^= 1  # a byte of the IDAT body
+        data = bytearray(_png(2, 2, 2, bytes(14)))
+        data[-20] ^= 1  # a byte of the IDAT body
         path.write_bytes(bytes(data))
+    want = None if feature == "crc" else np.asarray(pil.open(path).convert("RGB"))
     with monkeypatch.context() as m:
         m.setitem(sys.modules, "PIL", None)
-        with pytest.raises(ValueError, match=feature.replace("crc", "CRC")):
-            read_image(str(path))
+        if feature == "crc":
+            with pytest.raises(ValueError, match="CRC"):
+                read_image(str(path))
+        elif feature == "interlaced":
+            im, h, w = read_image(str(path), padding=1)
+            assert (h, w) == (11, 13)
+            np.testing.assert_array_equal(im[0], _as_rgb(want))
+        else:
+            np.testing.assert_array_equal(read_pixels(str(path)), want)
+            mode = {"palette": "P", "16-bit": "I;16"}[feature]
+            with pytest.raises(UnsupportedImageError, match=f"Pillow's mode {mode}"):
+                read_image(str(path))
 
 
 def test_cli_debug_pngs_without_pil(no_pil, tmp_path, monkeypatch):

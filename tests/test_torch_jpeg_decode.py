@@ -5,10 +5,12 @@ built with g++), its plain numpy version (``io/jpeg.py::decode``) and
 writes: qualities 10, 50, 90 and 100; YCbCr at 4:4:4, 4:2:2 and 4:2:0 and
 gray; restart intervals (``restart_marker_blocks``,
 ``restart_marker_rows``); sizes that are not multiples of 8 or 16, down to
-1x1.  What neither decoder reads raises ``UnsupportedImageError`` naming
-it: progressive, arithmetic-coded, lossless, 12-bit, CMYK, Adobe
-RGB-coded and other sampling factors (all but progressive and CMYK made by
-patching a baseline file's markers), and a corrupt scan that Pillow
+1x1.  Progressive and CMYK files, refused up to slice 15, decode to
+Pillow's ``convert("RGB")`` (``read_image`` refuses CMYK, naming Pillow's
+mode).  What neither decoder reads raises ``UnsupportedImageError`` naming
+it: arithmetic-coded, lossless, 12-bit, YCCK, Adobe RGB-coded and other
+sampling factors (made by patching a baseline or CMYK file's markers),
+and a corrupt scan that Pillow
 decodes with libjpeg's warning (a bad Huffman code, a lost or misnumbered
 RSTn, a scan cut short before EOI).  Extraneous bytes before a marker are
 skipped, giving Pillow's pixels.  A broken stream, or one cut inside its
@@ -27,7 +29,7 @@ from PIL import Image
 
 from imagecompression_adversarial_tpu_torch.io import jpeg
 from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
-from imagecompression_adversarial_tpu_torch.io.image import read_pixels
+from imagecompression_adversarial_tpu_torch.io.image import read_image, read_pixels
 from imagecompression_adversarial_tpu_torch.kernels import _build
 
 SAMPLINGS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "gray": None}
@@ -104,24 +106,40 @@ def _variants():
     length = struct.unpack(">H", base[app0 + 2:app0 + 4])[0]
     adobe = (base[:app0] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
              + base[app0 + 2 + length:])
+    ycck = _patched(cmyk.getvalue(), 0xEE, 11, 2)
     sof = bytearray(base)
     sof[_segment(base, 0xC0) + 1] = 0xC9
     lossless = bytearray(base)
     lossless[_segment(base, 0xC0) + 1] = 0xC3
     return {
-        "progressive": (progressive, "progressive JPEGs"),
+        "progressive": (progressive, None),
         "arithmetic": (bytes(sof), "arithmetic-coded sequential JPEGs"),
         "lossless": (bytes(lossless), "lossless JPEGs"),
         "12-bit": (_patched(base, 0xC0, 0, 12), "12-bit JPEGs"),
-        "cmyk": (cmyk.getvalue(), "CMYK/YCCK"),
+        "cmyk": (cmyk.getvalue(), None),
+        "ycck": (ycck, r"YCCK JPEGs \(Adobe APP14 transform 2\)"),
         "adobe-rgb": (adobe, "Adobe RGB-coded"),
         "4:4:0": (_patched(base, 0xC0, 7, 0x12), r"sampling factors \['1x2', '1x1', '1x1'\]"),
     }
 
 
 @pytest.mark.parametrize("kind", list(_variants()))
-def test_what_neither_decoder_reads_raises_naming_it(kind):
+def test_what_neither_decoder_reads_raises_naming_it(kind, tmp_path):
+    """Each kind raises naming it, but the progressive and CMYK files,
+    which both decoders now give Pillow's ``convert("RGB")`` of, and
+    ``read_image`` refuses CMYK naming Pillow's mode."""
     data, match = _variants()[kind]
+    if match is None:
+        _all_equal(data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+        path = tmp_path / "x.jpg"
+        path.write_bytes(data)
+        if kind == "cmyk":
+            with pytest.raises(UnsupportedImageError, match="Pillow's mode CMYK"):
+                read_image(str(path))
+        else:
+            np.testing.assert_array_equal(read_image(str(path), padding=1)[0][0],
+                                          read_pixels(str(path)) / np.float32(255))
+        return
     for decode in (jpeg.decode, jpeg.decode_native):
         with pytest.raises(UnsupportedImageError, match=match):
             decode(data)
