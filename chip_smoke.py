@@ -9,7 +9,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
-   builds the host rANS coder and the host JPEG and PNG decoders with g++;
+   builds the host rANS coder and the host JPEG, PNG and WebP decoders
+   with g++;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
    every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
@@ -245,7 +246,20 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     NOISE_ATOL and vi within VI_ATOL; (c) ``cli.train -data`` on a folder
     of every file for KINDS_TRAIN_STEPS steps, printing its rate, an
     epoch's host decode time and its launches.  Phase 21c's PNG folder is
-    read by the C++ PNG decoder since this slice.
+    read by the C++ PNG decoder since this slice, and the WebP files of
+    INPUTS_DIR join 22c's folder since slice 17;
+23. WebP inputs (slice 17): (a) prints phase 2's build of the WebP decoder
+    (``csrc/webp.cc``), decodes every WebP of INPUTS_DIR (lossy, lossy
+    with alpha, the simple loop filter, a filter sharpness, a bundled
+    palette, noise, and WEBP_TEXTURED and WEBP_LOSSLESS, 768x512 q90 lossy
+    and its lossless twin) with it, each of which must give the sha256 of
+    Pillow's pixels and Pillow's mode that ``inputs.json`` records (the
+    decoder has no numpy twin), and times the two 768x512 files (best of
+    JPEG_DECODE_RUNS); (b) runs ``cli.attack_rd -s`` on WEBP_TEXTURED
+    (hyper q1 demo weights, JPEG_ATTACK_STEPS steps, cuDNN deterministic),
+    printing its GDN launches, beside the same attack on a PNG of its
+    pixels: noise within NOISE_ATOL and vi within VI_ATOL. Phase 19's
+    MP_STEPS went from 11 to 7 to make room for this phase.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -260,7 +274,7 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19, 20, 21 and 22.  It reads five demo checkpoints: hyper q1,
+rendezvous), 19, 20, 21, 22 and 23.  It reads five demo checkpoints: hyper q1,
 cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
 ``ckpts/adv/hyper-0.013-mse-0.0001-300``; and the files of
 ``tests/data/inputs``.
@@ -632,8 +646,9 @@ MP_SIZE = (3072, 4096)
 # MP_STEPS, MP_GMM_STEPS, MP_LARGE_STEPS and MP_KVP_STEPS were 21, 11, 3
 # and 11 up to PR 20, and are 11, 6, 2 and 6 since phase 21 was added, to
 # keep the run within its time (the split and single-program attacks were
-# equal at 21 and 11 steps, and a peak is set in the first step)
-MP_STEPS = 11
+# equal at 21 and 11 steps, and a peak is set in the first step); MP_STEPS
+# is 7 since phase 23 was added, which takes back its ~15 s
+MP_STEPS = 7
 MP_LARGE = (7040, 9344)
 # the peak is set in the first step
 MP_LARGE_STEPS = 2
@@ -706,6 +721,12 @@ PAR_UNEVEN_SIZE = (512, 576)
 INPUTS_DIR = os.path.join(ROOT, "tests", "data", "inputs")
 KINDS_TEXTURED = "textured_progressive.jpg"
 KINDS_TRAIN_STEPS = 5
+# phase 23 (slice 17): the committed WebPs of INPUTS_DIR, each held to the
+# sha256 and mode recorded for Pillow's decode, WEBP_TEXTURED and
+# WEBP_LOSSLESS (768x512, make_inputs.py::webp_textured, q90 lossy and its
+# lossless twin) timed; the attack CLI on WEBP_TEXTURED beside its PNG twin
+WEBP_TEXTURED = "textured_lossy.webp"
+WEBP_LOSSLESS = "textured_lossless.webp"
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -4035,6 +4056,42 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
     return records, launches, launches_bwd
 
 
+def attack_beside_png(phase: str, name: str, tmp: str, records: dict, launches: dict,
+                      launches_bwd: dict) -> None:
+    """``cli.attack_rd -s`` on INPUTS_DIR's ``name`` and on a PNG of its
+    pixels, in ``tmp`` (hyper q1 demo weights, JPEG_ATTACK_STEPS steps,
+    cuDNN deterministic): records the rates, vi and noise gap under
+    ``phase`` and the file's launches; raises unless the two runs agree
+    at NOISE_ATOL and VI_ATOL."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
+
+    src = os.path.join(INPUTS_DIR, name)
+    twin = os.path.join(tmp, "textured.png")
+    write_image(read_pixels(src)[None].astype(np.float32) / 255.0, twin)
+    os.chdir(tmp)
+    with cudnn_deterministic():
+        (af, mf, i_f), (ap, _, ip) = (cli_attack(phase[:2], path, JPEG_ATTACK_STEPS)
+                                      for path in (src, twin))
+    noise = float(np.abs(i_f - ip).max())
+    dvi = abs(af["vi"] - ap["vi"])
+    records[phase] = {"steps_per_s": JPEG_ATTACK_STEPS / af["t"],
+                      "png_steps_per_s": JPEG_ATTACK_STEPS / ap["t"], "vi": af["vi"],
+                      "png_vi": ap["vi"], "noise_max_abs": noise,
+                      "launches": mf["launches"], "bwd_launches": mf["bwd_launches"]}
+    label = f"{phase} attack_rd -s {name}"
+    launches[label], launches_bwd[label] = mf["launches"], mf["bwd_launches"]
+    log(f"phase {phase} cli.attack_rd -s {name}, hyper q1 768x512, {JPEG_ATTACK_STEPS} steps "
+        f"(cuDNN deterministic): {JPEG_ATTACK_STEPS / af['t']:.2f} steps/s, vi "
+        f"{af['vi']:.6f}, bpp_ori {af['bpp_ori']:.4f}, bpp {af['bpp']:.4f}, gdn_fwd launches "
+        f"{mf['launches']}, gdn_bwd launches {mf['bwd_launches']}; on a PNG of its pixels "
+        f"{JPEG_ATTACK_STEPS / ap['t']:.2f} steps/s, vi {ap['vi']:.6f}: noise max |diff| "
+        f"{noise:.3e} (tol {NOISE_ATOL}), vi diff {dvi:.3e} (tol {VI_ATOL})")
+    if noise > NOISE_ATOL or dvi > VI_ATOL:
+        raise RuntimeError(f"phase {phase}: the {name} and PNG attacks differ")
+
+
 def phase_kinds(gdn, png_build: dict):
     """Phase 22: the image kinds of slice 16 (progressive and CMYK JPEGs,
     every PNG kind): both decoders on every committed file against
@@ -4046,7 +4103,7 @@ def phase_kinds(gdn, png_build: dict):
     import numpy as np
 
     from imagecompression_adversarial_tpu_torch.io import jpeg, png
-    from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
+    from imagecompression_adversarial_tpu_torch.io.image import read_pixels
     from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
 
     spec = importlib.util.spec_from_file_location(
@@ -4065,9 +4122,10 @@ def phase_kinds(gdn, png_build: dict):
             times.append(time.perf_counter() - t)
         return out, min(times)
 
-    # 22a: every file by both decoders, each held to Pillow's hash
+    # 22a: every PNG and JPEG by both decoders, each held to Pillow's hash
     failed, plain_s = [], {}
-    for name, rec in sorted(recorded.items()):
+    kinds = {name: rec for name, rec in recorded.items() if not name.endswith(".webp")}
+    for name, rec in sorted(kinds.items()):
         path = os.path.join(INPUTS_DIR, name)
         with open(path, "rb") as f:
             data = f.read()
@@ -4089,14 +4147,14 @@ def phase_kinds(gdn, png_build: dict):
     t = time.perf_counter()
     png_equal = bool(np.array_equal(png.decode(png_data), png_c_out))
     png_numpy = time.perf_counter() - t
-    records["22a"] = {"build": png_build, "files": len(recorded), "failed": failed,
+    records["22a"] = {"build": png_build, "files": len(kinds), "failed": failed,
                       "numpy_s": plain_s, "textured_c_s": textured_c,
                       "textured_numpy_s": plain_s[KINDS_TEXTURED], "png_bytes": len(png_data),
                       "png_c_s": png_c, "png_numpy_s": png_numpy, "png_equal": png_equal,
                       "host": host_cpu()}
     log(f"phase 22a PNG decoder: built in phase 2 ({png_build['s']:.2f} s, {png_build['how']}); "
-        f"{len(recorded) - len(failed)} of {len(recorded)} files of {INPUTS_DIR} decoded by the "
-        f"C++ and numpy decoders to Pillow's recorded pixels ({', '.join(sorted({r['mode'] for r in recorded.values()}))}); "
+        f"{len(kinds) - len(failed)} of {len(kinds)} PNG and JPEG files of {INPUTS_DIR} decoded by "
+        f"the C++ and numpy decoders to Pillow's recorded pixels ({', '.join(sorted({r['mode'] for r in kinds.values()}))}); "
         f"on the host ({records['22a']['host']}): the {KINDS_TEXTURED} (768x512 progressive "
         f"q90, {len(textured)} bytes) C {textured_c * 1e3:.2f} ms (best of {JPEG_DECODE_RUNS}), "
         f"numpy {plain_s[KINDS_TEXTURED] * 1e3:.1f} ms; a {tw}x{th} RGB PNG ({len(png_data)} "
@@ -4110,29 +4168,7 @@ def phase_kinds(gdn, png_build: dict):
     cwd = os.getcwd()
     try:
         # 22b: the attack CLI on the progressive file and on a PNG of its pixels
-        src = os.path.join(INPUTS_DIR, KINDS_TEXTURED)
-        twin = os.path.join(tmp, "textured.png")
-        write_image(read_pixels(src)[None].astype(np.float32) / 255.0, twin)
-        os.chdir(tmp)
-        with cudnn_deterministic():
-            (aj, mj, ij), (ap, mp_, ip) = (cli_attack("22", path, JPEG_ATTACK_STEPS)
-                                           for path in (src, twin))
-        noise = float(np.abs(ij - ip).max())
-        dvi = abs(aj["vi"] - ap["vi"])
-        records["22b"] = {"steps_per_s": JPEG_ATTACK_STEPS / aj["t"],
-                          "png_steps_per_s": JPEG_ATTACK_STEPS / ap["t"], "vi": aj["vi"],
-                          "png_vi": ap["vi"], "noise_max_abs": noise,
-                          "launches": mj["launches"], "bwd_launches": mj["bwd_launches"]}
-        label = f"22b attack_rd -s {KINDS_TEXTURED}"
-        launches[label], launches_bwd[label] = mj["launches"], mj["bwd_launches"]
-        log(f"phase 22b cli.attack_rd -s {KINDS_TEXTURED}, hyper q1 768x512, {JPEG_ATTACK_STEPS} "
-            f"steps (cuDNN deterministic): {JPEG_ATTACK_STEPS / aj['t']:.2f} steps/s, vi "
-            f"{aj['vi']:.6f}, bpp_ori {aj['bpp_ori']:.4f}, bpp {aj['bpp']:.4f}, gdn_fwd launches "
-            f"{mj['launches']}, gdn_bwd launches {mj['bwd_launches']}; on a PNG of its pixels "
-            f"{JPEG_ATTACK_STEPS / ap['t']:.2f} steps/s, vi {ap['vi']:.6f}: noise max |diff| "
-            f"{noise:.3e} (tol {NOISE_ATOL}), vi diff {dvi:.3e} (tol {VI_ATOL})")
-        if noise > NOISE_ATOL or dvi > VI_ATOL:
-            raise RuntimeError("phase 22b: the progressive JPEG and PNG attacks differ")
+        attack_beside_png("22b", KINDS_TEXTURED, tmp, records, launches, launches_bwd)
 
         # 22c: cli.train on a folder of every file
         folder = os.path.join(tmp, "train_kinds")
@@ -4157,12 +4193,72 @@ def phase_kinds(gdn, png_build: dict):
                           "peak_gib": peak, "last_loss": s["last"]["loss"]}
         label = f"22c cli.train -data kinds x{KINDS_TRAIN_STEPS}"
         launches[label], launches_bwd[label] = n, gdn.launch_counts["gdn_bwd"]
-        log(f"phase 22c cli.train -data on the {len(recorded)} files of every kind (batches of 8 "
+        log(f"phase 22c cli.train -data on the {len(recorded)} files of every kind, "
+            f"{len(recorded) - len(kinds)} WebPs among them (batches of 8 "
             f"256x256 crops, one a file an epoch), {KINDS_TRAIN_STEPS} steps: "
             f"{records['22c']['steps_per_s']:.2f} steps/s (steps 2-{KINDS_TRAIN_STEPS}), first "
             f"step {timing['first_step_s']:.2f} s; the host's decode of an epoch's batch alone "
             f"{decode_s * 1e3:.1f} ms; last loss {s['last']['loss']:.6f}, gdn_fwd launches {n}, "
             f"gdn_bwd launches {gdn.launch_counts['gdn_bwd']}, peak {peak:.3f} GiB")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches, launches_bwd
+
+
+def phase_webp(webp_build: dict):
+    """Phase 23: the WebP decoder on every committed WebP against Pillow's
+    recorded pixels, the two 768x512 files timed, and a WebP through the
+    attack CLI beside the PNG of its pixels.  Returns the records and the
+    forward and backward kernels' launches."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io import webp
+
+    with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+        recorded = {n: r for n, r in json.load(f).items() if n.endswith(".webp")}
+    records, launches, launches_bwd = {}, {}, {}
+
+    # 23a: every WebP held to Pillow's hash and mode; the 768x512 pair timed
+    failed, timed, kinds = [], {}, []
+    for name, rec in sorted(recorded.items()):
+        with open(os.path.join(INPUTS_DIR, name), "rb") as f:
+            data = f.read()
+        parsed = webp.parse(data)
+        pixels = webp.decode_webp_native(parsed)
+        digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+        kinds.append(f"{name} ({'VP8L' if parsed.lossless else 'VP8'}, {parsed.mode})")
+        if digest != rec["sha256"] or parsed.mode != rec["mode"] or \
+                list(pixels.shape) != rec["shape"]:
+            failed.append(f"{name} (sha256 {'=' if digest == rec['sha256'] else '!='}, mode "
+                          f"{parsed.mode} / {rec['mode']})")
+        if name in (WEBP_TEXTURED, WEBP_LOSSLESS):
+            times = []
+            for _ in range(JPEG_DECODE_RUNS):
+                t = time.perf_counter()
+                webp.decode_native(data)
+                times.append(time.perf_counter() - t)
+            timed[name] = {"bytes": len(data), "best_s": min(times), "runs_s": times}
+    host = host_cpu()
+    records["23a"] = {"build": webp_build, "files": len(recorded), "failed": failed,
+                      "timed": timed, "host": host,
+                      "libwebp": sorted({r.get("libwebp") for r in recorded.values()})}
+    log(f"phase 23a WebP decoder: built in phase 2 ({webp_build['s']:.2f} s, "
+        f"{webp_build['how']}); {len(recorded) - len(failed)} of {len(recorded)} WebPs of "
+        f"{INPUTS_DIR} decoded to the pixels and mode recorded for Pillow "
+        f"{sorted({r['pillow'] for r in recorded.values()})} (libwebp "
+        f"{records['23a']['libwebp']}): {', '.join(kinds)}; on the host ({host}), best of "
+        f"{JPEG_DECODE_RUNS}: " + ", ".join(
+            f"{n} ({t['bytes']} bytes) {t['best_s'] * 1e3:.2f} ms "
+            f"{[round(v * 1e3, 2) for v in t['runs_s']]}" for n, t in sorted(timed.items())))
+    if failed or len(timed) != 2:
+        raise RuntimeError(f"phase 23a: WebPs differ from Pillow's recorded pixels: {failed}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_webp_")
+    cwd = os.getcwd()
+    try:
+        # 23b: the attack CLI on the lossy WebP and on a PNG of its pixels
+        attack_beside_png("23b", WEBP_TEXTURED, tmp, records, launches, launches_bwd)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4288,6 +4384,13 @@ def main() -> int:
                  "library": _build.png_library_path().name}
     log(f"phase 2 build of the PNG decoder: {png_build['s']:.2f} s ({png_build['how']}) -> "
         f"{png_build['library']}")
+    t = time.time()
+    cached = _build.webp_library_path().is_file()
+    _build.build_webp()
+    webp_build = {"s": time.time() - t, "how": "cached" if cached else "g++",
+                  "library": _build.webp_library_path().name}
+    log(f"phase 2 build of the WebP decoder: {webp_build['s']:.2f} s ({webp_build['how']}) -> "
+        f"{webp_build['library']}")
 
     records = phase_kernel_vs_plain(gdn)
     launches, launches_bwd = phase_main_path(gdn)
@@ -4324,6 +4427,8 @@ def main() -> int:
     print(json.dumps({"phase21": input_records}, default=float), flush=True)
     kinds_records, launches_kinds, launches_kinds_bwd = phase_kinds(gdn, png_build)
     print(json.dumps({"phase22": kinds_records}, default=float), flush=True)
+    webp_records, launches_webp, launches_webp_bwd = phase_webp(webp_build)
+    print(json.dumps({"phase23": webp_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4347,6 +4452,7 @@ def main() -> int:
             **launches_orbax,
             **launches_inputs,
             **launches_kinds,
+            **launches_webp,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4370,6 +4476,7 @@ def main() -> int:
             **launches_mp_bwd,
             **launches_inputs_bwd,
             **launches_kinds_bwd,
+            **launches_webp_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

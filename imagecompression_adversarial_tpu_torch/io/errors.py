@@ -4,5 +4,6 @@ not."""
 
 class UnsupportedImageError(ValueError):
     """An image in a format or a variant of one that the port's readers do
-    not decode, though Pillow does (progressive JPEG, WebP, palette BMP, a
-    JPEG scan libjpeg decodes with a warning, ...): the message names it."""
+    not decode, though Pillow does (an animated WebP, a palette BMP, a
+    YCCK JPEG, a JPEG scan libjpeg decodes with a warning, ...): the
+    message names it."""

@@ -11,6 +11,8 @@ the format is told by the file's first bytes, and
 * JPEG by the host C++ decoder (``io/jpeg.py``, ``csrc/jpeg.cc``):
   baseline, sequential of several scans and progressive Huffman files of
   8-bit samples; gray, YCbCr at 4:4:4, 4:2:2 or 4:2:0, and CMYK;
+* WebP by the host C++ decoder (``io/webp.py``, ``csrc/webp.cc``): still
+  lossy (VP8) and lossless (VP8L) files, with or without alpha;
 * BMP (``BI_RGB``, 24- and 32-bit, bottom-up and top-down) with numpy.
 
 The JAX package reads in two ways, and so does the port.  ``read_pixels``
@@ -24,9 +26,9 @@ Pillow opens as ``P``, ``1``, ``LA``, ``I;16`` or ``CMYK`` it raises
 ``UnsupportedImageError`` naming the kind and the mode, where JAX's CLIs
 would take palette indices, booleans, two channels, raw 16-bit values or
 inverted CMY as pixels.  What Pillow reads and no reader here decodes (a
-palette BMP, WebP, YCCK JPEGs, ...) raises ``UnsupportedImageError``,
-naming it; a broken file raises ``ValueError``.  The writer emits 8-bit
-RGB PNGs.
+palette BMP, an animated WebP, GIF, TIFF, YCCK JPEGs, ...) raises
+``UnsupportedImageError``, naming it; a broken file raises ``ValueError``.
+The writer emits 8-bit RGB PNGs.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from . import jpeg, png
+from . import jpeg, png, webp
 from .errors import UnsupportedImageError
 
 # what JAX's ``np.asarray(Image.open(path))`` gives on the Pillow modes that
@@ -100,13 +102,11 @@ def _decode_bmp(data: bytes) -> np.ndarray:
 
 def _refuse(data: bytes) -> None:
     """Raise naming the format of an image file no reader here decodes."""
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise UnsupportedImageError("WebP images are not supported (PNG, JPEG and BMP only)")
     for magic, name in ((b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")):
         if data.startswith(magic):
-            raise UnsupportedImageError(f"{name} images are not supported (PNG, JPEG and BMP "
-                                        "only)")
-    raise ValueError(f"not a PNG, JPEG or BMP file (it starts with {data[:8]!r})")
+            raise UnsupportedImageError(f"{name} images are not supported (PNG, JPEG, WebP and "
+                                        "BMP only)")
+    raise ValueError(f"not a PNG, JPEG, WebP or BMP file (it starts with {data[:8]!r})")
 
 
 def _decode(path: str) -> Tuple[np.ndarray, str]:
@@ -121,19 +121,22 @@ def _decode(path: str) -> Tuple[np.ndarray, str]:
         frame = jpeg.parse(data)
         img = jpeg.decode_frame_native(frame)
         return (np.repeat(img, 3, axis=2) if frame.mode == "L" else img), frame.mode
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        parsed = webp.parse(data)
+        return webp.decode_webp_native(parsed), parsed.mode
     if data[:2] == b"BM":
         return _decode_bmp(data), "RGB"
     _refuse(data)
 
 
 def read_pixels(path: str) -> np.ndarray:
-    """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG or BMP), as
+    """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG, WebP or BMP), as
     ``Image.open(path).convert("RGB")`` gives them."""
     return _decode(path)[0]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG, JPEG or BMP that Pillow opens as ``L``, ``RGB`` or
+    """Load a PNG, JPEG, WebP or BMP that Pillow opens as ``L``, ``RGB`` or
     ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns ``(im, H,
     W)``.  Gray is repeated into RGB; RGBA loses its alpha.  Raises
     ``UnsupportedImageError`` naming the mode on the other modes."""

@@ -1,7 +1,7 @@
 """Build the port's native sources into C-ABI shared libraries and load
 them with ``ctypes``.
 
-Four libraries, each built on first use into ``_build/`` beside the package
+Five libraries, each built on first use into ``_build/`` beside the package
 under a name keyed by a hash of its sources and flags, so an edited source
 or flag builds anew and an unchanged one is reused.  One file lock
 serialises concurrent builds of all of them.
@@ -16,7 +16,9 @@ serialises concurrent builds of all of them.
 * ``libicat_jpeg-<hash>.so``: the host JPEG decoder (``csrc/jpeg.cc``),
   by ``g++``, which every image reader of the port takes for JPEG files;
 * ``libicat_png-<hash>.so``: the host PNG decoder (``csrc/png.cc``), by
-  ``g++``, which every image reader of the port takes for PNG files.
+  ``g++``, which every image reader of the port takes for PNG files;
+* ``libicat_webp-<hash>.so``: the host WebP decoder (``csrc/webp.cc``), by
+  ``g++``, which every image reader of the port takes for WebP files.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 RANS_SOURCE = CSRC_DIR / "rans.cc"
 JPEG_SOURCE = CSRC_DIR / "jpeg.cc"
 PNG_SOURCE = CSRC_DIR / "png.cc"
+WEBP_SOURCE = CSRC_DIR / "webp.cc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
@@ -92,6 +95,11 @@ def jpeg_library_path() -> Path:
 def png_library_path() -> Path:
     """``_build/libicat_png-<hash>.so``, keyed by source and flags."""
     return _keyed_path("libicat_png", GXX_FLAGS, (PNG_SOURCE,))
+
+
+def webp_library_path() -> Path:
+    """``_build/libicat_webp-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_webp", GXX_FLAGS, (WEBP_SOURCE,))
 
 
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
@@ -158,6 +166,12 @@ def build_png() -> Path:
     """Compile ``csrc/png.cc`` with g++ unless the keyed library already
     exists; return its path."""
     return _build_host(png_library_path(), PNG_SOURCE, "the PNG decoder")
+
+
+def build_webp() -> Path:
+    """Compile ``csrc/webp.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(webp_library_path(), WEBP_SOURCE, "the WebP decoder")
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,14 +7,16 @@ same five extensions (``.png .jpg .jpeg .bmp .webp``), a permutation an
 epoch, one ``default_rng`` a file for its crop (drawn before the file is
 read, so an unreadable file shifts no other crop), drop-last.  Files are
 read through the port's own readers (``io/image.py::read_pixels``, no
-PIL: PNG and JPEG by the host C++ decoders, BMP), which give what JAX's
-``Image.open(path).convert("RGB")`` gives for every PNG kind, progressive
-and CMYK JPEGs included.  A broken file or one smaller than the crop is
+PIL: PNG, JPEG and WebP by the host C++ decoders, BMP), which give what
+JAX's ``Image.open(path).convert("RGB")`` gives for every PNG kind,
+progressive and CMYK JPEGs and still WebPs, lossy and lossless, included.
+The decode threads run the decoders side by side (``ctypes`` drops the
+GIL during each call).  A broken file or one smaller than the crop is
 skipped, as the JAX loader skips a file PIL cannot open; an epoch that
 yields no batch raises, naming what was skipped.  A file that PIL reads
-and the port does not (WebP, a YCCK JPEG, a JPEG scan libjpeg decodes with
-a warning, ...) raises, naming the file: JAX's stream holds it, so
-skipping it would shift every later crop.
+and the port does not (an animated WebP, a YCCK JPEG, a JPEG scan libjpeg
+decodes with a warning, ...) raises, naming the file: JAX's stream holds
+it, so skipping it would shift every later crop.
 
 Without a data folder, ``synthetic_batches`` gives a deterministic
 structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].

@@ -9,12 +9,19 @@ crop) of smooth numpy-made pixels: progressive JPEGs at 4:2:0 and 4:4:4, a
 CMYK JPEG (Pillow's, Adobe transform 0), and PNGs Pillow writes (palette,
 gray+alpha, 16-bit gray, 1-bit) or cannot write, written here by hand
 (interlaced RGB, 16-bit RGB, 2- and 4-bit gray, an interlaced 4-bit
-palette with indices past its PLTE, 16-bit gray+alpha); and a 768x512
-progressive q90 JPEG of ``chip_smoke.py::textured_rgb`` (seed 5).  Then
-``inputs.json``: for each file the sha256 of Pillow's
-``Image.open(path).convert("RGB")`` bytes, their shape, Pillow's mode and
-version.  ``tests/test_torch_image_kinds.py`` holds the pixels to the
-hashes where Pillow is installed, and ``chip_smoke.py`` phase 22 holds the
+palette with indices past its PLTE, 16-bit gray+alpha); a 768x512
+progressive q90 JPEG of ``chip_smoke.py::textured_rgb`` (seed 5); and
+WebPs Pillow writes: lossy, lossy with alpha (``VP8X``, ``ALPH``,
+``VP8 ``), a lossless 4-colour palette (pixels bundled four a byte) and a
+lossless noisy one at the kind files' size, and a 768x512 q90 lossy file
+of ``webp_textured`` with its lossless twin; and two lossy WebPs of
+encoder settings Pillow's ``save`` cannot ask for, written through
+``libwebp_encode`` (the simple loop filter at sharpness 3, the normal one
+at sharpness 6).  Then ``inputs.json``: for
+each file the sha256 of Pillow's ``Image.open(path).convert("RGB")``
+bytes, their shape, Pillow's mode and version, and libwebp's version for a
+WebP.  ``tests/test_torch_image_kinds.py`` holds the pixels to the hashes
+where Pillow is installed, and ``chip_smoke.py`` phases 22 and 23 hold the
 port's decoders to them on the card.
 
 ``write_png`` writes any PNG kind from samples, the first rows of each
@@ -23,6 +30,9 @@ Adam7 pass with each of the five filters in turn; the tests import it.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import glob
 import hashlib
 import io
 import json
@@ -115,7 +125,7 @@ def wide(samples: np.ndarray) -> np.ndarray:
 
 
 def kind_files() -> dict:
-    """name -> bytes of each kind file."""
+    """name -> bytes of each PNG and JPEG kind file."""
     from PIL import Image
 
     h, w = SIZE
@@ -156,6 +166,109 @@ def kind_files() -> dict:
     }
 
 
+def webp_textured() -> np.ndarray:
+    """(512, 768, 3) uint8: smooth waves, fine stripes and impulse noise on
+    one pixel in twenty, textured enough that a q90 WebP of it carries many
+    coefficients, and sparse enough that its lossless twin stays near
+    300 kB."""
+    h, w = TEXTURED
+    rng = np.random.RandomState(15)
+    img = smooth(h, w, seed=15, period=2) + np.round(12 * np.sin(np.arange(w) / 1.7))[None, :, None]
+    img += np.where(rng.rand(h, w, 1) < 0.05, rng.randint(-40, 41, (h, w, 3)), 0)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# indices of WebPConfig's fields (libwebp's encode.h; ints but quality)
+_WEBP_CONFIG = ("lossless", "quality", "method", "image_hint", "target_size", "target_PSNR",
+                "segments", "sns_strength", "filter_strength", "filter_sharpness", "filter_type")
+
+
+def _libwebp() -> ctypes.CDLL:
+    """The libwebp that Pillow's wheel bundles (with its libsharpyuv), else
+    the system's."""
+    import PIL
+
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    for dep in glob.glob(os.path.join(libs, "libsharpyuv-*")):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    found = glob.glob(os.path.join(libs, "libwebp-*"))
+    name = found[0] if found else ctypes.util.find_library("webp")
+    if not name:
+        raise RuntimeError("no libwebp to encode with")
+    return ctypes.CDLL(name)
+
+
+def libwebp_encode(rgb: np.ndarray, quality: float, **fields: int) -> bytes:
+    """A lossy WebP of (h, w, 3) uint8 ``rgb`` by libwebp's advanced API,
+    with ``fields`` of its WebPConfig set (``filter_type`` 0 for the simple
+    loop filter, ``filter_sharpness``, ``segments``, ...): settings that
+    Pillow's ``save`` does not pass on."""
+    lib = _libwebp()
+    abi = 0x0200  # libwebp checks the major version alone
+    config = (ctypes.c_int32 * 64)()  # WebPConfig, with room to spare
+    if not lib.WebPConfigInitInternal(config, 0, ctypes.c_float(quality), abi):
+        raise RuntimeError("WebPConfigInit failed")
+    for name, value in fields.items():
+        config[_WEBP_CONFIG.index(name)] = value
+    if not lib.WebPValidateConfig(config):
+        raise ValueError(f"libwebp refuses {fields}")
+    picture = (ctypes.c_uint8 * 1024)()  # WebPPicture, with room to spare
+    writer = (ctypes.c_uint8 * 64)()  # WebPMemoryWriter
+    if not lib.WebPPictureInitInternal(picture, abi):
+        raise RuntimeError("WebPPictureInit failed")
+    h, w, _ = rgb.shape
+    ints = ctypes.cast(picture, ctypes.POINTER(ctypes.c_int32))
+    ints[2], ints[3] = w, h  # width, height (after use_argb and colorspace)
+    pixels = np.ascontiguousarray(rgb, np.uint8)
+    lib.WebPMemoryWriterInit(writer)
+    try:
+        if not lib.WebPPictureImportRGB(picture, pixels.ctypes.data_as(ctypes.c_void_p), 3 * w):
+            raise RuntimeError("WebPPictureImportRGB failed")
+        pointers = ctypes.cast(picture, ctypes.POINTER(ctypes.c_void_p))
+        pointers[12] = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value  # writer
+        pointers[13] = ctypes.addressof(writer)  # custom_ptr
+        if not lib.WebPEncode(config, picture):
+            raise RuntimeError(f"WebPEncode failed ({ints[34]})")
+        mem = ctypes.cast(writer, ctypes.POINTER(ctypes.c_void_p))
+        return ctypes.string_at(mem[0], mem[1])
+    finally:
+        lib.WebPMemoryWriterClear(writer)
+        lib.WebPPictureFree(picture)
+
+
+def webp_files() -> dict:
+    """name -> bytes of each WebP file."""
+    from PIL import Image
+
+    h, w = SIZE
+
+    def pillow(im, **kwargs) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, format="WEBP", **kwargs)
+        return buf.getvalue()
+
+    four = np.array([[20, 40, 200], [230, 210, 30], [90, 160, 90], [250, 250, 250]], np.uint8)
+    noisy = smooth(h, w, seed=17, period=2) + np.random.RandomState(17).randint(-2, 3, (h, w, 3))
+    rgb = {seed: smooth(h, w, seed=seed, noise=0.3).astype(np.uint8) for seed in (19, 20)}
+    textured = webp_textured()
+    return {
+        "webp_lossy.webp": pillow(Image.fromarray(smooth(h, w, seed=14, noise=0.03)
+                                                  .astype(np.uint8)), quality=75),
+        "webp_lossy_alpha.webp": pillow(Image.fromarray(smooth(h, w, seed=16, channels=4,
+                                                               noise=0.01).astype(np.uint8),
+                                                        "RGBA"), quality=60, alpha_quality=80),
+        "webp_palette.webp": pillow(Image.fromarray(four[smooth(h, w, seed=18, channels=1,
+                                                                levels=4)[..., 0]]),
+                                    lossless=True),
+        "webp_noise.webp": pillow(Image.fromarray(np.clip(noisy, 0, 255).astype(np.uint8)),
+                                  lossless=True),
+        "textured_lossy.webp": pillow(Image.fromarray(textured), quality=90),
+        "textured_lossless.webp": pillow(Image.fromarray(textured), lossless=True),
+        "webp_simple_filter.webp": libwebp_encode(rgb[19], 50, filter_type=0, filter_sharpness=3),
+        "webp_sharpness.webp": libwebp_encode(rgb[20], 50, filter_sharpness=6),
+    }
+
+
 def textured_file() -> bytes:
     """The 768x512 progressive q90 JPEG of ``chip_smoke.py::textured_rgb``."""
     from PIL import Image
@@ -172,16 +285,19 @@ def textured_file() -> bytes:
 def pillow_record(path: str) -> dict:
     """sha256, shape and mode of what Pillow makes of a file."""
     import PIL
-    from PIL import Image
+    from PIL import Image, features
 
     with Image.open(path) as im:
         rgb = np.ascontiguousarray(np.asarray(im.convert("RGB")), np.uint8)
-        return {"sha256": hashlib.sha256(rgb.tobytes()).hexdigest(), "shape": list(rgb.shape),
-                "mode": im.mode, "pillow": PIL.__version__}
+        record = {"sha256": hashlib.sha256(rgb.tobytes()).hexdigest(), "shape": list(rgb.shape),
+                  "mode": im.mode, "pillow": PIL.__version__}
+    if path.endswith(".webp"):
+        record["libwebp"] = features.version("webp")
+    return record
 
 
 def main() -> None:
-    files = {**kind_files(), "textured_progressive.jpg": textured_file()}
+    files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files()}
     records = {}
     for name, data in files.items():
         path = os.path.join(HERE, name)

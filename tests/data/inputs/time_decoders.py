@@ -1,19 +1,23 @@
-"""Time the port's host C++ decoders (``decode_native`` of ``io/jpeg.py``
-and ``io/png.py``) on this machine, this tree against another checkout of
-the port (the parent commit unpacked with ``git archive``, say), in turns.
+"""Time the port's host C++ decoders (``decode_native`` of ``io/jpeg.py``,
+``io/png.py`` and ``io/webp.py``) on this machine, this tree against
+another checkout of the port (the parent commit unpacked with ``git
+archive``, say) and, with ``--pillow``, against Pillow, in turns.
 
-    python tests/data/inputs/time_decoders.py [--against DIR] [--rounds 3] [--runs 5]
+    python tests/data/inputs/time_decoders.py [--against DIR] [--pillow] [--rounds 3] [--runs 5]
 
-Writes three files to a temporary directory: the textured 768x512 q90
+Writes five files to a temporary directory: the textured 768x512 q90
 baseline JPEG of ``chip_smoke.py`` phase 21a (this tree's encoder, which
-writes Pillow's bytes), ``textured_progressive.jpg`` from this folder, and
-a 448x256 RGB PNG of Paeth-filtered rows (``make_inputs.write_png``).
-Each round then runs one process a tree, in the order this, other in odd
-rounds and other, this in even ones; a process builds its tree's
-libraries, decodes each file it can once, and prints the best of
-``--runs`` timed decodes in ms (a file it refuses is left out).  Prints
-one JSON line a process, then the median over rounds of each tree's best
-times.  Needs numpy and g++, not Pillow or a GPU.
+writes Pillow's bytes), ``textured_progressive.jpg``,
+``textured_lossy.webp`` and ``textured_lossless.webp`` from this folder,
+and a 448x256 RGB PNG of Paeth-filtered rows (``make_inputs.write_png``).
+Each round then runs one process a tree (and one for Pillow), in turns,
+the order reversed in odd rounds; a process builds its tree's libraries
+(their build seconds are printed, 0 where ``_build/`` had them),
+decodes each file it can once, and prints the best of ``--runs`` timed
+decodes in ms (a file it refuses is left out); Pillow's times
+``Image.open(path).convert("RGB")``.  Prints one JSON line a process,
+then the median over rounds of each one's best times.  Needs numpy and
+g++, not a GPU; Pillow only for ``--pillow``.
 """
 
 from __future__ import annotations
@@ -30,17 +34,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 
 # run in a process of its own with a tree's root first on sys.path:
-# argv = [files..., runs]; prints {file name: best ms}
+# argv = [files..., runs]; prints {"best_ms": {file name: ms}, "build_s":
+# {module: s}}
 _CHILD = r"""
 import importlib, json, os, sys, time
 files, runs = sys.argv[1:-1], int(sys.argv[-1])
-best = {}
+best, build = {}, {}
+kinds = {".png": "png", ".jpg": "jpeg", ".webp": "webp"}
+importlib.import_module("imagecompression_adversarial_tpu_torch.kernels._build")  # torch
 for path in files:
-    kind = "png" if path.endswith(".png") else "jpeg"
+    kind = kinds[os.path.splitext(path)[1]]
     try:
         mod = importlib.import_module(f"imagecompression_adversarial_tpu_torch.io.{kind}")
     except ImportError:
         continue
+    if kind not in build:
+        t = time.perf_counter()
+        mod._native()
+        build[kind] = time.perf_counter() - t
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -53,12 +64,32 @@ for path in files:
         mod.decode_native(data)
         times.append(time.perf_counter() - t)
     best[os.path.basename(path)] = min(times) * 1e3
-print(json.dumps(best))
+print(json.dumps({"best_ms": best, "build_s": build}))
+"""
+
+# the same for Pillow's decode of each file
+_PILLOW = r"""
+import io, json, os, sys, time
+import numpy as np
+from PIL import Image
+files, runs = sys.argv[1:-1], int(sys.argv[-1])
+best = {}
+for path in files:
+    with open(path, "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(runs + 1):
+        t = time.perf_counter()
+        with Image.open(io.BytesIO(data)) as im:
+            np.asarray(im.convert("RGB"))
+        times.append(time.perf_counter() - t)
+    best[os.path.basename(path)] = min(times[1:]) * 1e3
+print(json.dumps({"best_ms": best, "build_s": {}}))
 """
 
 
 def inputs(folder: str) -> list:
-    """The three files, written into ``folder``."""
+    """The five files, written into ``folder``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, HERE)
     from chip_smoke import textured_rgb
@@ -67,8 +98,9 @@ def inputs(folder: str) -> list:
 
     files = {"baseline.jpg": jpeg.encode(textured_rgb(512, 768, seed=5), 90),
              "paeth.png": write_png(textured_rgb(256, 448, seed=7), 8, 2)}
-    with open(os.path.join(HERE, "textured_progressive.jpg"), "rb") as f:
-        files["textured_progressive.jpg"] = f.read()
+    for name in ("textured_progressive.jpg", "textured_lossy.webp", "textured_lossless.webp"):
+        with open(os.path.join(HERE, name), "rb") as f:
+            files[name] = f.read()
     paths = []
     for name, data in files.items():
         paths.append(os.path.join(folder, name))
@@ -80,26 +112,31 @@ def inputs(folder: str) -> list:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout of the port")
+    ap.add_argument("--pillow", action="store_true", help="also time Pillow's decodes")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--runs", type=int, default=5)
     args = ap.parse_args(argv)
-    trees = {"this": ROOT}
+    procs = {"this": (_CHILD, ROOT)}
     if args.against:
-        trees["other"] = os.path.abspath(args.against)
-    results = {name: [] for name in trees}
+        procs["other"] = (_CHILD, os.path.abspath(args.against))
+    if args.pillow:
+        procs["pillow"] = (_PILLOW, ROOT)
+    results = {name: [] for name in procs}
     with tempfile.TemporaryDirectory(prefix="time_decoders_") as tmp:
         paths = inputs(tmp)
         for r in range(args.rounds):
-            for name in (list(trees) if r % 2 == 0 else list(trees)[::-1]):
-                env = dict(os.environ, PYTHONPATH=trees[name])
-                out = subprocess.run([sys.executable, "-c", _CHILD, *paths, str(args.runs)],
+            for name in (list(procs) if r % 2 == 0 else list(procs)[::-1]):
+                script, root = procs[name]
+                env = dict(os.environ, PYTHONPATH=root)
+                out = subprocess.run([sys.executable, "-c", script, *paths, str(args.runs)],
                                      env=env, cwd=tmp, capture_output=True, text=True,
                                      check=True).stdout.strip().splitlines()[-1]
                 results[name].append(json.loads(out))
-                print(json.dumps({"round": r, "tree": name, "root": trees[name],
-                                  "best_ms": results[name][-1]}), flush=True)
+                print(json.dumps({"round": r, "process": name, "root": root,
+                                  **results[name][-1]}), flush=True)
     print(json.dumps({"median_best_ms": {
-        name: {f: statistics.median(run[f] for run in runs) for f in runs[0]}
+        name: {f: statistics.median(run["best_ms"][f] for run in runs)
+               for f in runs[0]["best_ms"]}
         for name, runs in results.items()}}))
 
 

@@ -152,11 +152,18 @@ def test_folder_reader_equals_jax(tmp_path):
         (x, y), (jx, jy) = next(ours), next(theirs)
         np.testing.assert_array_equal(x, np.asarray(jx))
         np.testing.assert_array_equal(y, np.asarray(jy))
-    # a file PIL reads and the port does not raises, naming its format
-    (tmp_path / "webp" / "cat").mkdir(parents=True)
-    Image.fromarray(gray, "L").save(tmp_path / "webp" / "cat" / "x.webp")
-    with pytest.raises(ValueError, match="WebP images are not supported"):
-        next(classifier_train._image_folder_labeled(str(tmp_path / "webp"), 4))
+    # a class folder of WebPs (lossy gray, lossless RGB) reads as JAX's
+    for label, seed in (("cat", 1), ("dog", 2)):
+        (tmp_path / "webp" / label).mkdir(parents=True)
+        Image.fromarray(gray, "L").save(tmp_path / "webp" / label / "x.webp", quality=50 + seed)
+        Image.fromarray((rng.rand(30 + seed, 47, 3) * 255).astype(np.uint8)).save(
+            tmp_path / "webp" / label / "y.webp", lossless=True)
+    ours = classifier_train._image_folder_labeled(str(tmp_path / "webp"), 3)
+    theirs = _J_CLS._image_folder_labeled(str(tmp_path / "webp"), 3)
+    for _ in range(3):
+        (x, y), (jx, jy) = next(ours), next(theirs)
+        np.testing.assert_array_equal(x, np.asarray(jx))
+        np.testing.assert_array_equal(y, np.asarray(jy))
 
 
 def test_classifier_msgpack_crosses_packages(tmp_path, capsys):

@@ -4,7 +4,7 @@ which reads every image through PIL, on the CPU:
 * ``read_image`` of JPEGs (4:4:4, 4:2:2, 4:2:0, gray), BMPs (24-bit,
   32-bit, top-down) and a gray PNG: the arrays and sizes of JAX's
   ``read_image``, exactly; what the readers do not take raises naming it
-  (palette, RLE, bitfield and 16-bit BMPs; WebP; GIF), a file of no known
+  (palette, RLE, bitfield and 16-bit BMPs; animated WebP; GIF), a file of no known
   format a plain ``ValueError``;
 * ``cli.attack_rd -s x.jpg`` (hyper q1 demo weights, 64x64, 5 steps)
   against JAX's CLI on the same file, at the bounds of the PNG CLI tests
@@ -115,9 +115,10 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
         "bitfields BMPs": _bmp_with(bmp, 30, "<I", 3),
         "16-bit BMPs": _bmp_with(bmp, 28, "<H", 16),
     }
-    for kind, fmt in (("WebP images", "WEBP"), ("GIF images", "GIF")):
+    for kind, fmt in (("animated WebP images", "WEBP"), ("GIF images", "GIF")):
         buf = io.BytesIO()
-        Image.fromarray(rgb).save(buf, format=fmt)
+        Image.fromarray(rgb).save(buf, format=fmt, save_all=True,
+                                  append_images=[Image.fromarray(255 - rgb)])
         named[kind] = buf.getvalue()
     for match, content in named.items():
         path = tmp_path / "x"
@@ -125,7 +126,7 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
         with pytest.raises(UnsupportedImageError, match=re.escape(match)):
             read_pixels(str(path))
     path.write_bytes(b"P6\n8 8\n255\n" + rgb.tobytes())
-    with pytest.raises(ValueError, match="not a PNG, JPEG or BMP") as e:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP or BMP") as e:
         read_pixels(str(path))
     assert not isinstance(e.value, UnsupportedImageError)
 

@@ -12,7 +12,8 @@ since slice 16, on the CPU, against Pillow 12.1.0 and the JAX package:
   ``L``, ``RGB`` or ``RGBA``, and raising ``UnsupportedImageError`` naming
   the mode (``P``, ``1``, ``LA``, ``I;16``, ``CMYK``) elsewhere;
 * a folder of every kind: JAX's ``image_folder_batches`` element for
-  element over two epochs at the same seed; a WebP in it raises, naming
+  element over two epochs at the same seed, then again with a lossy, a
+  lossless and an RGBA WebP in it; an animated WebP in it raises, naming
   itself;
 * the classifier's labeled folder of progressive JPEGs and palette PNGs:
   JAX's batches;
@@ -228,8 +229,20 @@ def test_a_folder_of_every_kind_streams_as_jax(tmp_path):
     assert len(ours) == len(theirs) == 12  # 18 files an epoch, batches of 3
     for got, want in zip(ours, theirs):
         np.testing.assert_array_equal(got, want)
-    Image.fromarray(_rgb(40, 40, 9)).save(tmp_path / "a" / "z.webp")
-    with pytest.raises(UnsupportedImageError, match=r"z\.webp: WebP images are not supported"):
+    # a lossy, a lossless and an RGBA WebP join it; an animated one raises
+    Image.fromarray(_rgb(40, 38, 9)).save(tmp_path / "a" / "lossy.webp", quality=60)
+    Image.fromarray(_rgb(34, 41, 10)).save(tmp_path / "b" / "lossless.webp", lossless=True)
+    Image.fromarray(make_inputs.smooth(37, 36, 11, channels=4, noise=0.3).astype(np.uint8),
+                    "RGBA").save(tmp_path / "b" / "rgba.webp", quality=70)
+    ours = list(data.image_folder_batches(str(tmp_path), 3, **kw))
+    theirs = list(j_data.image_folder_batches(str(tmp_path), 3, **kw))
+    assert len(ours) == len(theirs) == 14  # 21 files an epoch
+    for got, want in zip(ours, theirs):
+        np.testing.assert_array_equal(got, want)
+    frames = [Image.fromarray(_rgb(40, 40, s)) for s in (12, 13)]
+    frames[0].save(tmp_path / "a" / "z.webp", save_all=True, append_images=frames[1:])
+    with pytest.raises(UnsupportedImageError, match=r"z\.webp: animated WebP images are not "
+                                                    r"supported"):
         list(data.image_folder_batches(str(tmp_path), 3, **kw))
 
 

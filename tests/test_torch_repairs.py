@@ -4,11 +4,10 @@
   ``load_checkpoint`` (its ``checkpoint.pt``, its step directory, its
   ``best_loss`` directory) with the trained parameters exactly, and
   ``cli.attack_rd -ckpt`` attacks it;
-* training data: a folder holding a WebP (written here with PIL, which
-  reads it; the port does not) raises, naming the file, instead of
-  skipping it (JAX's stream holds it) or repeating empty epochs; one
-  holding a progressive JPEG streams JAX's batches; a folder whose images
-  yield no batch raises, naming what it skipped;
+* training data: a folder holding a WebP (written here with PIL) or a
+  progressive JPEG streams JAX's batches, and ``cli.train -data`` takes
+  its step on the WebP one; a folder whose images yield no batch raises,
+  naming what it skipped;
 * the CLI: ``attack_rd -trace DIR`` writes a chrome trace and prints the
   ``[trace]`` line; ``--eval``, ``-r``, ``--fintune`` and ``-compile_cache``
   parse as on the JAX CLI and change nothing; ``-m fic`` without restarts
@@ -92,8 +91,9 @@ def test_attack_rd_attacks_a_trained_codec(trained, tmp_path, monkeypatch, capsy
 
 def test_a_jpeg_folder_raises_instead_of_spinning(tmp_path, monkeypatch):
     """The stream lists JAX's five extensions and reads baseline and
-    progressive JPEGs; a WebP file, which PIL reads, raises naming it.  A
-    progressive JPEG beside a PNG streams the crops of PIL's pixels."""
+    progressive JPEGs and WebPs: a WebP or a progressive JPEG beside a PNG
+    streams the crops of PIL's pixels, and ``cli.train -data`` takes its
+    step on the WebP folder."""
     rgb = (np.random.RandomState(0).rand(300, 300, 3) * 255).astype(np.uint8)
     for kind, name, kwargs in (("webp", "a.webp", {}), ("progressive", "b.jpg",
                                                         {"progressive": True})):
@@ -102,24 +102,17 @@ def test_a_jpeg_folder_raises_instead_of_spinning(tmp_path, monkeypatch):
         Image.fromarray(rgb).save(folder / name, **kwargs)
         _png(folder / "c.png", 300, 300)
         assert data.list_image_files(str(folder)) == [str(folder / name), str(folder / "c.png")]
-        if kind == "progressive":
-            ours = list(data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
-            theirs = list(j_data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
-            assert len(ours) == len(theirs) == 2
-            for got, want in zip(ours, theirs):
-                np.testing.assert_array_equal(got, want)
-            assert next(data.make_batches(str(folder), 1, 256)).shape == (1, 256, 256, 3)
-            continue
-        match = rf"{name}: WebP .* not supported"
-        with pytest.raises(ValueError, match=match):
-            list(data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
-        with pytest.raises(ValueError, match=match):
-            list(data.make_batches(str(folder), 1, 256))
+        ours = list(data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
+        theirs = list(j_data.image_folder_batches(str(folder), 1, crop=256, epochs=1))
+        assert len(ours) == len(theirs) == 2
+        for got, want in zip(ours, theirs):
+            np.testing.assert_array_equal(got, want)
+        assert next(data.make_batches(str(folder), 1, 256)).shape == (1, 256, 256, 3)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(ValueError, match="WebP .* not supported"):
-        cli_train.main(["-device", "cpu", "-m", "hyper", "-q", "1", "-metric", "mse",
-                        "-ckpt", CKPT, "-batch_size", "2", "-max_steps", "1",
-                        "-data", str(tmp_path / "webp")])
+    summary = cli_train.main(["-device", "cpu", "-m", "hyper", "-q", "1", "-metric", "mse",
+                              "-ckpt", CKPT, "-batch_size", "2", "-max_steps", "1",
+                              "-data", str(tmp_path / "webp")])
+    assert summary["steps"] == 1 and np.isfinite(summary["loss"])
 
 
 def test_an_epoch_without_a_batch_raises_naming_the_skipped_files(tmp_path):
