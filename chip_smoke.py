@@ -9,8 +9,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
-   builds the host rANS coder and the host JPEG, PNG and WebP decoders
-   with g++;
+   builds the host rANS coder and the host JPEG, PNG, WebP, TIFF and GIF
+   decoders with g++;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
    every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
@@ -259,7 +259,25 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     (hyper q1 demo weights, JPEG_ATTACK_STEPS steps, cuDNN deterministic),
     printing its GDN launches, beside the same attack on a PNG of its
     pixels: noise within NOISE_ATOL and vi within VI_ATOL. Phase 19's
-    MP_STEPS went from 11 to 7 to make room for this phase.
+    MP_STEPS went from 11 to 7 to make room for this phase, and to 4 (with
+    MP_GMM_STEPS and MP_KVP_STEPS at 3, phase 18's PAR_SP_STEPS at 10 and
+    PAR_CORPUS_STEPS at 51) for phase 24.
+24. TIFF and GIF inputs and the rest of the BMP, WebP and JPEG kinds
+    (slice 18): (a) prints phase 2's builds of the TIFF and GIF decoders
+    (``csrc/tiff.cc``, ``csrc/gif.cc``), decodes every slice-18 file of
+    INPUTS_DIR (``make_inputs.py``'s TAIL_FILES: TIFFs of every layout and
+    coding, GIFs, animated WebPs, palette, RLE and bitfield BMPs,
+    RGB-coded, YCCK and 4:4:0/4:1:1 JPEGs), each of which must give the
+    sha256 of Pillow's pixels and Pillow's mode that ``inputs.json``
+    records (the JPEGs also equal to the numpy decoder), and times
+    TAIL_TEXTURED and an uncompressed 768x512 TIFF of ``textured_rgb``
+    (seed 5) that a numpy writer here makes (best of JPEG_DECODE_RUNS);
+    (b) runs ``cli.attack_rd -s`` on that TIFF (hyper q1 demo weights,
+    JPEG_ATTACK_STEPS steps, cuDNN deterministic) beside the same attack
+    on a PNG of its pixels: noise within NOISE_ATOL, vi within VI_ATOL,
+    and TAIL_LAUNCHES GDN launches; (c) phase 22c's training folder holds
+    the slice's BMPs, animated WebPs and JPEGs (the stream lists no TIFF or
+    GIF).
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -274,7 +292,7 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19, 20, 21, 22 and 23.  It reads five demo checkpoints: hyper q1,
+rendezvous), 19, 20, 21, 22, 23 and 24.  It reads five demo checkpoints: hyper q1,
 cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
 ``ckpts/adv/hyper-0.013-mse-0.0001-300``; and the files of
 ``tests/data/inputs``.
@@ -550,8 +568,10 @@ LEG_HELD_MIB = 16
 # the 524,288 terms of the largest sum, 5.8e-11, rounded up
 PAR_F64_GRAD_REL = 1e-10
 PAR_CORPUS = 4
-PAR_CORPUS_STEPS = 101
-PAR_SP_STEPS = 20
+# PAR_CORPUS_STEPS and PAR_SP_STEPS were 101 and 20 up to phase 24, cut then
+# with MP_STEPS below after a whole run of 1007.7 s on a slow host
+PAR_CORPUS_STEPS = 51
+PAR_SP_STEPS = 10
 PAR_XHAT_ATOL = 1e-5
 PAR_TIMEOUT_S = 600
 # the slice-9 sp=2 runs (phase 18c): cheng2020-gmm q3 at 768x512, its
@@ -647,15 +667,17 @@ MP_SIZE = (3072, 4096)
 # and 11 up to PR 20, and are 11, 6, 2 and 6 since phase 21 was added, to
 # keep the run within its time (the split and single-program attacks were
 # equal at 21 and 11 steps, and a peak is set in the first step); MP_STEPS
-# is 7 since phase 23 was added, which takes back its ~15 s
-MP_STEPS = 7
+# is 7 since phase 23 was added, which takes back its ~15 s; MP_STEPS,
+# MP_GMM_STEPS and MP_KVP_STEPS are 4, 3 and 3 since phase 24, whose first
+# whole run on a slow host took 1007.7 s
+MP_STEPS = 4
 MP_LARGE = (7040, 9344)
 # the peak is set in the first step
 MP_LARGE_STEPS = 2
 MP_SHRINK = 0.9
-MP_GMM_STEPS = 6
+MP_GMM_STEPS = 3
 MP_CLI_STEPS = 101
-MP_KVP_STEPS = 6
+MP_KVP_STEPS = 3
 # (g) the single-program and split attacks again with the plain GDN
 # backward, for their peaks beside (a)'s with the backward kernel (a peak
 # is set within the first step)
@@ -727,6 +749,15 @@ KINDS_TRAIN_STEPS = 5
 # lossless twin) timed; the attack CLI on WEBP_TEXTURED beside its PNG twin
 WEBP_TEXTURED = "textured_lossy.webp"
 WEBP_LOSSLESS = "textured_lossless.webp"
+# phase 24 (slice 18): the slice's committed files of INPUTS_DIR (TIFF, GIF,
+# animated WebP, palette, RLE and bitfield BMPs, RGB-coded, YCCK and
+# 4:4:0/4:1:1 JPEGs), each held to the sha256 and mode recorded for
+# Pillow's decode (the JPEGs to the numpy decoder too); TAIL_TEXTURED
+# (768x512, LZW with horizontal differencing) and an uncompressed 768x512
+# TIFF of textured_rgb(seed 5), written here, timed; the attack CLI on
+# that TIFF beside its PNG twin, with TAIL_LAUNCHES (gdn_fwd, gdn_bwd)
+TAIL_TEXTURED = "textured_lzw.tif"
+TAIL_LAUNCHES = (627, 606)
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -4056,19 +4087,19 @@ def phase_inputs(gdn, jpeg_build: dict, uneven: dict):
     return records, launches, launches_bwd
 
 
-def attack_beside_png(phase: str, name: str, tmp: str, records: dict, launches: dict,
-                      launches_bwd: dict) -> None:
-    """``cli.attack_rd -s`` on INPUTS_DIR's ``name`` and on a PNG of its
+def attack_beside_png(phase: str, src: str, tmp: str, records: dict, launches: dict,
+                      launches_bwd: dict) -> dict:
+    """``cli.attack_rd -s`` on the image file ``src`` and on a PNG of its
     pixels, in ``tmp`` (hyper q1 demo weights, JPEG_ATTACK_STEPS steps,
     cuDNN deterministic): records the rates, vi and noise gap under
     ``phase`` and the file's launches; raises unless the two runs agree
-    at NOISE_ATOL and VI_ATOL."""
+    at NOISE_ATOL and VI_ATOL.  Returns the file's measurement."""
     import numpy as np
 
     from imagecompression_adversarial_tpu_torch.io.image import read_pixels, write_image
 
-    src = os.path.join(INPUTS_DIR, name)
-    twin = os.path.join(tmp, "textured.png")
+    name = os.path.basename(src)
+    twin = os.path.join(tmp, "twin.png")
     write_image(read_pixels(src)[None].astype(np.float32) / 255.0, twin)
     os.chdir(tmp)
     with cudnn_deterministic():
@@ -4090,6 +4121,19 @@ def attack_beside_png(phase: str, name: str, tmp: str, records: dict, launches: 
         f"{noise:.3e} (tol {NOISE_ATOL}), vi diff {dvi:.3e} (tol {VI_ATOL})")
     if noise > NOISE_ATOL or dvi > VI_ATOL:
         raise RuntimeError(f"phase {phase}: the {name} and PNG attacks differ")
+    return mf
+
+
+def load_make_inputs():
+    """``tests/data/inputs/make_inputs.py`` as a module (its writers; it
+    imports Pillow only inside the functions that write with it)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_inputs", os.path.join(INPUTS_DIR, "make_inputs.py"))
+    make_inputs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_inputs)
+    return make_inputs
 
 
 def phase_kinds(gdn, png_build: dict):
@@ -4098,33 +4142,22 @@ def phase_kinds(gdn, png_build: dict):
     Pillow's recorded pixels, a progressive JPEG through the attack CLI
     beside the PNG of its pixels, and cli.train on a folder of every kind.
     Returns the records and the forward and backward kernels' launches."""
-    import importlib.util
-
     import numpy as np
 
     from imagecompression_adversarial_tpu_torch.io import jpeg, png
     from imagecompression_adversarial_tpu_torch.io.image import read_pixels
-    from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
+    from imagecompression_adversarial_tpu_torch.train.data import (
+        image_folder_batches, list_image_files)
 
-    spec = importlib.util.spec_from_file_location(
-        "make_inputs", os.path.join(INPUTS_DIR, "make_inputs.py"))
-    make_inputs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(make_inputs)
+    make_inputs = load_make_inputs()
     with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
         recorded = json.load(f)
     records, launches, launches_bwd = {}, {}, {}
 
-    def best_of(fn, data):
-        times = []
-        for _ in range(JPEG_DECODE_RUNS):
-            t = time.perf_counter()
-            out = fn(data)
-            times.append(time.perf_counter() - t)
-        return out, min(times)
-
-    # 22a: every PNG and JPEG by both decoders, each held to Pillow's hash
+    # 22a: every PNG and JPEG of slice 16 by both decoders, each held to Pillow's hash
     failed, plain_s = [], {}
-    kinds = {name: rec for name, rec in recorded.items() if not name.endswith(".webp")}
+    kinds = {name: rec for name, rec in recorded.items()
+             if name.endswith((".png", ".jpg")) and not name.startswith(make_inputs.TAIL_FILES)}
     for name, rec in sorted(kinds.items()):
         path = os.path.join(INPUTS_DIR, name)
         with open(path, "rb") as f:
@@ -4168,7 +4201,8 @@ def phase_kinds(gdn, png_build: dict):
     cwd = os.getcwd()
     try:
         # 22b: the attack CLI on the progressive file and on a PNG of its pixels
-        attack_beside_png("22b", KINDS_TEXTURED, tmp, records, launches, launches_bwd)
+        attack_beside_png("22b", os.path.join(INPUTS_DIR, KINDS_TEXTURED), tmp, records, launches,
+                          launches_bwd)
 
         # 22c: cli.train on a folder of every file
         folder = os.path.join(tmp, "train_kinds")
@@ -4193,9 +4227,13 @@ def phase_kinds(gdn, png_build: dict):
                           "peak_gib": peak, "last_loss": s["last"]["loss"]}
         label = f"22c cli.train -data kinds x{KINDS_TRAIN_STEPS}"
         launches[label], launches_bwd[label] = n, gdn.launch_counts["gdn_bwd"]
-        log(f"phase 22c cli.train -data on the {len(recorded)} files of every kind, "
-            f"{len(recorded) - len(kinds)} WebPs among them (batches of 8 "
-            f"256x256 crops, one a file an epoch), {KINDS_TRAIN_STEPS} steps: "
+        listed = list_image_files(folder)
+        records["22c"]["files"] = len(listed)
+        log(f"phase 22c cli.train -data on the {len(listed)} files of every kind the stream lists "
+            f"(of {len(recorded)}: {sum(f.endswith('.webp') for f in listed)} WebPs, "
+            f"{sum(f.endswith('.bmp') for f in listed)} BMPs, slice 18's "
+            f"{sum(os.path.basename(f).startswith(make_inputs.TAIL_FILES) for f in listed)} among "
+            f"them; batches of 8 256x256 crops, one a file an epoch), {KINDS_TRAIN_STEPS} steps: "
             f"{records['22c']['steps_per_s']:.2f} steps/s (steps 2-{KINDS_TRAIN_STEPS}), first "
             f"step {timing['first_step_s']:.2f} s; the host's decode of an epoch's batch alone "
             f"{decode_s * 1e3:.1f} ms; last loss {s['last']['loss']:.6f}, gdn_fwd launches {n}, "
@@ -4215,11 +4253,13 @@ def phase_webp(webp_build: dict):
 
     from imagecompression_adversarial_tpu_torch.io import webp
 
+    tail = load_make_inputs().TAIL_FILES
     with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
-        recorded = {n: r for n, r in json.load(f).items() if n.endswith(".webp")}
+        recorded = {n: r for n, r in json.load(f).items()
+                    if n.endswith(".webp") and not n.startswith(tail)}
     records, launches, launches_bwd = {}, {}, {}
 
-    # 23a: every WebP held to Pillow's hash and mode; the 768x512 pair timed
+    # 23a: every still WebP held to Pillow's hash and mode; the 768x512 pair timed
     failed, timed, kinds = [], {}, []
     for name, rec in sorted(recorded.items()):
         with open(os.path.join(INPUTS_DIR, name), "rb") as f:
@@ -4258,7 +4298,119 @@ def phase_webp(webp_build: dict):
     cwd = os.getcwd()
     try:
         # 23b: the attack CLI on the lossy WebP and on a PNG of its pixels
-        attack_beside_png("23b", WEBP_TEXTURED, tmp, records, launches, launches_bwd)
+        attack_beside_png("23b", os.path.join(INPUTS_DIR, WEBP_TEXTURED), tmp, records, launches,
+                          launches_bwd)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches, launches_bwd
+
+
+def best_of(fn, data):
+    """(``fn(data)``, its best seconds of JPEG_DECODE_RUNS calls)."""
+    times = []
+    for _ in range(JPEG_DECODE_RUNS):
+        t = time.perf_counter()
+        out = fn(data)
+        times.append(time.perf_counter() - t)
+    return out, min(times)
+
+
+def tiff_rgb(rgb) -> bytes:
+    """An uncompressed little-endian TIFF of (H, W, 3) uint8 pixels: one
+    strip, the nine fields a baseline RGB reader needs (a SHORT value sits
+    in the low bytes of its 4-byte slot, as a LONG's would)."""
+    import struct
+
+    h, w, _ = rgb.shape
+    bits_at = 8 + 2 + 12 * 9 + 4  # after the header and the IFD: BitsPerSample's 8, 8, 8
+    fields = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, bits_at), (259, 3, 1, 1),
+              (262, 3, 1, 2), (273, 4, 1, bits_at + 6), (277, 3, 1, 3), (278, 4, 1, h),
+              (279, 4, 1, rgb.size)]
+    return (b"II*\0" + struct.pack("<IH", 8, len(fields))
+            + b"".join(struct.pack("<HHII", *f) for f in fields) + bytes(4)
+            + struct.pack("<HHH", 8, 8, 8) + rgb.tobytes())
+
+
+def phase_tail(tiff_build: dict, gif_build: dict):
+    """Phase 24: the decoders of slice 18 on every slice-18 file against
+    Pillow's recorded pixels, the 768x512 TIFFs timed, and a TIFF through
+    the attack CLI beside the PNG of its pixels.  Returns the records and
+    the forward and backward kernels' launches."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io import bmp, gif, jpeg, tiff, webp
+
+    make_inputs = load_make_inputs()
+    with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+        recorded = {n: r for n, r in json.load(f).items() if n.startswith(make_inputs.TAIL_FILES)}
+    records, launches, launches_bwd = {}, {}, {}
+
+    def decode(name: str, data: bytes):
+        """(pixels, Pillow's mode) by the reader of the file's format."""
+        if name.endswith(".tif"):
+            t = tiff.parse(data)
+            return tiff.decode_tiff_native(t), t.mode
+        if name.endswith(".gif"):
+            g = gif.parse(data)
+            return gif.decode_gif_native(g), g.mode
+        if name.endswith(".webp"):
+            w = webp.parse(data)
+            return webp.decode_webp_native(w), w.mode
+        if name.endswith(".bmp"):
+            return bmp.decode(data)
+        f = jpeg.parse(data)
+        return jpeg.decode_frame_native(f), f.mode
+
+    # 24a: every slice-18 file held to Pillow's hash and mode; the 768x512 TIFFs timed
+    failed, kinds, numpy_equal = [], [], {}
+    for name, rec in sorted(recorded.items()):
+        with open(os.path.join(INPUTS_DIR, name), "rb") as f:
+            data = f.read()
+        pixels, mode = decode(name, data)
+        digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+        kinds.append(f"{name} ({mode})")
+        if name.endswith(".jpg"):
+            numpy_equal[name] = bool(np.array_equal(jpeg.decode(data), pixels))
+        if digest != rec["sha256"] or mode != rec["mode"] or list(pixels.shape) != rec["shape"] \
+                or not numpy_equal.get(name, True):
+            failed.append(f"{name} (sha256 {'=' if digest == rec['sha256'] else '!='}, mode "
+                          f"{mode} / {rec['mode']}, numpy {numpy_equal.get(name)})")
+    rgb = textured_rgb(*JPEG_SIZE, seed=5)
+    raw = tiff_rgb(rgb)
+    timed = {}
+    with open(os.path.join(INPUTS_DIR, TAIL_TEXTURED), "rb") as f:
+        lzw = f.read()
+    for label, data in ((TAIL_TEXTURED, lzw), ("textured_raw.tif", raw)):
+        out, best = best_of(tiff.decode_native, data)
+        timed[label] = {"bytes": len(data), "best_s": best}
+        if label == "textured_raw.tif" and not np.array_equal(out, rgb):
+            failed.append("textured_raw.tif (not the pixels written)")
+    host = host_cpu()
+    records["24a"] = {"builds": {"tiff": tiff_build, "gif": gif_build}, "files": len(recorded),
+                      "failed": failed, "timed": timed, "jpeg_numpy_equal": numpy_equal,
+                      "host": host}
+    log(f"phase 24a TIFF and GIF decoders: built in phase 2 (tiff.cc {tiff_build['s']:.2f} s, "
+        f"{tiff_build['how']}; gif.cc {gif_build['s']:.2f} s, {gif_build['how']}); "
+        f"{len(recorded) - len(failed)} of {len(recorded)} slice-18 files of {INPUTS_DIR} decoded "
+        f"to the pixels and mode recorded for Pillow {sorted({r['pillow'] for r in recorded.values()})} "
+        f"({sum(numpy_equal.values())} of {len(numpy_equal)} JPEGs equal to the numpy decoder): "
+        f"{', '.join(kinds)}; on the host ({host}), best of {JPEG_DECODE_RUNS}: " + ", ".join(
+            f"{n} ({t['bytes']} bytes) {t['best_s'] * 1e3:.2f} ms" for n, t in sorted(timed.items())))
+    if failed or len(recorded) < 20:
+        raise RuntimeError(f"phase 24a: files differ from Pillow's recorded pixels: {failed}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tail_")
+    cwd = os.getcwd()
+    try:
+        # 24b: the attack CLI on the uncompressed TIFF and on a PNG of its pixels
+        src = os.path.join(tmp, "textured.tif")
+        with open(src, "wb") as f:
+            f.write(raw)
+        m = attack_beside_png("24b", src, tmp, records, launches, launches_bwd)
+        if (m["launches"], m["bwd_launches"]) != TAIL_LAUNCHES:
+            raise RuntimeError(f"phase 24b: GDN launches {(m['launches'], m['bwd_launches'])}, "
+                               f"not {TAIL_LAUNCHES}")
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4391,6 +4543,16 @@ def main() -> int:
                   "library": _build.webp_library_path().name}
     log(f"phase 2 build of the WebP decoder: {webp_build['s']:.2f} s ({webp_build['how']}) -> "
         f"{webp_build['library']}")
+    host_builds = {}
+    for fmt, path, build in (("TIFF", _build.tiff_library_path, _build.build_tiff),
+                             ("GIF", _build.gif_library_path, _build.build_gif)):
+        t = time.time()
+        cached = path().is_file()
+        build()
+        host_builds[fmt] = {"s": time.time() - t, "how": "cached" if cached else "g++",
+                            "library": path().name}
+        log(f"phase 2 build of the {fmt} decoder: {host_builds[fmt]['s']:.2f} s "
+            f"({host_builds[fmt]['how']}) -> {host_builds[fmt]['library']}")
 
     records = phase_kernel_vs_plain(gdn)
     launches, launches_bwd = phase_main_path(gdn)
@@ -4429,6 +4591,9 @@ def main() -> int:
     print(json.dumps({"phase22": kinds_records}, default=float), flush=True)
     webp_records, launches_webp, launches_webp_bwd = phase_webp(webp_build)
     print(json.dumps({"phase23": webp_records}, default=float), flush=True)
+    tail_records, launches_tail, launches_tail_bwd = phase_tail(host_builds["TIFF"],
+                                                               host_builds["GIF"])
+    print(json.dumps({"phase24": tail_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4453,6 +4618,7 @@ def main() -> int:
             **launches_inputs,
             **launches_kinds,
             **launches_webp,
+            **launches_tail,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4477,6 +4643,7 @@ def main() -> int:
             **launches_inputs_bwd,
             **launches_kinds_bwd,
             **launches_webp_bwd,
+            **launches_tail_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

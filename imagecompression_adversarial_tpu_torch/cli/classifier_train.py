@@ -14,8 +14,9 @@ The JAX package reads the folder through PIL (``convert("RGB")`` and a
 BICUBIC resize to 28x28).  This port has no PIL: it lists the same files,
 decodes them with its own readers (``io/image.py::read_pixels``, the
 pixels of Pillow's ``convert("RGB")``: every PNG kind, baseline,
-progressive and CMYK JPEGs and still WebPs, lossy and lossless, by the
-host C++ decoders, BMP; what they do not read raises, naming it),
+progressive, CMYK, YCCK and RGB-coded JPEGs, WebPs, TIFFs and GIFs by the
+host C++ decoders, every BMP kind; what they do not read raises, naming
+it),
 and resizes with ``pillow_bicubic_resize``, Pillow's two-pass fixed-point
 resampling in numpy, which gives Pillow's bytes.
 """

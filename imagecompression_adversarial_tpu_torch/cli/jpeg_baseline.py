@@ -3,7 +3,7 @@
 
     python -m imagecompression_adversarial_tpu_torch.cli.jpeg_baseline 'kodim*.png' -q 50
 
-Codes each image (PNG, JPEG, WebP or BMP, read as Pillow's ``convert("RGB")``
+Codes each image (PNG, JPEG, WebP, TIFF, GIF or BMP, read as Pillow's ``convert("RGB")``
 reads it: ``io/image.py::read_pixels``) with the port's numpy baseline JPEG
 encoder (``io/jpeg.py``: the bytes Pillow's libjpeg writes at that
 quality, no PIL needed), decodes the bytes with its host C++ decoder (the

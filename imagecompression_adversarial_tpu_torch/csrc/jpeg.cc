@@ -1,7 +1,7 @@
 // Huffman JPEG decoder (host C++): the pixels libjpeg(-turbo) decodes with
 // its default settings (islow IDCT, fancy upsampling), which is what
-// Pillow's Image.open gives, and for CMYK what Pillow's convert("RGB")
-// gives.
+// Pillow's Image.open gives, and for CMYK and YCCK what Pillow's
+// convert("RGB") gives.
 //
 // Role: io/jpeg.py parses the markers (frame, tables, restart intervals,
 // every scan's header) and hands this file each scan's entropy-coded
@@ -21,13 +21,17 @@
 //     correction bits and zero-run skipping;
 //   * dequantization and jidctint (13-bit fixed point, PASS1_BITS 2) with
 //     its range-limit table;
-//   * fancy upsampling: h2v1 (4:2:2) and h2v2 (4:2:0), the triangle
-//     filters of jdsample.c with the edge samples repeated, and box
-//     upsampling where a plane is 2 or fewer samples wide (libjpeg-turbo's
-//     rule); none for 4:4:4;
-//   * jdcolor.c's fixed-point YCbCr -> RGB (16 fractional bits), or for
-//     four components Pillow's CMYK: its "CMYK;I" raw mode inverts the
-//     samples and Convert.c's cmyk2rgb maps them to RGB.
+//   * each component's upsampler as libjpeg-turbo's jinit_upsampler picks
+//     it by the ratio of the largest sampling factors to its own: none at
+//     1x1; the triangle filters of jdsample.c at 2x1 (h2v1), 1x2 (h1v2)
+//     and 2x2 (h2v2) with the edge samples repeated, box upsampling for
+//     h2v1 and h2v2 where a plane is 2 or fewer samples wide; int_upsample
+//     (box) at every other whole ratio (4:1:1's 4x1, ...);
+//   * jdcolor.c's fixed-point YCbCr -> RGB (16 fractional bits), RGB-coded
+//     samples as they are, or for four components Pillow's CMYK: its
+//     "CMYK;I" raw mode inverts the samples and Convert.c's cmyk2rgb maps
+//     them to RGB; YCCK first through jdcolor.c's ycck_cmyk_convert (C, M,
+//     Y = 255 less the YCbCr's R, G, B; K as it is).
 //
 // A gray image is its one component.  Exposed as a C ABI for ctypes.
 
@@ -382,20 +386,32 @@ void h2v2_fancy(const uint8_t* plane, int stride, int w, int h, int y, uint8_t* 
   }
 }
 
+// h1v2_fancy_upsample of output row `y` (w samples): 3/4 of its input row
+// y / 2 and 1/4 of the row above (even y, bias 1) or below (odd y, bias
+// 2), edge rows repeated.
+void h1v2_fancy(const uint8_t* plane, int stride, int w, int h, int y, uint8_t* out) {
+  const int sy = y / 2, odd = y % 2, oy = odd ? std::min(sy + 1, h - 1) : std::max(sy - 1, 0);
+  const uint8_t* in = plane + static_cast<int64_t>(sy) * stride;
+  const uint8_t* other = plane + static_cast<int64_t>(oy) * stride;
+  for (int i = 0; i < w; ++i) out[i] = static_cast<uint8_t>((3 * in[i] + other[i] + 1 + odd) >> 2);
+}
+
 // Row `y` of a component at the image's sampling (`width` samples): its
 // plane's own row where it is not downsampled, else that row upsampled
-// into `buf` (2 * c.w samples).
+// into `buf` (at least `width` samples) by jdsample.c's method for the
+// component's ratio.
 const uint8_t* sampled_row(const Component& c, int hmax, int vmax, int width, int y,
                            uint8_t* buf) {
   const int stride = c.bw * 8, fx = hmax / c.hs, fy = vmax / c.vs;
   const uint8_t* in = c.plane.get() + static_cast<int64_t>(y / fy) * stride;
-  if (fx == 1) return in;
-  if (c.w <= 2) {
-    for (int x = 0; x < width; ++x) buf[x] = in[x / 2];
-  } else if (fy == 1) {
-    h2v1_fancy(in, c.w, buf);
-  } else {
-    h2v2_fancy(c.plane.get(), stride, c.w, c.h, y, buf);
+  if (fx == 1 && fy == 1) return in;
+  if (fx == 1 && fy == 2) {
+    h1v2_fancy(c.plane.get(), stride, c.w, c.h, y, buf);
+  } else if (fx == 2 && fy <= 2 && c.w > 2) {
+    if (fy == 1) h2v1_fancy(in, c.w, buf);
+    else h2v2_fancy(c.plane.get(), stride, c.w, c.h, y, buf);
+  } else {  // h2v1_upsample, h2v2_upsample, int_upsample: boxes
+    for (int x = 0; x < width; ++x) buf[x] = in[x / fx];
   }
   return buf;
 }
@@ -478,8 +494,8 @@ extern "C" {
 
 // Decode the `nscans` scans of a `width` x `height` frame of `ncomp` (1, 3
 // or 4) components into `out`: height x width x 3 RGB for 3 components
-// (YCbCr) and for 4 (CMYK, through Pillow's conversion), height x width
-// for 1.  Per component k: sampling factors hs[k], vs[k] (1 for a single
+// (`colour` 1: YCbCr, 2: RGB) and for 4 (3: CMYK, 4: YCCK, through
+// Pillow's conversion), height x width for 1 (`colour` 0).  Per component k: sampling factors hs[k], vs[k] (1 for a single
 // component), its 64 quantization values in natural order at quant[64k].
 // Per scan i, 12 values at scans[12i]: its component count n, their
 // indices (4 slots), ss, se, ah, al, its restart interval in units (0:
@@ -489,20 +505,31 @@ extern "C" {
 // `progressive` selects jdphuff.c's scans over jdhuff.c's.  Returns 0; or
 // 1 with a message in `err`, and in `fault_scan` the scan whose decode
 // failed (-1 for none).
-int icat_jpeg_decode(int width, int height, int ncomp, int cmyk, int progressive,
+int icat_jpeg_decode(int width, int height, int ncomp, int colour, int progressive,
                      const int32_t* hs, const int32_t* vs, const int32_t* quant, int nscans,
                      const int64_t* scans, const uint8_t* tables, const uint8_t* coded,
                      uint8_t* out, int* fault_scan, char* err, int err_len) {
   *fault_scan = -1;
   if ((ncomp != 1 && ncomp != 3 && ncomp != 4) || width <= 0 || height <= 0 ||
-      (cmyk && ncomp != 4)) {
-    set_error(err, err_len, "JPEG frame: bad size or component count");
+      colour < 0 || colour > 4 || (ncomp == 1) != (colour == 0) ||
+      (ncomp == 4) != (colour >= 3)) {
+    set_error(err, err_len, "JPEG frame: bad size, component count or colour space");
     return 1;
   }
   int hmax = 1, vmax = 1;
   for (int k = 0; k < ncomp; ++k) {
+    if (hs[k] < 1 || hs[k] > 4 || vs[k] < 1 || vs[k] > 4) {
+      set_error(err, err_len, "JPEG frame: sampling factors outside 1 to 4");
+      return 1;
+    }
     hmax = hs[k] > hmax ? hs[k] : hmax;
     vmax = vs[k] > vmax ? vs[k] : vmax;
+  }
+  for (int k = 0; k < ncomp; ++k) {
+    if (hmax % hs[k] || vmax % vs[k]) {
+      set_error(err, err_len, "JPEG frame: a sampling factor not a whole fraction of the largest");
+      return 1;
+    }
   }
   const int mcux = (width + 8 * hmax - 1) / (8 * hmax), mcuy = (height + 8 * vmax - 1) / (8 * vmax);
   std::vector<Component> comps(static_cast<size_t>(ncomp));
@@ -565,7 +592,8 @@ int icat_jpeg_decode(int width, int height, int ncomp, int cmyk, int progressive
     return 0;
   }
   std::vector<std::vector<uint8_t>> bufs(static_cast<size_t>(ncomp));
-  for (int k = 0; k < ncomp; ++k) bufs[k].resize(2 * static_cast<size_t>(comps[k].w) + width);
+  for (int k = 0; k < ncomp; ++k)
+    bufs[k].resize(4 * static_cast<size_t>(comps[k].w) + static_cast<size_t>(width));
   const uint8_t* row[4];
   // jdcolor.c: FIX(x) = x * 65536 + 0.5, ONE_HALF = 1 << 15
   constexpr int64_t kR = 91881, kG_cb = 22554, kG_cr = 46802, kB = 116130, kHalf = 1 << 15;
@@ -574,14 +602,25 @@ int icat_jpeg_decode(int width, int height, int ncomp, int cmyk, int progressive
       row[k] = sampled_row(comps[k], hmax, vmax, width, r, bufs[k].data());
     uint8_t* px = out + static_cast<int64_t>(r) * width * 3;
     for (int x = 0; x < width; ++x, px += 3) {
-      if (cmyk) {
+      if (colour >= 3) {
+        int cmy[3];
+        if (colour == 4) {  // ycck_cmyk_convert: 255 - the YCbCr's R, G, B
+          const int64_t yy = row[0][x], b = row[1][x] - 128, c = row[2][x] - 128;
+          cmy[0] = 255 - clamp255(yy + ((kR * c + kHalf) >> 16));
+          cmy[1] = 255 - clamp255(yy + ((-kG_cb * b + kHalf - kG_cr * c) >> 16));
+          cmy[2] = 255 - clamp255(yy + ((kB * b + kHalf) >> 16));
+        } else {
+          for (int ch = 0; ch < 3; ++ch) cmy[ch] = row[ch][x];
+        }
         // Pillow's "CMYK;I" unpacking (v -> 255 - v), then Convert.c's
         // cmyk2rgb: 255 - K less MULDIV255(C, 255 - K), clipped
         const int nk = row[3][x];  // 255 - (255 - K)
         for (int ch = 0; ch < 3; ++ch) {
-          const int tmp = (255 - row[ch][x]) * nk + 128;
+          const int tmp = (255 - cmy[ch]) * nk + 128;
           px[ch] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
         }
+      } else if (colour == 2) {
+        for (int ch = 0; ch < 3; ++ch) px[ch] = row[ch][x];
       } else {
         const int64_t yy = row[0][x], b = row[1][x] - 128, c = row[2][x] - 128;
         px[0] = clamp255(yy + ((kR * c + kHalf) >> 16));

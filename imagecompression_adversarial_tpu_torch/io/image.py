@@ -10,10 +10,18 @@ the format is told by the file's first bytes, and
   to 16, interlaced or not;
 * JPEG by the host C++ decoder (``io/jpeg.py``, ``csrc/jpeg.cc``):
   baseline, sequential of several scans and progressive Huffman files of
-  8-bit samples; gray, YCbCr at 4:4:4, 4:2:2 or 4:2:0, and CMYK;
-* WebP by the host C++ decoder (``io/webp.py``, ``csrc/webp.cc``): still
-  lossy (VP8) and lossless (VP8L) files, with or without alpha;
-* BMP (``BI_RGB``, 24- and 32-bit, bottom-up and top-down) with numpy.
+  8-bit samples; gray, YCbCr, RGB-coded, CMYK and YCCK, at every sampling
+  libjpeg accepts;
+* WebP by the host C++ decoder (``io/webp.py``, ``csrc/webp.cc``): lossy
+  (VP8) and lossless (VP8L) files, with or without alpha, and the first
+  frame of an animated one;
+* TIFF by the host C++ decoder (``io/tiff.py``, ``csrc/tiff.cc``): the
+  first image, strips or tiles, chunky or planar, uncompressed, PackBits,
+  LZW or Deflate; gray, RGB(A), palette and CMYK of 1 to 16 bits;
+* GIF by the host C++ decoder (``io/gif.py``, ``csrc/gif.cc``): the
+  first frame;
+* BMP with numpy (``io/bmp.py``): palettes, RLE8 and RLE4, 16-, 24- and
+  32-bit, bitfields.
 
 The JAX package reads in two ways, and so does the port.  ``read_pixels``
 gives what ``Image.open(path).convert("RGB")`` gives, for every kind above;
@@ -22,11 +30,12 @@ through it, as JAX's convert.  ``read_image``, which the CLIs read
 through, gives what JAX's ``np.asarray(Image.open(path))`` gives (gray
 tiled into RGB, alpha dropped), and so decodes only the files Pillow
 opens as ``L``, ``RGB`` or ``RGBA``, where the two agree.  On a file
-Pillow opens as ``P``, ``1``, ``LA``, ``I;16`` or ``CMYK`` it raises
-``UnsupportedImageError`` naming the kind and the mode, where JAX's CLIs
-would take palette indices, booleans, two channels, raw 16-bit values or
-inverted CMY as pixels.  What Pillow reads and no reader here decodes (a
-palette BMP, an animated WebP, GIF, TIFF, YCCK JPEGs, ...) raises
+Pillow opens as ``P``, ``PA``, ``1``, ``LA``, ``I;16``, ``I;16B`` or
+``CMYK`` it raises ``UnsupportedImageError`` naming the format, the kind
+and the mode ("a palette BMP", "a 16-bit gray TIFF", ...), where JAX's
+CLIs would take palette indices, booleans, two channels, raw 16-bit values
+or inverted CMY as pixels.  What Pillow reads and no reader here decodes
+(an arithmetic-coded JPEG, a CCITT TIFF, ...) raises
 ``UnsupportedImageError``, naming it; a broken file raises ``ValueError``.
 The writer emits 8-bit RGB PNGs.
 """
@@ -34,22 +43,23 @@ The writer emits 8-bit RGB PNGs.
 from __future__ import annotations
 
 import glob as _glob
-import struct
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from . import jpeg, png, webp
+from . import bmp, gif, jpeg, png, tiff, webp
 from .errors import UnsupportedImageError
 
-# what JAX's ``np.asarray(Image.open(path))`` gives on the Pillow modes that
-# ``read_image`` refuses, and the kind of file each is
-_REFUSED_MODES = {"P": ("palette PNG", "palette indices"),
-                  "1": ("1-bit gray PNG", "booleans"),
-                  "LA": ("gray+alpha PNG", "two channels"),
-                  "I;16": ("16-bit gray PNG", "raw 16-bit values"),
-                  "CMYK": ("CMYK JPEG", "Adobe's inverted CMYK samples")}
+# the Pillow modes ``read_image`` refuses: the kind of image each is, and
+# what JAX's ``np.asarray(Image.open(path))`` gives for it
+_REFUSED_MODES = {"P": ("palette", "palette indices"),
+                  "PA": ("palette+alpha", "palette indices and alpha"),
+                  "1": ("1-bit", "booleans"),
+                  "LA": ("gray+alpha", "two channels"),
+                  "I;16": ("16-bit gray", "raw 16-bit values"),
+                  "I;16B": ("16-bit gray", "raw 16-bit values"),
+                  "CMYK": ("CMYK", "the CMYK samples")}
 
 
 def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
@@ -62,90 +72,56 @@ def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:
     return out
 
 
-# BMP compression codes (biCompression) the reader names when it refuses them
-_BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "bitfields", 4: "JPEG-in-BMP", 5: "PNG-in-BMP",
-                    6: "alpha bitfields"}
+_TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 
 
-def _decode_bmp(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a ``BI_RGB`` BMP of 24 or 32 bits a pixel
-    (the fourth byte ignored, as Pillow reads it), bottom-up or top-down."""
-    if len(data) < 26:
-        raise ValueError("BMP file is truncated")
-    offset, header = struct.unpack("<II", data[10:18])
-    if header == 12:  # BITMAPCOREHEADER
-        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
-        compression = 0
-    elif header in (40, 52, 56, 64, 108, 124) and len(data) >= 34:
-        w, h, _, bits, compression = struct.unpack("<iiHHI", data[18:34])
-    else:
-        raise ValueError(f"BMP header of {header} bytes is not valid")
-    if bits <= 8:
-        raise UnsupportedImageError(f"palette ({bits}-bit) BMPs are not supported "
-                                    "(24- and 32-bit only)")
-    if compression:
-        name = _BMP_COMPRESSION.get(compression, f"compression {compression}")
-        raise UnsupportedImageError(f"{name} BMPs are not supported (BI_RGB only)")
-    if bits not in (24, 32):
-        raise UnsupportedImageError(f"{bits}-bit BMPs are not supported (24- and 32-bit only)")
-    top_down, h = h < 0, abs(h)
-    if w <= 0 or h == 0:
-        raise ValueError(f"BMP size {w}x{h} is not valid")
-    bpp = bits // 8
-    stride = (w * bpp + 3) & ~3
-    if offset + stride * h > len(data):
-        raise ValueError("BMP pixel data is truncated")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
-    bgr = rows[:, :w * bpp].reshape(h, w, bpp)[..., 2::-1]
-    return np.ascontiguousarray(bgr if top_down else bgr[::-1])
-
-
-def _refuse(data: bytes) -> None:
-    """Raise naming the format of an image file no reader here decodes."""
-    for magic, name in ((b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")):
-        if data.startswith(magic):
-            raise UnsupportedImageError(f"{name} images are not supported (PNG, JPEG, WebP and "
-                                        "BMP only)")
-    raise ValueError(f"not a PNG, JPEG, WebP or BMP file (it starts with {data[:8]!r})")
-
-
-def _decode(path: str) -> Tuple[np.ndarray, str]:
+def _decode(path: str) -> Tuple[np.ndarray, str, str]:
     """An image file's (H, W, 3) uint8 pixels as Pillow's
-    ``convert("RGB")`` gives them, and the mode Pillow opens it as."""
+    ``convert("RGB")`` gives them, the mode Pillow opens it as, and the
+    name of its format."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == png.SIGNATURE:
         parsed = png.parse(data)
-        return png.decode_png_native(parsed), parsed.mode
+        return png.decode_png_native(parsed), parsed.mode, "PNG"
     if data[:2] == b"\xff\xd8":
         frame = jpeg.parse(data)
         img = jpeg.decode_frame_native(frame)
-        return (np.repeat(img, 3, axis=2) if frame.mode == "L" else img), frame.mode
+        return (np.repeat(img, 3, axis=2) if frame.mode == "L" else img), frame.mode, "JPEG"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         parsed = webp.parse(data)
-        return webp.decode_webp_native(parsed), parsed.mode
+        return webp.decode_webp_native(parsed), parsed.mode, "WebP"
     if data[:2] == b"BM":
-        return _decode_bmp(data), "RGB"
-    _refuse(data)
+        return (*bmp.decode(data), "BMP")
+    if data[:4] in _TIFF_MAGIC:
+        parsed = tiff.parse(data)
+        return tiff.decode_tiff_native(parsed), parsed.mode, "TIFF"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        parsed = gif.parse(data)
+        return gif.decode_gif_native(parsed), parsed.mode, "GIF"
+    raise ValueError(f"not a PNG, JPEG, WebP, TIFF, GIF or BMP file (it starts with "
+                     f"{data[:8]!r})")
 
 
 def read_pixels(path: str) -> np.ndarray:
-    """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG, WebP or BMP), as
-    ``Image.open(path).convert("RGB")`` gives them."""
+    """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG, WebP, TIFF,
+    GIF or BMP), as ``Image.open(path).convert("RGB")`` gives them."""
     return _decode(path)[0]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG, JPEG, WebP or BMP that Pillow opens as ``L``, ``RGB`` or
-    ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns ``(im, H,
-    W)``.  Gray is repeated into RGB; RGBA loses its alpha.  Raises
-    ``UnsupportedImageError`` naming the mode on the other modes."""
-    pixels, mode = _decode(path)
+    """Load a PNG, JPEG, WebP, TIFF, GIF or BMP that Pillow opens as ``L``,
+    ``RGB`` or ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
+    ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha.
+    Raises ``UnsupportedImageError`` naming the format, the kind and the
+    mode on the other modes."""
+    pixels, mode, fmt = _decode(path)
     if mode in _REFUSED_MODES:
         kind, what = _REFUSED_MODES[mode]
         raise UnsupportedImageError(
-            f"{path}: a {kind} (Pillow's mode {mode}) is read by read_pixels, not read_image: "
-            f"JAX's read_image would take its {what} as pixels (L, RGB and RGBA only)")
+            f"{path}: a {kind} {fmt} (Pillow's mode {mode}) is read by read_pixels, not "
+            f"read_image: JAX's read_image would take its {what} as pixels (L, RGB and RGBA "
+            "only)")
     img = pixels.astype(np.float32) / 255.0
     h, w, _ = img.shape
     return pad_to_multiple(img, padding)[None, ...], h, w

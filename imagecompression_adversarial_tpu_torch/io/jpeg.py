@@ -20,23 +20,28 @@ Encoder (``encode``):
 
 Decoders: ``parse`` reads the markers of a Huffman stream of 8-bit
 samples, baseline or extended sequential (SOF0, SOF1) of one scan or of
-several, or progressive (SOF2): gray, YCbCr with 1x1 chroma and 1x1
-(4:4:4), 2x1 (4:2:2) or 2x2 (4:2:0) luma sampling, or CMYK of the same
-samplings; each scan's components, band, successive approximation bits,
-tables and restart interval.  It raises ``UnsupportedImageError``, naming
-the kind, on arithmetic-coded, lossless, hierarchical, 12-bit, YCCK and
-RGB-coded (Adobe transform 0 on three components) streams, other sampling
-factors, and progressive files that libjpeg-turbo would smooth (a low
-coefficient left unsent or unrefined).  ``decode_native`` decodes the rest
-with the host C++ decoder (``csrc/jpeg.cc``, built with g++ on first use):
+several, or progressive (SOF2): gray, YCbCr, RGB-coded (Adobe transform 0
+on three components, or component ids R, G, B without a JFIF or Adobe
+marker), CMYK and YCCK (Adobe transform 1 or 2 on four components), at
+any sampling factors libjpeg accepts (1 to 4, each component's a whole
+fraction of the largest, at most 10 blocks an MCU); each scan's
+components, band, successive approximation bits, tables and restart
+interval.  It raises ``UnsupportedImageError``, naming the kind, on
+arithmetic-coded, lossless, hierarchical and 12-bit streams, and
+progressive files that libjpeg-turbo would smooth (a low coefficient left
+unsent or unrefined).  ``decode_native`` decodes the rest with the host
+C++ decoder (``csrc/jpeg.cc``, built with g++ on first use):
 every scan into int16 coefficient planes (``jdhuff.c``'s sequential
 blocks, ``jdphuff.c``'s DC first and refine, AC first with its end-of-band
 runs and AC refine with its correction bits; DC predictors and RSTn
 markers), dequantization, the integer inverse DCT ``jidctint`` with its
-range-limit table, fancy (triangle) upsampling (``h2v1``, ``h2v2``; box
-where a plane is 2 or fewer samples wide) with the edge rows and columns
-repeated, and fixed-point YCbCr -> RGB (``jdcolor.c``), or for CMYK
-Pillow's inversion and ``cmyk2rgb``: Pillow's pixels, bit for bit.
+range-limit table, libjpeg-turbo's upsampler of each component
+(``jdsample.c``: fancy (triangle) ``h2v1`` and ``h2v2``, box where a
+plane is 2 or fewer samples wide; fancy ``h1v2`` (4:4:0); ``int_upsample``
+(box) for every other ratio, 4:1:1 among them) with the edge rows and
+columns repeated, and fixed-point YCbCr -> RGB (``jdcolor.c``), RGB as
+decoded, or for CMYK Pillow's inversion and ``cmyk2rgb``, YCCK first
+through ``jdcolor.c``'s YCC -> CMYK: Pillow's pixels, bit for bit.
 ``decode`` is its plain numpy version, the same pixels, whose Huffman
 decoder walks the symbols in a Python loop, many times slower
 (``chip_smoke.py`` phases 21a and 22a time both).
@@ -447,8 +452,11 @@ _FRAME_KINDS = {
     0xCE: "arithmetic-coded hierarchical progressive",
     0xCF: "arithmetic-coded hierarchical lossless",
 }
-# the luma sampling factors (h, v) read with 1x1 chroma
-_SAMPLINGS = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0"}
+# libjpeg's most blocks in an MCU of an interleaved scan (D_MAX_BLOCKS_IN_MCU)
+_MAX_BLOCKS_IN_MCU = 10
+# what each colour space's samples are decoded into (jdcolor.c), by the
+# code csrc/jpeg.cc takes
+COLOURS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 # the low zigzag coefficients whose precision libjpeg-turbo's block smoothing
 # (jdcoefct.c, SAVED_COEFS) checks after the last scan of a progressive file
 _SMOOTHED_COEFS = 10
@@ -483,7 +491,9 @@ class Frame:
     """What the decoders need of a stream: the size; per component its
     sampling factors (h, v) and its quantization table (64, natural order,
     as it stood at the component's first scan); Pillow's mode (``L``,
-    ``RGB`` for YCbCr, ``CMYK``); whether it is progressive; its scans."""
+    ``RGB`` for YCbCr and RGB-coded, ``CMYK`` for CMYK and YCCK); whether
+    it is progressive; its scans; the colour space libjpeg takes it as
+    (a key of ``COLOURS``)."""
 
     height: int
     width: int
@@ -492,37 +502,37 @@ class Frame:
     mode: str
     progressive: bool
     scans: List[Scan]
+    colour: str = "ycc"
 
 
-def _check_colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> None:
-    """Raise where libjpeg would take three components as RGB, not YCbCr
-    (``default_decompress_parms``)."""
-    if jfif:
-        return
-    if adobe is not None:
-        if adobe == 0:
-            raise UnsupportedImageError("Adobe RGB-coded JPEGs (APP14 transform 0) are not "
-                                        "supported (YCbCr only)")
-        return
-    if ids == [82, 71, 66]:
-        raise UnsupportedImageError("RGB-coded JPEGs (component ids R, G, B) are not "
-                                    "supported (YCbCr only)")
-
-
-def _mode(ids: List[int], jfif: bool, adobe: Optional[int]) -> str:
-    """Pillow's mode of a frame of these components, raising on what
-    libjpeg would take as RGB or YCCK: four components are CMYK without an
-    Adobe marker or with its transform 0 (Pillow reads them as Adobe's
-    inverted CMYK), YCCK with any other."""
+def _colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> str:
+    """The colour space libjpeg takes a frame of these components as
+    (``default_decompress_parms``): three are YCbCr after a JFIF marker,
+    RGB with Adobe transform 0 (YCbCr with any other), else RGB where the
+    ids are R, G, B; four are CMYK without an Adobe marker or with its
+    transform 0, YCCK with any other."""
     if len(ids) == 1:
-        return "L"
+        return "gray"
     if len(ids) == 3:
-        _check_colour(ids, jfif, adobe)
-        return "RGB"
-    if adobe not in (None, 0):
-        raise UnsupportedImageError(f"YCCK JPEGs (Adobe APP14 transform {adobe}) are not "
-                                    "supported (CMYK with transform 0 only)")
-    return "CMYK"
+        if jfif:
+            return "ycc"
+        if adobe is not None:
+            return "rgb" if adobe == 0 else "ycc"
+        return "rgb" if ids == [82, 71, 66] else "ycc"
+    return "cmyk" if adobe in (None, 0) else "ycck"
+
+
+def _check_sampling(sampling: List[Tuple[int, int]]) -> None:
+    """Raise where libjpeg refuses the frame's sampling factors: outside 1
+    to 4, or a component's not a whole fraction of the largest
+    (``jdsample.c``'s ``JERR_FRACT_SAMPLE_NOTIMPL``)."""
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    for hs, vs in sampling:
+        if not (1 <= hs <= 4 and 1 <= vs <= 4):
+            raise ValueError(f"JPEG sampling factors {hs}x{vs} are not 1 to 4")
+        if hmax % hs or vmax % vs:
+            raise ValueError(f"JPEG sampling factors {['%dx%d' % s for s in sampling]}: "
+                             "libjpeg does not upsample by a fraction")
 
 
 def _corrupt_scan(what: str) -> UnsupportedImageError:
@@ -638,10 +648,10 @@ def _scan_problem(progressive: bool, n: int, ss: int, se: int, ah: int, al: int)
 def parse(data: bytes) -> Frame:
     """The frame, tables and scans of a Huffman JPEG of 8-bit samples:
     baseline or extended sequential (SOF0, SOF1) of one scan or several,
-    or progressive (SOF2); gray, YCbCr at 4:4:4, 4:2:2 or 4:2:0, or CMYK
-    (Adobe transform 0, or no Adobe marker) of the same samplings.  Raises
+    or progressive (SOF2); gray, YCbCr, RGB-coded, CMYK or YCCK at any
+    sampling libjpeg accepts (``ValueError`` on another).  Raises
     ``UnsupportedImageError`` naming any other kind (arithmetic, lossless,
-    hierarchical, 12-bit, YCCK, RGB-coded, other sampling factors), a
+    hierarchical, 12-bit), a
     progression libjpeg decodes with a warning, a progressive file whose
     scans leave one of the low coefficients libjpeg-turbo's block smoothing
     checks unsent or unrefined, a component no scan codes, or a corrupt
@@ -739,12 +749,9 @@ def parse(data: bytes) -> Frame:
                 raise UnsupportedImageError("JPEGs whose height comes after the scan (DNL) are "
                                             "not supported")
             sampling = [(c[1] >> 4, c[1] & 15) for c in comps]
+            _check_sampling(sampling)
             if ncomp == 1:
                 sampling = [(1, 1)]  # one component: one block an MCU
-            elif sampling[0] not in _SAMPLINGS or set(sampling[1:]) != {(1, 1)}:
-                raise UnsupportedImageError(
-                    f"JPEG sampling factors {['%dx%d' % s for s in sampling]} are not supported "
-                    f"({', '.join(_SAMPLINGS.values())} only)")
             frame = Frame(h, w, sampling, [], "", code == 0xC2, scans)
             ids, qsel = [c[0] for c in comps], [c[2] for c in comps]
             progression = [[-1] * 64 for _ in comps]
@@ -752,7 +759,8 @@ def parse(data: bytes) -> Frame:
             if frame is None:
                 raise ValueError("JPEG stream has no SOF0, SOF1 or SOF2 frame before its scan")
             if not scans:
-                frame.mode = _mode(ids, jfif, adobe)
+                frame.colour = _colour(ids, jfif, adobe)
+                frame.mode = {"gray": "L", "ycc": "RGB", "rgb": "RGB"}.get(frame.colour, "CMYK")
             n = body[0] if body else 0
             if not 1 <= n <= len(ids) or len(body) != 4 + 2 * n:
                 raise ValueError(f"JPEG scan header of {len(body)} bytes codes {n} components")
@@ -763,6 +771,9 @@ def parse(data: bytes) -> Frame:
             if members != sorted(set(members)):
                 raise ValueError("JPEG scan codes its components in another order than the "
                                  "frame's")
+            if n > 1 and sum(frame.sampling[k][0] * frame.sampling[k][1]
+                             for k in members) > _MAX_BLOCKS_IN_MCU:
+                raise ValueError(f"JPEG scan of more than {_MAX_BLOCKS_IN_MCU} blocks an MCU")
             ss, se, ah, al = body[1 + 2 * n], body[2 + 2 * n], body[3 + 2 * n] >> 4, \
                 body[3 + 2 * n] & 15
             problem = _scan_problem(frame.progressive, n, ss, se, ah, al)
@@ -794,11 +805,10 @@ def parse(data: bytes) -> Frame:
                 _check_restarts(scan.coded, -(-_units(frame, scan) // restart) - 1)
             pos = end
             if len(scans) == 1 and n == len(ids) and not frame.progressive:
-                # one interleaved scan: libjpeg decodes it in one pass, and a
-                # scan after it is an error once its rows are out
-                if scan.ended and data[end + 1] != 0xD9 and b"\xff\xda" in data[end:]:
-                    raise UnsupportedImageError("JPEGs of more than one scan after a scan of "
-                                                "every component are not supported")
+                # one interleaved scan: libjpeg decodes it in one pass, then
+                # reads the markers after it to EOI
+                if scan.ended:
+                    _check_trailer(data, end)
                 break
     buffered = len(scans) > 1 or frame.progressive or len(scans[0].comps) < len(ids)
     if buffered and not eoi:
@@ -822,6 +832,51 @@ def parse(data: bytes) -> Frame:
     return frame
 
 
+# the markers libjpeg skips after a one-pass file's scan: DHT, DAC, DQT,
+# DNL, DRI, APPn, COM, each with a length
+_SKIPPED_AFTER_SCAN = {0xC4, 0xCC, 0xDB, 0xDC, 0xDD, *range(0xE0, 0xF0), 0xFE}
+
+
+def _check_trailer(data: bytes, pos: int) -> None:
+    """Raise where libjpeg's ``jpeg_finish_decompress`` of a one-pass file
+    (one interleaved sequential scan) errs on the markers after its scan,
+    which it reads to EOI: another scan (``JERR_EOI_EXPECTED``), SOI, a
+    frame, or a marker it does not know; or a Huffman table it refuses.
+    Stray bytes, RSTn and TEM are skipped, as are tables, APPn and COM
+    segments; where the data ends first, libjpeg suspends and Pillow keeps
+    the rows."""
+    while pos + 1 < len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0x00, 0xFF):
+            pos += 1
+            continue
+        code = data[pos + 1]
+        if code == 0xD9:
+            return
+        if 0xD0 <= code <= 0xD7 or code == 0x01:
+            pos += 2
+            continue
+        if code not in _SKIPPED_AFTER_SCAN:
+            what = "a second scan" if code == 0xDA else f"marker 0x{code:02X}"
+            raise ValueError(f"JPEG stream: {what} after the scan of every component, where "
+                             "libjpeg expects EOI")
+        if pos + 4 > len(data):
+            return
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        body = data[pos + 4:pos + 2 + length]
+        if len(body) < length - 2:
+            return
+        if code == 0xC4:
+            i = 0
+            while length - 2 - i > 16:
+                counts = body[i + 1:i + 17]
+                if body[i] & 0x0F > 3 or sum(counts) > min(256, len(body) - i - 17):
+                    raise ValueError("JPEG Huffman table after the scan is malformed")
+                i += 17 + sum(counts)
+            if i != length - 2:
+                raise ValueError("JPEG Huffman table after the scan has a bad length")
+        pos += 2 + length
+
+
 def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
     """(symbol, code length) of every 16-bit window whose leading bits are
     a code of the table (length 0: no code)."""
@@ -833,11 +888,28 @@ def _decode_tables(counts, symbols) -> Tuple[List[int], List[int]]:
     return sym.tolist(), length.tolist()
 
 
+def h1v2_fancy_upsample(plane: np.ndarray) -> np.ndarray:
+    """Double a plane down by libjpeg-turbo's ``h1v2_fancy_upsample``: 3/4
+    of the nearer row and 1/4 of the one above (bias 1) or below (bias 2),
+    the edge rows repeated."""
+    p = np.pad(plane.astype(np.int64), ((1, 1), (0, 0)), mode="edge")
+    near = 3 * p[1:-1]
+    rows = np.stack([(near + p[:-2] + 1) >> 2, (near + p[2:] + 2) >> 2], axis=1)
+    return rows.reshape(-1, plane.shape[1])
+
+
 def _upsample(plane: np.ndarray, fx: int, fy: int) -> np.ndarray:
-    """A plane at the frame's largest sampling: none, h2v1 or h2v2."""
-    if fx == 1:
+    """A plane at the frame's largest sampling, by the upsampler
+    libjpeg-turbo's ``jinit_upsampler`` picks for the ratio (fx, fy)."""
+    if (fx, fy) == (1, 1):
         return plane
-    return h2v1_fancy_upsample(plane) if fy == 1 else h2v2_fancy_upsample(plane)
+    if (fx, fy) == (2, 1):
+        return h2v1_fancy_upsample(plane)
+    if (fx, fy) == (1, 2):
+        return h1v2_fancy_upsample(plane)
+    if (fx, fy) == (2, 2):
+        return h2v2_fancy_upsample(plane)
+    return plane.repeat(fy, axis=0).repeat(fx, axis=1)  # int_upsample
 
 
 def cmyk_to_rgb(samples: np.ndarray) -> np.ndarray:
@@ -852,9 +924,10 @@ def cmyk_to_rgb(samples: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB pixels of a YCbCr or CMYK JPEG, (H, W, 1) of a
-    gray one, as Pillow gives them from libjpeg with its defaults (islow
-    IDCT, fancy upsampling; CMYK through Pillow's conversion): the plain
+    """(H, W, 3) uint8 RGB pixels of a YCbCr, RGB, CMYK or YCCK JPEG, (H, W,
+    1) of a gray one, as Pillow gives them from libjpeg with its defaults
+    (islow IDCT, fancy upsampling; CMYK and YCCK through Pillow's
+    conversion): the plain
     numpy version of ``decode_native`` (a Python loop over the Huffman
     symbols, many times slower)."""
     return decode_frame(parse(data))
@@ -873,9 +946,14 @@ def decode_frame(f: Frame) -> np.ndarray:
         plane = plane[:-(-f.height * vs // vmax), :-(-f.width * hs // hmax)]
         planes.append(_upsample(plane, hmax // hs, vmax // vs)[:f.height, :f.width])
     _check_ended(f)
-    if f.mode == "L":
+    if f.colour == "gray":
         return planes[0][..., None].astype(np.uint8)
-    if f.mode == "CMYK":
+    if f.colour == "rgb":
+        return np.stack(planes, -1).astype(np.uint8)
+    if f.colour == "ycck":  # jdcolor.c's ycck_cmyk_convert: CMY = 255 - the YCbCr's RGB
+        cmy = 255 - ycbcr_to_rgb(np.stack(planes[:3], -1)).astype(np.int64)
+        return cmyk_to_rgb(np.concatenate([cmy, planes[3][..., None]], -1))
+    if f.colour == "cmyk":
         return cmyk_to_rgb(np.stack(planes, -1))
     return ycbcr_to_rgb(np.stack(planes, -1))
 
@@ -1137,7 +1215,7 @@ def decode_frame_native(f: Frame) -> np.ndarray:
     fault = ctypes.c_int(-1)
     err = ctypes.create_string_buffer(256)
     rc = _native().icat_jpeg_decode(
-        f.width, f.height, n, int(f.mode == "CMYK"), int(f.progressive),
+        f.width, f.height, n, COLOURS[f.colour], int(f.progressive),
         _ptr(hs, ctypes.c_int32), _ptr(vs, ctypes.c_int32), _ptr(quant, ctypes.c_int32),
         len(f.scans), _ptr(scans, ctypes.c_int64), _ptr(tables, ctypes.c_uint8),
         _ptr(coded, ctypes.c_uint8), _ptr(out, ctypes.c_uint8), ctypes.byref(fault), err,

@@ -1,7 +1,7 @@
 """Build the port's native sources into C-ABI shared libraries and load
 them with ``ctypes``.
 
-Five libraries, each built on first use into ``_build/`` beside the package
+Seven libraries, each built on first use into ``_build/`` beside the package
 under a name keyed by a hash of its sources and flags, so an edited source
 or flag builds anew and an unchanged one is reused.  One file lock
 serialises concurrent builds of all of them.
@@ -18,7 +18,10 @@ serialises concurrent builds of all of them.
 * ``libicat_png-<hash>.so``: the host PNG decoder (``csrc/png.cc``), by
   ``g++``, which every image reader of the port takes for PNG files;
 * ``libicat_webp-<hash>.so``: the host WebP decoder (``csrc/webp.cc``), by
-  ``g++``, which every image reader of the port takes for WebP files.
+  ``g++``, which every image reader of the port takes for WebP files;
+* ``libicat_tiff-<hash>.so`` and ``libicat_gif-<hash>.so``: the host TIFF
+  and GIF decoders (``csrc/tiff.cc``, ``csrc/gif.cc``), by ``g++``, which
+  every image reader of the port takes for TIFF and GIF files.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ RANS_SOURCE = CSRC_DIR / "rans.cc"
 JPEG_SOURCE = CSRC_DIR / "jpeg.cc"
 PNG_SOURCE = CSRC_DIR / "png.cc"
 WEBP_SOURCE = CSRC_DIR / "webp.cc"
+TIFF_SOURCE = CSRC_DIR / "tiff.cc"
+GIF_SOURCE = CSRC_DIR / "gif.cc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
@@ -100,6 +105,16 @@ def png_library_path() -> Path:
 def webp_library_path() -> Path:
     """``_build/libicat_webp-<hash>.so``, keyed by source and flags."""
     return _keyed_path("libicat_webp", GXX_FLAGS, (WEBP_SOURCE,))
+
+
+def tiff_library_path() -> Path:
+    """``_build/libicat_tiff-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_tiff", GXX_FLAGS, (TIFF_SOURCE,))
+
+
+def gif_library_path() -> Path:
+    """``_build/libicat_gif-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_gif", GXX_FLAGS, (GIF_SOURCE,))
 
 
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
@@ -172,6 +187,18 @@ def build_webp() -> Path:
     """Compile ``csrc/webp.cc`` with g++ unless the keyed library already
     exists; return its path."""
     return _build_host(webp_library_path(), WEBP_SOURCE, "the WebP decoder")
+
+
+def build_tiff() -> Path:
+    """Compile ``csrc/tiff.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(tiff_library_path(), TIFF_SOURCE, "the TIFF decoder")
+
+
+def build_gif() -> Path:
+    """Compile ``csrc/gif.cc`` with g++ unless the keyed library already
+    exists; return its path."""
+    return _build_host(gif_library_path(), GIF_SOURCE, "the GIF decoder")
 
 
 @functools.lru_cache(maxsize=None)

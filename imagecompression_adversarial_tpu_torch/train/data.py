@@ -7,14 +7,16 @@ same five extensions (``.png .jpg .jpeg .bmp .webp``), a permutation an
 epoch, one ``default_rng`` a file for its crop (drawn before the file is
 read, so an unreadable file shifts no other crop), drop-last.  Files are
 read through the port's own readers (``io/image.py::read_pixels``, no
-PIL: PNG, JPEG and WebP by the host C++ decoders, BMP), which give what
-JAX's ``Image.open(path).convert("RGB")`` gives for every PNG kind,
-progressive and CMYK JPEGs and still WebPs, lossy and lossless, included.
+PIL: PNG, JPEG, WebP, TIFF and GIF by the host C++ decoders, BMP by
+numpy), which give what JAX's ``Image.open(path).convert("RGB")`` gives
+for every PNG kind, progressive, CMYK, YCCK and RGB-coded JPEGs at every
+sampling, WebPs (an animated one's first frame) and palette, RLE and
+bitfield BMPs included.
 The decode threads run the decoders side by side (``ctypes`` drops the
 GIL during each call).  A broken file or one smaller than the crop is
 skipped, as the JAX loader skips a file PIL cannot open; an epoch that
 yields no batch raises, naming what was skipped.  A file that PIL reads
-and the port does not (an animated WebP, a YCCK JPEG, a JPEG scan libjpeg
+and the port does not (an arithmetic-coded JPEG, a JPEG scan libjpeg
 decodes with a warning, ...) raises, naming the file: JAX's stream holds
 it, so skipping it would shift every later crop.
 

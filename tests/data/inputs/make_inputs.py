@@ -17,15 +17,31 @@ lossless noisy one at the kind files' size, and a 768x512 q90 lossy file
 of ``webp_textured`` with its lossless twin; and two lossy WebPs of
 encoder settings Pillow's ``save`` cannot ask for, written through
 ``libwebp_encode`` (the simple loop filter at sharpness 3, the normal one
-at sharpness 6).  Then ``inputs.json``: for
+at sharpness 6).  And the files of slice 18 (``TAIL_FILES``,
+``tail_files``): BMPs at 256x260 (a core-header 8-bit palette, 4- and
+1-bit palettes, RLE8 and RLE4 with a delta escape, 16-bit ``BI_RGB``,
+5-6-5 bitfields) and a 128x128 one of alpha bitfields; TIFFs at 96x80
+that Pillow writes (uncompressed, LZW, Deflate with alpha, PackBits gray,
+palette, 16-bit gray, CMYK, bilevel, BigTIFF) or that ``write_tiff``
+writes (tiled planar big-endian LZW with differencing, 16-bit
+differencing under old-style Deflate, premultiplied alpha, a 4-bit
+palette under PackBits, a tiled 16-bit WhiteIsZero BigTIFF, a rotated
+WhiteIsZero one) and a 768x512 LZW one with differencing
+(``textured_lzw.tif``); Pillow's GIFs (interlaced, animated, a gray ramp
+table, a first frame at an offset with transparency); animated WebPs
+(lossy, lossless with alpha, a first frame offset on a wider canvas); and
+JPEGs at 262x270 that Pillow writes (``keep_rgb``) or ``encode_jpeg``
+writes (RGB by component ids, YCCK, 4:4:0, 4:1:1, chroma factors other
+than 1x1).  Then ``inputs.json``: for
 each file the sha256 of Pillow's ``Image.open(path).convert("RGB")``
 bytes, their shape, Pillow's mode and version, and libwebp's version for a
 WebP.  ``tests/test_torch_image_kinds.py`` holds the pixels to the hashes
-where Pillow is installed, and ``chip_smoke.py`` phases 22 and 23 hold the
-port's decoders to them on the card.
+where Pillow is installed, and ``chip_smoke.py`` phases 22, 23 and 24
+hold the port's decoders to them on the card.
 
-``write_png`` writes any PNG kind from samples, the first rows of each
-Adam7 pass with each of the five filters in turn; the tests import it.
+``write_png``, ``write_bmp`` (with ``rle_codes``), ``write_tiff`` (with
+``lzw_tiff`` and ``packbits``), ``write_gif`` (with ``lzw_gif``) and
+``encode_jpeg`` write the kinds from samples; the tests import them.
 """
 
 from __future__ import annotations
@@ -269,6 +285,632 @@ def webp_files() -> dict:
     }
 
 
+# ---- slice 18: BMP, TIFF, GIF, animated WebP and JPEG kinds Pillow
+# cannot (or can) write
+
+def write_bmp(samples: np.ndarray, bits: int, compression: int = 0, palette: bytes = b"",
+              masks=None, header: int = 40, top_down: bool = False, rle: bytes = b"") -> bytes:
+    """A BMP of (h, w) indices (``bits`` 1, 4 or 8, with ``palette`` in
+    the header's entry size: 3 bytes for the 12-byte core header, else 4)
+    or (h, w) integer pixels (16 and 32 bits, packed already); ``rle`` the
+    RLE8/RLE4 codes in place of rows; ``masks`` the bitfields, written
+    after a 40-byte header or inside a longer one."""
+    h, w = samples.shape[:2]
+    if rle:
+        pixels = rle
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if bits <= 8:
+            bitsarr = (samples[..., None].astype(np.int64) >> np.arange(bits - 1, -1, -1)) & 1
+            rows = np.packbits(bitsarr.reshape(h, -1).astype(np.uint8), axis=1)
+        else:
+            rows = samples.astype("<u4").view(np.uint8).reshape(h, w, 4)[..., :bits // 8]
+            rows = rows.reshape(h, -1)
+        padded = np.zeros((h, stride), np.uint8)
+        padded[:, :rows.shape[1]] = rows
+        pixels = (padded if top_down else padded[::-1]).tobytes()
+    colors = len(palette) // (3 if header == 12 else 4)
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, compression,
+                           len(pixels), 2835, 2835, colors, 0)
+        fields = struct.pack("<IIII", *(list(masks or ()) + [0] * 4)[:4])
+        info += fields[:header - 40] + bytes(max(0, header - 56))
+        if header == 40 and masks:
+            info += struct.pack("<III", *masks[:3])
+    offset = 14 + len(info) + len(palette)
+    return b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info + palette + pixels
+
+
+def rle_codes(idx: np.ndarray, rle4: bool, delta_row: int = -1) -> bytes:
+    """RLE8 (or RLE4) codes of (h, w) indices, bottom row first: runs of
+    3 or more equal pixels (4 or more alternating ones for RLE4) as
+    encoded runs, the others as absolute runs (an even count for RLE4)
+    padded to 16 bits, lone pixels as runs of one, an end of line after
+    each row and an end of bitmap last.  In row ``delta_row`` (file order)
+    a delta escape skips 3 of the last 8 pixels: written ``00 02 09 09 03
+    00``, as Pillow's decoder reads a delta (it skips the two bytes after
+    the escape and takes the next two as the move), so the skipped pixels
+    are index 0."""
+    out = bytearray()
+    w = idx.shape[1]
+
+    def encode(row, x, end):
+        while x < end:
+            a, b = row[x], row[x + 1] if x + 1 < end else 0
+            n = 1
+            while x + n < end and n < 255 and row[x + n] == (b if rle4 and n % 2 else a):
+                n += 1
+            if n >= (4 if rle4 else 3):
+                out.extend((n, (a << 4 | b) if rle4 else a))
+                x += n
+                continue
+            j = x
+            while j < end and j - x < 250 and not all(
+                    j + i < end and row[j + i] == row[j + i % 2] for i in range(4 if rle4 else 3)):
+                j += 1
+            n = (j - x) & ~1 if rle4 else j - x
+            if n < 3:
+                for v in row[x:x + max(n, 1)]:
+                    out.extend((1, v << 4 if rle4 else v))
+                x += max(n, 1)
+                continue
+            vals = row[x:x + n]
+            body = bytes(vals[i] << 4 | vals[i + 1] for i in range(0, n, 2)) if rle4 else bytes(vals)
+            out.extend((0, n))
+            out.extend(body + bytes(len(body) % 2))
+            x += n
+
+    for r, row in enumerate(idx[::-1].tolist()):
+        if r == delta_row:
+            encode(row, 0, w - 8)
+            out.extend((0, 2, 9, 9, 3, 0))
+            encode(row, w - 5, w)
+        else:
+            encode(row, 0, w)
+        out.extend((0, 0))
+    return bytes(out + bytes((0, 1)))
+
+
+def bmp_files() -> dict:
+    """name -> bytes of each BMP kind (256x260: past cli.train's crop)."""
+    h, w = 260, 256
+    rng = np.random.RandomState(21)
+    pal = smooth(1, 256, seed=22).astype(np.uint8)[0]  # 256 colours
+
+    def entries(n, size=4):
+        return b"".join(bytes((b, g, r)) + bytes(size - 3) for r, g, b in pal[:n].tolist())
+
+    idx8 = smooth(h, w, seed=23, channels=1, levels=200, period=3)[..., 0]
+    idx4 = smooth(h, w, seed=24, channels=1, levels=16, period=2)[..., 0]
+    idx4 = np.where(rng.rand(h, w) < 0.02, rng.randint(0, 16, (h, w)), idx4)
+    idx1 = (smooth(h, w, seed=25, channels=1, levels=2)[..., 0])
+    run8 = smooth(h, w, seed=26, channels=1, levels=12, period=4)[..., 0]
+    run8 = np.where(rng.rand(h, w) < 0.01, rng.randint(0, 256, (h, w)), run8)
+    rgb = smooth(h, w, seed=27, levels=32)
+    v555 = (rgb[..., 0] << 10) | (rgb[..., 1] << 5) | rgb[..., 2]
+    g6 = smooth(h, w, seed=28, channels=1, levels=64)[..., 0]
+    v565 = (rgb[..., 2] << 11) | (g6 << 5) | rgb[..., 0]
+    argb = smooth(128, 128, seed=29, channels=4, noise=0.05).astype(np.int64)  # below the crop
+    v8888 = (argb[..., 3] << 24) | (argb[..., 0] << 16) | (argb[..., 1] << 8) | argb[..., 2]
+    return {
+        "bmp_palette8_core.bmp": write_bmp(idx8, 8, palette=entries(200, 3), header=12),
+        "bmp_palette4.bmp": write_bmp(idx4, 4, palette=entries(16), top_down=True),
+        "bmp_palette1.bmp": write_bmp(idx1, 1, palette=entries(2)),
+        "bmp_rle8.bmp": write_bmp(run8, 8, 1, entries(256), rle=rle_codes(run8, False, 100)),
+        "bmp_rle4.bmp": write_bmp(idx4, 4, 2, entries(16), rle=rle_codes(idx4, True, 7)),
+        "bmp_rgb555.bmp": write_bmp(v555, 16),
+        "bmp_bitfields565.bmp": write_bmp(v565, 16, 3, masks=(0xF800, 0x7E0, 0x1F)),
+        "bmp_bitfields_alpha.bmp": write_bmp(v8888, 32, 3, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                                             header=124),
+    }
+
+
+def lzw_tiff(data: bytes) -> bytes:
+    """TIFF's LZW of ``data`` (codes MSB first, 9 to 12 bits, the code
+    width growing one code early: the reader's table, one entry behind
+    this one's, reaches 2**n - 1 as this one reaches 2**n; a clear code
+    first and where the table reaches 4094 entries, an end code last)."""
+    out, acc, nacc = bytearray(), 0, 0
+    width = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    table = {bytes((i,)): i for i in range(256)}
+    put(256)
+    nxt, prefix = 258, b""
+    for byte in data:
+        s = prefix + bytes((byte,))
+        if s in table:
+            prefix = s
+            continue
+        put(table[prefix])
+        table[s] = nxt
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+        if nxt == 4094:
+            put(256)
+            table = {bytes((i,)): i for i in range(256)}
+            nxt, width = 258, 9
+        prefix = bytes((byte,))
+    if prefix:
+        put(table[prefix])
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits of ``data``: runs of 3 to 128 equal bytes, literals of up
+    to 128 others."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes((257 - (j - i), data[i]))
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes((j - i - 1,)) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
+               predictor: int = 1, planar: int = 1, tile=None, rows_per_strip: int = 0,
+               order: str = "<", big: bool = False, extra=(), colormap=None, fill_order: int = 1,
+               orientation: int = 0, sample_format: int = 0) -> bytes:
+    """A TIFF of (h, w, samples) integer samples: strips of
+    ``rows_per_strip`` rows (all rows: 0) or ``tile`` = (width, length)
+    tiles, chunky or planar, compressed by 1 (none), 5 (LZW), 8 or 32946
+    (Deflate) or 32773 (PackBits), with horizontal differencing
+    (``predictor`` 2) at 8 or 16 bits; ``order`` '<' (II) or '>' (MM);
+    classic TIFF or BigTIFF; fill order 2 (bits reversed in each byte), an
+    orientation and a sample format where given."""
+    h, w, spp = samples.shape
+    planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    tw, th = tile or (w, rows_per_strip or h)
+    chunks = []
+    for plane in planes:
+        for y in range(0, h, th):
+            for x in range(0, w, tw if tile else w):
+                cw = tw if tile else w
+                part = np.zeros((th if tile else min(th, h - y), cw, plane.shape[2]), np.int64)
+                sub = plane[y:y + part.shape[0], x:x + cw]
+                part[:sub.shape[0], :sub.shape[1]] = sub
+                if predictor == 2:
+                    part = np.concatenate([part[:, :1], np.diff(part, axis=1)], 1) % (1 << bits)
+                flat = part.reshape(part.shape[0], -1)
+                if bits == 16:
+                    raw = flat.astype(order + "u2").tobytes()
+                elif bits == 8:
+                    raw = flat.astype(np.uint8).tobytes()
+                else:
+                    bitarr = (flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+                    raw = np.packbits(bitarr.reshape(flat.shape[0], -1).astype(np.uint8),
+                                      axis=1).tobytes()
+                if compression == 5:
+                    raw = lzw_tiff(raw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 9)
+                elif compression == 32773:
+                    raw = packbits(raw)
+                if fill_order == 2:  # the stored bytes' bits reversed
+                    raw = np.packbits(np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(-1, 8)[:, ::-1]
+                                      ).tobytes()
+                chunks.append(raw)
+    kind = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}
+    offset_type = 16 if big else 4
+    entries = [(256, 3, [w]), (257, 3, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
+               (262, 3, [photometric])]
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    entries.append((324 if tile else 273, offset_type, [0] * len(chunks)))
+    if orientation:
+        entries.append((274, 3, [orientation]))
+    entries += [(277, 3, [spp])]
+    if not tile:
+        entries.append((278, 3, [th]))
+    entries.append((325 if tile else 279, offset_type, [len(c) for c in chunks]))
+    if tile:
+        entries += [(322, 3, [tw]), (323, 3, [th])]
+    if planar != 1:
+        entries.append((284, 3, [planar]))
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, list(colormap)))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if sample_format:
+        entries.append((339, 3, [sample_format] * spp))
+    entries.sort(key=lambda e: e[0])
+    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 16: 8}
+    head = 16 if big else 8
+    count_fmt, entry_size, inline = ("Q", 20, 8) if big else ("H", 12, 4)
+    ifd_size = (8 if big else 2) + entry_size * len(entries) + (8 if big else 4)
+    # out-of-line values after the IFD, then the image data
+    pos = head + ifd_size
+    blobs, placed = [], {}
+    for tag, typ, vals in entries:
+        size = sizes[typ] * len(vals)
+        if size > inline:
+            placed[tag] = pos
+            pos += size + size % 2
+    data_at = pos
+    starts = []
+    for c in chunks:
+        starts.append(pos)
+        pos += len(c)
+    out = bytearray((b"II" if order == "<" else b"MM")
+                    + struct.pack(order + "H", 43 if big else 42))
+    out += struct.pack(order + "HHQ", 8, 0, 16) if big else struct.pack(order + "I", 8)
+    out += struct.pack(order + count_fmt, len(entries))
+    for tag, typ, vals in entries:
+        if tag in (273, 324):
+            vals = starts
+        fmt = order + kind[typ] * len(vals)
+        body = struct.pack(fmt, *vals)
+        out += struct.pack(order + "HH" + ("Q" if big else "I"), tag, typ, len(vals))
+        out += body.ljust(inline, b"\0") if len(body) <= inline else \
+            struct.pack(order + ("Q" if big else "I"), placed[tag])
+    out += bytes(8 if big else 4)
+    for tag, typ, vals in entries:
+        if tag in placed:
+            fmt = order + kind[typ] * len(vals)
+            if tag in (273, 324):
+                vals = starts
+            body = struct.pack(fmt, *vals)
+            out += body + bytes(len(body) % 2)
+    assert len(out) == data_at
+    return bytes(out) + b"".join(chunks)
+
+
+def tiff_files() -> dict:
+    """name -> bytes of each TIFF kind (96x80, and one 768x512)."""
+    from PIL import Image
+
+    h, w = 80, 96
+
+    def pillow(im, **kwargs) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, format="TIFF", **kwargs)
+        return buf.getvalue()
+
+    rgb = smooth(h, w, seed=31, noise=0.05).astype(np.uint8)
+    rgba = smooth(h, w, seed=32, channels=4, noise=0.05).astype(np.uint8)
+    gray = smooth(h, w, seed=33, channels=1, noise=0.05)[..., 0].astype(np.uint8)
+    cmap = wide(smooth(1, 16, seed=34)[0].T.reshape(-1))  # 16 reds, greens, blues
+    idx4 = smooth(h, w, seed=35, channels=1, levels=16)
+    premul = rgba.astype(np.int64)
+    premul[..., :3] = premul[..., :3] * premul[..., 3:] // 255
+    big = textured_tiff_rgb()
+    return {
+        "tiff_rgb.tif": pillow(Image.fromarray(rgb)),
+        "tiff_lzw.tif": pillow(Image.fromarray(rgb), compression="tiff_lzw"),
+        "tiff_deflate_rgba.tif": pillow(Image.fromarray(rgba, "RGBA"), compression="tiff_adobe_deflate"),
+        "tiff_packbits_gray.tif": pillow(Image.fromarray(gray), compression="packbits"),
+        "tiff_palette.tif": pillow(Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                                                 colors=40), compression="tiff_lzw"),
+        "tiff_gray16.tif": pillow(Image.fromarray(wide(smooth(h, w, seed=36, channels=1))[..., 0]
+                                                  .astype(np.uint16))),
+        "tiff_cmyk.tif": pillow(Image.fromarray(rgb).convert("CMYK"), compression="tiff_lzw"),
+        "tiff_bilevel.tif": pillow(Image.fromarray(gray).convert("1"), compression="packbits"),
+        "tiff_bigtiff.tif": pillow(Image.fromarray(rgb), big_tiff=True),
+        "tiff_tiled_planar_be.tif": write_tiff(rgb, 8, 2, compression=5, predictor=2, planar=2,
+                                               tile=(32, 48), order=">"),
+        "tiff_predictor16.tif": write_tiff(wide(smooth(h, w, seed=37)), 16, 2, compression=32946,
+                                           predictor=2, rows_per_strip=7),
+        "tiff_premultiplied_mm.tif": write_tiff(premul, 8, 2, compression=5, extra=(1,),
+                                                rows_per_strip=16, order=">"),
+        "tiff_palette4_packbits.tif": write_tiff(idx4, 4, 3, compression=32773, rows_per_strip=9,
+                                                 colormap=cmap),
+        "tiff_miniswhite_tiled16.tif": write_tiff(wide(smooth(h, w, seed=38, channels=1)), 16, 0,
+                                                  tile=(16, 16), big=True),
+        "tiff_miniswhite8_rotated.tif": write_tiff(gray[..., None], 8, 0, compression=32773,
+                                                   rows_per_strip=5, orientation=6),
+        "textured_lzw.tif": write_tiff(big, 8, 2, compression=5, predictor=2, rows_per_strip=16),
+    }
+
+
+def textured_tiff_rgb() -> np.ndarray:
+    """(512, 768, 3) uint8: smooth waves and fine stripes, which LZW with
+    horizontal differencing packs into ~200 kB."""
+    h, w = TEXTURED
+    return np.clip(smooth(h, w, seed=39, period=3)
+                   + np.round(6 * np.sin(np.arange(w) / 2.3))[None, :, None], 0, 255).astype(np.uint8)
+
+
+def lzw_gif(indices, bits: int, first_clear: bool = True, clear_at_full: bool = True) -> bytes:
+    """GIF's LZW of ``indices`` with minimum code size ``bits``: codes LSB
+    first, widened as the reader's table (one entry behind) reaches
+    2**size - 1; no leading clear code unless ``first_clear``; at 4096
+    entries a clear code, or (``clear_at_full`` False) none and no more
+    entries, as a deferred clear."""
+    clear = 1 << bits
+    out, acc, nacc, size = bytearray(), 0, 0, bits + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    def reset():
+        return {(i,): i for i in range(clear)}, clear + 2
+
+    table, nxt = reset()
+    if first_clear:
+        put(clear)
+    prefix = ()
+    for v in indices:
+        s = prefix + (v,)
+        if s in table:
+            prefix = s
+            continue
+        put(table[prefix])
+        if nxt < 4096:
+            table[s] = nxt
+            if nxt == 1 << size and size < 12:
+                size += 1
+            nxt += 1
+        elif clear_at_full:
+            put(clear)
+            table, nxt = reset()
+            size = bits + 1
+        prefix = (v,)
+    put(table[prefix])
+    if nxt < 4096 and nxt == 1 << size and size < 12:
+        size += 1
+    put(clear + 1)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def write_gif(idx: np.ndarray, bits: int, table: bytes, local: bool = False, interlace: bool = False,
+         transparency=None, screen=None, offset=(0, 0), junk: bool = False, **lzw) -> bytes:
+    """A GIF89a of one frame of ``idx`` (h, w) at ``offset`` on ``screen``
+    (w, h), its colour ``table`` global or local, LZW at minimum code size
+    ``bits``, with a graphic control extension of ``transparency``, a
+    comment and (``junk``) stray bytes before the image."""
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    entries = len(table) // 3
+    size_bits = max(1, (entries - 1).bit_length()) - 1
+    flags = 0x80 | size_bits
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", sw, sh, 0 if local else flags, 0, 0))
+    if not local:
+        out += table
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes((1, 0, 0, transparency, 0))
+    out += b"\x21\xfe\x05hello\x00"
+    if junk:
+        out += b"\x07\x42"
+    out += b"," + struct.pack("<HHHH", *offset, w, h)
+    out.append((flags if local else 0) | (0x40 if interlace else 0))
+    if local:
+        out += table
+    rows = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]]) if interlace else idx
+    stream = lzw_gif(rows.ravel().tolist(), bits, **lzw)
+    out.append(bits)
+    for i in range(0, len(stream), 255):
+        out += bytes((len(stream[i:i + 255]),)) + stream[i:i + 255]
+    return bytes(out + b"\x00;")
+
+
+def gif_files() -> dict:
+    """name -> bytes of each GIF kind (Pillow's GIFs, some patched)."""
+    from PIL import Image
+
+    h, w = 80, 96
+
+    def pillow(im, **kwargs) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, format="GIF", **kwargs)
+        return buf.getvalue()
+
+    rgb = smooth(h, w, seed=41, noise=0.1).astype(np.uint8)
+    p = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE, colors=200)
+    small = Image.fromarray(smooth(50, 60, seed=42, noise=0.1).astype(np.uint8)).convert(
+        "P", palette=Image.Palette.ADAPTIVE, colors=30)
+    offset = bytearray(pillow(small, transparency=3))  # screen 96x80, the frame at (20, 17)
+    offset[6:10] = struct.pack("<HH", w, h)
+    at = offset.index(b",", 13 + 3 * (2 << (offset[10] & 7)))
+    offset[at + 1:at + 5] = struct.pack("<HH", 20, 17)
+    ramp = bytearray(pillow(p))  # a global palette of gray ramp entries: Pillow opens it as L
+    ramp[13:13 + 768] = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    ramp = bytes(ramp)
+    frames = [Image.fromarray(smooth(h, w, seed=s, noise=0.1).astype(np.uint8)) for s in (43, 44)]
+    anim = io.BytesIO()
+    frames[0].save(anim, format="GIF", save_all=True, append_images=frames[1:], interlace=False)
+    return {
+        "gif_interlaced.gif": pillow(p),
+        "gif_gray.gif": ramp,
+        "gif_offset_transparent.gif": bytes(offset),
+        "gif_animated.gif": anim.getvalue(),
+    }
+
+
+def animated_webp_files() -> dict:
+    """name -> bytes of the animated WebPs (262x270 canvases): Pillow's
+    lossy and lossless ``save_all`` files, and a lossy one whose first
+    frame is patched to sit at (24, 10) inside a wider canvas."""
+    from PIL import Image
+
+    h, w = SIZE
+
+    def anim(frames, **kwargs) -> bytes:
+        buf = io.BytesIO()
+        frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:], duration=80,
+                       **kwargs)
+        return buf.getvalue()
+
+    rgb = [Image.fromarray(smooth(h, w, seed=s, noise=0.05).astype(np.uint8)) for s in (51, 52)]
+    rgba = [Image.fromarray(smooth(h, w, seed=s, channels=4, period=4).astype(np.uint8), "RGBA")
+            for s in (53, 54)]
+    offset = bytearray(anim(rgb, quality=70))
+    at = offset.index(b"ANMF")
+    offset[at + 8:at + 14] = (12).to_bytes(3, "little") + (5).to_bytes(3, "little")
+    vp8x = offset.index(b"VP8X")
+    offset[vp8x + 12:vp8x + 18] = (w + 40 - 1).to_bytes(3, "little") + (h + 10 - 1).to_bytes(3, "little")
+    return {
+        "webp_animated_lossy.webp": anim(rgb, quality=70),
+        "webp_animated_alpha.webp": anim(rgba, lossless=True),
+        "webp_animated_offset.webp": bytes(offset),
+    }
+
+
+def _write_scan(blocks, tables) -> bytes:
+    """Huffman-coded blocks, (n, 64) zigzag with each one's (DC, AC)
+    table pair: DC differences per component, AC runs, ZRL and EOB codes;
+    1-padded, 0xFF bytes stuffed."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    codes = {k: jpeg._huffman_codes(*v) for k, v in jpeg.STD_HUFFMAN.items()}
+    bits = []
+
+    def put(code, n):
+        bits.extend((code >> (n - 1 - i)) & 1 for i in range(n))
+
+    def value(v):
+        s = int(abs(v)).bit_length()
+        return s, (v if v >= 0 else v + (1 << s) - 1)
+
+    pred = {}
+    for (comp, tab), blk in zip(tables, blocks):
+        diff = int(blk[0]) - pred.get(comp, 0)
+        pred[comp] = int(blk[0])
+        s, v = value(diff)
+        put(*codes[(0, tab)][s])
+        put(v, s) if s else None
+        run = 0
+        last = max([i for i in range(1, 64) if blk[i]], default=0)
+        for i in range(1, last + 1):
+            if not blk[i]:
+                run += 1
+                continue
+            while run > 15:
+                put(*codes[(1, tab)][0xF0])
+                run -= 16
+            s, v = value(int(blk[i]))
+            put(*codes[(1, tab)][(run << 4) | s])
+            put(v, s)
+            run = 0
+        if last < 63:
+            put(*codes[(1, tab)][0])
+    bits += [1] * (-len(bits) % 8)
+    data = np.packbits(np.array(bits, np.uint8)).tobytes()
+    return data.replace(b"\xff", b"\xff\x00")
+
+
+def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif: bool = True) -> bytes:
+    """A baseline JPEG of full-size (H, W) sample ``planes`` (already in
+    the colour space to code: YCbCr, RGB, YCCK, ...) at any sampling
+    factors (``sampling``: (h, v) per component): each plane box-averaged
+    to its component's size, quantized with ``io/jpeg.py``'s tables (the
+    luma table for the first component), coded in one interleaved scan
+    with the Annex K Huffman tables; with a JFIF marker or not, an Adobe
+    marker of transform ``adobe`` or none, and component ``ids``."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = planes[0].shape
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    qt = jpeg.quant_tables(quality)
+    comps = []
+    for k, (plane, (hs, vs)) in enumerate(zip(planes, sampling)):
+        fx, fy = hmax // hs, vmax // vs
+        full = np.pad(np.asarray(plane, np.int64), ((0, mcuy * 8 * vmax - h), (0, mcux * 8 * hmax - w)),
+                      mode="edge")
+        small = full.reshape(full.shape[0] // fy, fy, full.shape[1] // fx, fx).sum((1, 3))
+        small = (small + fx * fy // 2) // (fx * fy)
+        q = qt[0 if k == 0 else 1]
+        coefs = jpeg.quantize(jpeg.fdct(jpeg._blocks(small) - 128), q)
+        comps.append(coefs.reshape(*coefs.shape[:2], 64)[..., jpeg.ZIGZAG])
+    blocks, tables = [], []
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for k, (hs, vs) in enumerate(sampling):
+                for v in range(vs):
+                    for u in range(hs):
+                        blocks.append(comps[k][my * vs + v, mx * hs + u])
+                        tables.append((k, 0 if k == 0 else 1))
+    ids = ids or list(range(1, len(planes) + 1))
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(jpeg._marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        out.append(jpeg._marker(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes((adobe,))))
+    for i, table in enumerate(qt):
+        out.append(jpeg._marker(0xDB, bytes([i]) + bytes(table[jpeg.ZIGZAG].astype(np.uint8))))
+    out.append(jpeg._marker(0xC0, struct.pack(">BHHB", 8, h, w, len(planes)) + b"".join(
+        bytes((c, hs << 4 | vs, 0 if k == 0 else 1)) for k, (c, (hs, vs)) in enumerate(zip(ids, sampling)))))
+    for tab_id in (0, 1):
+        for cls in (0, 1):
+            counts, symbols = jpeg.STD_HUFFMAN[(cls, tab_id)]
+            out.append(jpeg._marker(0xC4, bytes([cls << 4 | tab_id]) + bytes(counts) + symbols))
+    out.append(jpeg._marker(0xDA, bytes([len(planes)]) + b"".join(
+        bytes((c, 0x00 if k == 0 else 0x11)) for k, c in enumerate(ids)) + bytes((0, 63, 0))))
+    out.append(_write_scan(blocks, tables))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def jpeg_files() -> dict:
+    """name -> bytes of each JPEG kind of slice 18 (262x270)."""
+    from PIL import Image
+
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = SIZE
+    rgb = smooth(h, w, seed=61, noise=0.05).astype(np.uint8)
+    ycc = jpeg.rgb_to_ycbcr(rgb)
+    planes = [ycc[..., i] for i in range(3)]
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", quality=80, keep_rgb=True)
+    cmyk = smooth(h, w, seed=62, channels=4, noise=0.05)
+    ycck = jpeg.rgb_to_ycbcr((255 - cmyk[..., :3]).astype(np.uint8))
+    return {
+        "jpeg_keep_rgb.jpg": buf.getvalue(),
+        "jpeg_rgb_ids.jpg": encode_jpeg([rgb[..., i] for i in range(3)], [(1, 1)] * 3,
+                                        ids=[82, 71, 66], jfif=False),
+        "jpeg_ycck.jpg": encode_jpeg([ycck[..., 0], ycck[..., 1], ycck[..., 2], cmyk[..., 3]],
+                                     [(2, 2), (1, 1), (1, 1), (2, 2)], adobe=2, jfif=False),
+        "jpeg_440.jpg": encode_jpeg(planes, [(1, 2), (1, 1), (1, 1)]),
+        "jpeg_411.jpg": encode_jpeg(planes, [(4, 1), (1, 1), (1, 1)]),
+        "jpeg_odd_chroma.jpg": encode_jpeg(planes, [(2, 2), (1, 2), (2, 1)]),
+    }
+
+
+# the files of slice 18, which chip_smoke.py phase 24 decodes
+TAIL_FILES = ("bmp_", "tiff_", "gif_", "webp_animated_", "jpeg_", "textured_lzw")
+
+
+def tail_files() -> dict:
+    """name -> bytes of each file of slice 18."""
+    return {**bmp_files(), **tiff_files(), **gif_files(), **animated_webp_files(), **jpeg_files()}
+
+
 def textured_file() -> bytes:
     """The 768x512 progressive q90 JPEG of ``chip_smoke.py::textured_rgb``."""
     from PIL import Image
@@ -297,7 +939,9 @@ def pillow_record(path: str) -> dict:
 
 
 def main() -> None:
-    files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files()}
+    sys.path.insert(0, ROOT)
+    files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files(),
+             **tail_files()}
     records = {}
     for name, data in files.items():
         path = os.path.join(HERE, name)

@@ -1,15 +1,20 @@
-"""Time the port's host C++ decoders (``decode_native`` of ``io/jpeg.py``,
-``io/png.py`` and ``io/webp.py``) on this machine, this tree against
-another checkout of the port (the parent commit unpacked with ``git
-archive``, say) and, with ``--pillow``, against Pillow, in turns.
+"""Time the port's host decoders (``decode_native`` of ``io/jpeg.py``,
+``io/png.py``, ``io/webp.py``, ``io/tiff.py`` and ``io/gif.py``, C++; and
+``io/bmp.py::decode``, numpy) on this machine, this tree against another
+checkout of the port (the parent commit unpacked with ``git archive``,
+say) and, with ``--pillow``, against Pillow, in turns.
 
     python tests/data/inputs/time_decoders.py [--against DIR] [--pillow] [--rounds 3] [--runs 5]
 
-Writes five files to a temporary directory: the textured 768x512 q90
+Writes ten files to a temporary directory: the textured 768x512 q90
 baseline JPEG of ``chip_smoke.py`` phase 21a (this tree's encoder, which
 writes Pillow's bytes), ``textured_progressive.jpg``,
-``textured_lossy.webp`` and ``textured_lossless.webp`` from this folder,
-and a 448x256 RGB PNG of Paeth-filtered rows (``make_inputs.write_png``).
+``textured_lossy.webp``, ``textured_lossless.webp``, ``textured_lzw.tif``,
+``bmp_rle8.bmp`` and ``webp_animated_lossy.webp`` from this folder, a
+448x256 RGB PNG of Paeth-filtered rows (``make_inputs.write_png``), and of
+``chip_smoke.py::textured_rgb`` (seed 5) at 768x512 an uncompressed TIFF
+(phase 24b's, ``chip_smoke.py::tiff_rgb``) and an interlaced GIF of its
+pixels in 216 colours (``make_inputs.write_gif``).
 Each round then runs one process a tree (and one for Pillow), in turns,
 the order reversed in odd rounds; a process builds its tree's libraries
 (their build seconds are printed, 0 where ``_build/`` had them),
@@ -40,7 +45,8 @@ _CHILD = r"""
 import importlib, json, os, sys, time
 files, runs = sys.argv[1:-1], int(sys.argv[-1])
 best, build = {}, {}
-kinds = {".png": "png", ".jpg": "jpeg", ".webp": "webp"}
+kinds = {".png": "png", ".jpg": "jpeg", ".webp": "webp", ".tif": "tiff", ".gif": "gif",
+         ".bmp": "bmp"}
 importlib.import_module("imagecompression_adversarial_tpu_torch.kernels._build")  # torch
 for path in files:
     kind = kinds[os.path.splitext(path)[1]]
@@ -48,20 +54,21 @@ for path in files:
         mod = importlib.import_module(f"imagecompression_adversarial_tpu_torch.io.{kind}")
     except ImportError:
         continue
-    if kind not in build:
+    decode = getattr(mod, "decode_native", None) or mod.decode  # bmp: numpy alone
+    if kind not in build and hasattr(mod, "_native"):
         t = time.perf_counter()
         mod._native()
         build[kind] = time.perf_counter() - t
     with open(path, "rb") as f:
         data = f.read()
     try:
-        mod.decode_native(data)
+        decode(data)
     except ValueError:  # a kind this tree does not read
         continue
     times = []
     for _ in range(runs):
         t = time.perf_counter()
-        mod.decode_native(data)
+        decode(data)
         times.append(time.perf_counter() - t)
     best[os.path.basename(path)] = min(times) * 1e3
 print(json.dumps({"best_ms": best, "build_s": build}))
@@ -89,16 +96,25 @@ print(json.dumps({"best_ms": best, "build_s": {}}))
 
 
 def inputs(folder: str) -> list:
-    """The five files, written into ``folder``."""
+    """The ten files, written into ``folder``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, HERE)
-    from chip_smoke import textured_rgb
+    import numpy as np
+    from chip_smoke import textured_rgb, tiff_rgb
     from imagecompression_adversarial_tpu_torch.io import jpeg
-    from make_inputs import write_png
+    from make_inputs import write_gif, write_png
 
-    files = {"baseline.jpg": jpeg.encode(textured_rgb(512, 768, seed=5), 90),
-             "paeth.png": write_png(textured_rgb(256, 448, seed=7), 8, 2)}
-    for name in ("textured_progressive.jpg", "textured_lossy.webp", "textured_lossless.webp"):
+    rgb = textured_rgb(512, 768, seed=5)
+    levels = np.arange(6) * 51
+    palette = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(-1, 3)
+    index = (rgb.astype(np.int64) * 6 // 256) @ np.array([36, 6, 1])
+    files = {"baseline.jpg": jpeg.encode(rgb, 90),
+             "paeth.png": write_png(textured_rgb(256, 448, seed=7), 8, 2),
+             "raw.tif": tiff_rgb(rgb),
+             "textured.gif": write_gif(index, 8, np.resize(palette.astype(np.uint8), 768).tobytes(),
+                                       interlace=True)}
+    for name in ("textured_progressive.jpg", "textured_lossy.webp", "textured_lossless.webp",
+                 "textured_lzw.tif", "bmp_rle8.bmp", "webp_animated_lossy.webp"):
         with open(os.path.join(HERE, name), "rb") as f:
             files[name] = f.read()
     paths = []

@@ -3,9 +3,11 @@ which reads every image through PIL, on the CPU:
 
 * ``read_image`` of JPEGs (4:4:4, 4:2:2, 4:2:0, gray), BMPs (24-bit,
   32-bit, top-down) and a gray PNG: the arrays and sizes of JAX's
-  ``read_image``, exactly; what the readers do not take raises naming it
-  (palette, RLE, bitfield and 16-bit BMPs; animated WebP; GIF), a file of no known
-  format a plain ``ValueError``;
+  ``read_image``, exactly; palette, RLE, bitfield and 16-bit BMPs, an
+  animated WebP and a GIF, refused up to slice 17, give Pillow's pixels or
+  raise where Pillow does; what the readers do not take raises naming it
+  (a CCITT TIFF, an arithmetic-coded JPEG), a file of no known format a
+  plain ``ValueError``;
 * ``cli.attack_rd -s x.jpg`` (hyper q1 demo weights, 64x64, 5 steps)
   against JAX's CLI on the same file, at the bounds of the PNG CLI tests
   (``tests/test_torch_cli_attacks.py``: vi within 1e-3 dB, bpp rtol 1e-4);
@@ -109,7 +111,7 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
     bmp = buf.getvalue()
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("P").save(buf, format="BMP")
-    named = {
+    read = {
         "palette (8-bit) BMPs": buf.getvalue(),
         "RLE8 BMPs": _bmp_with(bmp, 30, "<I", 1),
         "bitfields BMPs": _bmp_with(bmp, 30, "<I", 3),
@@ -119,14 +121,33 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format=fmt, save_all=True,
                                   append_images=[Image.fromarray(255 - rgb)])
-        named[kind] = buf.getvalue()
+        read[kind] = buf.getvalue()
+    path = tmp_path / "x"
+    for kind, content in read.items():  # since slice 18: Pillow's pixels, or its refusal
+        path.write_bytes(content)
+        try:
+            with Image.open(io.BytesIO(content)) as im:
+                want = np.asarray(im.convert("RGB"))
+        except (OSError, ValueError, SyntaxError):
+            with pytest.raises(ValueError) as e:
+                read_pixels(str(path))
+            assert not isinstance(e.value, UnsupportedImageError), kind
+            continue
+        np.testing.assert_array_equal(read_pixels(str(path)), want, err_msg=kind)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert("1").save(buf, format="TIFF", compression="group4")
+    buf2 = io.BytesIO()
+    Image.fromarray(rgb).save(buf2, format="JPEG")
+    jpg = bytearray(buf2.getvalue())
+    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC9
+    named = {"CCITT Group 4 TIFFs": buf.getvalue(),
+             "arithmetic-coded sequential JPEGs": bytes(jpg)}
     for match, content in named.items():
-        path = tmp_path / "x"
         path.write_bytes(content)
         with pytest.raises(UnsupportedImageError, match=re.escape(match)):
             read_pixels(str(path))
     path.write_bytes(b"P6\n8 8\n255\n" + rgb.tobytes())
-    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP or BMP") as e:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, TIFF, GIF or BMP") as e:
         read_pixels(str(path))
     assert not isinstance(e.value, UnsupportedImageError)
 

@@ -13,8 +13,8 @@ since slice 16, on the CPU, against Pillow 12.1.0 and the JAX package:
   the mode (``P``, ``1``, ``LA``, ``I;16``, ``CMYK``) elsewhere;
 * a folder of every kind: JAX's ``image_folder_batches`` element for
   element over two epochs at the same seed, then again with a lossy, a
-  lossless and an RGBA WebP in it; an animated WebP in it raises, naming
-  itself;
+  lossless and an RGBA WebP in it, and an animated one (since slice 18);
+  an arithmetic-coded JPEG in it raises, naming itself;
 * the classifier's labeled folder of progressive JPEGs and palette PNGs:
   JAX's batches;
 * a progressive file whose last scans are gone (Pillow smooths its
@@ -239,10 +239,19 @@ def test_a_folder_of_every_kind_streams_as_jax(tmp_path):
     assert len(ours) == len(theirs) == 14  # 21 files an epoch
     for got, want in zip(ours, theirs):
         np.testing.assert_array_equal(got, want)
+    # since slice 18 an animated WebP joins it too; an arithmetic-coded JPEG raises
     frames = [Image.fromarray(_rgb(40, 40, s)) for s in (12, 13)]
     frames[0].save(tmp_path / "a" / "z.webp", save_all=True, append_images=frames[1:])
-    with pytest.raises(UnsupportedImageError, match=r"z\.webp: animated WebP images are not "
-                                                    r"supported"):
+    ours = list(data.image_folder_batches(str(tmp_path), 3, **kw))
+    theirs = list(j_data.image_folder_batches(str(tmp_path), 3, **kw))
+    assert len(ours) == len(theirs) == 14  # 22 files an epoch
+    for got, want in zip(ours, theirs):
+        np.testing.assert_array_equal(got, want)
+    arith = bytearray(jpeg.encode(_rgb(40, 40, 14), 75))
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9
+    (tmp_path / "a" / "y.jpg").write_bytes(bytes(arith))
+    with pytest.raises(UnsupportedImageError, match=r"y\.jpg: arithmetic-coded sequential JPEGs "
+                                                    r"are not supported"):
         list(data.image_folder_batches(str(tmp_path), 3, **kw))
 
 

@@ -7,10 +7,11 @@ gray; restart intervals (``restart_marker_blocks``,
 ``restart_marker_rows``); sizes that are not multiples of 8 or 16, down to
 1x1.  Progressive and CMYK files, refused up to slice 15, decode to
 Pillow's ``convert("RGB")`` (``read_image`` refuses CMYK, naming Pillow's
-mode).  What neither decoder reads raises ``UnsupportedImageError`` naming
-it: arithmetic-coded, lossless, 12-bit, YCCK, Adobe RGB-coded and other
-sampling factors (made by patching a baseline or CMYK file's markers),
-and a corrupt scan that Pillow
+mode), and since slice 18 so do YCCK and Adobe RGB-coded files (made by
+patching a CMYK or baseline file's markers) and 4:4:0 ones (written by
+``make_inputs.encode_jpeg``).  What neither decoder reads raises
+``UnsupportedImageError`` naming it: arithmetic-coded, lossless and 12-bit
+files (patched markers), and a corrupt scan that Pillow
 decodes with libjpeg's warning (a bad Huffman code, a lost or misnumbered
 RSTn, a scan cut short before EOI).  Extraneous bytes before a marker are
 skipped, giving Pillow's pixels.  A broken stream, or one cut inside its
@@ -20,7 +21,9 @@ libjpeg's buffering; a decoder that cannot be built raises, and nothing
 falls back to the numpy loop.
 """
 
+import importlib.util
 import io
+import os
 import struct
 
 import numpy as np
@@ -31,6 +34,11 @@ from imagecompression_adversarial_tpu_torch.io import jpeg
 from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
 from imagecompression_adversarial_tpu_torch.io.image import read_image, read_pixels
 from imagecompression_adversarial_tpu_torch.kernels import _build
+
+INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inputs")
+_spec = importlib.util.spec_from_file_location("make_inputs", os.path.join(INPUTS, "make_inputs.py"))
+make_inputs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make_inputs)
 
 SAMPLINGS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "gray": None}
 SIZES = [(37, 53), (64, 64), (9, 3), (1, 1), (17, 2)]
@@ -117,23 +125,25 @@ def _variants():
         "lossless": (bytes(lossless), "lossless JPEGs"),
         "12-bit": (_patched(base, 0xC0, 0, 12), "12-bit JPEGs"),
         "cmyk": (cmyk.getvalue(), None),
-        "ycck": (ycck, r"YCCK JPEGs \(Adobe APP14 transform 2\)"),
-        "adobe-rgb": (adobe, "Adobe RGB-coded"),
-        "4:4:0": (_patched(base, 0xC0, 7, 0x12), r"sampling factors \['1x2', '1x1', '1x1'\]"),
+        "ycck": (ycck, None),
+        "adobe-rgb": (adobe, None),
+        "4:4:0": (make_inputs.encode_jpeg([p for p in np.moveaxis(jpeg.rgb_to_ycbcr(rgb), -1, 0)],
+                                          [(1, 2), (1, 1), (1, 1)], quality=75), None),
     }
 
 
 @pytest.mark.parametrize("kind", list(_variants()))
 def test_what_neither_decoder_reads_raises_naming_it(kind, tmp_path):
-    """Each kind raises naming it, but the progressive and CMYK files,
-    which both decoders now give Pillow's ``convert("RGB")`` of, and
-    ``read_image`` refuses CMYK naming Pillow's mode."""
+    """Each kind raises naming it, but the progressive, CMYK, YCCK, Adobe
+    RGB-coded and 4:4:0 files, which both decoders now give Pillow's
+    ``convert("RGB")`` of, and ``read_image`` refuses CMYK and YCCK naming
+    Pillow's mode."""
     data, match = _variants()[kind]
     if match is None:
         _all_equal(data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
         path = tmp_path / "x.jpg"
         path.write_bytes(data)
-        if kind == "cmyk":
+        if kind in ("cmyk", "ycck"):
             with pytest.raises(UnsupportedImageError, match="Pillow's mode CMYK"):
                 read_image(str(path))
         else:

@@ -12,7 +12,8 @@ and the JAX package:
   writes (segment values relative to the frame's, loop-filter deltas, 2,
   4 and 8 token partitions, deltas on every quantizer): Pillow's pixels;
 * the mode where the VP8X alpha flag, the VP8L alpha bit and an ALPH chunk
-  disagree: Pillow's; an animated file raises naming itself;
+  disagree: Pillow's; an animated file gives Pillow's first frame, a still
+  one flagged as animated raises;
 * cut, resized and flipped files raise ``ValueError`` or give Pillow's
   pixels, and never crash; 16 threads decode side by side;
 * a decoder that cannot be built raises, and nothing falls back.
@@ -180,19 +181,25 @@ def test_the_mode_is_pillows_where_the_alpha_signs_disagree(tmp_path):
 
 
 def test_an_animated_webp_raises_naming_itself(tmp_path):
+    """Since slice 18 an animated WebP gives Pillow's first frame
+    (``read_pixels``) and JAX's ``read_image``; a still file whose VP8X
+    animation flag is set, which Pillow refuses, raises ``ValueError``."""
     frames = [Image.fromarray(_smooth(16, 16, s)) for s in (12, 13)]
     buf = io.BytesIO()
     frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:], duration=50)
     animated = buf.getvalue()
     with Image.open(io.BytesIO(animated)) as im:
         assert im.n_frames == 2
-    still = _save(frames[0], exif=b"Exif\x00\x00abc")
-    for data in (animated, _flag(still, 0x02, True)):
-        path = tmp_path / "a.webp"
-        path.write_bytes(data)
-        for read in (read_pixels, read_image):
-            with pytest.raises(UnsupportedImageError, match="animated WebP"):
-                read(str(path))
+    path = tmp_path / "a.webp"
+    path.write_bytes(animated)
+    _holds(tmp_path, animated)
+    flagged = _flag(_save(frames[0], exif=b"Exif\x00\x00abc"), 0x02, True)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(flagged)).load()
+    path.write_bytes(flagged)
+    for read in (read_pixels, read_image):
+        with pytest.raises(ValueError, match="animation whose image lies outside an ANMF"):
+            read(str(path))
 
 
 class _BoolWriter:
