@@ -10,7 +10,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
    builds the host rANS coder and the host JPEG, PNG, WebP, TIFF and GIF
-   decoders with g++;
+   decoders with g++, and round-trips a few bytes through CPython's
+   ``lzma``, which the TIFF reader inflates LZMA strips with;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
    every (C, rows) of GDN_SHAPES (the hyper q=1 attack at 768x512, C=192,
@@ -278,6 +279,23 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     and TAIL_LAUNCHES GDN launches; (c) phase 22c's training folder holds
     the slice's BMPs, animated WebPs and JPEGs (the stream lists no TIFF or
     GIF).
+25. The TIFF codecs, colour spaces and sample layouts past slice 18
+    (slice 19): (a) decodes every committed file of
+    ``make_inputs.py``'s CODEC_FILES (JPEG-compressed gray, RGB and YCbCr
+    TIFFs in strips and tiles, Zstandard, LZMA, YCbCr under LZW,
+    Zstandard and LZMA, CIELab, CCITT RLE, Group 3 2-D and Group 4, 32-bit
+    signed, float, signed 16-bit, 12-bit and bit-reversed 16-bit gray),
+    each of which must give the sha256 of Pillow's pixels and Pillow's
+    mode that ``inputs.json`` records; every JPEG strip or tile must equal
+    the numpy JPEG decoder's and every CCITT file the plain fax decoder's
+    (``io/fax.py``); times CODEC_TEXTURED (768x512, YCbCr 2x2 JPEG in
+    strips of 16 rows) and a 768x512 Zstandard TIFF of ``textured_rgb``
+    (seed 5, horizontal differencing) that ``make_inputs.write_tiff``
+    writes here, which must give the pixels written (best of
+    JPEG_DECODE_RUNS); (b) runs ``cli.attack_rd -s`` on CODEC_TEXTURED
+    (hyper q1 demo weights, JPEG_ATTACK_STEPS steps, cuDNN deterministic)
+    beside the same attack on a PNG of its pixels: noise within
+    NOISE_ATOL, vi within VI_ATOL, and CODEC_LAUNCHES GDN launches.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -292,7 +310,7 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19, 20, 21, 22, 23 and 24.  It reads five demo checkpoints: hyper q1,
+rendezvous), 19, 20, 21, 22, 23, 24 and 25.  It reads five demo checkpoints: hyper q1,
 cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
 ``ckpts/adv/hyper-0.013-mse-0.0001-300``; and the files of
 ``tests/data/inputs``.
@@ -758,6 +776,14 @@ WEBP_LOSSLESS = "textured_lossless.webp"
 # that TIFF beside its PNG twin, with TAIL_LAUNCHES (gdn_fwd, gdn_bwd)
 TAIL_TEXTURED = "textured_lzw.tif"
 TAIL_LAUNCHES = (627, 606)
+# phase 25 (slice 19): the committed TIFFs of make_inputs.CODEC_FILES, each
+# held to the sha256 and mode recorded for Pillow's decode (JPEG strips to
+# the numpy decoder, CCITT files to the plain fax decoder); CODEC_TEXTURED
+# (768x512 YCbCr 2x2 JPEG) and a 768x512 Zstandard TIFF written here timed;
+# the attack CLI on CODEC_TEXTURED beside its PNG twin, with CODEC_LAUNCHES
+# (gdn_fwd, gdn_bwd)
+CODEC_TEXTURED = "textured_jpeg.tif"
+CODEC_LAUNCHES = (627, 606)
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -4417,6 +4443,80 @@ def phase_tail(tiff_build: dict, gif_build: dict):
     return records, launches, launches_bwd
 
 
+def phase_codecs(tiff_build: dict):
+    """Phase 25: the TIFF codecs, colour spaces and sample layouts of slice
+    19 on every committed file against Pillow's recorded pixels, the JPEG
+    strips against the numpy decoder and the CCITT files against the plain
+    fax decoder, two 768x512 TIFFs timed, and the JPEG TIFF through the
+    attack CLI beside the PNG of its pixels.  Returns the records and the
+    forward and backward kernels' launches."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io import fax, jpeg, tiff
+
+    make_inputs = load_make_inputs()
+    with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+        recorded = {n: r for n, r in json.load(f).items() if n.startswith(make_inputs.CODEC_FILES)}
+    records, launches, launches_bwd = {}, {}, {}
+
+    # 25a: every file held to Pillow's hash and mode, JPEG strips to numpy,
+    # CCITT to the plain fax decoder; the two 768x512 TIFFs timed
+    failed, kinds, plain_equal = [], [], {}
+    for name, rec in sorted(recorded.items()):
+        with open(os.path.join(INPUTS_DIR, name), "rb") as f:
+            t = tiff.parse(f.read())
+        pixels = tiff.decode_tiff_native(t)
+        digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+        kinds.append(f"{name} ({t.mode})")
+        if t.compression == 7:
+            plain_equal[name] = all(np.array_equal(jpeg.decode_frame_native(fr), jpeg.decode_frame(fr))
+                                    for fr in tiff.jpeg_frames(t))
+        elif t.compression in (2, 3, 4):
+            samples, outcome = tiff.fax_samples(t)
+            plain_equal[name] = outcome == fax.OK and np.array_equal(samples, tiff.decode_samples(t))
+        if digest != rec["sha256"] or t.mode != rec["mode"] or list(pixels.shape) != rec["shape"] \
+                or not plain_equal.get(name, True):
+            failed.append(f"{name} (sha256 {'=' if digest == rec['sha256'] else '!='}, mode "
+                          f"{t.mode} / {rec['mode']}, plain {plain_equal.get(name)})")
+    rgb = textured_rgb(*JPEG_SIZE, seed=5)
+    zstd_tiff = make_inputs.write_tiff(rgb.astype(np.int64), 8, 2, compression=50000,
+                                       predictor=2, rows_per_strip=16)
+    with open(os.path.join(INPUTS_DIR, CODEC_TEXTURED), "rb") as f:
+        jpeg_tiff = f.read()
+    timed = {}
+    for label, data in ((CODEC_TEXTURED, jpeg_tiff), ("textured_zstd.tif", zstd_tiff)):
+        out, best = best_of(tiff.decode_native, data)
+        timed[label] = {"bytes": len(data), "best_s": best}
+        if label == "textured_zstd.tif" and not np.array_equal(out, rgb):
+            failed.append("textured_zstd.tif (not the pixels written)")
+    host = host_cpu()
+    records["25a"] = {"build": tiff_build, "files": len(recorded), "failed": failed,
+                      "timed": timed, "plain_equal": plain_equal, "host": host}
+    log(f"phase 25a TIFF codecs: decoder built in phase 2 ({tiff_build['s']:.2f} s, "
+        f"{tiff_build['how']}); {len(recorded) - len(failed)} of {len(recorded)} files of "
+        f"{INPUTS_DIR} decoded to the pixels and mode recorded for Pillow "
+        f"{sorted({r['pillow'] for r in recorded.values()})} ({sum(plain_equal.values())} of "
+        f"{len(plain_equal)} JPEG and CCITT files equal to the plain decoders): "
+        f"{', '.join(kinds)}; on the host ({host}), best of {JPEG_DECODE_RUNS}: " + ", ".join(
+            f"{n} ({t['bytes']} bytes) {t['best_s'] * 1e3:.2f} ms" for n, t in sorted(timed.items())))
+    if failed or len(recorded) < 21:
+        raise RuntimeError(f"phase 25a: files differ from Pillow's recorded pixels: {failed}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_codecs_")
+    cwd = os.getcwd()
+    try:
+        # 25b: the attack CLI on the YCbCr JPEG TIFF and on a PNG of its pixels
+        m = attack_beside_png("25b", os.path.join(INPUTS_DIR, CODEC_TEXTURED), tmp, records,
+                              launches, launches_bwd)
+        if (m["launches"], m["bwd_launches"]) != CODEC_LAUNCHES:
+            raise RuntimeError(f"phase 25b: GDN launches {(m['launches'], m['bwd_launches'])}, "
+                               f"not {CODEC_LAUNCHES}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches, launches_bwd
+
+
 def host_cpu() -> str:
     """The host's CPU model (``/proc/cpuinfo``, else the platform's name for
     the machine) and its logical CPUs."""
@@ -4553,6 +4653,13 @@ def main() -> int:
                             "library": path().name}
         log(f"phase 2 build of the {fmt} decoder: {host_builds[fmt]['s']:.2f} s "
             f"({host_builds[fmt]['how']}) -> {host_builds[fmt]['library']}")
+    import lzma
+
+    probe = bytes(range(256)) * 4
+    if lzma.decompress(lzma.compress(probe, format=lzma.FORMAT_XZ)) != probe:
+        raise RuntimeError("phase 2: CPython's lzma does not round-trip")
+    log(f"phase 2 lzma for the TIFF reader's LZMA strips: CPython's {lzma.__file__}, an xz "
+        "round trip of 1024 bytes equal")
 
     records = phase_kernel_vs_plain(gdn)
     launches, launches_bwd = phase_main_path(gdn)
@@ -4594,6 +4701,8 @@ def main() -> int:
     tail_records, launches_tail, launches_tail_bwd = phase_tail(host_builds["TIFF"],
                                                                host_builds["GIF"])
     print(json.dumps({"phase24": tail_records}, default=float), flush=True)
+    codec_records, launches_codec, launches_codec_bwd = phase_codecs(host_builds["TIFF"])
+    print(json.dumps({"phase25": codec_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4619,6 +4728,7 @@ def main() -> int:
             **launches_kinds,
             **launches_webp,
             **launches_tail,
+            **launches_codec,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4644,6 +4754,7 @@ def main() -> int:
             **launches_kinds_bwd,
             **launches_webp_bwd,
             **launches_tail_bwd,
+            **launches_codec_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

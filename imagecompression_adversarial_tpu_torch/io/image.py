@@ -17,7 +17,10 @@ the format is told by the file's first bytes, and
   frame of an animated one;
 * TIFF by the host C++ decoder (``io/tiff.py``, ``csrc/tiff.cc``): the
   first image, strips or tiles, chunky or planar, uncompressed, PackBits,
-  LZW or Deflate; gray, RGB(A), palette and CMYK of 1 to 16 bits;
+  LZW, Deflate, Zstandard, LZMA, CCITT (RLE, Group 3, Group 4) or JPEG
+  (its strips or tiles by the JPEG decoder); gray of 1 to 32 bits
+  (signed, unsigned, floating-point), RGB(A), palette, CMYK, YCbCr and
+  CIELab;
 * GIF by the host C++ decoder (``io/gif.py``, ``csrc/gif.cc``): the
   first frame;
 * BMP with numpy (``io/bmp.py``): palettes, RLE8 and RLE4, 16-, 24- and
@@ -30,12 +33,14 @@ through it, as JAX's convert.  ``read_image``, which the CLIs read
 through, gives what JAX's ``np.asarray(Image.open(path))`` gives (gray
 tiled into RGB, alpha dropped), and so decodes only the files Pillow
 opens as ``L``, ``RGB`` or ``RGBA``, where the two agree.  On a file
-Pillow opens as ``P``, ``PA``, ``1``, ``LA``, ``I;16``, ``I;16B`` or
-``CMYK`` it raises ``UnsupportedImageError`` naming the format, the kind
-and the mode ("a palette BMP", "a 16-bit gray TIFF", ...), where JAX's
-CLIs would take palette indices, booleans, two channels, raw 16-bit values
-or inverted CMY as pixels.  What Pillow reads and no reader here decodes
-(an arithmetic-coded JPEG, a CCITT TIFF, ...) raises
+Pillow opens as ``P``, ``PA``, ``1``, ``LA``, ``I;16``, ``I;16B``,
+``CMYK``, ``I``, ``F`` or ``LAB`` it raises ``UnsupportedImageError``
+naming the format, the kind and the mode ("a palette BMP", "a 16-bit gray
+TIFF", ...), where JAX's CLIs would take palette indices, booleans, two
+channels, raw 16- or 32-bit values, floats, inverted CMY or L*a*b* as
+pixels.  What Pillow
+reads and no reader here decodes (an arithmetic-coded JPEG, an old-style
+JPEG TIFF, ...) raises
 ``UnsupportedImageError``, naming it; a broken file raises ``ValueError``.
 The writer emits 8-bit RGB PNGs.
 """
@@ -59,7 +64,10 @@ _REFUSED_MODES = {"P": ("palette", "palette indices"),
                   "LA": ("gray+alpha", "two channels"),
                   "I;16": ("16-bit gray", "raw 16-bit values"),
                   "I;16B": ("16-bit gray", "raw 16-bit values"),
-                  "CMYK": ("CMYK", "the CMYK samples")}
+                  "CMYK": ("CMYK", "the CMYK samples"),
+                  "I": ("32-bit integer gray", "raw int32 values, past 255"),
+                  "F": ("floating-point gray", "raw float values, past 255"),
+                  "LAB": ("CIELab", "the L*, a* and b* samples")}
 
 
 def pad_to_multiple(img: np.ndarray, multiple: int = 64) -> np.ndarray:

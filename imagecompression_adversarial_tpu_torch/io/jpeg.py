@@ -645,7 +645,7 @@ def _scan_problem(progressive: bool, n: int, ss: int, se: int, ah: int, al: int)
     return None
 
 
-def parse(data: bytes) -> Frame:
+def parse(data: bytes, tables: bytes = b"") -> Frame:
     """The frame, tables and scans of a Huffman JPEG of 8-bit samples:
     baseline or extended sequential (SOF0, SOF1) of one scan or several,
     or progressive (SOF2); gray, YCbCr, RGB-coded, CMYK or YCCK at any
@@ -661,9 +661,19 @@ def parse(data: bytes) -> Frame:
     so Pillow calls it truncated).  Extraneous bytes before a marker are
     skipped, as Pillow and libjpeg skip them.  The decoders raise
     ``_scan_fault``'s errors on a fault inside a scan, and
-    ``_check_ended``'s on a single scan no marker ends."""
+    ``_check_ended``'s on a single scan no marker ends.
+
+    ``tables``, where given, is an abbreviated table stream (SOI, DQT and
+    DHT segments, EOI), as a JPEG-compressed TIFF's ``JPEGTables`` field
+    holds: libjpeg loads its tables before it reads ``data``, an
+    abbreviated image stream, which may redefine them."""
     if data[:3] != b"\xff\xd8\xff":
         raise ValueError("not a JPEG stream (no SOI marker and marker after it)")
+    if tables:
+        if tables[:2] != b"\xff\xd8":
+            raise ValueError("JPEG table stream has no SOI marker")
+        body = tables[2:-2] if tables.endswith(b"\xff\xd9") else tables[2:]
+        data = data[:2] + body + data[2:]
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], Table] = {}
     frame, restart, jfif, adobe = None, 0, False, None

@@ -9,7 +9,9 @@ is installed: a machine without libzstd raises here, naming it.
 A frame that states its content size decompresses in one
 ``ZSTD_decompress``; one that does not (tensorstore writes its chunks so)
 goes through the streaming API.  Every return value is checked with
-``ZSTD_isError``, and a truncated frame raises.
+``ZSTD_isError``, and a truncated frame raises.  ``decompress_prefix``
+streams no more than a given size out, as libtiff's Zstandard codec fills
+a TIFF strip (``io/tiff.py``).
 """
 
 from __future__ import annotations
@@ -107,5 +109,30 @@ def _stream(lib: ctypes.CDLL, data: bytes) -> bytearray:
         if left != 0:
             raise ValueError(f"truncated zstd frame: {len(data)} bytes end inside a frame")
         return out
+    finally:
+        lib.ZSTD_freeDCtx(ctx)
+
+
+def decompress_prefix(data: bytes, size: int) -> bytes:
+    """Up to the first ``size`` decompressed bytes of ``data``, streamed
+    into a buffer of that size: decompression stops where the buffer is
+    full or the input ends, whatever size the frame states (libtiff's
+    ``ZSTDDecode``).  Raises ``ValueError`` on a zstd error."""
+    lib = library()
+    ctx = lib.ZSTD_createDCtx()
+    if not ctx:
+        raise MemoryError("ZSTD_createDCtx failed")
+    try:
+        data = bytes(data)
+        src = ctypes.c_char_p(data)
+        inb = _Buffer(ctypes.cast(src, ctypes.c_void_p), len(data), 0)
+        buf = ctypes.create_string_buffer(max(size, 1))
+        outb = _Buffer(ctypes.cast(buf, ctypes.c_void_p), size, 0)
+        while True:
+            left = _check(lib, lib.ZSTD_decompressStream(ctx, ctypes.byref(outb),
+                                                         ctypes.byref(inb)), "stream")
+            if left == 0 or inb.pos == inb.size or outb.pos == size:
+                break
+        return ctypes.string_at(buf, outb.pos)
     finally:
         lib.ZSTD_freeDCtx(ctx)

@@ -52,6 +52,7 @@ import glob
 import hashlib
 import io
 import json
+import lzma
 import os
 import struct
 import sys
@@ -472,21 +473,72 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+def zstd_compress(data: bytes) -> bytes:
+    """A zstd frame of ``data`` by the system's libzstd (``ZSTD_compress``,
+    level 19)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("zstd"))
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_compress.restype = ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                                  ctypes.c_size_t, ctypes.c_int]
+    out = ctypes.create_string_buffer(lib.ZSTD_compressBound(len(data)))
+    n = lib.ZSTD_compress(out, len(out), data, len(data), 19)
+    return out.raw[:n]
+
+
+def split_jpeg(data: bytes):
+    """(the abbreviated table stream, the abbreviated image stream) of a
+    JPEG: SOI, its DQT and DHT segments and EOI; SOI, the rest but APPn
+    segments."""
+    tables, image, pos = [b"\xff\xd8"], [b"\xff\xd8"], 2
+    while data[pos + 1] != 0xDA:
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        seg = data[pos:pos + 2 + length]
+        if data[pos + 1] in (0xDB, 0xC4):
+            tables.append(seg)
+        elif not 0xE0 <= data[pos + 1] <= 0xEF:
+            image.append(seg)
+        pos += 2 + length
+    return b"".join(tables) + b"\xff\xd9", b"".join(image) + data[pos:]
+
+
+def ycbcr_units(part: np.ndarray, h: int, v: int) -> np.ndarray:
+    """(rows, cols, 3) Y, Cb, Cr samples as the bytes of YCbCr data units
+    sampled ``h`` x ``v``: each unit's h*v luma samples, row by row, then
+    its Cb and Cr, the rounded means of its block; edges repeated out to
+    whole units."""
+    rows, cols, _ = part.shape
+    full = np.pad(part, ((0, -rows % v), (0, -cols % h), (0, 0)), mode="edge")
+    blocks = full.reshape(full.shape[0] // v, v, full.shape[1] // h, h, 3).transpose(0, 2, 1, 3, 4)
+    luma = blocks[..., 0].reshape(*blocks.shape[:2], h * v)
+    chroma = (blocks[..., 1:].sum((2, 3)) + h * v // 2) // (h * v)
+    return np.concatenate([luma, chroma], -1).astype(np.uint8)
+
+
 def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None, rows_per_strip: int = 0,
                order: str = "<", big: bool = False, extra=(), colormap=None, fill_order: int = 1,
-               orientation: int = 0, sample_format: int = 0) -> bytes:
+               orientation: int = 0, sample_format: int = 0, subsampling=None,
+               jpeg_quality: int = 80, fields=()) -> bytes:
     """A TIFF of (h, w, samples) integer samples: strips of
     ``rows_per_strip`` rows (all rows: 0) or ``tile`` = (width, length)
     tiles, chunky or planar, compressed by 1 (none), 5 (LZW), 8 or 32946
-    (Deflate) or 32773 (PackBits), with horizontal differencing
-    (``predictor`` 2) at 8 or 16 bits; ``order`` '<' (II) or '>' (MM);
+    (Deflate), 32773 (PackBits), 50000 (Zstandard), 34925 (LZMA) or 7
+    (JPEG: each chunk an abbreviated baseline stream of ``encode_jpeg``
+    at ``jpeg_quality``, the tables in ``JPEGTables``), with horizontal
+    differencing (``predictor`` 2) at 8, 16 or 32 bits or libtiff's
+    floating-point predictor (3) at 32; ``order`` '<' (II) or '>' (MM);
     classic TIFF or BigTIFF; fill order 2 (bits reversed in each byte), an
-    orientation and a sample format where given."""
+    orientation and a sample format where given.  YCbCr samples
+    (photometric 6) are written in data units of ``subsampling`` = (h, v)
+    luma samples (and the JPEG's first component so sampled), with the
+    ``YCbCrSubsampling`` field.  ``fields``: more (tag, type, values)
+    entries (a RATIONAL's values as numerators and denominators)."""
     h, w, spp = samples.shape
     planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
     tw, th = tile or (w, rows_per_strip or h)
-    chunks = []
+    chunks, tables = [], None
     for plane in planes:
         for y in range(0, h, th):
             for x in range(0, w, tw if tile else w):
@@ -494,11 +546,25 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: in
                 part = np.zeros((th if tile else min(th, h - y), cw, plane.shape[2]), np.int64)
                 sub = plane[y:y + part.shape[0], x:x + cw]
                 part[:sub.shape[0], :sub.shape[1]] = sub
+                if compression == 7:
+                    sampling = [tuple(subsampling or (1, 1))] + [(1, 1)] * (spp - 1)
+                    tables, raw = split_jpeg(encode_jpeg([part[..., k] for k in range(spp)],
+                                                         sampling, jpeg_quality, jfif=False))
+                    chunks.append(raw)
+                    continue
                 if predictor == 2:
                     part = np.concatenate([part[:, :1], np.diff(part, axis=1)], 1) % (1 << bits)
                 flat = part.reshape(part.shape[0], -1)
-                if bits == 16:
-                    raw = flat.astype(order + "u2").tobytes()
+                if photometric == 6 and tuple(subsampling or (1, 1)) != (1, 1):
+                    raw = ycbcr_units(part, *subsampling).tobytes()
+                elif predictor == 3:  # fpAcc's inverse: byte planes, then differences
+                    be = flat.astype(">u4").view(np.uint8).reshape(flat.shape[0], -1, 4)
+                    rows = be.transpose(0, 2, 1).reshape(flat.shape[0], -1).astype(np.int64)
+                    step = part.shape[2]
+                    rows[:, step:] = (rows[:, step:] - rows[:, :-step]) % 256
+                    raw = rows.astype(np.uint8).tobytes()
+                elif bits in (16, 32):
+                    raw = flat.astype(f"{order}u{bits // 8}").tobytes()
                 elif bits == 8:
                     raw = flat.astype(np.uint8).tobytes()
                 else:
@@ -511,11 +577,15 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: in
                     raw = zlib.compress(raw, 9)
                 elif compression == 32773:
                     raw = packbits(raw)
+                elif compression == 50000:
+                    raw = zstd_compress(raw)
+                elif compression == 34925:
+                    raw = lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
                 if fill_order == 2:  # the stored bytes' bits reversed
                     raw = np.packbits(np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(-1, 8)[:, ::-1]
                                       ).tobytes()
                 chunks.append(raw)
-    kind = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}
+    kind = {1: "B", 2: "s", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
     offset_type = 16 if big else 4
     entries = [(256, 3, [w]), (257, 3, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
                (262, 3, [photometric])]
@@ -540,8 +610,13 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: in
         entries.append((338, 3, list(extra)))
     if sample_format:
         entries.append((339, 3, [sample_format] * spp))
+    if subsampling:
+        entries.append((530, 3, list(subsampling)))
+    if tables:
+        entries.append((347, 7, list(tables)))
+    entries += list(fields)
     entries.sort(key=lambda e: e[0])
-    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 16: 8}
+    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 5: 4, 7: 1, 16: 8}
     head = 16 if big else 8
     count_fmt, entry_size, inline = ("Q", 20, 8) if big else ("H", 12, 4)
     ifd_size = (8 if big else 2) + entry_size * len(entries) + (8 if big else 4)
@@ -567,7 +642,8 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, compression: in
             vals = starts
         fmt = order + kind[typ] * len(vals)
         body = struct.pack(fmt, *vals)
-        out += struct.pack(order + "HH" + ("Q" if big else "I"), tag, typ, len(vals))
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        out += struct.pack(order + "HH" + ("Q" if big else "I"), tag, typ, count)
         out += body.ljust(inline, b"\0") if len(body) <= inline else \
             struct.pack(order + ("Q" if big else "I"), placed[tag])
     out += bytes(8 if big else 4)
@@ -911,6 +987,98 @@ def tail_files() -> dict:
     return {**bmp_files(), **tiff_files(), **gif_files(), **animated_webp_files(), **jpeg_files()}
 
 
+# the files of the TIFF codecs, colour spaces and sample layouts that came
+# after slice 18 (JPEG-in-TIFF, YCbCr, CIELab, Zstandard, LZMA, CCITT, 12-,
+# 32-bit, float, signed and bit-reversed gray), which chip_smoke.py phase
+# 25 decodes
+CODEC_FILES = ("tiffx_", "textured_jpeg")
+
+
+def bilevel(h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w) uint8 0/255 rows of runs of many lengths (short ones, the
+    64-pixel make-up codes' edges, the long shared ones past 1728), some
+    rows the row above shifted a little, as 2-D fax coding meets them."""
+    rng = np.random.RandomState(seed)
+    img = np.zeros((h, w), np.uint8)
+    for y in range(h):
+        if y and rng.rand() < 0.4:
+            img[y] = np.roll(img[y - 1], rng.randint(-3, 4))
+            continue
+        x, c = 0, rng.randint(2)
+        while x < w:
+            n = int(rng.choice([1, 2, 3, 5, 9, 30, 63, 64, 65, 127, 640, 1727, 1728, 1792, 2561]))
+            img[y, x:x + n] = 255 * c
+            x, c = x + n, c ^ 1
+    return img
+
+
+def codec_files() -> dict:
+    """name -> bytes of each TIFF of the codecs, colour spaces and sample
+    layouts after slice 18 (96x80 and 64x48, one fax file 2700 wide, and
+    the 768x512 YCbCr 2x2 JPEG TIFF of ``chip_smoke.py::textured_rgb``
+    (seed 5) that phase 25 times and attacks)."""
+    from PIL import Image
+
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = 80, 96
+
+    def pillow(im, **kwargs) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, format="TIFF", **kwargs)
+        return buf.getvalue()
+
+    rgb = smooth(h, w, seed=41, noise=0.05).astype(np.uint8)
+    gray = smooth(h, w, seed=42, channels=1, noise=0.05)[..., 0].astype(np.uint8)
+    ycc = jpeg.rgb_to_ycbcr(rgb)
+    bw = Image.fromarray(bilevel(24, 2700, seed=43)).convert("1")
+    floats = (smooth(h, w, seed=44, channels=1, levels=4096).astype(np.float32) / 9.0 - 60.0)
+    ints = smooth(h, w, seed=45, channels=1, levels=1 << 16).astype(np.int64) - 30000
+    small = smooth(48, 64, seed=48, channels=1, levels=512)[..., 0] - 128  # past 0..255 both ways
+    sys.path.insert(0, ROOT)
+    from chip_smoke import textured_rgb
+
+    big = textured_rgb(*TEXTURED, seed=5)
+    return {
+        "tiffx_jpeg_rgb.tif": pillow(Image.fromarray(rgb), compression="jpeg", strip_size=w * 3 * 24),
+        "tiffx_jpeg_gray.tif": pillow(Image.fromarray(gray), compression="jpeg", strip_size=w * 16),
+        "tiffx_jpeg_ycbcr.tif": pillow(Image.fromarray(rgb).convert("YCbCr"), compression="jpeg",
+                                       strip_size=w * 3 * 32),
+        "tiffx_jpeg_tiled_ycbcr22.tif": write_tiff(ycc, 8, 6, compression=7, subsampling=(2, 2),
+                                                   tile=(32, 48)),
+        "tiffx_zstd.tif": pillow(Image.fromarray(rgb), compression="zstd"),
+        "tiffx_lzma_gray.tif": pillow(Image.fromarray(gray), compression="lzma"),
+        "tiffx_ycbcr22_lzw.tif": write_tiff(ycc, 8, 6, compression=5, subsampling=(2, 2),
+                                            rows_per_strip=10),
+        "tiffx_ycbcr41_zstd_rotated.tif": write_tiff(ycc, 8, 6, compression=50000,
+                                                     subsampling=(4, 1), rows_per_strip=16,
+                                                     orientation=6),
+        "tiffx_ycbcr_lzma_refbw.tif": write_tiff(ycc, 8, 6, compression=34925, subsampling=(1, 1),
+                                                 fields=[(532, 5, [16, 1, 235, 1, 128, 1, 240, 1,
+                                                                   128, 1, 240, 1])]),
+        "tiffx_ccitt_rle.tif": pillow(bw, compression="tiff_ccitt"),
+        "tiffx_group3_2d.tif": pillow(bw, compression="group3", tiffinfo={292: 5}),
+        "tiffx_group4_miniswhite.tif": pillow(bw, compression="group4", tiffinfo={262: 0}),
+        "tiffx_int32.tif": pillow(Image.fromarray(small.astype(np.int32) * 3 - 100, "I")),
+        "tiffx_float.tif": pillow(Image.fromarray(small.astype(np.float32) * 0.75 + 0.5, "F")),
+        "tiffx_float_predictor3_zstd_mm.tif": write_tiff(
+            floats.view(np.uint32).astype(np.int64), 32, 1, compression=50000, predictor=3,
+            sample_format=3, order=">", rows_per_strip=20),
+        "tiffx_int16_signed_lzma.tif": write_tiff(ints % (1 << 16), 16, 1, compression=34925,
+                                                  predictor=2, sample_format=2),
+        "tiffx_gray12.tif": write_tiff(smooth(h, w, seed=46, channels=1, levels=4096), 12, 1,
+                                       compression=5, rows_per_strip=9),
+        "tiffx_gray16_reversed.tif": write_tiff(smooth(h, w, seed=47, channels=1, levels=512), 16,
+                                                1, fill_order=2),
+        "tiffx_lab_lzw.tif": pillow(Image.fromarray(rgb[:48, :64]).convert("LAB"),
+                                    compression="tiff_lzw"),
+        "tiffx_lab_random_zstd.tif": write_tiff(np.random.RandomState(49).randint(0, 256, (48, 64, 3)),
+                                                8, 8, compression=50000, rows_per_strip=12),
+        "textured_jpeg.tif": write_tiff(jpeg.rgb_to_ycbcr(big), 8, 6, compression=7,
+                                        subsampling=(2, 2), rows_per_strip=16, jpeg_quality=90),
+    }
+
+
 def textured_file() -> bytes:
     """The 768x512 progressive q90 JPEG of ``chip_smoke.py::textured_rgb``."""
     from PIL import Image
@@ -941,7 +1109,7 @@ def pillow_record(path: str) -> dict:
 def main() -> None:
     sys.path.insert(0, ROOT)
     files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files(),
-             **tail_files()}
+             **tail_files(), **codec_files()}
     records = {}
     for name, data in files.items():
         path = os.path.join(HERE, name)

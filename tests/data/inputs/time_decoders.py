@@ -6,15 +6,18 @@ say) and, with ``--pillow``, against Pillow, in turns.
 
     python tests/data/inputs/time_decoders.py [--against DIR] [--pillow] [--rounds 3] [--runs 5]
 
-Writes ten files to a temporary directory: the textured 768x512 q90
+Writes fourteen files to a temporary directory: the textured 768x512 q90
 baseline JPEG of ``chip_smoke.py`` phase 21a (this tree's encoder, which
 writes Pillow's bytes), ``textured_progressive.jpg``,
 ``textured_lossy.webp``, ``textured_lossless.webp``, ``textured_lzw.tif``,
-``bmp_rle8.bmp`` and ``webp_animated_lossy.webp`` from this folder, a
-448x256 RGB PNG of Paeth-filtered rows (``make_inputs.write_png``), and of
+``textured_jpeg.tif`` (768x512 YCbCr 2x2 JPEG), ``tiffx_ycbcr22_lzw.tif``,
+``tiffx_group4_miniswhite.tif``, ``bmp_rle8.bmp`` and
+``webp_animated_lossy.webp`` from this folder, a 448x256 RGB PNG of
+Paeth-filtered rows (``make_inputs.write_png``), and of
 ``chip_smoke.py::textured_rgb`` (seed 5) at 768x512 an uncompressed TIFF
-(phase 24b's, ``chip_smoke.py::tiff_rgb``) and an interlaced GIF of its
-pixels in 216 colours (``make_inputs.write_gif``).
+(phase 24b's, ``chip_smoke.py::tiff_rgb``), a Zstandard TIFF with
+horizontal differencing (phase 25a's, ``make_inputs.write_tiff``) and an
+interlaced GIF of its pixels in 216 colours (``make_inputs.write_gif``).
 Each round then runs one process a tree (and one for Pillow), in turns,
 the order reversed in odd rounds; a process builds its tree's libraries
 (their build seconds are printed, 0 where ``_build/`` had them),
@@ -96,13 +99,13 @@ print(json.dumps({"best_ms": best, "build_s": {}}))
 
 
 def inputs(folder: str) -> list:
-    """The ten files, written into ``folder``."""
+    """The fourteen files, written into ``folder``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, HERE)
     import numpy as np
     from chip_smoke import textured_rgb, tiff_rgb
     from imagecompression_adversarial_tpu_torch.io import jpeg
-    from make_inputs import write_gif, write_png
+    from make_inputs import write_gif, write_png, write_tiff
 
     rgb = textured_rgb(512, 768, seed=5)
     levels = np.arange(6) * 51
@@ -111,10 +114,13 @@ def inputs(folder: str) -> list:
     files = {"baseline.jpg": jpeg.encode(rgb, 90),
              "paeth.png": write_png(textured_rgb(256, 448, seed=7), 8, 2),
              "raw.tif": tiff_rgb(rgb),
+             "zstd.tif": write_tiff(rgb.astype(np.int64), 8, 2, compression=50000, predictor=2,
+                                    rows_per_strip=16),
              "textured.gif": write_gif(index, 8, np.resize(palette.astype(np.uint8), 768).tobytes(),
                                        interlace=True)}
     for name in ("textured_progressive.jpg", "textured_lossy.webp", "textured_lossless.webp",
-                 "textured_lzw.tif", "bmp_rle8.bmp", "webp_animated_lossy.webp"):
+                 "textured_lzw.tif", "textured_jpeg.tif", "tiffx_ycbcr22_lzw.tif",
+                 "tiffx_group4_miniswhite.tif", "bmp_rle8.bmp", "webp_animated_lossy.webp"):
         with open(os.path.join(HERE, name), "rb") as f:
             files[name] = f.read()
     paths = []

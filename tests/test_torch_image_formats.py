@@ -4,10 +4,10 @@ which reads every image through PIL, on the CPU:
 * ``read_image`` of JPEGs (4:4:4, 4:2:2, 4:2:0, gray), BMPs (24-bit,
   32-bit, top-down) and a gray PNG: the arrays and sizes of JAX's
   ``read_image``, exactly; palette, RLE, bitfield and 16-bit BMPs, an
-  animated WebP and a GIF, refused up to slice 17, give Pillow's pixels or
-  raise where Pillow does; what the readers do not take raises naming it
-  (a CCITT TIFF, an arithmetic-coded JPEG), a file of no known format a
-  plain ``ValueError``;
+  animated WebP, a GIF and a Group 4 TIFF, refused in earlier slices,
+  give Pillow's pixels or raise where Pillow does; what the readers do
+  not take raises naming it (an old-style JPEG TIFF, an arithmetic-coded
+  JPEG), a file of no known format a plain ``ValueError``;
 * ``cli.attack_rd -s x.jpg`` (hyper q1 demo weights, 64x64, 5 steps)
   against JAX's CLI on the same file, at the bounds of the PNG CLI tests
   (``tests/test_torch_cli_attacks.py``: vi within 1e-3 dB, bpp rtol 1e-4);
@@ -136,11 +136,14 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
         np.testing.assert_array_equal(read_pixels(str(path)), want, err_msg=kind)
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("1").save(buf, format="TIFF", compression="group4")
+    read["CCITT Group 4 TIFFs"] = buf.getvalue()  # read since the CCITT decoders
+    field = b"\x03\x01\x03\x00\x01\x00\x00\x00"  # Compression, SHORT, 1 value:
+    old_jpeg = buf.getvalue().replace(field + b"\x04\x00", field + b"\x06\x00")  # 6
     buf2 = io.BytesIO()
     Image.fromarray(rgb).save(buf2, format="JPEG")
     jpg = bytearray(buf2.getvalue())
     jpg[jpg.index(b"\xff\xc0") + 1] = 0xC9
-    named = {"CCITT Group 4 TIFFs": buf.getvalue(),
+    named = {"old-style JPEG TIFFs": old_jpeg,
              "arithmetic-coded sequential JPEGs": bytes(jpg)}
     for match, content in named.items():
         path.write_bytes(content)

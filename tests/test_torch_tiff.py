@@ -12,9 +12,12 @@ package:
   ``RGB`` or ``RGBA`` (atol 0), and elsewhere raises naming the kind,
   ``TIFF`` and the mode;
 * each EXIF orientation undone as Pillow's ``exif_transpose`` does;
-* the kinds left out (JPEG and CCITT codings, 32-bit, float and CIELab
-  samples, planar 16-bit) raise ``UnsupportedImageError`` naming them; a
-  layout Pillow has no row for raises a plain ``ValueError``;
+* the kinds left out (old-style JPEG and ThunderScan codings, planar
+  16-bit, compressed planar RGBA without ExtraSamples) raise
+  ``UnsupportedImageError`` naming them; a layout Pillow has no row for
+  raises a plain ``ValueError`` (the JPEG and CCITT codings and the
+  32-bit, float, signed and CIELab samples these raised up to slice 18
+  are held to Pillow in ``tests/test_torch_tiff_codecs.py``);
 * seeded cut and byte-flipped files: wherever Pillow raises, the port
   raises ``ValueError``; where both read, the pixels agree.
 
@@ -117,20 +120,19 @@ def _pillow_writes(mode: str, **kwargs) -> bytes:
 
 
 def test_left_out_kinds_raise_naming_them(tmp_path):
+    field = b"\x03\x01\x03\x00\x01\x00\x00\x00"  # Compression, SHORT, 1 value
+    group4 = _pillow_writes("1", compression="group4")
     named = {
-        "JPEG TIFFs": _pillow_writes("RGB", compression="jpeg"),
-        "CCITT Group 4 TIFFs": _pillow_writes("1", compression="group4"),
-        "photometric interpretation 1, sample format (3,)": _pillow_writes("F"),
-        "photometric interpretation 1, sample format (2,)": _pillow_writes("I"),
-        "photometric interpretation 8": make_inputs.write_tiff(
-            np.full((4, 4, 3), 100, np.int64), 8, 8, compression=5),
+        "old-style JPEG TIFFs": group4.replace(field + b"\x04\x00", field + b"\x06\x00"),
+        "ThunderScan TIFFs": group4.replace(field + b"\x04\x00", field + b"\x29\x80"),
         "planar TIFFs of 16-bit samples": make_inputs.write_tiff(
             np.zeros((4, 4, 3), np.int64), 16, 2, planar=2, compression=5),
         "compressed planar RGBA TIFFs without ExtraSamples": make_inputs.write_tiff(
             np.zeros((4, 4, 4), np.int64), 8, 2, planar=2, compression=5),
     }
     for match, data in named.items():
-        _pillow(data)  # Pillow reads each
+        if "JPEG" not in match and "ThunderScan" not in match:
+            _pillow(data)  # Pillow reads each (not its libtiff's codecs of recoded fax data)
         with pytest.raises(UnsupportedImageError, match=re.escape(match)):
             tiff.decode_native(data)
     unknown = make_inputs.write_tiff(np.zeros((4, 4, 2), np.int64), 8, 2)
