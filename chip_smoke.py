@@ -784,6 +784,35 @@ TAIL_LAUNCHES = (627, 606)
 # (gdn_fwd, gdn_bwd)
 CODEC_TEXTURED = "textured_jpeg.tif"
 CODEC_LAUNCHES = (627, 606)
+# phase 26 (slice 20): (a) attacks/common.py::make_phase_fwd_scan, hyper q1
+# demo weights on a seeded 768x512 image: FWD_SCAN_STEPS steps with the GDN
+# kernel, GDN_PER_FWD_STEP launches a step (g_a's three GDNs, g_s_phase's
+# three IGDNs), its rate beside phase 4's attack rate, which includes a
+# backward and so stays below FWD_SCAN_MAX_RATIO of it; then
+# FWD_SCAN_CHECK_STEPS steps with the kernel and with the plain GDN, cuDNN
+# deterministic: the final noise, every element the sum of the steps' 1e-6
+# x mean(g_s_phase(g_a(x + n))), within FWD_SCAN_RTOL of the plain run's
+# (the kernel's outputs sit within ~1e-6 relative of the plain fp32
+# product, GDN_RTOL's reasoning; a mean of 1,179,648 of them keeps that)
+# plus FWD_SCAN_ATOL; (b) cli.export_ckpt on ORBAX_STEP, which must give
+# EXPORT_SHA256 (the JAX script's file), and on an EXPORT_TRAIN_STEPS-step
+# cli.train run's checkpoint.pt, read back through io/weights.py; (c) the
+# committed files of make_inputs.SLICE20_FILES, each held to the sha256 and
+# mode recorded for Pillow's decode, the JPEGs to the numpy decoder;
+# SLICE20_TEXTURED (768x512, progressive arithmetic-coded q60, 62 kB: inside
+# the one 65,536-byte block in which Pillow reads such a file) timed; (d)
+# the attack CLI on SLICE20_TEXTURED beside its PNG twin, with
+# SLICE20_LAUNCHES (gdn_fwd, gdn_bwd)
+FWD_SCAN_STEPS = 1001
+FWD_SCAN_CHECK_STEPS = 101
+GDN_PER_FWD_STEP = 6
+FWD_SCAN_MAX_RATIO = 1.1
+FWD_SCAN_RTOL = 1e-5
+FWD_SCAN_ATOL = 1e-12
+EXPORT_SHA256 = "e0d8c2882b45af0132aa2fbe43b5399d13feac88bf273b9f454126d1600e77b3"
+EXPORT_TRAIN_STEPS = 2
+SLICE20_TEXTURED = "textured_arith.jpg"
+SLICE20_LAUNCHES = (627, 606)
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -1093,7 +1122,7 @@ def phase_main_path(gdn):
         f"{launches_bwd} ({launches_bwd / steps:.3f} per step; {backwards['calls']} GDN backwards); "
         f"the previous backward kernel's rate {PREVIOUS_BWD['4 steps/s']:.2f} steps/s"
     )
-    return launches, launches_bwd
+    return launches, launches_bwd, steps / avg["t"]
 
 
 def has_gdn(codec) -> bool:
@@ -4517,6 +4546,179 @@ def phase_codecs(tiff_build: dict):
     return records, launches, launches_bwd
 
 
+def phase_slice20(gdn, jpeg_build: dict, card: str, attack_rate: float):
+    """Phase 26: the pieces of slice 20.  (a) The forward-only phase loop
+    (``attacks/common.py::make_phase_fwd_scan``) with the GDN kernel, its
+    rate beside phase 4's attack rate, and against the plain GDN; (b) the
+    demo-checkpoint exporter on the orbax step and on a port-trained
+    ``checkpoint.pt``; (c) the Netpbm, lossless and arithmetic-coded JPEG
+    files against Pillow's recorded pixels and the numpy decoder; (d) the
+    attack CLI on the arithmetic-coded 768x512 JPEG beside the PNG of its
+    pixels.  Returns the records and the forward and backward kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from imagecompression_adversarial_tpu_torch.attacks.common import make_phase_fwd_scan
+    from imagecompression_adversarial_tpu_torch.cli import export_ckpt
+    from imagecompression_adversarial_tpu_torch.io import jpeg, netpbm
+    from imagecompression_adversarial_tpu_torch.io.image import synthetic_image, to_tensor
+    from imagecompression_adversarial_tpu_torch.io.weights import load_checkpoint
+
+    records, launches, launches_bwd = {}, {}, {}
+
+    # 26a: the loop, FWD_SCAN_STEPS steps with the kernel, then the kernel and
+    # the plain GDN over FWD_SCAN_CHECK_STEPS steps, cuDNN deterministic
+    codec = load_codec("hyper", 1, CKPT)
+    x = to_tensor(synthetic_image(*JPEG_SIZE, seed=0), "cuda")
+    make_phase_fwd_scan(codec, 3)(x)  # cuDNN's algorithm choice and the allocator's pools
+    n, m = measured(lambda: make_phase_fwd_scan(codec, FWD_SCAN_STEPS)(x))
+    rate = FWD_SCAN_STEPS / m["s"]
+    with cudnn_deterministic():
+        n_kernel, mk = measured(lambda: make_phase_fwd_scan(codec, FWD_SCAN_CHECK_STEPS)(x))
+        use_gdn_kernel(codec, False)
+        try:
+            n_plain, mp = measured(lambda: make_phase_fwd_scan(codec, FWD_SCAN_CHECK_STEPS)(x))
+        finally:
+            use_gdn_kernel(codec, True)
+    values = {label: float(v.flatten()[0]) for label, v in (("n", n), ("kernel", n_kernel),
+                                                            ("plain", n_plain))}
+    uniform = all(bool((v == v.flatten()[0]).all()) for v in (n, n_kernel, n_plain))
+    gap = abs(values["kernel"] - values["plain"])
+    bound = FWD_SCAN_RTOL * abs(values["plain"]) + FWD_SCAN_ATOL
+    ratio = attack_rate / rate
+    records["26a"] = {"steps": FWD_SCAN_STEPS, "steps_per_s": rate, "s": m["s"],
+                      "launches": m["launches"], "peak_gib": m["peak_gib"], "n": values["n"],
+                      "check_steps": FWD_SCAN_CHECK_STEPS, "n_kernel": values["kernel"],
+                      "n_plain": values["plain"], "gap": gap, "bound": bound,
+                      "check_launches": [mk["launches"], mp["launches"]],
+                      "attack_steps_per_s": attack_rate, "attack_over_fwd": ratio, "card": card}
+    launches[f"26a fwd_scan hyper q1 768x512 x{FWD_SCAN_STEPS}"] = m["launches"]
+    launches[f"26a fwd_scan kernel x{FWD_SCAN_CHECK_STEPS}"] = mk["launches"]
+    log(f"phase 26a forward-only phase loop (make_phase_fwd_scan), hyper q1 768x512, "
+        f"{FWD_SCAN_STEPS} steps: {rate:.2f} steps/s ({m['s']:.3f} s), gdn_fwd launches "
+        f"{m['launches']} (expect {GDN_PER_FWD_STEP * FWD_SCAN_STEPS}), gdn_bwd "
+        f"{m['bwd_launches']}, peak {m['peak_gib']:.3f} GiB, n {values['n']:.9e}; phase 4's "
+        f"attack {attack_rate:.2f} steps/s, {ratio:.4f} of this rate (tol < "
+        f"{FWD_SCAN_MAX_RATIO}); {FWD_SCAN_CHECK_STEPS} steps, cuDNN deterministic: kernel n "
+        f"{values['kernel']:.9e} ({mk['launches']} launches), plain GDN n {values['plain']:.9e} "
+        f"({mp['launches']} launches): |diff| {gap:.3e} (tol {bound:.3e}); on {card}")
+    if m["launches"] != GDN_PER_FWD_STEP * FWD_SCAN_STEPS or m["bwd_launches"] or \
+            mk["launches"] != GDN_PER_FWD_STEP * FWD_SCAN_CHECK_STEPS or mp["launches"]:
+        raise RuntimeError(f"phase 26a: GDN launches {m['launches']}, {m['bwd_launches']}, "
+                           f"{mk['launches']}, {mp['launches']}")
+    if not uniform or not all(math.isfinite(v) for v in values.values()) or gap > bound or \
+            ratio >= FWD_SCAN_MAX_RATIO:
+        raise RuntimeError(f"phase 26a: the loop's noise or rate is off: {records['26a']}")
+    del codec, x, n, n_kernel, n_plain
+    free_card()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice20_")
+    cwd = os.getcwd()
+    try:
+        # 26b: the exporter on the orbax step, and on a 2-step cli.train run
+        out = os.path.join(tmp, "step2000.msgpack")
+        t = time.time()
+        line = export_ckpt.export(ORBAX_STEP, "hyper", 4, out)
+        export_s = time.time() - t
+        with open(out, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        os.chdir(tmp)
+        s, n_train, _, _ = train_cli(gdn, ["-max_steps", str(EXPORT_TRAIN_STEPS)])
+        launches[f"26b cli.train x{EXPORT_TRAIN_STEPS}"] = n_train
+        launches_bwd[f"26b cli.train x{EXPORT_TRAIN_STEPS}"] = gdn.launch_counts["gdn_bwd"]
+        step = os.path.join(s["ckpt_dir"], str(EXPORT_TRAIN_STEPS))
+        trained = {k: v.detach() for k, v in s["state"].model.state_dict().items()}
+        xs = to_tensor(synthetic_image(*JPEG_SIZE, seed=1), "cuda")
+
+        def x_hat(params):
+            c = load_codec("hyper", 1)
+            c.load_state_dict(params, strict=True)
+            with torch.no_grad(), cudnn_deterministic():
+                return c(xs, quant_mode="dequantize")["x_hat"]
+
+        want = x_hat(trained)
+        exported = {}
+        for fp32 in (True, False):
+            path = os.path.join(tmp, f"trained-{'fp32' if fp32 else 'fp16'}.msgpack")
+            said = export_ckpt.export(step, "hyper", 1, path, fp32=fp32)
+            params = {k: v.to(want.device) for k, v in load_checkpoint(path, "hyper").items()}
+            rounded = all(torch.equal(params[k], v if fp32 else v.half().float())
+                          for k, v in trained.items())
+            diff = float((x_hat(params) - want).abs().max())
+            exported["fp32" if fp32 else "fp16"] = {
+                "line": said, "bytes": os.path.getsize(path), "params_equal": rounded,
+                "x_hat_max_abs": diff}
+        records["26b"] = {"step2000": {"line": line, "sha256": digest, "s": export_s},
+                          "trained": exported, "train_steps": EXPORT_TRAIN_STEPS}
+        log(f"phase 26b cli.export_ckpt: {line} in {export_s:.2f} s, sha256 {digest} (expect "
+            f"{EXPORT_SHA256}); a {EXPORT_TRAIN_STEPS}-step cli.train run's checkpoint.pt: "
+            + "; ".join(f"{k}: {v['line']}, parameters "
+                        f"{'equal' if k == 'fp32' else 'the fp16 rounding'}: {v['params_equal']}, "
+                        f"x_hat max |diff| {v['x_hat_max_abs']:.3e}" for k, v in exported.items()))
+        if digest != EXPORT_SHA256 or not all(v["params_equal"] for v in exported.values()) or \
+                exported["fp32"]["x_hat_max_abs"] != 0.0:
+            raise RuntimeError(f"phase 26b: the exports differ: {records['26b']}")
+        del want, trained, s
+        free_card()
+
+        # 26c: every slice-20 file held to Pillow's hash and mode, the JPEGs to
+        # the numpy decoder; the 768x512 arithmetic-coded JPEG timed
+        make_inputs = load_make_inputs()
+        with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+            recorded = {k: r for k, r in json.load(f).items()
+                        if k.startswith(make_inputs.SLICE20_FILES)}
+        failed, kinds, numpy_equal = [], [], {}
+        for name, rec in sorted(recorded.items()):
+            with open(os.path.join(INPUTS_DIR, name), "rb") as f:
+                data = f.read()
+            if name.endswith(".jpg"):
+                fr = jpeg.parse(data)
+                pixels, mode = jpeg.decode_frame_native(fr), fr.mode
+                numpy_equal[name] = bool(np.array_equal(jpeg.decode_frame(fr), pixels))
+                if pixels.shape[2] == 1:
+                    pixels = np.repeat(pixels, 3, axis=2)
+            else:
+                pixels, mode = netpbm.decode(data)
+            digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+            kinds.append(f"{name} ({mode})")
+            if digest != rec["sha256"] or mode != rec["mode"] or \
+                    list(pixels.shape) != rec["shape"] or not numpy_equal.get(name, True):
+                failed.append(f"{name} (sha256 {'=' if digest == rec['sha256'] else '!='}, mode "
+                              f"{mode} / {rec['mode']}, numpy {numpy_equal.get(name)})")
+        with open(os.path.join(INPUTS_DIR, SLICE20_TEXTURED), "rb") as f:
+            arith = f.read()
+        _, best = best_of(jpeg.decode_native, arith)
+        t = time.time()
+        jpeg.decode(arith)
+        plain_s = time.time() - t
+        host = host_cpu()
+        records["26c"] = {"files": len(recorded), "failed": failed, "numpy_equal": numpy_equal,
+                          "timed": {SLICE20_TEXTURED: {"bytes": len(arith), "best_s": best,
+                                                       "numpy_s": plain_s}},
+                          "build": jpeg_build, "host": host}
+        log(f"phase 26c Netpbm, lossless and arithmetic-coded JPEGs: {len(recorded) - len(failed)} "
+            f"of {len(recorded)} files of {INPUTS_DIR} decoded to the pixels and mode recorded for "
+            f"Pillow {sorted({r['pillow'] for r in recorded.values()})} "
+            f"({sum(numpy_equal.values())} of {len(numpy_equal)} JPEGs equal to the numpy "
+            f"decoder): {', '.join(kinds)}; {SLICE20_TEXTURED} ({len(arith)} bytes) on the host "
+            f"({host}): C++ {best * 1e3:.2f} ms (best of {JPEG_DECODE_RUNS}; the decoder built in "
+            f"phase 2, {jpeg_build['how']}), numpy {plain_s * 1e3:.1f} ms")
+        if failed or len(recorded) < 27:
+            raise RuntimeError(f"phase 26c: files differ from Pillow's recorded pixels: {failed}")
+
+        # 26d: the attack CLI on the arithmetic-coded JPEG and on a PNG of its pixels
+        m = attack_beside_png("26d", os.path.join(INPUTS_DIR, SLICE20_TEXTURED), tmp, records,
+                              launches, launches_bwd)
+        if (m["launches"], m["bwd_launches"]) != SLICE20_LAUNCHES:
+            raise RuntimeError(f"phase 26d: GDN launches {(m['launches'], m['bwd_launches'])}, "
+                               f"not {SLICE20_LAUNCHES}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches, launches_bwd
+
+
 def host_cpu() -> str:
     """The host's CPU model (``/proc/cpuinfo``, else the platform's name for
     the machine) and its logical CPUs."""
@@ -4662,7 +4864,7 @@ def main() -> int:
         "round trip of 1024 bytes equal")
 
     records = phase_kernel_vs_plain(gdn)
-    launches, launches_bwd = phase_main_path(gdn)
+    launches, launches_bwd, attack_rate = phase_main_path(gdn)
     phase_attack_kernel_vs_plain(gdn)
     phase_cli_png()
     launches_gmm, launches_gmm_bwd = phase_slice2_path(gdn)
@@ -4703,6 +4905,9 @@ def main() -> int:
     print(json.dumps({"phase24": tail_records}, default=float), flush=True)
     codec_records, launches_codec, launches_codec_bwd = phase_codecs(host_builds["TIFF"])
     print(json.dumps({"phase25": codec_records}, default=float), flush=True)
+    slice20_records, launches_slice20, launches_slice20_bwd = phase_slice20(
+        gdn, jpeg_build, smi, attack_rate)
+    print(json.dumps({"phase26": slice20_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4729,6 +4934,7 @@ def main() -> int:
             **launches_webp,
             **launches_tail,
             **launches_codec,
+            **launches_slice20,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4755,6 +4961,7 @@ def main() -> int:
             **launches_webp_bwd,
             **launches_tail_bwd,
             **launches_codec_bwd,
+            **launches_slice20_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

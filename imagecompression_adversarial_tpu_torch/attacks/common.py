@@ -1,5 +1,6 @@
 """Attack plumbing: config, LR schedule, Adam on the noise tensor, noise
-init (port of ``imagecompression_adversarial_tpu/attacks/common.py``)."""
+init, the forward-only phase loop (port of
+``imagecompression_adversarial_tpu/attacks/common.py``)."""
 
 from __future__ import annotations
 
@@ -110,3 +111,23 @@ def init_noise(
         raise ValueError("random noise init needs a torch.Generator")
     u = torch.rand(shape, generator=generator, device=device)
     return (2.0 * u - 1.0) * bound
+
+
+def make_phase_fwd_scan(model, steps: int):
+    """Forward-only loop of the RD attack's in-loop computation: ``g_a``
+    then the phase-space synthesis, no hyper path, no likelihoods.  A full
+    forward and backward step can never beat its rate.  The steps are
+    chained through the image-shaped noise (updated from the output's
+    mean), as JAX's scan is, so no step can be skipped or hoisted; the
+    loop holds no host sync.  It runs where the model's parameters are,
+    under ``torch.no_grad()``; the function returns the final noise."""
+
+    def scan(x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            n = torch.zeros_like(x)
+            for _ in range(steps):
+                out = model.g_s_phase(model.g_a(x + n))
+                n = n + 1e-6 * out.mean()
+        return n
+
+    return scan

@@ -8,9 +8,15 @@ MAX_PIXELS = 2 * 89_478_485
 
 class UnsupportedImageError(ValueError):
     """An image in a format or a variant of one that the port's readers do
-    not decode, though Pillow does (an arithmetic-coded JPEG, a CCITT
-    TIFF, a JPEG scan libjpeg decodes with a warning, ...): the message
-    names it."""
+    not decode, though Pillow does (a lossless JPEG of subsampled
+    components, a JPEG scan libjpeg decodes with a warning, ...): the
+    message names it."""
+
+
+class RefusedByPillowError(UnsupportedImageError):
+    """A kind that Pillow refuses too (a hierarchical or 12-bit JPEG, a PAM
+    file, ...): the message names it.  JAX's folder loader skips such a
+    file, as it skips any file PIL cannot open, and so does the port's."""
 
 
 def check_size(fmt: str, w: int, h: int) -> None:

@@ -10,8 +10,8 @@ the format is told by the file's first bytes, and
   to 16, interlaced or not;
 * JPEG by the host C++ decoder (``io/jpeg.py``, ``csrc/jpeg.cc``):
   baseline, sequential of several scans and progressive Huffman files of
-  8-bit samples; gray, YCbCr, RGB-coded, CMYK and YCCK, at every sampling
-  libjpeg accepts;
+  8-bit samples, Huffman or arithmetic-coded, and lossless ones; gray,
+  YCbCr, RGB-coded, CMYK and YCCK, at every sampling libjpeg accepts;
 * WebP by the host C++ decoder (``io/webp.py``, ``csrc/webp.cc``): lossy
   (VP8) and lossless (VP8L) files, with or without alpha, and the first
   frame of an animated one;
@@ -24,7 +24,9 @@ the format is told by the file's first bytes, and
 * GIF by the host C++ decoder (``io/gif.py``, ``csrc/gif.cc``): the
   first frame;
 * BMP with numpy (``io/bmp.py``): palettes, RLE8 and RLE4, 16-, 24- and
-  32-bit, bitfields.
+  32-bit, bitfields;
+* Netpbm with numpy (``io/netpbm.py``): P1-P6, plain and raw, at any
+  maxval, and gray PFM.
 
 The JAX package reads in two ways, and so does the port.  ``read_pixels``
 gives what ``Image.open(path).convert("RGB")`` gives, for every kind above;
@@ -39,9 +41,12 @@ naming the format, the kind and the mode ("a palette BMP", "a 16-bit gray
 TIFF", ...), where JAX's CLIs would take palette indices, booleans, two
 channels, raw 16- or 32-bit values, floats, inverted CMY or L*a*b* as
 pixels.  What Pillow
-reads and no reader here decodes (an arithmetic-coded JPEG, an old-style
-JPEG TIFF, ...) raises
-``UnsupportedImageError``, naming it; a broken file raises ``ValueError``.
+reads and no reader here decodes (a lossless JPEG of subsampled
+components, an old-style JPEG TIFF, ...) raises ``UnsupportedImageError``,
+naming it; a kind Pillow refuses too (a 12-bit or hierarchical JPEG, a
+PAM file, ...) its subclass ``RefusedByPillowError``; a broken file
+raises ``ValueError``.  Formats Pillow opens that no reader here knows
+(QOI, TGA, PCX, SGI, ICO, JPEG 2000, AVIF, ...) raise ``ValueError``.
 The writer emits 8-bit RGB PNGs.
 """
 
@@ -53,7 +58,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from . import bmp, gif, jpeg, png, tiff, webp
+from . import bmp, gif, jpeg, netpbm, png, tiff, webp
 from .errors import UnsupportedImageError
 
 # the Pillow modes ``read_image`` refuses: the kind of image each is, and
@@ -107,18 +112,20 @@ def _decode(path: str) -> Tuple[np.ndarray, str, str]:
     if data[:6] in (b"GIF87a", b"GIF89a"):
         parsed = gif.parse(data)
         return gif.decode_gif_native(parsed), parsed.mode, "GIF"
-    raise ValueError(f"not a PNG, JPEG, WebP, TIFF, GIF or BMP file (it starts with "
+    if netpbm.is_netpbm(data):
+        return (*netpbm.decode(data), "Netpbm")
+    raise ValueError(f"not a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm file (it starts with "
                      f"{data[:8]!r})")
 
 
 def read_pixels(path: str) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG, WebP, TIFF,
-    GIF or BMP), as ``Image.open(path).convert("RGB")`` gives them."""
+    GIF, BMP or Netpbm), as ``Image.open(path).convert("RGB")`` gives them."""
     return _decode(path)[0]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG, JPEG, WebP, TIFF, GIF or BMP that Pillow opens as ``L``,
+    """Load a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm file that Pillow opens as ``L``,
     ``RGB`` or ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
     ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha.
     Raises ``UnsupportedImageError`` naming the format, the kind and the

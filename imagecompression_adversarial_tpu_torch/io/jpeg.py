@@ -18,33 +18,43 @@ Encoder (``encode``):
   interleaved scan, no restart markers.  The file is SOI, JFIF APP0, two
   DQT, SOF0, four DHT, SOS, the scan and EOI.
 
-Decoders: ``parse`` reads the markers of a Huffman stream of 8-bit
-samples, baseline or extended sequential (SOF0, SOF1) of one scan or of
-several, or progressive (SOF2): gray, YCbCr, RGB-coded (Adobe transform 0
-on three components, or component ids R, G, B without a JFIF or Adobe
-marker), CMYK and YCCK (Adobe transform 1 or 2 on four components), at
-any sampling factors libjpeg accepts (1 to 4, each component's a whole
-fraction of the largest, at most 10 blocks an MCU); each scan's
-components, band, successive approximation bits, tables and restart
-interval.  It raises ``UnsupportedImageError``, naming the kind, on
-arithmetic-coded, lossless, hierarchical and 12-bit streams, and
-progressive files that libjpeg-turbo would smooth (a low coefficient left
-unsent or unrefined).  ``decode_native`` decodes the rest with the host
-C++ decoder (``csrc/jpeg.cc``, built with g++ on first use):
+Decoders: ``parse`` reads the markers of a stream of 8-bit samples,
+baseline or extended sequential (SOF0, SOF1) of one scan or of several,
+progressive (SOF2), arithmetic-coded sequential or progressive (SOF9,
+SOF10) or lossless (SOF3): gray, YCbCr, RGB-coded (Adobe transform 0 on
+three components, or component ids R, G, B without a JFIF or Adobe
+marker; a lossless frame's three components without one, whatever
+their ids), CMYK and YCCK (Adobe transform 1 or 2 on four components),
+at any sampling factors libjpeg accepts (1 to 4, each component's a
+whole fraction of the largest, at most 10 blocks an MCU); each scan's
+components, band, successive approximation bits, tables, arithmetic
+conditioning (DAC) and restart interval.  It raises
+``UnsupportedImageError``, naming the kind, on progressive files that
+libjpeg-turbo would smooth (a low coefficient left unsent or unrefined)
+and lossless ones of subsampled components; and ``RefusedByPillowError``
+on what Pillow refuses too: hierarchical, arithmetic-coded lossless and
+12-bit streams, lossless YCbCr, and an arithmetic-coded scan that runs
+past the 65,536-byte blocks Pillow feeds libjpeg (``PILLOW_BLOCK``).
+``decode_native`` decodes the rest with the host C++ decoder
+(``csrc/jpeg.cc``, built with g++ on first use):
 every scan into int16 coefficient planes (``jdhuff.c``'s sequential
 blocks, ``jdphuff.c``'s DC first and refine, AC first with its end-of-band
 runs and AC refine with its correction bits; DC predictors and RSTn
-markers), dequantization, the integer inverse DCT ``jidctint`` with its
+markers; or ``jdarith.c``'s arithmetic decoding of the same passes: the
+QM coder of ``QE_TABLE``, statistics per conditioning table, reset at
+each restart), dequantization, the integer inverse DCT ``jidctint`` with its
 range-limit table, libjpeg-turbo's upsampler of each component
 (``jdsample.c``: fancy (triangle) ``h2v1`` and ``h2v2``, box where a
 plane is 2 or fewer samples wide; fancy ``h1v2`` (4:4:0); ``int_upsample``
 (box) for every other ratio, 4:1:1 among them) with the edge rows and
 columns repeated, and fixed-point YCbCr -> RGB (``jdcolor.c``), RGB as
 decoded, or for CMYK Pillow's inversion and ``cmyk2rgb``, YCCK first
-through ``jdcolor.c``'s YCC -> CMYK: Pillow's pixels, bit for bit.
-``decode`` is its plain numpy version, the same pixels, whose Huffman
-decoder walks the symbols in a Python loop, many times slower
-(``chip_smoke.py`` phases 21a and 22a time both).
+through ``jdcolor.c``'s YCC -> CMYK: Pillow's pixels, bit for bit.  A
+lossless frame's samples come instead from its Huffman-coded differences
+and predictors 1-7 (``jdlhuff.c``, ``jdlossls.c``), shifted left by the
+point transform.  ``decode`` is its plain numpy version, the same pixels,
+whose entropy decoders walk the symbols or decisions in a Python loop,
+many times slower (``chip_smoke.py`` phases 21a, 22a and 26c time both).
 
 The DCT, quantization, colour and Huffman-encoding steps are vectorized
 over all blocks.
@@ -55,12 +65,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import re
 import struct
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .errors import UnsupportedImageError
+from .errors import RefusedByPillowError, UnsupportedImageError
 
 # jpeg_natural_order: zigzag index -> row-major index in the 8x8 block
 ZIGZAG = np.array(sorted(range(64), key=lambda i: (i // 8 + i % 8,
@@ -442,16 +453,24 @@ def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-# frame markers other than SOF0/SOF1 (8-bit Huffman sequential) and SOF2
-# (8-bit Huffman progressive), by what they code
+# the frame markers read here: (progressive, arithmetic-coded, lossless)
+_FRAMES = {0xC0: (False, False, False), 0xC1: (False, False, False),
+           0xC2: (True, False, False), 0xC3: (False, False, True),
+           0xC9: (False, True, False), 0xCA: (True, True, False)}
+# the others, by what they code: libjpeg-turbo refuses them, and Pillow raises
 _FRAME_KINDS = {
-    0xC3: "lossless", 0xC5: "hierarchical sequential",
-    0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
-    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
-    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical sequential",
+    0xC5: "hierarchical sequential", 0xC6: "hierarchical progressive",
+    0xC7: "hierarchical lossless", 0xCB: "arithmetic-coded lossless",
+    0xCD: "arithmetic-coded hierarchical sequential",
     0xCE: "arithmetic-coded hierarchical progressive",
     0xCF: "arithmetic-coded hierarchical lossless",
 }
+# an arithmetic-coded frame's conditioning (DAC) before any DAC segment, per
+# table: DC bounds L and U, AC Kx (jdmarker.c's get_soi)
+_DAC_DEFAULT = (0, 1, 5)
+# the bytes Pillow's ImageFile.load reads at a time (ImageFile.MAXBLOCK)
+PILLOW_BLOCK = 65536
+_ARITH_TABLES = 16  # NUM_ARITH_TBLS
 # libjpeg's most blocks in an MCU of an interleaved scan (D_MAX_BLOCKS_IN_MCU)
 _MAX_BLOCKS_IN_MCU = 10
 # what each colour space's samples are decoded into (jdcolor.c), by the
@@ -461,6 +480,47 @@ COLOURS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 # (jdcoefct.c, SAVED_COEFS) checks after the last scan of a progressive file
 _SMOOTHED_COEFS = 10
 
+# jaricom.c's jpeg_aritab (ITU-T T.81 Table D.2): per state of a statistics
+# bin, (Qe, the state after an LPS, after an MPS, whether an LPS switches
+# the MPS); the last, 113, is the fixed one-half estimate that sign and
+# refinement bits are coded with (T.851 Table 5)
+QE_TABLE = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))
+FIXED_BIN = 113
+# Table F.4 and F.5's bins: a DC table's 64 (contexts S0 at 0, 4, 8, 12, 16;
+# the categories X1.. at 20; their bits M at X + 14), an AC table's 256 (S0
+# of coefficient k at 3 (k - 1); the categories past the second at 189 up
+# to coefficient Kx, at 217 after it)
+_DC_BINS, _AC_BINS, _DC_X1, _AC_X_LOW, _AC_X_HIGH = 64, 256, 20, 189, 217
+
 Table = Tuple[Tuple[int, ...], bytes]  # (code counts by length 1..16, symbols)
 
 
@@ -468,11 +528,14 @@ Table = Tuple[Tuple[int, ...], bytes]  # (code counts by length 1..16, symbols)
 class Scan:
     """One scan: its components (indices into the frame's, in frame
     order), spectral band ``ss``..``se`` (zigzag) and successive
-    approximation bits ``ah``, ``al``; per component the DC and AC Huffman
-    tables it reads (None where it reads none); the restart interval in
-    its units (MCUs, or blocks in a scan of one component; 0: none); its
-    entropy-coded bytes, RSTn markers included; whether a marker ends it,
-    or the file does."""
+    approximation bits ``ah``, ``al`` (in a lossless frame ``ss`` is the
+    predictor, ``al`` the point transform); per component the DC and AC
+    Huffman tables it reads (None where it reads none); the restart
+    interval in its units (MCUs, or blocks in a scan of one component, or
+    samples in a lossless frame; 0: none); its entropy-coded bytes, RSTn
+    markers included; whether a marker ends it, or the file does; in an
+    arithmetic-coded frame, per component its DC and AC conditioning
+    tables and their values: (DC table, AC table, L, U, Kx)."""
 
     comps: List[int]
     ss: int
@@ -484,6 +547,7 @@ class Scan:
     restart: int
     coded: bytes
     ended: bool
+    conditioning: List[Tuple[int, int, int, int, int]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -493,7 +557,9 @@ class Frame:
     as it stood at the component's first scan); Pillow's mode (``L``,
     ``RGB`` for YCbCr and RGB-coded, ``CMYK`` for CMYK and YCCK); whether
     it is progressive; its scans; the colour space libjpeg takes it as
-    (a key of ``COLOURS``)."""
+    (a key of ``COLOURS``); whether it is arithmetic-coded, or lossless
+    (its components' samples coded as differences from a prediction, no
+    DCT)."""
 
     height: int
     width: int
@@ -503,14 +569,17 @@ class Frame:
     progressive: bool
     scans: List[Scan]
     colour: str = "ycc"
+    arithmetic: bool = False
+    lossless: bool = False
 
 
-def _colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> str:
+def _colour(ids: List[int], jfif: bool, adobe: Optional[int], lossless: bool = False) -> str:
     """The colour space libjpeg takes a frame of these components as
     (``default_decompress_parms``): three are YCbCr after a JFIF marker,
     RGB with Adobe transform 0 (YCbCr with any other), else RGB where the
-    ids are R, G, B; four are CMYK without an Adobe marker or with its
-    transform 0, YCCK with any other."""
+    ids are R, G, B, and in a lossless frame whatever the ids (libjpeg-turbo
+    3's "assuming YCbCr (lossy) or RGB (lossless)"); four are CMYK without
+    an Adobe marker or with its transform 0, YCCK with any other."""
     if len(ids) == 1:
         return "gray"
     if len(ids) == 3:
@@ -518,7 +587,7 @@ def _colour(ids: List[int], jfif: bool, adobe: Optional[int]) -> str:
             return "ycc"
         if adobe is not None:
             return "rgb" if adobe == 0 else "ycc"
-        return "rgb" if ids == [82, 71, 66] else "ycc"
+        return "rgb" if lossless or ids == [82, 71, 66] else "ycc"
     return "cmyk" if adobe in (None, 0) else "ycck"
 
 
@@ -607,7 +676,10 @@ def _grid(f: Frame, k: int) -> Tuple[int, int]:
 
 
 def _units(f: Frame, scan: Scan) -> int:
-    """The units a scan codes: its MCUs, or its one component's blocks."""
+    """The units a scan codes: its MCUs, or its one component's blocks; in
+    a lossless frame (every component at 1x1) its samples."""
+    if f.lossless:
+        return f.width * f.height
     if len(scan.comps) == 1:
         gh, gw = _grid(f, scan.comps[0])
         return gh * gw
@@ -615,11 +687,11 @@ def _units(f: Frame, scan: Scan) -> int:
     return mcux * mcuy
 
 
-def _check_table(table: Table, dc: bool) -> Table:
+def _check_table(table: Table, dc: bool, largest: int = 15) -> Table:
     """Raise where libjpeg's ``jpeg_make_d_derived_tbl`` refuses a table:
     up to its longest codes, more codes of a length than the shorter ones
     leave room for beside the all-ones code, which none may be; or a DC
-    symbol above 15."""
+    symbol above ``largest`` (15; a lossless difference's 16)."""
     code = 0
     longest = max((i for i, n in enumerate(table[0], start=1) if n), default=0)
     for length, n in enumerate(table[0][:longest], start=1):
@@ -627,8 +699,8 @@ def _check_table(table: Table, dc: bool) -> Table:
         if code >= 1 << length:
             raise ValueError("JPEG Huffman table: more codes than its lengths hold")
         code <<= 1
-    if dc and any(s > 15 for s in table[1]):
-        raise ValueError("JPEG DC Huffman table has a symbol above 15")
+    if dc and any(s > largest for s in table[1]):
+        raise ValueError(f"JPEG DC Huffman table has a symbol above {largest}")
     return table
 
 
@@ -645,13 +717,18 @@ def _scan_problem(progressive: bool, n: int, ss: int, se: int, ah: int, al: int)
     return None
 
 
-def parse(data: bytes, tables: bytes = b"") -> Frame:
-    """The frame, tables and scans of a Huffman JPEG of 8-bit samples:
-    baseline or extended sequential (SOF0, SOF1) of one scan or several,
-    or progressive (SOF2); gray, YCbCr, RGB-coded, CMYK or YCCK at any
-    sampling libjpeg accepts (``ValueError`` on another).  Raises
-    ``UnsupportedImageError`` naming any other kind (arithmetic, lossless,
-    hierarchical, 12-bit), a
+def parse(data: bytes, tables: bytes = b"", blocks: bool = True) -> Frame:
+    """The frame, tables and scans of a JPEG of 8-bit samples: baseline or
+    extended sequential (SOF0, SOF1) of one scan or several, progressive
+    (SOF2), arithmetic-coded sequential or progressive (SOF9, SOF10, with
+    the DAC segments' conditioning), or lossless (SOF3, Huffman); gray,
+    YCbCr, RGB-coded, CMYK or YCCK at any sampling libjpeg accepts
+    (``ValueError`` on another; a lossless frame's components all at 1x1,
+    in a colour space it needs no conversion from).  Raises
+    ``UnsupportedImageError`` naming any other kind (a lossless one of
+    subsampled components; its subclass ``RefusedByPillowError`` where
+    Pillow refuses the kind too: hierarchical, arithmetic-coded lossless,
+    12-bit, lossless YCbCr or YCCK), a
     progression libjpeg decodes with a warning, a progressive file whose
     scans leave one of the low coefficients libjpeg-turbo's block smoothing
     checks unsent or unrefined, a component no scan codes, or a corrupt
@@ -666,7 +743,15 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
     ``tables``, where given, is an abbreviated table stream (SOI, DQT and
     DHT segments, EOI), as a JPEG-compressed TIFF's ``JPEGTables`` field
     holds: libjpeg loads its tables before it reads ``data``, an
-    abbreviated image stream, which may redefine them."""
+    abbreviated image stream, which may redefine them.
+
+    ``blocks``: the stream is a file that Pillow hands libjpeg in blocks
+    of ``PILLOW_BLOCK`` bytes, as its JPEG reader does (libtiff hands it a
+    whole strip).  libjpeg's marker reader waits for the next block where
+    a segment runs past the last, but its arithmetic decoder cannot wait:
+    an arithmetic-coded scan whose bytes, with the marker after them, run
+    past the blocks its segments were read from makes Pillow raise, and
+    raises ``RefusedByPillowError`` naming it here."""
     if data[:3] != b"\xff\xd8\xff":
         raise ValueError("not a JPEG stream (no SOI marker and marker after it)")
     if tables:
@@ -677,12 +762,14 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], Table] = {}
     frame, restart, jfif, adobe = None, 0, False, None
+    dac = [list(_DAC_DEFAULT) for _ in range(_ARITH_TABLES)]
     scans: List[Scan] = []
     quant: Dict[int, np.ndarray] = {}
     progression: List[List[int]] = []  # per component, each coefficient's Al (-1: unsent)
     bogus = None
     eoi = False
     pos = 2
+    held = PILLOW_BLOCK if blocks else len(data) + 2  # the bytes libjpeg has been handed
     while True:
         if pos + 2 > len(data):
             if scans:
@@ -716,6 +803,7 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
                 break
             raise ValueError(f"JPEG marker 0x{code:02X} is truncated")
         pos += 2 + length
+        held = max(held, -(-pos // PILLOW_BLOCK) * PILLOW_BLOCK)
         if code == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
         elif code == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
@@ -743,16 +831,30 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
                 i += 17 + n
         elif code == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
+        elif code == 0xCC:  # DAC: (class << 4 | table, value) pairs
+            for i in range(0, len(body) - 1, 2):
+                index, value = body[i], body[i + 1]
+                if index >= 2 * _ARITH_TABLES:
+                    raise ValueError(f"JPEG DAC segment defines table {index}")
+                if index >= _ARITH_TABLES:
+                    dac[index - _ARITH_TABLES][2] = value
+                elif value & 15 > value >> 4:
+                    raise ValueError(f"JPEG DAC segment: DC bounds L {value & 15} > U "
+                                     f"{value >> 4}")
+                else:
+                    dac[index][:2] = [value & 15, value >> 4]
         elif code in _FRAME_KINDS:
-            raise UnsupportedImageError(f"{_FRAME_KINDS[code]} JPEGs are not supported: frame "
-                                        f"type 0x{code:02X} is not baseline")
-        elif code in (0xC0, 0xC1, 0xC2):
+            raise RefusedByPillowError(f"{_FRAME_KINDS[code]} JPEGs are not supported: frame "
+                                       f"type 0x{code:02X}, which libjpeg-turbo and Pillow "
+                                       "refuse too")
+        elif code in _FRAMES:
             if frame is not None:
                 raise ValueError("JPEG stream has two frames")
             precision, h, w, ncomp = struct.unpack(">BHHB", body[:6])
             comps = [tuple(body[6 + 3 * k:9 + 3 * k]) for k in range(ncomp)]
             if precision != 8:
-                raise UnsupportedImageError(f"{precision}-bit JPEGs are not supported (8-bit only)")
+                raise RefusedByPillowError(f"{precision}-bit JPEGs are not supported (8-bit only, "
+                                           "as Pillow)")
             if ncomp not in (1, 3, 4) or len(comps[-1]) != 3:
                 raise UnsupportedImageError(f"{ncomp}-component JPEGs are not supported")
             if h == 0 or w == 0:
@@ -762,15 +864,26 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
             _check_sampling(sampling)
             if ncomp == 1:
                 sampling = [(1, 1)]  # one component: one block an MCU
-            frame = Frame(h, w, sampling, [], "", code == 0xC2, scans)
+            progressive, arithmetic, lossless = _FRAMES[code]
+            if lossless and any(sm != (1, 1) for sm in sampling):
+                raise UnsupportedImageError(f"lossless JPEGs of subsampled components "
+                                            f"({['%dx%d' % sm for sm in sampling]}) are not "
+                                            "supported")
+            frame = Frame(h, w, sampling, [], "", progressive, scans, arithmetic=arithmetic,
+                          lossless=lossless)
             ids, qsel = [c[0] for c in comps], [c[2] for c in comps]
             progression = [[-1] * 64 for _ in comps]
         elif code == 0xDA:
             if frame is None:
-                raise ValueError("JPEG stream has no SOF0, SOF1 or SOF2 frame before its scan")
+                raise ValueError("JPEG stream has no frame (SOF0-3, SOF9, SOF10) before its scan")
             if not scans:
-                frame.colour = _colour(ids, jfif, adobe)
+                frame.colour = _colour(ids, jfif, adobe, frame.lossless)
                 frame.mode = {"gray": "L", "ycc": "RGB", "rgb": "RGB"}.get(frame.colour, "CMYK")
+                if frame.lossless and frame.colour in ("ycc", "ycck"):
+                    raise RefusedByPillowError(
+                        f"lossless JPEGs in {'YCbCr' if frame.colour == 'ycc' else 'YCCK'} are "
+                        "not supported: libjpeg-turbo converts no lossless frame's colour, and "
+                        "Pillow raises too")
             n = body[0] if body else 0
             if not 1 <= n <= len(ids) or len(body) != 4 + 2 * n:
                 raise ValueError(f"JPEG scan header of {len(body)} bytes codes {n} components")
@@ -786,36 +899,59 @@ def parse(data: bytes, tables: bytes = b"") -> Frame:
                 raise ValueError(f"JPEG scan of more than {_MAX_BLOCKS_IN_MCU} blocks an MCU")
             ss, se, ah, al = body[1 + 2 * n], body[2 + 2 * n], body[3 + 2 * n] >> 4, \
                 body[3 + 2 * n] & 15
-            problem = _scan_problem(frame.progressive, n, ss, se, ah, al)
+            if frame.lossless:
+                if not 1 <= ss <= 7 or se or ah or al > 7:
+                    raise ValueError(f"JPEG lossless scan is invalid: predictor {ss}, Se {se}, "
+                                     f"Ah {ah}, point transform {al}")
+                if restart % frame.width:
+                    raise ValueError(f"JPEG lossless restart interval of {restart} samples is "
+                                     f"not whole rows of {frame.width}")
+            problem = None if frame.lossless else _scan_problem(frame.progressive, n, ss, se,
+                                                                 ah, al)
             if problem:
                 raise ValueError(f"JPEG progression is invalid: a scan of {problem}")
-            if not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
+            if not frame.progressive and not frame.lossless and (ss, se, ah, al) != (0, 63, 0, 0):
                 bogus = bogus or f"a sequential scan of band {ss}..{se}, bits {ah}, {al}"
-            for k in members:
+            for k in members if not frame.lossless else ():
                 bits = progression[k]
                 if ss > 0 and bits[0] < 0:
                     bogus = bogus or f"AC before DC in component {k}"
                 if any(max(b, 0) != ah for b in bits[ss:se + 1]):
                     bogus = bogus or f"bits {ah}, {al} over {ss}..{se} in component {k}"
                 bits[ss:se + 1] = [al] * (se - ss + 1)
+            dc, ac, conditioning = [None] * n, [None] * n, []
             try:
                 for k in members:
-                    quant.setdefault(k, qt[qsel[k]])
-                dc = [_check_table(huff[(0, t >> 4)], True)
-                      if ss == 0 and (ah == 0 or not frame.progressive) else None for _, t in sel]
-                ac = [_check_table(huff[(1, t & 15)], False)
-                      if se > 0 else None for _, t in sel]
+                    quant.setdefault(k, np.zeros(64, np.int64) if frame.lossless
+                                     else qt[qsel[k]])
+                if frame.arithmetic:
+                    conditioning = [(t >> 4, t & 15, *dac[t >> 4][:2], dac[t & 15][2])
+                                    for _, t in sel]
+                elif frame.lossless:
+                    dc = [_check_table(huff[(0, t >> 4)], True, largest=16) for _, t in sel]
+                else:
+                    dc = [_check_table(huff[(0, t >> 4)], True)
+                          if ss == 0 and (ah == 0 or not frame.progressive) else None
+                          for _, t in sel]
+                    ac = [_check_table(huff[(1, t & 15)], False)
+                          if se > 0 else None for _, t in sel]
             except KeyError as e:
                 raise ValueError(f"JPEG scan uses a table the stream does not define: {e}") \
                     from None
             end = _scan_end(data, pos)
-            scan = Scan(members, ss, se, ah, al, dc, ac, restart, data[pos:end], end < len(data))
+            if frame.arithmetic and end < len(data) and end + 2 > held:
+                raise RefusedByPillowError(
+                    f"arithmetic-coded JPEGs whose scan runs past byte {held} are not "
+                    f"supported: Pillow hands libjpeg {PILLOW_BLOCK}-byte blocks, whose "
+                    "arithmetic decoder cannot wait for the next, and Pillow raises")
+            scan = Scan(members, ss, se, ah, al, dc, ac, restart, data[pos:end], end < len(data),
+                        conditioning)
             scans.append(scan)
             if restart and scan.ended:
                 _check_restarts(scan.coded, -(-_units(frame, scan) // restart) - 1)
             pos = end
             if len(scans) == 1 and n == len(ids) and not frame.progressive:
-                # one interleaved scan: libjpeg decodes it in one pass, then
+                # one interleaved scan (sequential or lossless): libjpeg decodes it in one pass, then
                 # reads the markers after it to EOI
                 if scan.ended:
                     _check_trailer(data, end)
@@ -947,7 +1083,10 @@ def decode_frame(f: Frame) -> np.ndarray:
     """``decode`` of a parsed stream."""
     hmax, vmax, _, _ = _geometry(f)
     planes = []
-    for k, zz in enumerate(_coefficients(f)):
+    for k, zz in enumerate(_lossless_planes(f) if f.lossless else _coefficients(f)):
+        if f.lossless:
+            planes.append(zz)
+            continue
         hs, vs = f.sampling[k]
         nat = np.zeros_like(zz)
         nat[..., ZIGZAG] = zz * f.quant[k][ZIGZAG]
@@ -1010,8 +1149,39 @@ def _coefficients(f: Frame) -> List[np.ndarray]:
     shapes = [(mcuy * vs, mcux * hs) for hs, vs in f.sampling]
     coefs = [[0] * (64 * a * b) for a, b in shapes]
     for scan in f.scans:
-        _decode_scan(f, scan, coefs, shapes)
+        (_decode_arith_scan if f.arithmetic else _decode_scan)(f, scan, coefs, shapes)
     return [np.array(c, np.int64).reshape(*shape, 64) for c, shape in zip(coefs, shapes)]
+
+
+def _unit_blocks(f: Frame, scan: Scan, shapes):
+    """The function of a unit's index that gives its blocks: (slot in the
+    scan, component, offset of the block's 64 in that component's
+    coefficients) per block, an MCU's each component's hs x vs blocks in
+    raster order, or the one block of a scan of one component, over that
+    component's own grid."""
+    _, _, mcux, _ = _geometry(f)
+    if len(scan.comps) == 1:
+        k = scan.comps[0]
+        gw, bw = _grid(f, k)[1], shapes[k][1]
+        return lambda u: ((0, k, 64 * ((u // gw) * bw + u % gw)),)
+    plan = [(j, k, v, u) for j, k in enumerate(scan.comps)
+            for v in range(f.sampling[k][1]) for u in range(f.sampling[k][0])]
+
+    def blocks(m):
+        my, mx = divmod(m, mcux)
+        return [(j, k, 64 * ((my * f.sampling[k][1] + v) * shapes[k][1]
+                             + mx * f.sampling[k][0] + u)) for j, k, v, u in plan]
+    return blocks
+
+
+def _scan_pass(f: Frame, scan: Scan) -> str:
+    """What a DCT scan codes: sequential blocks, or a progressive scan's DC
+    first or refine, AC first or refine."""
+    if not f.progressive:
+        return "sequential"
+    if scan.ss == 0:
+        return "dc refine" if scan.ah else "dc first"
+    return "ac refine" if scan.ah else "ac first"
 
 
 def _decode_scan(f: Frame, scan: Scan, coefs: List[List[int]], shapes) -> None:
@@ -1022,26 +1192,9 @@ def _decode_scan(f: Frame, scan: Scan, coefs: List[List[int]], shapes) -> None:
     order; or one block of the scan's one component, over that
     component's own grid) every block; the DC predictors and the
     end-of-band run start at 0 in each restart interval."""
-    _, _, mcux, _ = _geometry(f)
     n_units = _units(f, scan)
-    if len(scan.comps) == 1:
-        k = scan.comps[0]
-        gw, bw = _grid(f, k)[1], shapes[k][1]
-        blocks = lambda u: ((0, k, 64 * ((u // gw) * bw + u % gw)),)  # noqa: E731
-    else:
-        plan = [(j, k, v, u) for j, k in enumerate(scan.comps)
-                for v in range(f.sampling[k][1]) for u in range(f.sampling[k][0])]
-
-        def blocks(m):
-            my, mx = divmod(m, mcux)
-            return [(j, k, 64 * ((my * f.sampling[k][1] + v) * shapes[k][1]
-                                 + mx * f.sampling[k][0] + u)) for j, k, v, u in plan]
-    if not f.progressive:
-        kind = "sequential"
-    elif scan.ss == 0:
-        kind = "dc refine" if scan.ah else "dc first"
-    else:
-        kind = "ac refine" if scan.ah else "ac first"
+    blocks = _unit_blocks(f, scan, shapes)
+    kind = _scan_pass(f, scan)
     ss, se, al = scan.ss, scan.se, scan.al
     p1, m1 = 1 << al, -1 << al
     per_interval = scan.restart or n_units
@@ -1166,12 +1319,277 @@ def _decode_scan(f: Frame, scan: Scan, coefs: List[List[int]], shapes) -> None:
                     raise _scan_fault(scan, "ends early")
 
 
+class _QMDecoder:
+    """``jdarith.c``'s arithmetic decoder over one restart interval's bytes
+    (byte stuffing undone): registers C and A, and the bit counter that
+    starts at -16 so that the first decision reads two bytes; zeros past
+    the bytes' end, as libjpeg supplies at a marker."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def decode(self, stats: bytearray, i: int) -> int:
+        """One decision in bin ``i`` of ``stats`` (the MPS in bit 7 of a
+        byte, the state below it), which it updates (D.2.4 to D.2.6)."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (self.data[self.pos] if self.pos < len(self.data) else 0)
+                self.pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = stats[i]
+        qe, lps, mps, switch = QE_TABLE[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                stats[i] = (sv & 0x80) | mps
+            else:
+                stats[i] = (sv & 0x80) ^ (switch << 7) | lps
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ (switch << 7) | lps
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) | mps
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _unstuffed(interval: bytes) -> bytes:
+    """A restart interval's bytes with each 0xFF (after any fill 0xFFs) and
+    its stuffed 0x00 read as one 0xFF."""
+    return re.sub(b"\xff+\x00", b"\xff", interval)
+
+
+def _arith_magnitude(dec: _QMDecoder, stats: bytearray, st: int, x1: int, ac: bool) -> int:
+    """Figures F.23 and F.24: a nonzero value's magnitude less one, its
+    category from bin ``st`` (an AC value's first two from it, then from
+    ``x1``; a DC value's first from it, then from ``x1``), its bits from
+    the category's bin + 14.  Raises past 15 bits."""
+    m = dec.decode(stats, st)
+    if m and (not ac or dec.decode(stats, st)):
+        m <<= int(ac)
+        st = x1
+        while dec.decode(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("magnitude overflow")
+            st += 1
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if dec.decode(stats, st):
+            v |= m
+        m >>= 1
+    return v
+
+
+def _decode_arith_scan(f: Frame, scan: Scan, coefs: List[List[int]], shapes) -> None:
+    """Decode one arithmetic-coded scan into ``coefs``, as ``jdarith.c``
+    does: sequential blocks (``decode_mcu``), or a progressive scan's DC
+    first, DC refine (one fixed-estimate bit a block), AC first or AC
+    refine; statistics per conditioning table (shared by the components
+    that name it), DC predictors and contexts per component, all reset at
+    each restart interval.  A decision past the band or a magnitude past
+    15 bits (libjpeg's ``JWRN_ARITH_BAD_CODE``) raises."""
+    n_units = _units(f, scan)
+    blocks = _unit_blocks(f, scan, shapes)
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    kind = _scan_pass(f, scan)
+    p1, m1 = 1 << al, -1 << al
+    per_interval = scan.restart or n_units
+    intervals = _restart_intervals(scan.coded)
+    if len(intervals) < -(-n_units // per_interval):
+        raise _scan_fault(scan, "no RST marker where a restart interval ends")
+    fixed = bytearray([FIXED_BIN])
+    for first in range(0, n_units, per_interval):
+        dec = _QMDecoder(_unstuffed(intervals[first // per_interval]))
+        dc_stats = {c[0]: bytearray(_DC_BINS) for c in scan.conditioning}
+        ac_stats = {c[1]: bytearray(_AC_BINS) for c in scan.conditioning}
+        pred, ctx = [0] * len(scan.comps), [0] * len(scan.comps)
+        try:
+            for unit in range(first, min(first + per_interval, n_units)):
+                for j, k, base in blocks(unit):
+                    blk = coefs[k]
+                    dtab, atab, lo, hi, kx = scan.conditioning[j]
+                    if kind in ("sequential", "dc first"):
+                        stats = dc_stats[dtab]
+                        st = ctx[j]
+                        if not dec.decode(stats, st):
+                            ctx[j] = 0
+                        else:
+                            sign = dec.decode(stats, st + 1)
+                            st += 2 + sign
+                            v = _arith_magnitude(dec, stats, st, _DC_X1, ac=False)
+                            cat = 1 << (v.bit_length() - 1) if v else 0
+                            if cat < (1 << lo) >> 1:
+                                ctx[j] = 0
+                            elif cat > (1 << hi) >> 1:
+                                ctx[j] = 12 + 4 * sign
+                            else:
+                                ctx[j] = 4 + 4 * sign
+                            pred[j] = (pred[j] + (-(v + 1) if sign else v + 1)) & 0xFFFF
+                        if kind == "dc first":
+                            blk[base] = _i16(pred[j] << al)
+                        else:
+                            blk[base:base + 64] = [0] * 64
+                            blk[base] = _i16(pred[j])
+                    if kind == "dc refine":
+                        if dec.decode(fixed, 0):
+                            blk[base] = _i16(blk[base] | p1)
+                    elif kind in ("sequential", "ac first"):
+                        stats = ac_stats[atab]
+                        k_ = 1 if kind == "sequential" else ss
+                        last = 63 if kind == "sequential" else se
+                        while k_ <= last:
+                            st = 3 * (k_ - 1)
+                            if dec.decode(stats, st):
+                                break  # end of block
+                            while not dec.decode(stats, st + 1):
+                                st += 3
+                                k_ += 1
+                                if k_ > last:
+                                    raise ValueError("spectral overflow")
+                            sign = dec.decode(fixed, 0)
+                            v = _arith_magnitude(dec, stats, st + 2,
+                                                 _AC_X_LOW if k_ <= kx else _AC_X_HIGH, ac=True)
+                            blk[base + k_] = _i16((-(v + 1) if sign else v + 1) << al)
+                            k_ += 1
+                    elif kind == "ac refine":
+                        stats = ac_stats[atab]
+                        kex = se
+                        while kex > 0 and not blk[base + kex]:
+                            kex -= 1
+                        k_ = ss
+                        while k_ <= se:
+                            st = 3 * (k_ - 1)
+                            if k_ > kex and dec.decode(stats, st):
+                                break  # end of band
+                            while True:
+                                c = blk[base + k_]
+                                if c:
+                                    if dec.decode(stats, st + 2):
+                                        blk[base + k_] = _i16(c + (m1 if c < 0 else p1))
+                                    break
+                                if dec.decode(stats, st + 1):
+                                    blk[base + k_] = _i16(m1 if dec.decode(fixed, 0) else p1)
+                                    break
+                                st += 3
+                                k_ += 1
+                                if k_ > se:
+                                    raise ValueError("spectral overflow")
+                            k_ += 1
+        except ValueError as e:
+            raise _corrupt_scan(f"arithmetic code error: {e}") from None
+
+
+def _lossless_planes(f: Frame) -> List[np.ndarray]:
+    """(H, W) uint8 samples of each component of a lossless frame, as
+    libjpeg-turbo's ``jdlhuff.c`` and ``jdlossls.c`` give them: per sample
+    (a scan's components in turn, each at 1x1) a Huffman-coded difference
+    (category 16: 32768, no bits), added modulo 2^16 to its prediction (the
+    first row of each restart interval: 2^(7 - Pt) at its start, then the
+    sample to the left; the first column: the sample above; else the
+    scan's predictor of Ra, Rb, Rc), shifted left by the point transform
+    Pt into 8 bits."""
+    h, w = f.height, f.width
+    planes = [np.zeros((h, w), np.uint8) for _ in f.sampling]
+    for scan in f.scans:
+        n = len(scan.comps)
+        intervals = _restart_intervals(scan.coded)
+        rows = (scan.restart // w) if scan.restart else h
+        if len(intervals) < -(-h // rows):
+            raise _scan_fault(scan, "no RST marker where a restart interval ends")
+        tabs = [_decode_tables(*t) for t in scan.dc]
+        initial = 1 << (7 - scan.al)
+        for y0 in range(0, h, rows):
+            win, nbits = _bit_windows(intervals[y0 // rows])
+            p = 0
+            count = min(rows, h - y0) * w * n
+            diffs = [0] * count
+            for i in range(count):
+                sym, length = tabs[i % n]
+                wnd = win[p]
+                s = sym[wnd]
+                if not length[wnd]:
+                    raise _scan_fault(scan, "bad difference code")
+                p += length[wnd]
+                if s == 16:
+                    diffs[i] = 32768
+                elif s:
+                    d = win[p] >> (16 - s)
+                    p += s
+                    diffs[i] = d if d >= 1 << (s - 1) else d - (1 << s) + 1
+                if p > nbits:
+                    raise _scan_fault(scan, "ends early")
+            for j, k in enumerate(scan.comps):
+                _undifference(planes[k], diffs[j::n], y0, min(rows, h - y0), scan.ss,
+                              initial, scan.al)
+    return planes
+
+
+def _undifference(plane: np.ndarray, diffs: List[int], y0: int, rows: int, predictor: int,
+                  initial: int, pt: int) -> None:
+    """Rows ``y0``.. of ``plane`` from their differences (raster order), a
+    restart interval: its first row from ``initial`` and the left
+    neighbour, the others by the predictor (``jdlossls.c``'s
+    ``UNDIFFERENCE_1D`` and ``_2D``)."""
+    w = plane.shape[1]
+    prev: List[int] = []
+    for r in range(rows):
+        d = diffs[r * w:(r + 1) * w]
+        row = [0] * w
+        if r == 0:
+            ra = (d[0] + initial) & 0xFFFF
+            row[0] = ra
+            for x in range(1, w):
+                ra = (d[x] + ra) & 0xFFFF
+                row[x] = ra
+        else:
+            rb = prev[0]
+            ra = (d[0] + rb) & 0xFFFF
+            row[0] = ra
+            for x in range(1, w):
+                rc, rb = rb, prev[x]
+                if predictor == 1:
+                    px = ra
+                elif predictor == 2:
+                    px = rb
+                elif predictor == 3:
+                    px = rc
+                elif predictor == 4:
+                    px = ra + rb - rc
+                elif predictor == 5:
+                    px = ra + ((rb - rc) >> 1)
+                elif predictor == 6:
+                    px = rb + ((ra - rc) >> 1)
+                else:
+                    px = (ra + rb) >> 1
+                ra = (d[x] + px) & 0xFFFF
+                row[x] = ra
+        prev = row
+        plane[y0 + r] = (np.array(row, np.int64) << pt) & 0xFF
+
+
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 # per scan: components, their indices (4), ss, se, ah, al, restart, the
-# offset and length of its coded bytes
-_SCAN_FIELDS = 12
+# offset and length of its coded bytes; per component slot (4) its
+# arithmetic conditioning (DC table, AC table, L, U, Kx)
+_SCAN_FIELDS = 12 + 4 * 5
 # per scan, per component slot (4): DC then AC counts (16) and symbols (256)
 _TABLE_BYTES = 16 + 256
 
@@ -1209,8 +1627,10 @@ def decode_frame_native(f: Frame) -> np.ndarray:
     offset = 0
     for i, scan in enumerate(f.scans):
         scans[i, :1 + len(scan.comps)] = [len(scan.comps), *scan.comps]
-        scans[i, 5:] = [scan.ss, scan.se, scan.ah, scan.al, scan.restart, offset,
-                        len(scan.coded)]
+        scans[i, 5:12] = [scan.ss, scan.se, scan.ah, scan.al, scan.restart, offset,
+                          len(scan.coded)]
+        for j, cond in enumerate(scan.conditioning):
+            scans[i, 12 + 5 * j:17 + 5 * j] = cond
         offset += len(scan.coded)
         for j in range(len(scan.comps)):
             for t, table in enumerate((scan.dc[j], scan.ac[j])):
@@ -1225,7 +1645,8 @@ def decode_frame_native(f: Frame) -> np.ndarray:
     fault = ctypes.c_int(-1)
     err = ctypes.create_string_buffer(256)
     rc = _native().icat_jpeg_decode(
-        f.width, f.height, n, COLOURS[f.colour], int(f.progressive),
+        f.width, f.height, n, COLOURS[f.colour],
+        4 if f.lossless else int(f.progressive) | int(f.arithmetic) << 1,
         _ptr(hs, ctypes.c_int32), _ptr(vs, ctypes.c_int32), _ptr(quant, ctypes.c_int32),
         len(f.scans), _ptr(scans, ctypes.c_int64), _ptr(tables, ctypes.c_uint8),
         _ptr(coded, ctypes.c_uint8), _ptr(out, ctypes.c_uint8), ctypes.byref(fault), err,

@@ -479,7 +479,7 @@ def parse(data: bytes) -> Tiff:
     if compression == 7 and 347 in tags:
         tables = tags[347][0] if isinstance(tags[347][0], bytes) else bytes(tags[347])
     if sampling is None:
-        sampling = tuple(jpeg.parse(chunks[0], tables).sampling[0])
+        sampling = tuple(jpeg.parse(chunks[0], tables, blocks=False).sampling[0])
     return Tiff(w, h, mode, raw, photometric, bps[0], spp,
                 1 if compression in (8, 32946, 34925, 50000) else compression, predictor, planar,
                 tiled, cw, ch, chunks, order == MM, colormap, _int(tags, 274, 1), tables, sampling,
@@ -545,7 +545,7 @@ def jpeg_frames(t: Tiff) -> List[jpeg.Frame]:
     for i, chunk in enumerate(t.chunks):
         y0 = i // (-(-t.width // t.chunk_w) if t.tiled else 1) * t.chunk_h
         rows = t.chunk_h if t.tiled else min(t.chunk_h, t.height - y0)
-        f = jpeg.parse(chunk, t.jpeg_tables)
+        f = jpeg.parse(chunk, t.jpeg_tables, blocks=False)
         for scan in f.scans:  # libtiff ends a cut strip with a fake EOI and a warning
             scan.ended = True
         if len(f.sampling) != ncomp:

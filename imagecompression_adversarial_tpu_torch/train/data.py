@@ -15,10 +15,11 @@ bitfield BMPs included.
 The decode threads run the decoders side by side (``ctypes`` drops the
 GIL during each call).  A broken file or one smaller than the crop is
 skipped, as the JAX loader skips a file PIL cannot open; an epoch that
-yields no batch raises, naming what was skipped.  A file that PIL reads
-and the port does not (an arithmetic-coded JPEG, a JPEG scan libjpeg
-decodes with a warning, ...) raises, naming the file: JAX's stream holds
-it, so skipping it would shift every later crop.
+yields no batch raises, naming what was skipped; so is a kind both refuse
+(a hierarchical JPEG, ...).  A file that PIL reads and the port does not
+(a lossless JPEG of subsampled components, a JPEG scan libjpeg decodes
+with a warning, ...) raises, naming the file: JAX's stream holds it, so
+skipping it would shift every later crop.
 
 Without a data folder, ``synthetic_batches`` gives a deterministic
 structured-noise stream.  Batches are (B, crop, crop, 3) float32 in [0, 1].
@@ -38,7 +39,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from ..io.errors import UnsupportedImageError
+from ..io.errors import RefusedByPillowError, UnsupportedImageError
 from ..io.image import read_pixels
 
 # the extensions the JAX package lists
@@ -59,6 +60,8 @@ def _load_crop(path: str, crop: int, rng: np.random.Generator):
     file that PIL reads and the port does not."""
     try:
         img = read_pixels(path)
+    except RefusedByPillowError:
+        return None, "refused by Pillow too"
     except UnsupportedImageError as e:
         raise UnsupportedImageError(
             f"{path}: {e}; the JAX loader reads it through PIL, so skipping it would shift "

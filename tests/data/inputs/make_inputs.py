@@ -899,14 +899,12 @@ def _write_scan(blocks, tables) -> bytes:
     return data.replace(b"\xff", b"\xff\x00")
 
 
-def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif: bool = True) -> bytes:
-    """A baseline JPEG of full-size (H, W) sample ``planes`` (already in
-    the colour space to code: YCbCr, RGB, YCCK, ...) at any sampling
-    factors (``sampling``: (h, v) per component): each plane box-averaged
-    to its component's size, quantized with ``io/jpeg.py``'s tables (the
-    luma table for the first component), coded in one interleaved scan
-    with the Annex K Huffman tables; with a JFIF marker or not, an Adobe
-    marker of transform ``adobe`` or none, and component ``ids``."""
+def jpeg_coefficients(planes, sampling, quality: int = 80):
+    """Per component the quantized blocks, (blocks down, blocks across, 64)
+    zigzag over its MCU-padded plane, of full-size (H, W) sample
+    ``planes`` at ``sampling`` ((h, v) per component): each plane
+    box-averaged to its component's size, quantized with ``io/jpeg.py``'s
+    tables (the luma table for the first component); and the tables."""
     from imagecompression_adversarial_tpu_torch.io import jpeg
 
     h, w = planes[0].shape
@@ -923,6 +921,36 @@ def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif:
         q = qt[0 if k == 0 else 1]
         coefs = jpeg.quantize(jpeg.fdct(jpeg._blocks(small) - 128), q)
         comps.append(coefs.reshape(*coefs.shape[:2], 64)[..., jpeg.ZIGZAG])
+    return comps, qt
+
+
+def _frame_head(jfif: bool, adobe, qt=()) -> list:
+    """SOI, the JFIF and Adobe markers asked for, and the DQT segments."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(jpeg._marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        out.append(jpeg._marker(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes((adobe,))))
+    for i, table in enumerate(qt):
+        out.append(jpeg._marker(0xDB, bytes([i]) + bytes(table[jpeg.ZIGZAG].astype(np.uint8))))
+    return out
+
+
+def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif: bool = True) -> bytes:
+    """A baseline JPEG of full-size (H, W) sample ``planes`` (already in
+    the colour space to code: YCbCr, RGB, YCCK, ...) at any sampling
+    factors (``sampling``: (h, v) per component), ``jpeg_coefficients``
+    coded in one interleaved scan with the Annex K Huffman tables; with a
+    JFIF marker or not, an Adobe marker of transform ``adobe`` or none,
+    and component ``ids``."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = planes[0].shape
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps, qt = jpeg_coefficients(planes, sampling, quality)
     blocks, tables = [], []
     for my in range(mcuy):
         for mx in range(mcux):
@@ -932,13 +960,7 @@ def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif:
                         blocks.append(comps[k][my * vs + v, mx * hs + u])
                         tables.append((k, 0 if k == 0 else 1))
     ids = ids or list(range(1, len(planes) + 1))
-    out = [b"\xff\xd8"]
-    if jfif:
-        out.append(jpeg._marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
-    if adobe is not None:
-        out.append(jpeg._marker(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes((adobe,))))
-    for i, table in enumerate(qt):
-        out.append(jpeg._marker(0xDB, bytes([i]) + bytes(table[jpeg.ZIGZAG].astype(np.uint8))))
+    out = _frame_head(jfif, adobe, qt)
     out.append(jpeg._marker(0xC0, struct.pack(">BHHB", 8, h, w, len(planes)) + b"".join(
         bytes((c, hs << 4 | vs, 0 if k == 0 else 1)) for k, (c, (hs, vs)) in enumerate(zip(ids, sampling)))))
     for tab_id in (0, 1):
@@ -950,6 +972,478 @@ def encode_jpeg(planes, sampling, quality: int = 80, ids=None, adobe=None, jfif:
     out.append(_write_scan(blocks, tables))
     out.append(b"\xff\xd9")
     return b"".join(out)
+
+
+class QMEncoder:
+    """jcarith.c's arithmetic encoder: ``encode`` codes one decision in a
+    statistics bin (a byte: the MPS in bit 7, the state below it; the
+    states of ``io/jpeg.py``'s ``QE_TABLE``) and ``finish`` ends a scan or
+    a restart interval (section D.1.8); the coded bytes, 0xFF bytes
+    stuffed, collect in ``out``."""
+
+    def __init__(self):
+        from imagecompression_adversarial_tpu_torch.io import jpeg
+
+        self.table = jpeg.QE_TABLE
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit_stacked(self, byte: int):
+        """Pending zero bytes, then ``byte`` (stuffed where 0xFF)."""
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _carry(self):
+        if self.buffer >= 0:
+            self._emit_stacked(self.buffer + 1)
+        self.zc += self.sc  # a carry turns the stacked 0xFF bytes into 0x00
+        self.sc = 0
+
+    def _no_carry(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._emit_stacked(self.buffer)
+        if self.sc:
+            self.out += b"\x00" * self.zc
+            self.zc = 0
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def encode(self, stats: bytearray, i: int, val: int):
+        sv = stats[i]
+        qe, nl, nm, switch = self.table[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:  # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ (nl | switch << 7)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nm
+        while True:  # renormalization and output (D.1.6)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._no_carry()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._no_carry()
+        if self.c & 0x7FFF800:
+            self.out += b"\x00" * self.zc
+            self.zc = 0
+            for shift, mask in ((19, 0x7FFF800), (11, 0x7F800)):
+                if self.c & mask:
+                    byte = (self.c >> shift) & 0xFF
+                    self.out.append(byte)
+                    if byte == 0xFF:
+                        self.out.append(0)
+        self.reset()
+
+
+def _arith_value(enc: QMEncoder, stats: bytearray, st: int, v: int, x1: int, ac: bool):
+    """Figures F.8 and F.9: the magnitude category of ``v`` - 1 (> 0 here:
+    the caller has coded that v is nonzero) from bin ``st``, then its
+    bits; ``x1`` is the first bin of the categories past the first
+    (``ac``: past the first two, the first of which shares ``st``)."""
+    v -= 1
+    m = 0
+    if v:
+        enc.encode(stats, st, 1)
+        m = 1
+        v2 = v >> 1
+        if ac and v2:
+            enc.encode(stats, st, 1)
+            m <<= 1
+            v2 >>= 1
+            st = x1
+        elif not ac:
+            st = x1
+        while v2:
+            enc.encode(stats, st, 1)
+            m <<= 1
+            st += 1
+            v2 >>= 1
+    enc.encode(stats, st, 0)
+    st += 14
+    m >>= 1
+    while m:
+        enc.encode(stats, st, 1 if m & v else 0)
+        m >>= 1
+
+
+def _arith_dc(enc, stats, ctx: list, j: int, diff: int, lu):
+    """Figure F.4 (a DC difference) with section F.1.4.4.1.2's conditioning
+    of the next difference in ``ctx[j]``."""
+    st = ctx[j]
+    if diff == 0:
+        enc.encode(stats, st, 0)
+        ctx[j] = 0
+        return
+    enc.encode(stats, st, 1)
+    sign = diff < 0
+    enc.encode(stats, st + 1, int(sign))
+    mag = abs(diff)
+    m = max(mag - 1, 0).bit_length()  # the category's power of two, as a bit count
+    cat = (1 << (m - 1)) if m else 0
+    lo, hi = lu
+    if cat < (1 << lo) >> 1:
+        ctx[j] = 0
+    elif cat > (1 << hi) >> 1:
+        ctx[j] = 12 + 4 * sign
+    else:
+        ctx[j] = 4 + 4 * sign
+    _arith_value(enc, stats, st + 2 + sign, mag, 20, ac=False)
+
+
+def _arith_ac(enc, stats, fixed, zz, ss: int, se: int, al: int, k_limit: int):
+    """Figure F.5 over band ``ss``..``se`` of zigzag block ``zz``, each
+    value shifted right by ``al`` (towards zero)."""
+    vals = [(abs(int(v)) >> al) * (1 if v >= 0 else -1) for v in zz]
+    ke = se
+    while ke >= ss and not vals[ke]:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        enc.encode(stats, st, 0)
+        while not vals[k]:
+            enc.encode(stats, st + 1, 0)
+            st += 3
+            k += 1
+        enc.encode(stats, st + 1, 1)
+        enc.encode(fixed, 0, int(vals[k] < 0))
+        _arith_value(enc, stats, st + 2, abs(vals[k]), 189 if k <= k_limit else 217, ac=True)
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc, stats, fixed, zz, ss: int, se: int, ah: int, al: int):
+    """Figure G.10: bit ``al`` of each coefficient of band ``ss``..``se``
+    already nonzero above ``ah``, and the ones newly nonzero at ``al``."""
+    mag = [abs(int(v)) for v in zz]
+    ke = se
+    while ke >= ss and not mag[ke] >> al:
+        ke -= 1
+    kex = ke
+    while kex > 0 and not mag[kex] >> ah:
+        kex -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        if k > kex:
+            enc.encode(stats, st, 0)
+        while True:
+            v = mag[k] >> al
+            if v:
+                if v >> 1:
+                    enc.encode(stats, st + 2, v & 1)
+                else:
+                    enc.encode(stats, st + 1, 1)
+                    enc.encode(fixed, 0, int(zz[k] < 0))
+                break
+            enc.encode(stats, st + 1, 0)
+            st += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)
+
+
+# libjpeg's jpeg_simple_progression for three components (YCbCr) and one:
+# (components, Ss, Se, Ah, Al)
+PROGRESSION_3 = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                 ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                 ((0,), 1, 63, 1, 0))
+PROGRESSION_1 = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                 ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+# and a four-component one: DC of all, then each component's AC in two
+# bands, refined once
+PROGRESSION_4 = ((((0, 1, 2, 3), 0, 0, 0, 1),)
+                 + tuple(((k,), 1, 9, 0, 1) for k in range(4))
+                 + tuple(((k,), 10, 63, 0, 0) for k in range(4))
+                 + (((0, 1, 2, 3), 0, 0, 1, 0),)
+                 + tuple(((k,), 1, 9, 1, 0) for k in range(4)))
+
+
+def encode_arith_jpeg(planes, sampling, quality: int = 80, script=None, restart: int = 0,
+                      conditioning=None, ids=None, adobe=None, jfif: bool = True) -> bytes:
+    """An arithmetic-coded JPEG (``jcarith.c``) of ``jpeg_coefficients``:
+    sequential (SOF9) in one interleaved scan, or progressive (SOF10) by
+    ``script``, ``PROGRESSION_3`` or ``PROGRESSION_1`` and the like, each
+    scan (components, Ss, Se, Ah, Al); the first component on conditioning
+    tables 0, the others on 1; a restart interval of ``restart`` units (0:
+    none); ``conditioning``, where given, a DAC segment's values: {(class,
+    table): value}, a DC value ``U << 4 | L``, an AC value ``Kx``."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = planes[0].shape
+    n = len(planes)
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps, qt = jpeg_coefficients(planes, sampling, quality)
+    ids = ids or list(range(1, n + 1))
+    dac = {(0, t): 0x10 for t in (0, 1)} | {(1, t): 5 for t in (0, 1)} | dict(conditioning or {})
+    out = _frame_head(jfif, adobe, qt)
+    if conditioning:
+        out.append(jpeg._marker(0xCC, b"".join(bytes((c << 4 | t, v))
+                                               for (c, t), v in sorted(conditioning.items()))))
+    progressive = script is not None
+    out.append(jpeg._marker(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, h, w, n) + b"".join(
+        bytes((c, hs << 4 | vs, 0 if k == 0 else 1)) for k, (c, (hs, vs)) in enumerate(zip(ids, sampling)))))
+    if restart:
+        out.append(jpeg._marker(0xDD, struct.pack(">H", restart)))
+    for members, ss, se, ah, al in script or ((tuple(range(n)), 0, 63, 0, 0),):
+        tab = [0 if k == 0 else 1 for k in members]
+        out.append(jpeg._marker(0xDA, bytes([len(members)]) + b"".join(
+            bytes((ids[k], t * 0x11)) for k, t in zip(members, tab)) + bytes((ss, se, ah << 4 | al))))
+        if len(members) > 1:
+            units = [[(j, comps[k][my * sampling[k][1] + v, mx * sampling[k][0] + u])
+                      for j, k in enumerate(members)
+                      for v in range(sampling[k][1]) for u in range(sampling[k][0])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        else:
+            k = members[0]
+            gh = -(-(-(-h * sampling[k][1] // vmax)) // 8)
+            gw = -(-(-(-w * sampling[k][0] // hmax)) // 8)
+            units = [[(0, comps[k][by, bx])] for by in range(gh) for bx in range(gw)]
+        enc = QMEncoder()
+        dc_on = not progressive or (ss == 0 and ah == 0)
+        ac_on = not progressive or se > 0
+        fixed = bytearray([jpeg.FIXED_BIN])
+        for u, unit in enumerate(units):
+            if u % (restart or len(units)) == 0:
+                if u:
+                    enc.finish()
+                    enc.out += bytes((0xFF, 0xD0 + (u // restart - 1) % 8))
+                dc_stats = {t: bytearray(64) for t in set(tab)}
+                ac_stats = {t: bytearray(256) for t in set(tab)}
+                pred, ctx = [0] * len(members), [0] * len(members)
+            for j, zz in unit:
+                t = tab[j]
+                if dc_on:
+                    dc = int(zz[0]) >> al
+                    _arith_dc(enc, dc_stats[t], ctx, j, dc - pred[j], (dac[(0, t)] & 15, dac[(0, t)] >> 4))
+                    pred[j] = dc
+                elif progressive and ss == 0:
+                    enc.encode(fixed, 0, (int(zz[0]) >> al) & 1)
+                if ac_on and progressive and ah:
+                    _arith_ac_refine(enc, ac_stats[t], fixed, zz, ss, se, ah, al)
+                elif ac_on:
+                    _arith_ac(enc, ac_stats[t], fixed, zz, max(ss, 1), se, al, dac[(1, t)])
+        enc.finish()
+        out.append(bytes(enc.out))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# a lossless difference table: categories 0 to 16, codes of 2 to 14 bits
+LOSSLESS_HUFFMAN = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0), bytes(range(17)))
+
+
+def lossless_predict(s: np.ndarray, predictor: int, initial: int, first_rows) -> np.ndarray:
+    """Each sample's prediction (ITU-T T.81 H.1.2.1) in a (h, w) plane of
+    point-transformed samples: ``initial`` at the start of each row of
+    ``first_rows`` (a restart interval's first), the sample to the left
+    along it; the one above in the first column; else predictor 1-7 of
+    Ra (left), Rb (above), Rc (above left)."""
+    s = s.astype(np.int64)
+    ra = np.pad(s, ((0, 0), (1, 0)))[:, :-1]
+    rb = np.pad(s, ((1, 0), (0, 0)))[:-1]
+    rc = np.pad(s, ((1, 0), (1, 0)))[:-1, :-1]
+    px = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+          6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    px[:, 0] = rb[:, 0]
+    for y in first_rows:
+        px[y] = ra[y]
+        px[y, 0] = initial
+    return px
+
+
+def encode_lossless_jpeg(planes, predictor: int, pt: int = 0, restart_rows: int = 0,
+                         interleaved: bool = True, ids=None, adobe=None,
+                         jfif: bool = False) -> bytes:
+    """A lossless JPEG (SOF3, Huffman, 8-bit samples) of (H, W) sample
+    ``planes`` at 1x1 sampling: predictor ``predictor`` (1-7), point
+    transform ``pt``, a restart interval of ``restart_rows`` rows (0:
+    none), its components in one scan or in one scan each."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = planes[0].shape
+    n = len(planes)
+    ids = ids or list(range(1, n + 1))
+    first_rows = range(0, h, restart_rows) if restart_rows else (0,)
+    diffs = []
+    for plane in planes:
+        s = np.asarray(plane, np.int64) >> pt
+        d = (s - lossless_predict(s, predictor, 1 << (8 - pt - 1), first_rows)) % 65536
+        diffs.append(np.where(d >= 32768, d - 65536, d))
+    codes = jpeg._huffman_codes(*LOSSLESS_HUFFMAN)
+    out = _frame_head(jfif, adobe)
+    out.append(jpeg._marker(0xC3, struct.pack(">BHHB", 8, h, w, n)
+                            + b"".join(bytes((c, 0x11, 0)) for c in ids)))
+    out.append(jpeg._marker(0xC4, b"\x00" + bytes(LOSSLESS_HUFFMAN[0]) + LOSSLESS_HUFFMAN[1]))
+    if restart_rows:
+        out.append(jpeg._marker(0xDD, struct.pack(">H", restart_rows * w)))
+    for members in ([list(range(n))] if interleaved else [[k] for k in range(n)]):
+        out.append(jpeg._marker(0xDA, bytes([len(members)]) + b"".join(
+            bytes((ids[k], 0)) for k in members) + bytes((predictor, 0, pt))))
+        rows = restart_rows or h
+        for y0 in range(0, h, rows):
+            bits = []
+            for v in np.stack([diffs[k][y0:y0 + rows] for k in members], -1).ravel().tolist():
+                s = 16 if v == -32768 else abs(v).bit_length()
+                code, length = codes[s]
+                bits.extend((code >> (length - 1 - i)) & 1 for i in range(length))
+                if 0 < s < 16:
+                    bits.extend(((v if v > 0 else v - 1) >> (s - 1 - i)) & 1 for i in range(s))
+            bits += [1] * (-len(bits) % 8)
+            out.append(np.packbits(np.array(bits, np.uint8)).tobytes().replace(b"\xff", b"\xff\x00"))
+            if y0 + rows < h:
+                out.append(bytes((0xFF, 0xD0 + (y0 // rows) % 8)))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def write_pnm(samples: np.ndarray, magic: bytes, maxval: int = 255, comments: bool = False) -> bytes:
+    """A Netpbm file of (h, w) or (h, w, 3) integer samples: ``P1``/``P4``
+    bits (1 black), ``P2``/``P5`` gray, ``P3``/``P6`` RGB at ``maxval``;
+    plain (``P1``-``P3``: decimal tokens, lines of at most 70 bytes) or raw
+    (``P4``: 8 pixels a byte, rows padded; ``P5``, ``P6``: a byte a sample
+    below maxval 256, two big-endian above); with ``comments``, ``#``
+    lines in the header (one between two of its tokens) and, in a plain
+    file, in the body."""
+    h, w = samples.shape[:2]
+    note = b"# written by make_inputs.py\n" if comments else b""
+    head = magic + b"\n" + note + b"%d" % w + (b" #x\n" if comments else b" ") + b"%d\n" % h
+    if magic not in (b"P1", b"P4"):
+        head += b"%d\n" % maxval
+    flat = np.asarray(samples, np.int64).reshape(h, -1)
+    if magic == b"P4":
+        return head + np.packbits(flat.astype(np.uint8), axis=1).tobytes()
+    if magic in (b"P5", b"P6"):
+        return head + flat.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    lines = []
+    for y, row in enumerate(flat.tolist()):
+        line = b""
+        for v in row:
+            token = b"%d" % v
+            if len(line) + len(token) + 1 > 70:
+                lines.append(line)
+                line = b""
+            line += (b" " if line and magic != b"P1" else b"") + token
+        lines.append(line + (b" # row %d" % y if comments and y % 7 == 3 else b""))
+    return head + b"\n".join(lines) + b"\n"
+
+
+def write_pfm(samples: np.ndarray, scale: float = -1.0) -> bytes:
+    """A gray PFM (``Pf``) of (h, w) float samples, rows bottom to top,
+    little-endian where ``scale`` is negative."""
+    h, w = samples.shape
+    order = "<" if scale < 0 else ">"
+    return (b"Pf\n%d %d\n%s\n" % (w, h, repr(scale).encode())
+            + np.ascontiguousarray(samples[::-1], order + "f4").tobytes())
+
+
+# the files of slice 20 (Netpbm, lossless and arithmetic-coded JPEGs), which
+# chip_smoke.py phase 26 decodes
+SLICE20_FILES = ("pnm_", "jpegx_", "textured_arith")
+
+
+def slice20_files() -> dict:
+    """name -> bytes of each Netpbm, lossless JPEG and arithmetic-coded JPEG
+    file (96x80 and 64x48; the arithmetic ones 262x270), and the 768x512
+    progressive arithmetic-coded JPEG of ``chip_smoke.py::textured_rgb``
+    (seed 5) that phase 26 times and attacks: q60, 62 kB, inside the one
+    65,536-byte block in which Pillow reads an arithmetic-coded file whole
+    (``io/jpeg.py::PILLOW_BLOCK``)."""
+    from imagecompression_adversarial_tpu_torch.io import jpeg
+
+    h, w = 80, 96
+    rgb = smooth(h, w, seed=71, noise=0.05)
+    gray = smooth(h, w, seed=72, channels=1, noise=0.05)[..., 0]
+    small_rgb = smooth(48, 64, seed=73, noise=0.05)
+    small_gray = smooth(48, 64, seed=74, channels=1, noise=0.05)[..., 0]
+    bits = bilevel(48, 64, seed=75) // 255
+    big = smooth(*SIZE, seed=76, noise=0.1).astype(np.uint8)
+    ycc = jpeg.rgb_to_ycbcr(big)
+    planes = [ycc[..., i] for i in range(3)]
+    sys.path.insert(0, ROOT)
+    from chip_smoke import textured_rgb
+
+    tex = jpeg.rgb_to_ycbcr(textured_rgb(*TEXTURED, seed=5))
+    sampling = [(2, 2), (1, 1), (1, 1)]
+    return {
+        "pnm_p1_plain.pbm": write_pnm(bits, b"P1", comments=True),
+        "pnm_p4_raw.pbm": write_pnm(bilevel(h, 90, seed=76) // 255, b"P4"),
+        "pnm_p2_plain.pgm": write_pnm(small_gray * 200 // 255, b"P2", 200, comments=True),
+        "pnm_p2_plain_16bit.pgm": write_pnm(small_gray * 1000 // 255, b"P2", 1000),
+        "pnm_p5_raw.pgm": write_pnm(gray, b"P5", comments=True),
+        "pnm_p5_16bit.pgm": write_pnm(wide(gray), b"P5", 65535),
+        "pnm_p5_12bit.pgm": write_pnm(gray * 16 + gray // 16, b"P5", 4095),
+        "pnm_p3_plain.ppm": write_pnm(small_rgb, b"P3", comments=True),
+        "pnm_p6_raw.ppm": write_pnm(rgb, b"P6"),
+        "pnm_p6_16bit.ppm": write_pnm(wide(rgb), b"P6", 65535, comments=True),
+        "pnm_p6_maxval1000.ppm": write_pnm(rgb * 1000 // 255 + (rgb > 250) * 24, b"P6", 1000),
+        "pnm_p6_maxval100.ppm": write_pnm(rgb * 100 // 255, b"P6", 100),
+        "pnm_pf_gray.pfm": write_pfm(gray.astype(np.float32) * 1.25 - 20.5),
+        "jpegx_lossless_p1_rgb.jpg": encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 1),
+        "jpegx_lossless_p2_gray_pt1.jpg": encode_lossless_jpeg([gray], 2, pt=1),
+        "jpegx_lossless_p3_scans.jpg": encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 3,
+                                                            interleaved=False),
+        "jpegx_lossless_p4_gray_rst.jpg": encode_lossless_jpeg([gray], 4, restart_rows=7),
+        "jpegx_lossless_p5_adobe_rgb.jpg": encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 5,
+                                                                adobe=0),
+        "jpegx_lossless_p6_pt2_ids.jpg": encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 6,
+                                                              pt=2, ids=[82, 71, 66]),
+        "jpegx_lossless_p7_rst_scans.jpg": encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 7,
+                                                                restart_rows=3, interleaved=False),
+        "jpegx_arith_420.jpg": encode_arith_jpeg(planes, sampling, 80),
+        "jpegx_arith_444_dac.jpg": encode_arith_jpeg(planes, [(1, 1)] * 3, 80, conditioning={
+            (0, 0): 0x52, (0, 1): 0x30, (1, 0): 12, (1, 1): 2}),
+        "jpegx_arith_gray_rst.jpg": encode_arith_jpeg(planes[:1], [(1, 1)], 85, restart=7),
+        "jpegx_arith_progressive_420_rst.jpg": encode_arith_jpeg(planes, sampling, 80,
+                                                                 script=PROGRESSION_3, restart=5),
+        "jpegx_arith_progressive_gray.jpg": encode_arith_jpeg(planes[:1], [(1, 1)], 90,
+                                                              script=PROGRESSION_1),
+        "jpegx_arith_progressive_422_cmyk.jpg": encode_arith_jpeg(
+            [*planes, smooth(*SIZE, seed=77, channels=1)[..., 0]], [(2, 1), (1, 1), (1, 1), (2, 1)],
+            75, script=PROGRESSION_4, adobe=0, jfif=False),
+        "textured_arith.jpg": encode_arith_jpeg([tex[..., i] for i in range(3)], sampling, 60,
+                                                script=PROGRESSION_3),
+    }
 
 
 def jpeg_files() -> dict:
@@ -1109,7 +1603,7 @@ def pillow_record(path: str) -> dict:
 def main() -> None:
     sys.path.insert(0, ROOT)
     files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files(),
-             **tail_files(), **codec_files()}
+             **tail_files(), **codec_files(), **slice20_files()}
     records = {}
     for name, data in files.items():
         path = os.path.join(HERE, name)

@@ -5,8 +5,9 @@ which reads every image through PIL, on the CPU:
   32-bit, top-down) and a gray PNG: the arrays and sizes of JAX's
   ``read_image``, exactly; palette, RLE, bitfield and 16-bit BMPs, an
   animated WebP, a GIF and a Group 4 TIFF, refused in earlier slices,
-  give Pillow's pixels or raise where Pillow does; what the readers do
-  not take raises naming it (an old-style JPEG TIFF, an arithmetic-coded
+  give Pillow's pixels or raise where Pillow does, as do an
+  arithmetic-coded JPEG and a Netpbm file since slice 20; what the readers
+  do not take raises naming it (an old-style JPEG TIFF, a hierarchical
   JPEG), a file of no known format a plain ``ValueError``;
 * ``cli.attack_rd -s x.jpg`` (hyper q1 demo weights, 64x64, 5 steps)
   against JAX's CLI on the same file, at the bounds of the PNG CLI tests
@@ -23,6 +24,7 @@ which reads every image through PIL, on the CPU:
 """
 
 import importlib
+import importlib.util
 import io
 import os
 import re
@@ -38,11 +40,17 @@ from imagecompression_adversarial_tpu.io.image import read_image as j_read_image
 from imagecompression_adversarial_tpu.train import data as j_data
 from imagecompression_adversarial_tpu_torch.cli import classifier_train
 from imagecompression_adversarial_tpu_torch.config import apply_precision, parse_config
+from imagecompression_adversarial_tpu_torch.io import jpeg
 from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
 from imagecompression_adversarial_tpu_torch.io.image import read_image, read_pixels
 from imagecompression_adversarial_tpu_torch.train import data
 from test_torch_cli_attacks import FLAGS, J_EXTRA, _cli, _same_report
 from torch_parity import image, one_torch_thread  # noqa: F401  (an autouse fixture)
+
+INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inputs")
+_spec = importlib.util.spec_from_file_location("make_inputs", os.path.join(INPUTS, "make_inputs.py"))
+make_inputs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make_inputs)
 
 
 def _pixels(h, w, seed):
@@ -142,15 +150,21 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
     buf2 = io.BytesIO()
     Image.fromarray(rgb).save(buf2, format="JPEG")
     jpg = bytearray(buf2.getvalue())
-    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC9
+    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC5
     named = {"old-style JPEG TIFFs": old_jpeg,
-             "arithmetic-coded sequential JPEGs": bytes(jpg)}
+             "hierarchical sequential JPEGs": bytes(jpg)}
     for match, content in named.items():
         path.write_bytes(content)
         with pytest.raises(UnsupportedImageError, match=re.escape(match)):
             read_pixels(str(path))
-    path.write_bytes(b"P6\n8 8\n255\n" + rgb.tobytes())
-    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, TIFF, GIF or BMP") as e:
+    arith = make_inputs.encode_arith_jpeg(list(np.moveaxis(jpeg.rgb_to_ycbcr(rgb), -1, 0)),
+                                          [(2, 2), (1, 1), (1, 1)], 75)
+    for content in (arith, b"P6\n8 8\n255\n" + rgb.tobytes()):  # read since slice 20
+        path.write_bytes(content)
+        with Image.open(io.BytesIO(content)) as im:
+            np.testing.assert_array_equal(read_pixels(str(path)), np.asarray(im.convert("RGB")))
+    path.write_bytes(b"XYZW" + rgb.tobytes())
+    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm") as e:
         read_pixels(str(path))
     assert not isinstance(e.value, UnsupportedImageError)
 

@@ -13,8 +13,11 @@ since slice 16, on the CPU, against Pillow 12.1.0 and the JAX package:
   the mode (``P``, ``1``, ``LA``, ``I;16``, ``CMYK``) elsewhere;
 * a folder of every kind: JAX's ``image_folder_batches`` element for
   element over two epochs at the same seed, then again with a lossy, a
-  lossless and an RGBA WebP in it, and an animated one (since slice 18);
-  an arithmetic-coded JPEG in it raises, naming itself;
+  lossless and an RGBA WebP in it, an animated one (since slice 18), and
+  an arithmetic-coded and a lossless JPEG (since slice 20), and a
+  hierarchical JPEG, which Pillow refuses and both streams skip; a
+  lossless JPEG of subsampled components, which Pillow reads, raises,
+  naming itself;
 * the classifier's labeled folder of progressive JPEGs and palette PNGs:
   JAX's batches;
 * a progressive file whose last scans are gone (Pillow smooths its
@@ -239,7 +242,7 @@ def test_a_folder_of_every_kind_streams_as_jax(tmp_path):
     assert len(ours) == len(theirs) == 14  # 21 files an epoch
     for got, want in zip(ours, theirs):
         np.testing.assert_array_equal(got, want)
-    # since slice 18 an animated WebP joins it too; an arithmetic-coded JPEG raises
+    # since slice 18 an animated WebP joins it too
     frames = [Image.fromarray(_rgb(40, 40, s)) for s in (12, 13)]
     frames[0].save(tmp_path / "a" / "z.webp", save_all=True, append_images=frames[1:])
     ours = list(data.image_folder_batches(str(tmp_path), 3, **kw))
@@ -247,11 +250,32 @@ def test_a_folder_of_every_kind_streams_as_jax(tmp_path):
     assert len(ours) == len(theirs) == 14  # 22 files an epoch
     for got, want in zip(ours, theirs):
         np.testing.assert_array_equal(got, want)
-    arith = bytearray(jpeg.encode(_rgb(40, 40, 14), 75))
-    arith[arith.index(b"\xff\xc0") + 1] = 0xC9
-    (tmp_path / "a" / "y.jpg").write_bytes(bytes(arith))
-    with pytest.raises(UnsupportedImageError, match=r"y\.jpg: arithmetic-coded sequential JPEGs "
-                                                    r"are not supported"):
+    # since slice 20 a progressive arithmetic-coded and a lossless JPEG join it
+    ycc = jpeg.rgb_to_ycbcr(_rgb(40, 44, 14))
+    (tmp_path / "a" / "x.jpg").write_bytes(make_inputs.encode_arith_jpeg(
+        list(np.moveaxis(ycc, -1, 0)), [(2, 2), (1, 1), (1, 1)], 80,
+        script=make_inputs.PROGRESSION_3, restart=3))
+    (tmp_path / "b" / "x.jpg").write_bytes(make_inputs.encode_lossless_jpeg(
+        list(np.moveaxis(_rgb(36, 40, 15), -1, 0)), 6, restart_rows=4))
+    # a hierarchical JPEG, which Pillow refuses: both streams skip it
+    hierarchical = bytearray(jpeg.encode(_rgb(40, 40, 16), 75))
+    hierarchical[hierarchical.index(b"\xff\xc0") + 1] = 0xC5
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(bytes(hierarchical))).load()
+    (tmp_path / "a" / "w.jpg").write_bytes(bytes(hierarchical))
+    ours = list(data.image_folder_batches(str(tmp_path), 3, **kw))
+    theirs = list(j_data.image_folder_batches(str(tmp_path), 3, **kw))
+    assert len(ours) == len(theirs) == 16  # 24 files read an epoch
+    for got, want in zip(ours, theirs):
+        np.testing.assert_array_equal(got, want)
+    # a lossless JPEG of 2x2 luma, which Pillow reads and the port does not, raises
+    subsampled = bytearray(make_inputs.encode_lossless_jpeg(
+        list(np.moveaxis(_rgb(40, 40, 16), -1, 0)), 1))
+    subsampled[subsampled.index(b"\xff\xc3") + 11] = 0x22
+    Image.open(io.BytesIO(bytes(subsampled))).load()
+    (tmp_path / "a" / "y.jpg").write_bytes(bytes(subsampled))
+    with pytest.raises(UnsupportedImageError, match=r"y\.jpg: lossless JPEGs of subsampled "
+                                                    r"components .* are not supported"):
         list(data.image_folder_batches(str(tmp_path), 3, **kw))
 
 

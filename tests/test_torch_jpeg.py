@@ -57,15 +57,16 @@ def test_encode_equals_pillow_bytes_and_decode_its_pixels(quality, h, w, noisy):
 
 
 def test_decode_rejects_what_it_does_not_read():
-    """A lossless frame (SOF3) is refused; a progressive file, refused up
-    to slice 15, decodes to Pillow's pixels."""
+    """A hierarchical frame (SOF5) is refused, as Pillow refuses it (a
+    lossless one, refused up to slice 19, is read since); a progressive
+    file, refused up to slice 15, decodes to Pillow's pixels."""
     rgb = _image(32, 32, seed=1)
     progressive, want = _pillow(rgb, 75, progressive=True)
     np.testing.assert_array_equal(jpeg.decode(progressive), want)
     baseline, _ = _pillow(rgb, 75)
     sof = baseline.index(b"\xff\xc0")
-    with pytest.raises(ValueError, match="not baseline"):
-        jpeg.decode(baseline[:sof + 1] + b"\xc3" + baseline[sof + 2:])
+    with pytest.raises(ValueError, match="hierarchical sequential JPEGs are not supported"):
+        jpeg.decode(baseline[:sof + 1] + b"\xc5" + baseline[sof + 2:])
     with pytest.raises(ValueError, match="SOI"):
         jpeg.decode(b"\x89PNG")
     with pytest.raises(ValueError):

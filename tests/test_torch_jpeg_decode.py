@@ -9,9 +9,17 @@ gray; restart intervals (``restart_marker_blocks``,
 Pillow's ``convert("RGB")`` (``read_image`` refuses CMYK, naming Pillow's
 mode), and since slice 18 so do YCCK and Adobe RGB-coded files (made by
 patching a CMYK or baseline file's markers) and 4:4:0 ones (written by
-``make_inputs.encode_jpeg``).  What neither decoder reads raises
-``UnsupportedImageError`` naming it: arithmetic-coded, lossless and 12-bit
-files (patched markers), and a corrupt scan that Pillow
+``make_inputs.encode_jpeg``).  Since slice 20 so do arithmetic-coded
+files, sequential and progressive (``make_inputs.encode_arith_jpeg``,
+``jcarith.c``'s coder: every sampling, restart intervals, DAC
+conditioning, gray and CMYK), and lossless ones
+(``make_inputs.encode_lossless_jpeg``: predictors 1-7, point transforms,
+restart intervals, one scan or one a component, gray and RGB).  What
+neither decoder reads raises ``UnsupportedImageError`` naming it, and
+Pillow raises on each too: 12-bit, hierarchical and arithmetic-coded
+lossless files (patched markers), a lossless YCbCr file, an
+arithmetic-coded scan that runs past Pillow's 65,536-byte read block; and
+a corrupt scan that Pillow
 decodes with libjpeg's warning (a bad Huffman code, a lost or misnumbered
 RSTn, a scan cut short before EOI).  Extraneous bytes before a marker are
 skipped, giving Pillow's pixels.  A broken stream, or one cut inside its
@@ -21,6 +29,7 @@ libjpeg's buffering; a decoder that cannot be built raises, and nothing
 falls back to the numpy loop.
 """
 
+import functools
 import importlib.util
 import io
 import os
@@ -31,7 +40,8 @@ import pytest
 from PIL import Image
 
 from imagecompression_adversarial_tpu_torch.io import jpeg
-from imagecompression_adversarial_tpu_torch.io.errors import UnsupportedImageError
+from imagecompression_adversarial_tpu_torch.io.errors import (RefusedByPillowError,
+                                                              UnsupportedImageError)
 from imagecompression_adversarial_tpu_torch.io.image import read_image, read_pixels
 from imagecompression_adversarial_tpu_torch.kernels import _build
 
@@ -104,6 +114,7 @@ def _patched(data: bytes, code: int, offset: int, value: int) -> bytes:
     return bytes(out)
 
 
+@functools.lru_cache(maxsize=None)
 def _variants():
     rgb = _image(32, 32, seed=1)
     base, _ = _pillow(rgb, quality=75)
@@ -115,15 +126,29 @@ def _variants():
     adobe = (base[:app0] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
              + base[app0 + 2 + length:])
     ycck = _patched(cmyk.getvalue(), 0xEE, 11, 2)
-    sof = bytearray(base)
-    sof[_segment(base, 0xC0) + 1] = 0xC9
-    lossless = bytearray(base)
-    lossless[_segment(base, 0xC0) + 1] = 0xC3
+    ycc = [p for p in np.moveaxis(jpeg.rgb_to_ycbcr(rgb), -1, 0)]
+    lossless = make_inputs.encode_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 4)
+    hierarchical = bytearray(base)
+    hierarchical[_segment(base, 0xC0) + 1] = 0xC5
+    arith_lossless = bytearray(lossless)
+    arith_lossless[_segment(lossless, 0xC3) + 1] = 0xCB
+    big = _image(384, 512, seed=2)
+    big_arith = make_inputs.encode_arith_jpeg(list(np.moveaxis(jpeg.rgb_to_ycbcr(big), -1, 0)),
+                                              [(1, 1)] * 3, quality=95)
+    assert len(big_arith) > jpeg.PILLOW_BLOCK
     return {
         "progressive": (progressive, None),
-        "arithmetic": (bytes(sof), "arithmetic-coded sequential JPEGs"),
-        "lossless": (bytes(lossless), "lossless JPEGs"),
+        "arithmetic": (make_inputs.encode_arith_jpeg(ycc, [(2, 2), (1, 1), (1, 1)], 75), None),
+        "lossless": (lossless, None),
         "12-bit": (_patched(base, 0xC0, 0, 12), "12-bit JPEGs"),
+        "hierarchical": (bytes(hierarchical), "hierarchical sequential JPEGs"),
+        "arithmetic-lossless": (bytes(arith_lossless), "arithmetic-coded lossless JPEGs"),
+        "lossless-ycbcr": (make_inputs.encode_lossless_jpeg(ycc, 1, jfif=True),
+                           "lossless JPEGs in YCbCr"),
+        "lossless-ycck": (make_inputs.encode_lossless_jpeg([*ycc, ycc[0]], 1, adobe=2, jfif=False),
+                          "lossless JPEGs in YCCK"),
+        "arithmetic-past-block": (big_arith, "arithmetic-coded JPEGs whose scan runs past byte "
+                                             "65536"),
         "cmyk": (cmyk.getvalue(), None),
         "ycck": (ycck, None),
         "adobe-rgb": (adobe, None),
@@ -134,10 +159,10 @@ def _variants():
 
 @pytest.mark.parametrize("kind", list(_variants()))
 def test_what_neither_decoder_reads_raises_naming_it(kind, tmp_path):
-    """Each kind raises naming it, but the progressive, CMYK, YCCK, Adobe
-    RGB-coded and 4:4:0 files, which both decoders now give Pillow's
-    ``convert("RGB")`` of, and ``read_image`` refuses CMYK and YCCK naming
-    Pillow's mode."""
+    """Each kind raises naming it, as Pillow does, but the progressive,
+    CMYK, YCCK, Adobe RGB-coded, 4:4:0, arithmetic-coded and lossless
+    files, which both decoders now give Pillow's ``convert("RGB")`` of, and
+    ``read_image`` refuses CMYK and YCCK naming Pillow's mode."""
     data, match = _variants()[kind]
     if match is None:
         _all_equal(data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
@@ -150,9 +175,87 @@ def test_what_neither_decoder_reads_raises_naming_it(kind, tmp_path):
             np.testing.assert_array_equal(read_image(str(path), padding=1)[0][0],
                                           read_pixels(str(path)) / np.float32(255))
         return
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
     for decode in (jpeg.decode, jpeg.decode_native):
-        with pytest.raises(UnsupportedImageError, match=match):
+        with pytest.raises(RefusedByPillowError, match=match):
             decode(data)
+
+
+ARITH_KINDS = {  # (sampling, or None for gray; encode_arith_jpeg's options)
+    "sequential-420": ([(2, 2), (1, 1), (1, 1)], {}),
+    "sequential-444-restart": ([(1, 1)] * 3, dict(restart=3)),
+    "sequential-422-dac": ([(2, 1), (1, 1), (1, 1)],
+                           dict(conditioning={(0, 0): 0x41, (0, 1): 0x20, (1, 0): 20, (1, 1): 1})),
+    "sequential-gray-restart": (None, dict(restart=5)),
+    "progressive-420": ([(2, 2), (1, 1), (1, 1)], dict(script=make_inputs.PROGRESSION_3)),
+    "progressive-440-restart": ([(1, 2), (1, 1), (1, 1)],
+                                dict(script=make_inputs.PROGRESSION_3, restart=2)),
+    "progressive-gray-dac": (None, dict(script=make_inputs.PROGRESSION_1,
+                                        conditioning={(0, 0): 0xF0, (1, 0): 63})),
+}
+
+
+@pytest.mark.parametrize("kind", list(ARITH_KINDS))
+def test_arithmetic_coded_files_give_pillows_pixels(kind):
+    """``jdarith.c``'s decoding in both decoders, on files of ``jcarith.c``'s
+    coder at each size of SIZES, qualities 30 to 90."""
+    sampling, options = ARITH_KINDS[kind]
+    for i, (h, w) in enumerate(SIZES):
+        ycc = jpeg.rgb_to_ycbcr(_image(h, w, seed=11 * i))
+        planes = [ycc[..., 0]] if sampling is None else list(np.moveaxis(ycc, -1, 0))
+        data = make_inputs.encode_arith_jpeg(planes, sampling or [(1, 1)], 30 + 15 * i, **options)
+        _, want = _pillow_pixels(data)
+        _all_equal(data, want)
+
+
+LOSSLESS_KINDS = {  # (Pillow's mode, encode_lossless_jpeg's options)
+    "rgb": ("RGB", {}),
+    "gray-pt2-restart": ("L", dict(pt=2, restart_rows=2)),
+    "rgb-scans-pt1-restart": ("RGB", dict(pt=1, interleaved=False, restart_rows=1)),
+    "rgb-ids-pt7": ("RGB", dict(pt=7, ids=[82, 71, 66])),
+    "cmyk-adobe": ("CMYK", dict(adobe=0)),
+}
+
+
+@pytest.mark.parametrize("kind", list(LOSSLESS_KINDS))
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_files_give_pillows_pixels(predictor, kind):
+    """Lossless (SOF3) files in both decoders at each size of SIZES:
+    libjpeg-turbo 3 reads three components with no JFIF or Adobe marker as
+    RGB whatever their ids; CMYK through Pillow's ``convert("RGB")``."""
+    mode, options = LOSSLESS_KINDS[kind]
+    for i, (h, w) in enumerate(SIZES):
+        rgb = _image(h, w, seed=predictor + 5 * i)
+        samples = {"L": rgb[..., 1:2], "RGB": rgb,
+                   "CMYK": np.concatenate([rgb, 255 - rgb[..., :1]], -1)}[mode]
+        data = make_inputs.encode_lossless_jpeg(list(np.moveaxis(samples, -1, 0)), predictor,
+                                                **options)
+        got_mode, want = _pillow_pixels(data)
+        assert got_mode == mode == jpeg.parse(data).mode
+        if mode == "CMYK":
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        _all_equal(data, want)
+
+
+def test_a_lossless_restart_interval_of_part_of_a_row_raises_a_value_error():
+    """libjpeg-turbo takes a lossless restart interval only in whole rows
+    (``JERR_BAD_RESTART``), and Pillow raises."""
+    data = make_inputs.encode_lossless_jpeg([_image(12, 10, seed=3)[..., 0]], 1)
+    at = _segment(data, 0xC4)
+    data = data[:at] + b"\xff\xdd\x00\x04\x00\x0f" + data[at:]  # 15 samples
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+    for decode in (jpeg.decode, jpeg.decode_native):
+        with pytest.raises(ValueError, match="not whole rows of 10"):
+            decode(data)
+
+
+def _pillow_pixels(data: bytes):
+    """Pillow's mode of ``data`` and its pixels, (H, W, channels)."""
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im)
+        return im.mode, want.reshape(*want.shape[:2], -1)
 
 
 def _junk(data: bytes, junk: bytes) -> bytes:
