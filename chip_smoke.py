@@ -9,8 +9,8 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
 2. builds the GDN kernels (forward and backward, ``csrc/gdn.cu``) with
    nvcc (``kernels/_build.py``) and prints what ``ptxas -v`` reports of
    them: registers, shared memory, spills (any spill fails the phase);
-   builds the host rANS coder and the host JPEG, PNG, WebP, TIFF and GIF
-   decoders with g++, and round-trips a few bytes through CPython's
+   builds the host rANS coder and the host JPEG, PNG, WebP, TIFF, GIF and
+   JPEG 2000 decoders with g++, and round-trips a few bytes through CPython's
    ``lzma``, which the TIFF reader inflates LZMA strips with;
 3. holds the forward kernel against ``gdn_forward_reference`` and the
    backward kernel against ``gdn_backward_reference`` for GDN and IGDN at
@@ -296,6 +296,19 @@ Drives ``imagecompression_adversarial_tpu_torch`` only (no JAX):
     (hyper q1 demo weights, JPEG_ATTACK_STEPS steps, cuDNN deterministic)
     beside the same attack on a PNG of its pixels: noise within
     NOISE_ATOL, vi within VI_ATOL, and CODEC_LAUNCHES GDN launches.
+27. JPEG 2000 inputs and the training stream's decode window (slice 21):
+    (a) prints phase 2's build of the JPEG 2000 decoder
+    (``csrc/jpeg2000.cc``), decodes every committed ``.jp2``/``.j2k`` of
+    INPUTS_DIR, each of which must give the sha256 of Pillow's pixels and
+    Pillow's mode that ``inputs.json`` records, and times J2K_TEXTURED
+    (9/7) and J2K_LOSSLESS (5/3) on the host; (b) runs ``cli.attack_rd
+    -s`` on J2K_TEXTURED beside the same attack on a PNG of its pixels
+    (J2K_LAUNCHES); (c) in a child process without CUDA, reads a folder of
+    WINDOW_FILES Vimeo-sized PNGs through ``image_folder_batches`` with a
+    slow consumer, then closes it: the child's memory growth and the
+    close's seconds must stay under WINDOW_MAX_GIB and WINDOW_MAX_CLOSE_S;
+    then runs ``cli.train -data`` on the folder in another child and
+    prints its rate and wall time.
 
 Phases 5, 8, 11, 12c, 14 and 19 set cuDNN deterministic, so that the kernel and plain
 runs differ in the GDN alone, and phase 18 so that its two runs differ in
@@ -310,7 +323,7 @@ and, last, ``{"ok": true,
 "device": {...}}``.  It writes nothing but the builds
 (``imagecompression_adversarial_tpu_torch/_build/``) and the temporary
 directories of phases 6, 9, 11, 12, 15, 16, 17, 18 (the ranks'
-rendezvous), 19, 20, 21, 22, 23, 24 and 25.  It reads five demo checkpoints: hyper q1,
+rendezvous), 19, 20, 21, 22, 23, 24, 25, 26 and 27.  It reads five demo checkpoints: hyper q1,
 cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
 ``ckpts/adv/hyper-0.013-mse-0.0001-300``; and the files of
 ``tests/data/inputs``.
@@ -318,6 +331,7 @@ cheng2020-gmm q3, and nlaic, tic and fic q3; step 2000 of the orbax tree
 
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import ctypes.util
@@ -687,11 +701,12 @@ MP_SIZE = (3072, 4096)
 # equal at 21 and 11 steps, and a peak is set in the first step); MP_STEPS
 # is 7 since phase 23 was added, which takes back its ~15 s; MP_STEPS,
 # MP_GMM_STEPS and MP_KVP_STEPS are 4, 3 and 3 since phase 24, whose first
-# whole run on a slow host took 1007.7 s
-MP_STEPS = 4
+# whole run on a slow host took 1007.7 s; MP_STEPS is 3 and MP_LARGE_STEPS
+# 1 since phase 27 was added (~60 s; 19c's second step took ~11 s)
+MP_STEPS = 3
 MP_LARGE = (7040, 9344)
 # the peak is set in the first step
-MP_LARGE_STEPS = 2
+MP_LARGE_STEPS = 1
 MP_SHRINK = 0.9
 MP_GMM_STEPS = 3
 MP_CLI_STEPS = 101
@@ -813,6 +828,31 @@ EXPORT_SHA256 = "e0d8c2882b45af0132aa2fbe43b5399d13feac88bf273b9f454126d1600e77b
 EXPORT_TRAIN_STEPS = 2
 SLICE20_TEXTURED = "textured_arith.jpg"
 SLICE20_LAUNCHES = (627, 606)
+# phase 27 (slice 21): (a) the committed JPEG 2000 files of INPUTS_DIR
+# (make_inputs.py::jpeg2000_files), each held to the sha256 and mode
+# recorded for Pillow's decode; J2K_TEXTURED (768x512 9/7 at ratio 20 of
+# textured_rgb) and J2K_LOSSLESS (a 768x512 lossless 5/3) timed on the host,
+# best of JPEG_DECODE_RUNS; (b) the attack CLI on J2K_TEXTURED beside its PNG
+# twin, with J2K_LAUNCHES (gdn_fwd, gdn_bwd); (c) the training stream's
+# decode window on WINDOW_FILES PNGs of JPEG_TRAIN_SIZE (Vimeo-90k's frame;
+# WINDOW_DISTINCT images, copied), in a child process without CUDA:
+# WINDOW_BATCHES of cli.train's batches of 8 256x256 crops, the consumer
+# sleeping WINDOW_SLEEP_S a batch (a trainer of ~17 steps/s), then closed;
+# its growth (VmHWM less the VmRSS before the stream) must stay under
+# WINDOW_MAX_GIB (the window holds 2 * 8 workers * 8 crops of 786,432 bytes,
+# the folder 0.75 GiB of them) and the close under WINDOW_MAX_CLOSE_S; then
+# cli.train -data on the folder, WINDOW_TRAIN_STEPS steps in a second child,
+# its rate and its wall time
+J2K_TEXTURED = "textured_j2k.jp2"
+J2K_LOSSLESS = "textured_j2k53.jp2"
+J2K_LAUNCHES = (627, 606)
+WINDOW_FILES = 1024
+WINDOW_DISTINCT = 16
+WINDOW_BATCHES = 5
+WINDOW_SLEEP_S = 0.06
+WINDOW_MAX_GIB = 0.25
+WINDOW_MAX_CLOSE_S = 1.0
+WINDOW_TRAIN_STEPS = 5
 
 
 def textured_rgb(h: int, w: int, seed: int):
@@ -4719,6 +4759,176 @@ def phase_slice20(gdn, jpeg_build: dict, card: str, attack_rate: float):
     return records, launches, launches_bwd
 
 
+# the child of phase 27c: the stream read by a slow consumer, then closed
+WINDOW_CHILD = """
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from imagecompression_adversarial_tpu_torch.train.data import image_folder_batches
+
+def status():
+    with open("/proc/self/status") as f:
+        return {k: int(v.split()[0]) * 1024 for k, v in (ln.split(":", 1) for ln in f if ":" in ln)
+                if k in ("VmRSS", "VmHWM")}
+
+# VmRSS sampled every 2 ms while the stream runs: the high-water mark where
+# /proc has no VmHWM
+peak, done = [0], threading.Event()
+
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], status()["VmRSS"])
+        time.sleep(0.002)
+
+before = status()
+sampler = threading.Thread(target=sample)
+sampler.start()
+stream = image_folder_batches(sys.argv[2], 8, crop=256, seed=0)
+t = time.perf_counter()
+for _ in range(int(sys.argv[3])):
+    next(stream)
+    time.sleep(float(sys.argv[4]))
+taken = time.perf_counter() - t
+t = time.perf_counter()
+stream.close()
+close_s = time.perf_counter() - t
+done.set()
+sampler.join()
+after = status()
+hwm = after.get("VmHWM", peak[0])
+print(json.dumps({"rss_before": before["VmRSS"], "hwm_after": max(hwm, peak[0]),
+                  "source": "VmHWM" if "VmHWM" in after else "VmRSS every 2 ms",
+                  "hwm_before": before.get("VmHWM"), "rss_after": after["VmRSS"],
+                  "stream_s": taken, "close_s": close_s}))
+"""
+
+
+def phase_slice21(j2k_build: dict, card: str):
+    """Phase 27: the pieces of slice 21.  (a) The JPEG 2000 decoder on every
+    committed JPEG 2000 file against Pillow's recorded pixels, the 768x512
+    9/7 and 5/3 files timed; (b) the attack CLI on the 9/7 file beside the
+    PNG of its pixels; (c) the training stream's decode window on a
+    Vimeo-sized folder: a slow consumer's memory and its close, in a child
+    without CUDA, and cli.train -data on it in another child.  Returns the
+    records and the forward and backward kernels' launches."""
+    import numpy as np
+
+    from imagecompression_adversarial_tpu_torch.io import jpeg2000, png
+
+    records, launches, launches_bwd = {}, {}, {}
+
+    # 27a: every JPEG 2000 file held to Pillow's hash and mode; the pair timed
+    with open(os.path.join(INPUTS_DIR, "inputs.json")) as f:
+        recorded = {n: r for n, r in json.load(f).items() if n.endswith((".jp2", ".j2k"))}
+    failed, kinds, timed = [], [], {}
+    for name, rec in sorted(recorded.items()):
+        with open(os.path.join(INPUTS_DIR, name), "rb") as f:
+            data = f.read()
+        pixels, mode = jpeg2000.decode_native(data)
+        digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+        kinds.append(f"{name} ({mode})")
+        if digest != rec["sha256"] or mode != rec["mode"] or list(pixels.shape) != rec["shape"]:
+            failed.append(f"{name} (sha256 {'=' if digest == rec['sha256'] else '!='}, mode "
+                          f"{mode} / {rec['mode']})")
+        if name in (J2K_TEXTURED, J2K_LOSSLESS):
+            _, best = best_of(jpeg2000.decode_native, data)
+            timed[name] = {"bytes": len(data), "best_s": best}
+    cut = open(os.path.join(INPUTS_DIR, J2K_TEXTURED), "rb").read()[:-2]
+    try:
+        jpeg2000.decode_native(cut)
+        cut_raises = False
+    except ValueError:
+        cut_raises = True
+    host = host_cpu()
+    records["27a"] = {"build": j2k_build, "files": len(recorded), "failed": failed,
+                      "timed": timed, "cut_raises": cut_raises, "host": host, "card": card}
+    log(f"phase 27a JPEG 2000 decoder: built in phase 2 ({j2k_build['s']:.2f} s, "
+        f"{j2k_build['how']}); {len(recorded) - len(failed)} of {len(recorded)} files of "
+        f"{INPUTS_DIR} decoded to the pixels and mode recorded for Pillow "
+        f"{sorted({r['pillow'] for r in recorded.values()})}: {', '.join(kinds)}; a codestream "
+        f"without its EOC raises: {cut_raises}; on the host ({host}), best of "
+        f"{JPEG_DECODE_RUNS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['best_s'] * 1e3:.2f} ms"
+                                            for n, t in sorted(timed.items())))
+    if failed or len(timed) != 2 or len(recorded) < 38 or not cut_raises:
+        raise RuntimeError(f"phase 27a: JPEG 2000 files differ from Pillow's: {records['27a']}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice21_")
+    cwd = os.getcwd()
+    try:
+        # 27b: the attack CLI on the 9/7 file and on a PNG of its pixels
+        m = attack_beside_png("27b", os.path.join(INPUTS_DIR, J2K_TEXTURED), tmp, records,
+                              launches, launches_bwd)
+        if (m["launches"], m["bwd_launches"]) != J2K_LAUNCHES:
+            raise RuntimeError(f"phase 27b: GDN launches {(m['launches'], m['bwd_launches'])}, "
+                               f"not {J2K_LAUNCHES}")
+
+        # 27c: the decode window on a Vimeo-sized folder
+        folder = os.path.join(tmp, "vimeo")
+        os.makedirs(folder)
+        t = time.time()
+        firsts = []
+        for i in range(WINDOW_FILES):
+            path = os.path.join(folder, f"{i:05d}.png")
+            if i < WINDOW_DISTINCT:
+                with open(path, "wb") as f:
+                    f.write(png.encode(textured_rgb(*JPEG_TRAIN_SIZE, seed=100 + i)))
+                firsts.append(path)
+            else:
+                shutil.copyfile(firsts[i % WINDOW_DISTINCT], path)
+        write_s = time.time() - t
+        folder_bytes = sum(os.path.getsize(os.path.join(folder, n)) for n in os.listdir(folder))
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        t = time.time()
+        child = subprocess.run([sys.executable, "-c", WINDOW_CHILD, ROOT, folder,
+                                str(WINDOW_BATCHES), str(WINDOW_SLEEP_S)],
+                               capture_output=True, text=True, env=env, timeout=300)
+        child_s = time.time() - t
+        if child.returncode:
+            raise RuntimeError(f"phase 27c: the stream's child failed:\n{child.stderr[-3000:]}")
+        w = json.loads(child.stdout.strip().splitlines()[-1])
+        growth = (w["hwm_after"] - w["rss_before"]) / 2**30  # from w["source"]
+        crop_bytes = 256 * 256 * 3 * 4
+        window_gib = 2 * 8 * 8 * crop_bytes / 2**30
+        folder_gib = WINDOW_FILES * crop_bytes / 2**30
+        t = time.time()
+        train = subprocess.run(
+            [sys.executable, "-m", "imagecompression_adversarial_tpu_torch.cli.train",
+             *TRAIN_FLAGS, "-ckpt", CKPT, "-data", folder, "-max_steps", str(WINDOW_TRAIN_STEPS)],
+            capture_output=True, text=True, cwd=tmp, env={**os.environ, "PYTHONPATH": ROOT},
+            timeout=600)
+        train_wall = time.time() - t
+        if train.returncode:
+            raise RuntimeError(f"phase 27c: cli.train failed:\n{train.stderr[-3000:]}")
+        done = next(ln for ln in train.stdout.splitlines() if ln.startswith("TRAIN DONE:"))
+        timing = ast.literal_eval(done.split(":", 1)[1].strip())["timing"]
+        steady = timing.get("steady_steps", 0) / timing["steady_s"] if timing.get("steady_s") \
+            else float("nan")
+        records["27c"] = {"files": WINDOW_FILES, "folder_bytes": folder_bytes, "write_s": write_s,
+                          "child": w, "child_s": child_s, "growth_gib": growth,
+                          "window_gib": window_gib, "folder_gib": folder_gib,
+                          "train_steps": WINDOW_TRAIN_STEPS, "train_wall_s": train_wall,
+                          "train_timing": timing, "train_steady_steps_per_s": steady,
+                          "host": host, "card": card}
+        log(f"phase 27c decode window: {WINDOW_FILES} PNGs of {JPEG_TRAIN_SIZE[1]}x"
+            f"{JPEG_TRAIN_SIZE[0]} ({folder_bytes / 2**20:.1f} MiB, written in {write_s:.1f} s); "
+            f"a child without CUDA took {WINDOW_BATCHES} batches of 8 at {WINDOW_SLEEP_S} s a "
+            f"batch in {w['stream_s']:.2f} s: memory grew {growth:.3f} GiB (the high-water mark "
+            f"{w['hwm_after'] / 2**30:.3f} GiB less the resident {w['rss_before'] / 2**30:.3f} GiB "
+            f"before the stream, by {w['source']}; tol < {WINDOW_MAX_GIB}; the window's crops "
+            f"{window_gib:.3f} GiB, the "
+            f"folder's {folder_gib:.3f} GiB), close() {w['close_s']:.3f} s (tol < "
+            f"{WINDOW_MAX_CLOSE_S}), the child {child_s:.1f} s in all; cli.train -data, "
+            f"{WINDOW_TRAIN_STEPS} steps in a child: {train_wall:.1f} s wall, first step "
+            f"{timing.get('first_step_s', float('nan')):.2f} s, then {steady:.2f} steps/s; "
+            f"host {host}, card {card}")
+        if growth >= WINDOW_MAX_GIB or w["close_s"] >= WINDOW_MAX_CLOSE_S:
+            raise RuntimeError(f"phase 27c: the window holds too much or closes slowly: "
+                               f"{records['27c']}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches, launches_bwd
+
+
 def host_cpu() -> str:
     """The host's CPU model (``/proc/cpuinfo``, else the platform's name for
     the machine) and its logical CPUs."""
@@ -4847,7 +5057,8 @@ def main() -> int:
         f"{webp_build['library']}")
     host_builds = {}
     for fmt, path, build in (("TIFF", _build.tiff_library_path, _build.build_tiff),
-                             ("GIF", _build.gif_library_path, _build.build_gif)):
+                             ("GIF", _build.gif_library_path, _build.build_gif),
+                             ("JPEG 2000", _build.jpeg2000_library_path, _build.build_jpeg2000)):
         t = time.time()
         cached = path().is_file()
         build()
@@ -4908,6 +5119,9 @@ def main() -> int:
     slice20_records, launches_slice20, launches_slice20_bwd = phase_slice20(
         gdn, jpeg_build, smi, attack_rate)
     print(json.dumps({"phase26": slice20_records}, default=float), flush=True)
+    slice21_records, launches_slice21, launches_slice21_bwd = phase_slice21(
+        host_builds["JPEG 2000"], smi)
+    print(json.dumps({"phase27": slice21_records}, default=float), flush=True)
 
     head = records[0]  # the largest call of the main path: C=128, rows 98,304, GDN
     print(json.dumps({"kernels": [{
@@ -4935,6 +5149,7 @@ def main() -> int:
             **launches_tail,
             **launches_codec,
             **launches_slice20,
+            **launches_slice21,
         },
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"],
@@ -4962,6 +5177,7 @@ def main() -> int:
             **launches_tail_bwd,
             **launches_codec_bwd,
             **launches_slice20_bwd,
+            **launches_slice21_bwd,
         },
         "max_abs_err": max(r["backward"]["max_abs_err"] for r in records),
         "ms": head["backward"]["ms"],

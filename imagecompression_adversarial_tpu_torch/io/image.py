@@ -26,7 +26,11 @@ the format is told by the file's first bytes, and
 * BMP with numpy (``io/bmp.py``): palettes, RLE8 and RLE4, 16-, 24- and
   32-bit, bitfields;
 * Netpbm with numpy (``io/netpbm.py``): P1-P6, plain and raw, at any
-  maxval, and gray PFM.
+  maxval, and gray PFM;
+* JPEG 2000 by the host C++ decoder (``io/jpeg2000.py``,
+  ``csrc/jpeg2000.cc``): JP2 files and raw codestreams of Part 1, every
+  progression, code-block style, quantisation and tiling, 1 to 4
+  components of 1 to 31 bits, subsampled, sYCC, CMYK and palette.
 
 The JAX package reads in two ways, and so does the port.  ``read_pixels``
 gives what ``Image.open(path).convert("RGB")`` gives, for every kind above;
@@ -46,7 +50,7 @@ components, an old-style JPEG TIFF, ...) raises ``UnsupportedImageError``,
 naming it; a kind Pillow refuses too (a 12-bit or hierarchical JPEG, a
 PAM file, ...) its subclass ``RefusedByPillowError``; a broken file
 raises ``ValueError``.  Formats Pillow opens that no reader here knows
-(QOI, TGA, PCX, SGI, ICO, JPEG 2000, AVIF, ...) raise ``ValueError``.
+(QOI, TGA, PCX, SGI, ICO, AVIF, ...) raise ``ValueError``.
 The writer emits 8-bit RGB PNGs.
 """
 
@@ -58,7 +62,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from . import bmp, gif, jpeg, netpbm, png, tiff, webp
+from . import bmp, gif, jpeg, jpeg2000, netpbm, png, tiff, webp
 from .errors import UnsupportedImageError
 
 # the Pillow modes ``read_image`` refuses: the kind of image each is, and
@@ -114,18 +118,22 @@ def _decode(path: str) -> Tuple[np.ndarray, str, str]:
         return gif.decode_gif_native(parsed), parsed.mode, "GIF"
     if netpbm.is_netpbm(data):
         return (*netpbm.decode(data), "Netpbm")
-    raise ValueError(f"not a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm file (it starts with "
-                     f"{data[:8]!r})")
+    if data[:12] == jpeg2000.JP2_SIGNATURE or data[:4] == jpeg2000.J2K_SIGNATURE:
+        return (*jpeg2000.decode_native(data), "JPEG 2000")
+    raise ValueError(f"not a PNG, JPEG, WebP, TIFF, GIF, BMP, Netpbm or JPEG 2000 file (it "
+                     f"starts with {data[:8]!r})")
 
 
 def read_pixels(path: str) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB pixels (PNG, JPEG, WebP, TIFF,
-    GIF, BMP or Netpbm), as ``Image.open(path).convert("RGB")`` gives them."""
+    GIF, BMP, Netpbm or JPEG 2000), as ``Image.open(path).convert("RGB")``
+    gives them."""
     return _decode(path)[0]
 
 
 def read_image(path: str, padding: int = 64) -> Tuple[np.ndarray, int, int]:
-    """Load a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm file that Pillow opens as ``L``,
+    """Load a PNG, JPEG, WebP, TIFF, GIF, BMP, Netpbm or JPEG 2000 file that
+    Pillow opens as ``L``,
     ``RGB`` or ``RGBA`` as (1, H_pad, W_pad, 3) float32 in [0, 1]; returns
     ``(im, H, W)``.  Gray is repeated into RGB; RGBA loses its alpha.
     Raises ``UnsupportedImageError`` naming the format, the kind and the

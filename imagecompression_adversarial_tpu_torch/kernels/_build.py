@@ -50,7 +50,11 @@ PNG_SOURCE = CSRC_DIR / "png.cc"
 WEBP_SOURCE = CSRC_DIR / "webp.cc"
 TIFF_SOURCE = CSRC_DIR / "tiff.cc"
 GIF_SOURCE = CSRC_DIR / "gif.cc"
+JPEG2000_SOURCE = CSRC_DIR / "jpeg2000.cc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+# the 9/7 synthesis and the ICT round as OpenJPEG's float code does only
+# where no multiply-add is fused
+JPEG2000_FLAGS = (*GXX_FLAGS, "-ffp-contract=off")
 
 
 def find_nvcc() -> str:
@@ -117,6 +121,11 @@ def gif_library_path() -> Path:
     return _keyed_path("libicat_gif", GXX_FLAGS, (GIF_SOURCE,))
 
 
+def jpeg2000_library_path() -> Path:
+    """``_build/libicat_jpeg2000-<hash>.so``, keyed by source and flags."""
+    return _keyed_path("libicat_jpeg2000", JPEG2000_FLAGS, (JPEG2000_SOURCE,))
+
+
 def build_log(sources: Sequence[Path] = SOURCES) -> str:
     """nvcc's output from the build of the library for ``sources``."""
     return library_path(sources).with_suffix(".log").read_text()
@@ -154,15 +163,15 @@ def build(sources: Sequence[Path] = SOURCES) -> Path:
     return _compile(out, lambda tmp: nvcc_command(nvcc, sources, tmp))
 
 
-def _build_host(out: Path, source: Path, what: str) -> Path:
-    """Compile the host C++ ``source`` with g++ into ``out`` unless it
-    already exists; return ``out``."""
+def _build_host(out: Path, source: Path, what: str, flags: Sequence[str] = GXX_FLAGS) -> Path:
+    """Compile the host C++ ``source`` with g++ and ``flags`` into ``out``
+    unless it already exists; return ``out``."""
     if out.is_file():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError(f"g++ not found on PATH; {what} is built with it")
-    return _compile(out, lambda tmp: [gxx, *GXX_FLAGS, "-o", str(tmp), str(source)])
+    return _compile(out, lambda tmp: [gxx, *flags, "-o", str(tmp), str(source)])
 
 
 def build_rans() -> Path:
@@ -199,6 +208,13 @@ def build_gif() -> Path:
     """Compile ``csrc/gif.cc`` with g++ unless the keyed library already
     exists; return its path."""
     return _build_host(gif_library_path(), GIF_SOURCE, "the GIF decoder")
+
+
+def build_jpeg2000() -> Path:
+    """Compile ``csrc/jpeg2000.cc`` with g++ unless the keyed library
+    already exists; return its path."""
+    return _build_host(jpeg2000_library_path(), JPEG2000_SOURCE, "the JPEG 2000 decoder",
+                       JPEG2000_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)

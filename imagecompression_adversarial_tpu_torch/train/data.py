@@ -8,12 +8,15 @@ epoch, one ``default_rng`` a file for its crop (drawn before the file is
 read, so an unreadable file shifts no other crop), drop-last.  Files are
 read through the port's own readers (``io/image.py::read_pixels``, no
 PIL: PNG, JPEG, WebP, TIFF and GIF by the host C++ decoders, BMP by
-numpy), which give what JAX's ``Image.open(path).convert("RGB")`` gives
+numpy; the JPEG 2000 reader too, though no listed extension reaches it),
+which give what JAX's ``Image.open(path).convert("RGB")`` gives
 for every PNG kind, progressive, CMYK, YCCK and RGB-coded JPEGs at every
 sampling, WebPs (an animated one's first frame) and palette, RLE and
 bitfield BMPs included.
 The decode threads run the decoders side by side (``ctypes`` drops the
-GIL during each call).  A broken file or one smaller than the crop is
+GIL during each call), at most two batches a thread ahead of the consumer,
+where JAX's stream submits a whole epoch at once: the same crops in the
+same order, with memory bounded on a folder of any size.  A broken file or one smaller than the crop is
 skipped, as the JAX loader skips a file PIL cannot open; an epoch that
 yields no batch raises, naming what was skipped; so is a kind both refuse
 (a hierarchical JPEG, ...).  A file that PIL reads and the port does not
@@ -87,24 +90,35 @@ def image_folder_batches(
     """Yield (B, crop, crop, 3) float32 batches forever (or for ``epochs``).
     Raises ``FileNotFoundError`` when ``root`` holds no image,
     ``UnsupportedImageError`` on a file PIL reads and the port does not,
-    and ``ValueError`` after an epoch that yields no batch."""
+    and ``ValueError`` after an epoch that yields no batch.
+
+    At most ``2 * workers * batch_size`` files (two batches a worker, the
+    default prefetch of a ``DataLoader``) are submitted and not yet taken,
+    so the crops held ahead of a slow consumer stay bounded.  Closing the
+    generator cancels the queued decodes and waits only for those
+    running."""
     files = list_image_files(root)
     if not files:
         raise FileNotFoundError(f"no {'/'.join(_EXTS)} images under {root}")
     rng = np.random.default_rng(seed)
+    window = 2 * workers * batch_size
 
     def one_epoch():
         order = rng.permutation(len(files))
+        seeds = [rng.integers(2**31) for _ in order]
         skipped = collections.Counter()
         yielded = 0
-        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+        pool = cf.ThreadPoolExecutor(max_workers=workers)
+        pending: collections.deque = collections.deque()
+        submitted = 0
+        try:
             batch = []
-            futures = [
-                pool.submit(_load_crop, files[i], crop, np.random.default_rng(rng.integers(2**31)))
-                for i in order
-            ]
-            for fut in futures:
-                img, why = fut.result()
+            while submitted < len(order) or pending:
+                while submitted < len(order) and len(pending) < window:
+                    rng_file = np.random.default_rng(seeds[submitted])
+                    pending.append(pool.submit(_load_crop, files[order[submitted]], crop, rng_file))
+                    submitted += 1
+                img, why = pending.popleft().result()
                 if img is None:
                     skipped[why] += 1
                     continue
@@ -113,6 +127,8 @@ def image_folder_batches(
                     yield np.stack(batch)
                     yielded += 1
                     batch = []
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
         if not yielded:
             reasons = ", ".join(f"{n} {why}" for why, n in sorted(skipped.items()))
             kinds = "/".join(sorted({os.path.splitext(f)[1][1:].upper() for f in files}))

@@ -1573,6 +1573,338 @@ def codec_files() -> dict:
     }
 
 
+# ------------------------------------------------------------------ JPEG 2000
+
+def _libopenjp2() -> ctypes.CDLL:
+    """The OpenJPEG that Pillow's wheel bundles, else the system's."""
+    import PIL
+
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    found = glob.glob(os.path.join(libs, "libopenjp2-*"))
+    name = found[0] if found else ctypes.util.find_library("openjp2")
+    if not name:
+        raise RuntimeError("no libopenjp2 to encode with")
+    lib = ctypes.CDLL(name)
+    vp = ctypes.c_void_p
+    lib.opj_version.restype = ctypes.c_char_p
+    lib.opj_create_compress.restype = vp
+    lib.opj_image_create.restype = vp
+    lib.opj_image_create.argtypes = [ctypes.c_uint32, vp, ctypes.c_int]
+    lib.opj_stream_create_default_file_stream.restype = vp
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    for fn, n in (("opj_setup_encoder", 3), ("opj_start_compress", 3), ("opj_encode", 2),
+                  ("opj_end_compress", 2), ("opj_set_error_handler", 3)):
+        getattr(lib, fn).argtypes = [vp] * n
+    for fn in ("opj_stream_destroy", "opj_destroy_codec", "opj_image_destroy"):
+        getattr(lib, fn).argtypes = [vp]
+    return lib
+
+
+# int32 indices of opj_cparameters_t's fields (openjpeg.h 2.5: 18,720 bytes
+# on LP64; opj_set_default_encoder_parameters fills 6, 64, 64 at
+# numresolution, cblockw_init, cblockh_init, -1 at roi_compno and 1, 1, -1,
+# -1 at subsampling_dx .. cod_format, which pins them)
+_OPJ_INT = {"tile_size_on": 0, "cp_tx0": 1, "cp_ty0": 2, "cp_tdx": 3, "cp_tdy": 4,
+            "cp_disto_alloc": 5, "csty": 12, "prog_order": 13, "numpocs": 1198,
+            "tcp_numlayers": 1199, "numresolution": 1400, "cblockw_init": 1401,
+            "cblockh_init": 1402, "mode": 1403, "irreversible": 1404, "roi_compno": 1405,
+            "roi_shift": 1406, "res_spec": 1407, "image_offset_x0": 4547, "image_offset_y0": 4548}
+_OPJ_CHAR = {"tp_on": 18696, "tp_flag": 18697, "tcp_mct": 18698}  # byte offsets
+_OPJ_RATES, _OPJ_PRCW, _OPJ_PRCH, _OPJ_POC, _OPJ_POC_INTS = 1200, 1408, 1441, 14, 37
+PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+
+
+def openjpeg_encode(planes, prec: int = 8, signed: bool = False, sub=None, color_space: int = 1,
+                    jp2: bool = True, rates=(0.0,), precincts=(), pocs=(), size=None,
+                    **fields) -> bytes:
+    """A JPEG 2000 file (a JP2 file, or a raw codestream where ``jp2`` is
+    false) of the 2-D integer ``planes`` by the bundled OpenJPEG's encoder,
+    with settings Pillow's ``save`` does not pass on: ``sub`` (dx, dy) a
+    component, ``color_space`` (OpenJPEG's: 1 sRGB, 2 gray, 3 sYCC),
+    ``rates`` a layer, ``precincts`` (width, height) a resolution from
+    the highest, ``pocs`` (res0, comp0, layer1, res1,
+    comp1, progression) and ``fields`` of opj_cparameters_t (``mode`` the
+    code-block style, ``csty`` 2 for SOP and 4 for EPH, ``roi_compno``,
+    ``roi_shift``, ``tp_on``, ...)."""
+    import tempfile
+
+    lib = _libopenjp2()
+    sub = sub or [(1, 1)] * len(planes)
+    x0, y0 = fields.pop("image_offset_x0", 0), fields.pop("image_offset_y0", 0)
+    h0, w0 = planes[0].shape
+    width, height = size or (w0 * sub[0][0], h0 * sub[0][1])
+    cmpt = (ctypes.c_uint32 * (9 * len(planes)))()
+    for i, p in enumerate(planes):
+        cmpt[9 * i:9 * i + 9] = [sub[i][0], sub[i][1], p.shape[1], p.shape[0], x0, y0, prec, prec,
+                                 int(signed)]
+    image = lib.opj_image_create(len(planes), cmpt, color_space)
+    head = ctypes.cast(image, ctypes.POINTER(ctypes.c_uint32))
+    head[0], head[1], head[2], head[3] = x0, y0, x0 + width, y0 + height
+    comps = ctypes.cast(image + 24, ctypes.POINTER(ctypes.c_void_p))[0]
+    for i, p in enumerate(planes):
+        comp = comps + 64 * i  # opj_image_comp_t: 11 uint32, then its data pointer
+        data = ctypes.cast(comp + 48, ctypes.POINTER(ctypes.c_void_p))[0]
+        flat = np.ascontiguousarray(p, np.int32)
+        ctypes.memmove(data, flat.ctypes.data, flat.nbytes)
+    params = (ctypes.c_int32 * 4680)()
+    lib.opj_set_default_encoder_parameters(params)
+    raw = ctypes.cast(params, ctypes.POINTER(ctypes.c_uint8))
+    fields.setdefault("tcp_mct", 1 if len(planes) >= 3 else 0)
+    for name, value in fields.items():
+        if name in _OPJ_INT:
+            params[_OPJ_INT[name]] = value
+        else:
+            raw[_OPJ_CHAR[name]] = value if isinstance(value, int) else ord(value)
+    params[_OPJ_INT["tcp_numlayers"]] = len(rates)
+    params[_OPJ_INT["cp_disto_alloc"]] = 1
+    floats = ctypes.cast(ctypes.addressof(params) + 4 * _OPJ_RATES, ctypes.POINTER(ctypes.c_float))
+    for i, rate in enumerate(rates):
+        floats[i] = rate
+    if precincts:
+        params[_OPJ_INT["res_spec"]] = len(precincts)
+        for i, (pw, ph) in enumerate(precincts):
+            params[_OPJ_PRCW + i], params[_OPJ_PRCH + i] = pw, ph
+        params[_OPJ_INT["csty"]] |= 1
+    for i, (r0, c0, l1, r1, c1, prg) in enumerate(pocs):  # opj_poc_t's first ten uint32
+        poc = _OPJ_POC + _OPJ_POC_INTS * i
+        params[poc:poc + 10] = [r0, c0, l1, r1, c1, 0, 0, 0, prg, prg]
+        params[poc + 12] = 1  # its tile, from 1
+    params[_OPJ_INT["numpocs"]] = len(pocs)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    errors = []
+    handler = ctypes.CFUNCTYPE(None, ctypes.c_char_p, ctypes.c_void_p)(
+        lambda msg, _: errors.append(msg.decode().strip()))
+    lib.opj_set_error_handler(codec, handler, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.jp2")
+        ok = lib.opj_setup_encoder(codec, params, image)
+        if ok:
+            stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+            ok = (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+                  and lib.opj_end_compress(codec, stream))
+            lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+        if not ok:
+            raise RuntimeError(f"OpenJPEG refuses the settings: {errors}")
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_header_edit(data: bytes, colr: int = None, extra: bytes = b"") -> bytes:
+    """A JP2 file with its colr box's enumerated colour space set to
+    ``colr`` and the boxes ``extra`` appended to its jp2h box."""
+    at = data.index(b"jp2h") - 4
+    size = struct.unpack(">I", data[at:at + 4])[0]
+    header = bytearray(data[at + 8:at + size])
+    if colr is not None:
+        c = header.index(b"colr")
+        header[c + 7:c + 11] = struct.pack(">I", colr)
+    return data[:at] + _box(b"jp2h", bytes(header) + extra) + data[at + size:]
+
+
+def pclr_boxes(entries: np.ndarray) -> bytes:
+    """A pclr box of (n, channels) 8-bit entries and the cmap box that maps
+    the one component through it."""
+    n, npc = entries.shape
+    pclr = struct.pack(">HB", n, npc) + bytes([7] * npc) + entries.astype(np.uint8).tobytes()
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(npc))
+    return _box(b"pclr", pclr) + _box(b"cmap", cmap)
+
+
+def _segments(cs: bytes, pos: int, stop: int):
+    """(marker, payload, start) of each marker segment from ``pos`` up to
+    the marker ``stop``, and where that marker is."""
+    out = []
+    while True:
+        marker = struct.unpack(">H", cs[pos:pos + 2])[0]
+        if marker == stop:
+            return out, pos
+        length = struct.unpack(">H", cs[pos + 2:pos + 4])[0]
+        out.append((marker, cs[pos + 4:pos + 2 + length], pos))
+        pos += 2 + length
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", marker, 2 + len(payload)) + payload
+
+
+def packed_headers(cs: bytes, where: str) -> bytes:
+    """A raw codestream written with SOP and EPH markers (COD's Scod 6), its
+    packet headers moved into PPT segments (``where`` "ppt") or one PPM
+    segment of the main header ("ppm"); the EPH markers go, the SOP
+    markers stay."""
+    main, sot = _segments(cs, 2, 0xFF90)
+    parts = []
+    pos = sot
+    while struct.unpack(">H", cs[pos:pos + 2])[0] == 0xFF90:
+        _, isot, psot, tpsot, tnsot = struct.unpack(">HHIBB", cs[pos + 2:pos + 12])
+        header, sod = _segments(cs, pos + 12, 0xFF93)
+        body = cs[sod + 2:pos + psot]
+        headers, bodies, at = [], [], 0
+        while at < len(body):
+            assert body[at:at + 2] == b"\xff\x91", "a packet without its SOP marker"
+            eph = body.index(b"\xff\x92", at + 6)
+            nxt = body.find(b"\xff\x91", eph + 2)
+            nxt = len(body) if nxt < 0 else nxt
+            headers.append(body[at + 6:eph])
+            bodies.append(body[at:at + 6] + body[eph + 2:nxt])
+            at = nxt
+        parts.append((isot, tpsot, tnsot, header, b"".join(headers), b"".join(bodies)))
+        pos += psot
+    out = bytearray(b"\xff\x4f")
+    for marker, payload, _ in main:
+        if marker == 0xFF52:
+            payload = bytes([payload[0] & ~4]) + payload[1:]
+        out += _segment(marker, payload)
+        if marker == 0xFF5C and where == "ppm":
+            stream = b"".join(struct.pack(">I", len(p[4])) + p[4] for p in parts)
+            for z, k in enumerate(range(0, len(stream), 65000)):
+                out += _segment(0xFF60, bytes([z]) + stream[k:k + 65000])
+    zppt = {}  # a tile's next Zppt: its PPT segments count on over its tile-parts
+    for isot, tpsot, tnsot, header, headers, bodies in parts:
+        th = b"".join(_segment(m, p) for m, p, _ in header)
+        if where == "ppt":
+            for k in range(0, len(headers), 65000):
+                z = zppt.get(isot, 0)
+                zppt[isot] = z + 1
+                th += _segment(0xFF61, bytes([z]) + headers[k:k + 65000])
+        psot = 12 + len(th) + 2 + len(bodies)
+        out += struct.pack(">HHHIBB", 0xFF90, 10, isot, psot, tpsot, tnsot) + th + b"\xff\x93"
+        out += bodies
+    return bytes(out + b"\xff\xd9")
+
+
+def htj2k_flat(size: int = 16, value: int = 77) -> bytes:
+    """A raw HTJ2K (Part 15) codestream: a gray ``size`` x ``size`` 5/3
+    codestream of OpenJPEG's with Rsiz's Part 15 bit, a CAP segment and the
+    HT code-block style set, whose one packet is empty, so that every
+    coefficient is 0 (Pillow reads it as mid-gray)."""
+    cs = openjpeg_encode([np.full((size, size), value)], jp2=False, numresolution=1,
+                         color_space=2)
+    main, _ = _segments(cs, 2, 0xFF90)
+    out = bytearray(b"\xff\x4f")
+    for marker, payload, _ in main:
+        if marker == 0xFF51:
+            payload = struct.pack(">H", struct.unpack(">H", payload[:2])[0] | 0x4000) + payload[2:]
+            out += _segment(marker, payload) + _segment(0xFF50, struct.pack(">IH", 0x00020000, 0))
+            continue
+        if marker == 0xFF52:
+            payload = payload[:8] + bytes([payload[8] | 0x40]) + payload[9:]
+        out += _segment(marker, payload)
+    return bytes(out + struct.pack(">HHHIBB", 0xFF90, 10, 0, 15, 0, 1) + b"\xff\x93\x00\xff\xd9")
+
+
+def _pillow_j2k(img: np.ndarray, mode: str, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img.astype(np.uint16 if mode == "I;16" else np.uint8), mode).save(
+        buf, format="JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def jpeg2000_files() -> dict:
+    """name -> bytes of each JPEG 2000 file, at most 64x64 but the 768x512
+    pair: Pillow's (the default lossless 5/3, 9/7 in rate layers, each
+    progression, precincts, tiles at tile and image offsets, code-block
+    sizes, MCT off, a raw codestream; L, LA, RGBA and I;16) and
+    ``openjpeg_encode``'s (each code-block style and all of them, SOP and
+    EPH, POC, ROI, PPT and PPM, 4:2:0 sYCC and a raw 4:2:0 codestream,
+    signed and 12-bit samples, a palette, CMYK, tile-parts, a code-block
+    byte flipped); then ``textured_j2k.jp2``, 9/7 at ratio 20 of
+    ``chip_smoke.py::textured_rgb`` (seed 5), which phase 27 times and
+    attacks, and ``textured_j2k53.jp2``, the lossless 5/3 of a smoother
+    768x512 image, which it times."""
+    rgb = smooth(48, 64, seed=81, noise=0.3)
+    sq = smooth(64, 64, seed=82, noise=0.4)
+    gray = smooth(60, 52, seed=83, channels=1, noise=0.3)[..., 0]
+    odd = smooth(47, 61, seed=84, noise=0.3)
+    planes = [sq[..., i] for i in range(3)]
+    files = {
+        "j2k_lossless_rgb.jp2": _pillow_j2k(rgb, "RGB"),
+        "j2k_97_layers.jp2": _pillow_j2k(sq, "RGB", irreversible=True, quality_mode="rates",
+                                         quality_layers=[40, 16, 6]),
+        "j2k_tiles_offsets.jp2": _pillow_j2k(odd, "RGB", tile_size=(24, 20), tile_offset=(3, 5),
+                                             offset=(7, 9), codeblock_size=(8, 16),
+                                             precinct_size=(16, 16), num_resolutions=3),
+        "j2k_tiles_97.jp2": _pillow_j2k(odd, "RGB", tile_size=(32, 16), offset=(1, 2),
+                                        irreversible=True, quality_layers=[12, 4],
+                                        codeblock_size=(16, 4), num_resolutions=3),
+        "j2k_nomct.jp2": _pillow_j2k(sq, "RGB", mct=0, irreversible=True, quality_layers=[10]),
+        "j2k_raw.j2k": _pillow_j2k(rgb, "RGB", no_jp2=True, irreversible=True,
+                                   quality_layers=[30, 8]),
+        "j2k_gray.jp2": _pillow_j2k(gray, "L", irreversible=True, quality_layers=[8]),
+        "j2k_gray_alpha.jp2": _pillow_j2k(smooth(40, 44, seed=85, channels=2, noise=0.3), "LA"),
+        "j2k_rgba.jp2": _pillow_j2k(smooth(44, 40, seed=86, channels=4, noise=0.3), "RGBA",
+                                    irreversible=True, quality_layers=[6]),
+        "j2k_gray16.jp2": _pillow_j2k(wide(gray), "I;16"),
+    }
+    for i, prog in enumerate(PROGRESSIONS):
+        files[f"j2k_prog_{prog.lower()}.jp2"] = _pillow_j2k(
+            sq, "RGB", progression=prog, irreversible=bool(i % 2), quality_layers=[30, 10, 3],
+            precinct_size=(32, 32), codeblock_size=(8, 8), num_resolutions=4)
+    small = dict(numresolution=4, cblockw_init=16, cblockh_init=16)
+    layers = (24.0, 8.0, 3.0)
+    for bit, style in ((1, "lazy"), (2, "reset"), (4, "termall"), (8, "vsc"), (16, "pterm"),
+                       (32, "segsym"), (63, "all")):
+        lossless = bit in (1, 63)
+        files[f"j2kx_style_{style}.j2k"] = openjpeg_encode(
+            planes, jp2=False, mode=bit, irreversible=0 if lossless else 1,
+            rates=(0.0,) if lossless else layers, prog_order=2 if bit == 63 else 0, **small)
+    sop_eph = openjpeg_encode(planes, jp2=False, csty=6, irreversible=1, rates=layers,
+                              precincts=[(32, 32), (16, 16)], **small)
+    sycc = smooth(64, 64, seed=87, noise=0.3)
+    half = [sycc[::2, ::2, 1], sycc[::2, ::2, 2]]
+    palette = np.array([(200, 30, 40), (20, 220, 60), (200, 30, 40), (30, 40, 230),
+                        (250, 250, 10), (0, 0, 0), (20, 220, 60), (120, 60, 200)])
+    files.update({
+        "j2kx_sop_eph.j2k": sop_eph,
+        "j2kx_ppt.j2k": packed_headers(sop_eph, "ppt"),
+        "j2kx_ppm.j2k": packed_headers(sop_eph, "ppm"),
+        "j2kx_poc.j2k": openjpeg_encode(planes, jp2=False, irreversible=1, rates=layers,
+                                        pocs=[(0, 0, 1, 2, 3, 1), (0, 0, 3, 4, 2, 4),
+                                              (2, 2, 3, 4, 3, 0)], **small),
+        "j2kx_roi.j2k": openjpeg_encode(planes, jp2=False, irreversible=1, rates=layers,
+                                        roi_compno=0, roi_shift=6, **small),
+        "j2kx_sycc420.jp2": openjpeg_encode([sycc[..., 0], *half], sub=[(1, 1), (2, 2), (2, 2)],
+                                            color_space=3, tcp_mct=0, irreversible=1,
+                                            rates=(5.0,), **small),
+        "j2kx_raw420.j2k": openjpeg_encode([sycc[..., 0], *half], sub=[(1, 1), (2, 2), (2, 2)],
+                                           jp2=False, tcp_mct=0, **small),
+        "j2kx_signed8.jp2": openjpeg_encode([gray - 128], signed=True, color_space=2,
+                                            numresolution=3),
+        "j2kx_gray12.jp2": openjpeg_encode([gray * 16 + gray // 16], prec=12, color_space=2,
+                                           irreversible=1, rates=(6.0,), numresolution=3),
+        "j2kx_rgb12_signed.jp2": openjpeg_encode([p * 16 - 2048 for p in planes], prec=12,
+                                                 signed=True, **small),
+        "j2kx_palette.jp2": jp2_header_edit(
+            openjpeg_encode([gray % 9], color_space=1, numresolution=3), extra=pclr_boxes(palette)),
+        "j2kx_cmyk.jp2": jp2_header_edit(
+            openjpeg_encode([*planes, smooth(64, 64, seed=88, channels=1)[..., 0]], tcp_mct=0,
+                            irreversible=1, rates=(8.0,), **small), colr=12),
+        "j2kx_tileparts.j2k": openjpeg_encode(planes, jp2=False, irreversible=1, rates=layers,
+                                              tile_size_on=1, cp_tdx=32, cp_tdy=32, tp_on=1,
+                                              tp_flag="R", numresolution=3),
+    })
+    corrupt = bytearray(files["j2k_97_layers.jp2"])
+    corrupt[len(corrupt) * 2 // 3] ^= 0x5A  # inside a code-block's bytes
+    files["j2kx_corrupt.jp2"] = bytes(corrupt)
+    sys.path.insert(0, ROOT)
+    from chip_smoke import textured_rgb
+
+    files["textured_j2k.jp2"] = _pillow_j2k(textured_rgb(*TEXTURED, seed=5), "RGB",
+                                            irreversible=True, quality_mode="rates",
+                                            quality_layers=[20])
+    files["textured_j2k53.jp2"] = _pillow_j2k(smooth(*TEXTURED, seed=89, noise=0.02), "RGB")
+    return files
+
+
+
 def textured_file() -> bytes:
     """The 768x512 progressive q90 JPEG of ``chip_smoke.py::textured_rgb``."""
     from PIL import Image
@@ -1603,7 +1935,7 @@ def pillow_record(path: str) -> dict:
 def main() -> None:
     sys.path.insert(0, ROOT)
     files = {**kind_files(), "textured_progressive.jpg": textured_file(), **webp_files(),
-             **tail_files(), **codec_files(), **slice20_files()}
+             **tail_files(), **codec_files(), **slice20_files(), **jpeg2000_files()}
     records = {}
     for name, data in files.items():
         path = os.path.join(HERE, name)

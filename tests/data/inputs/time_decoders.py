@@ -1,18 +1,20 @@
 """Time the port's host decoders (``decode_native`` of ``io/jpeg.py``,
-``io/png.py``, ``io/webp.py``, ``io/tiff.py`` and ``io/gif.py``, C++; and
+``io/png.py``, ``io/webp.py``, ``io/tiff.py``, ``io/gif.py`` and
+``io/jpeg2000.py``, C++; and
 ``io/bmp.py::decode``, numpy) on this machine, this tree against another
 checkout of the port (the parent commit unpacked with ``git archive``,
 say) and, with ``--pillow``, against Pillow, in turns.
 
     python tests/data/inputs/time_decoders.py [--against DIR] [--pillow] [--rounds 3] [--runs 5]
 
-Writes fourteen files to a temporary directory: the textured 768x512 q90
+Writes sixteen files to a temporary directory: the textured 768x512 q90
 baseline JPEG of ``chip_smoke.py`` phase 21a (this tree's encoder, which
 writes Pillow's bytes), ``textured_progressive.jpg``,
 ``textured_lossy.webp``, ``textured_lossless.webp``, ``textured_lzw.tif``,
 ``textured_jpeg.tif`` (768x512 YCbCr 2x2 JPEG), ``tiffx_ycbcr22_lzw.tif``,
-``tiffx_group4_miniswhite.tif``, ``bmp_rle8.bmp`` and
-``webp_animated_lossy.webp`` from this folder, a 448x256 RGB PNG of
+``tiffx_group4_miniswhite.tif``, ``bmp_rle8.bmp``,
+``webp_animated_lossy.webp``, ``textured_j2k.jp2`` (9/7) and
+``textured_j2k53.jp2`` (5/3) from this folder, a 448x256 RGB PNG of
 Paeth-filtered rows (``make_inputs.write_png``), and of
 ``chip_smoke.py::textured_rgb`` (seed 5) at 768x512 an uncompressed TIFF
 (phase 24b's, ``chip_smoke.py::tiff_rgb``), a Zstandard TIFF with
@@ -49,7 +51,7 @@ import importlib, json, os, sys, time
 files, runs = sys.argv[1:-1], int(sys.argv[-1])
 best, build = {}, {}
 kinds = {".png": "png", ".jpg": "jpeg", ".webp": "webp", ".tif": "tiff", ".gif": "gif",
-         ".bmp": "bmp"}
+         ".bmp": "bmp", ".jp2": "jpeg2000"}
 importlib.import_module("imagecompression_adversarial_tpu_torch.kernels._build")  # torch
 for path in files:
     kind = kinds[os.path.splitext(path)[1]]
@@ -99,7 +101,7 @@ print(json.dumps({"best_ms": best, "build_s": {}}))
 
 
 def inputs(folder: str) -> list:
-    """The fourteen files, written into ``folder``."""
+    """The sixteen files, written into ``folder``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, HERE)
     import numpy as np
@@ -120,7 +122,8 @@ def inputs(folder: str) -> list:
                                        interlace=True)}
     for name in ("textured_progressive.jpg", "textured_lossy.webp", "textured_lossless.webp",
                  "textured_lzw.tif", "textured_jpeg.tif", "tiffx_ycbcr22_lzw.tif",
-                 "tiffx_group4_miniswhite.tif", "bmp_rle8.bmp", "webp_animated_lossy.webp"):
+                 "tiffx_group4_miniswhite.tif", "bmp_rle8.bmp", "webp_animated_lossy.webp",
+                 "textured_j2k.jp2", "textured_j2k53.jp2"):
         with open(os.path.join(HERE, name), "rb") as f:
             files[name] = f.read()
     paths = []

@@ -164,7 +164,8 @@ def test_what_the_readers_do_not_take_raises_naming_it(tmp_path):
         with Image.open(io.BytesIO(content)) as im:
             np.testing.assert_array_equal(read_pixels(str(path)), np.asarray(im.convert("RGB")))
     path.write_bytes(b"XYZW" + rgb.tobytes())
-    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, TIFF, GIF, BMP or Netpbm") as e:
+    with pytest.raises(ValueError,
+                       match="not a PNG, JPEG, WebP, TIFF, GIF, BMP, Netpbm or JPEG 2000") as e:
         read_pixels(str(path))
     assert not isinstance(e.value, UnsupportedImageError)
 
